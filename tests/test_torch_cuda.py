@@ -1,7 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the same
 CUDA tensors, at small shapes and over the options ``chip_smoke.py`` does
 not reach (fbank rows, energy and window options, wide feature dims, ragged
-mixtures, int16 backpointers, the recompute decode).  They need an NVIDIA
+mixtures, int16 backpointers, the recompute decode; for the aligner K4
+ragged and empty utterances, a failed utterance and a band matrix W too
+large for shared memory; for the E-step K6 a pdf holding most frames,
+zero-weight frames and two different feature arrays).  They need an NVIDIA
 GPU and nvcc, and skip without one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -14,11 +17,12 @@ import torch
 from voicebridge_tpu.config import FrameOptions, MelOptions, MfccOptions
 from voicebridge_tpu.models.gmm import AmDiagGmm
 from voicebridge_tpu_torch import convert
+from voicebridge_tpu_torch.ops import align_band as AB
 from voicebridge_tpu_torch.ops import decode_core as DC
 from voicebridge_tpu_torch.ops import features as TF
-from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, mfcc_kernel
+from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel, mfcc_kernel
 from voicebridge_tpu_torch.ops.graph import DenseGraph
-from voicebridge_tpu_torch.testing import synth_decode_graph
+from voicebridge_tpu_torch.testing import synth_decode_graph, synth_train_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -157,3 +161,87 @@ def test_decode_best_path_cuda_matches_cpu(cuda, budget):
     ref = DC.decode_best_path(graph, plan, DC.plan_to_device(plan, "cpu"),
                               torch.from_numpy(ll), nf, 0.5, bp_bytes_budget=budget)
     assert got == ref
+
+
+def _wide_band(rng, b, s, offsets, num_pdfs):
+    """Band operands drawn directly (no graph): K = len(offsets) slots per
+    state, 30 % of them arcs; start at state 0, every state final."""
+    k = len(offsets)
+    has_arc = rng.random((b, s, k)) < 0.3
+    W = np.where(has_arc, -rng.exponential(0.5, (b, s, k)), DC.NEG_INF).astype(np.float32)
+    arc_of = np.where(has_arc, np.arange(s * k).reshape(s, k), -1).astype(np.int32)
+    alpha0 = np.full((b, s), DC.NEG_INF, np.float32)
+    alpha0[:, 0] = 0.0
+    return AB.BandPlan(W=W, pdf=rng.integers(0, num_pdfs, (b, s)).astype(np.int32),
+                       arc_of=arc_of, offsets=tuple(offsets), alpha0=alpha0,
+                       final=np.zeros((b, s), np.float32), n2o=np.zeros((b, s), np.int32))
+
+
+@pytest.mark.parametrize("case", ["ragged", "failed", "wide_w"])
+def test_align_band_matches_plain(cuda, case):
+    """K4 forward: bit-equal alpha_end and equal band-slot codes; backtrace:
+    equal arcs, end states, ok flags and bit-equal scores."""
+    rng = np.random.default_rng(7)
+    num_pdfs, t = 30, 90
+    if case == "wide_w":  # S x K x 4 bytes = 384 KB: W is read through L2
+        plan, t = _wide_band(rng, 3, 2000, range(-20, 28), num_pdfs), 40
+        assert plan.W.shape[1] * plan.W.shape[2] * 4 > 227 * 1024
+    else:
+        graphs = [synth_train_graph(int(rng.integers(10, 40)), num_pdfs, rng)
+                  for _ in range(9)]
+        if case == "failed":  # needs more than 90 frames for its 300 states
+            graphs.append(synth_train_graph(300, num_pdfs, rng))
+        plan = AB.build_band_plan(graphs)
+    dev = AB.plan_to_device(plan, cuda)
+    b = plan.W.shape[0]
+    nf = rng.integers(t // 2, t + 1, b).astype(np.int32)
+    if case == "ragged":
+        nf[[0, 3]] = [0, t]
+    nf = torch.from_numpy(nf).to(cuda)
+    ll = torch.from_numpy((rng.standard_normal((b, t, num_pdfs)) * 4 - 20)
+                          .astype(np.float32)).to(cuda)
+    got = AB.viterbi_forward_banded(dev.W, dev.pdf, dev.alpha0, ll, nf, 0.1, dev.offsets)
+    ref = AB.viterbi_forward_banded_plain(dev.W, dev.pdf, dev.alpha0, ll, nf, 0.1,
+                                          dev.offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    bt = AB.backtrace_banded(got[0], dev.final, got[1], nf, dev.offsets, dev.arc_of)
+    bt_ref = AB.backtrace_banded_plain(ref[0], dev.final, ref[1], nf, dev.offsets,
+                                       dev.arc_of)
+    torch.cuda.synchronize()
+    for x, y in zip(bt, bt_ref):
+        assert torch.equal(x, y.to(x.dtype))
+    if case == "failed":
+        assert not bool(bt[2][-1]) and bool(bt[2][:-1].all())
+
+
+@pytest.mark.parametrize("case", ["skew", "zero_weights", "twofeats"])
+def test_gmm_stats_matches_plain(cuda, case):
+    """K6 against the plain version: rtol 1e-5, atol 1e-5 x the largest
+    magnitude of each accumulator (float32 scores and posteriors in another
+    order; the kernel sums in float64)."""
+    rng = np.random.default_rng(11)
+    am = _am(40, 4, 13, seed=3, ragged=case == "twofeats")
+    w = convert.kernel_params_from_am(am, cuda)
+    n = 5000
+    x_post = rng.standard_normal((n, 13)).astype(np.float32)
+    x_acc = rng.standard_normal((n, 13)).astype(np.float32) if case == "twofeats" else x_post
+    pdf = rng.integers(0, 40, n).astype(np.int32)
+    if case == "skew":
+        pdf[rng.random(n) < 0.8] = 5  # 4000 frames: 16 blocks of one pdf
+    if case == "twofeats":  # aligned pdfs keep at least one active component
+        pdf = np.where(am.weights[pdf].max(axis=1) > 0, pdf, int(np.argmax(am.weights[:, 0])))
+    weights = rng.random(n).astype(np.float32)
+    if case == "zero_weights":
+        weights[rng.random(n) < 0.4] = 0.0
+    args = [torch.from_numpy(a).to(cuda) for a in (x_post, x_acc, pdf, weights)]
+    got = gmm_stats_kernel.acc_stats(w, *args, 40)
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(convert.twin_params_from_kernel(w),
+                                                     *args[:3], 40, args[3])
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        r = r.double()
+        atol = 1e-5 * max(1.0, float(r.abs().max()))
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=atol)
+    again = gmm_stats_kernel.acc_stats(w, *args, 40)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic

@@ -37,7 +37,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=False)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 12
+    assert int(res.stdout.split()[0]) >= 21
 
 
 def test_resolve_device():

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use with ``nvcc`` into one
-shared library with a plain C interface, ``_build/libvbt_kernels_<hash>.so``,
-keyed by a hash of the sources and flags, and loaded with ``ctypes``.  A
-failed build or load raises: there is no fallback.  ``nvcc`` is taken from
+The sources under ``csrc/`` are compiled at first use with ``nvcc``, one
+process per source, all started together, and linked into one shared library
+with a plain C interface, ``_build/libvbt_kernels_<hash>.so``, keyed by a
+hash of the sources and flags, and loaded with ``ctypes``.  A failed build or
+load raises: there is no fallback.  ``nvcc`` is taken from
 ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``, else ``PATH``.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a wrapper
@@ -21,11 +22,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("mfcc.cu", "gmm_loglik.cu", "viterbi_step.cu")
+SOURCES = ("mfcc.cu", "gmm_loglik.cu", "viterbi_step.cu", "align_band.cu",
+           "gmm_stats.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-launches = {"mfcc_frames": 0, "gmm_loglikes": 0, "viterbi_step": 0}
+launches = {"mfcc_frames": 0, "gmm_loglikes": 0, "viterbi_step": 0,
+            "align_forward": 0, "align_backtrace": 0, "gmm_stats": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -40,6 +43,15 @@ _SIGNATURES = {
     # row_w, row_pdf, num_frames, t, acwt, s1, b, d, stream
     "vbt_viterbi_step": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F,
                          _I, _I, _I, _P),
+    # W, pdf, alpha0, ll, num_frames, offsets, acwt, b, s, k, t, p,
+    # alpha_end, bps, stream
+    "vbt_align_forward": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P),
+    # alpha_end, final, bps, num_frames, offsets, arc_of, b, s, k, t, arcs,
+    # end_state, ok, score, stream
+    "vbt_align_backtrace": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # x_post, x_acc, weights, d, w, m, order, blk_pdf, blk_lo, blk_hi, nblk,
+    # pdf_blk_lo, pdf_blk_hi, num_pdfs, partial, out, stream
+    "vbt_gmm_stats": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P),
 }
 
 _lib = None
@@ -68,12 +80,33 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                           f"{res.stdout}{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{name}.o") for name in SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            for name, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    report = []
+
+    def check(cmd, code, text):
+        report.append(text)
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}): {' '.join(cmd)}\n{text}")
+
+    try:
+        for cmd, proc in zip(cmds, procs):
+            text = proc.communicate()[0]
+            check(cmd, proc.returncode, text)
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True, check=False)
+        check(cmd, res.returncode, res.stdout)
+    finally:
+        for proc in procs:
+            proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("".join(report))
     os.replace(tmp, out)
     return out
 

@@ -8,7 +8,9 @@ device arrays), so both packages can compute from identical numbers:
 * the JAX ``GmmParams`` (``w_matrix [2D, P*M]``, ``gconsts [P, M]``) and the
   Pallas ``w3 [128, M, P_pad]`` -> the same two;
 * a JAX ``EmitPlan`` -> the port's ``EmitPlan`` (then
-  ``ops.decode_core.plan_to_device``).
+  ``ops.decode_core.plan_to_device``);
+* a JAX ``BandPlan`` -> the port's ``BandPlan`` (then
+  ``ops.align_band.plan_to_device``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from voicebridge_tpu.models.gmm import AmDiagGmm
 
+from .ops.align_band import BandPlan
 from .ops.decode_core import EmitPlan
 from .ops.gmm_kernels import GmmParams, pack_gmm
 
@@ -63,3 +66,8 @@ def gmm_from_pallas(w3: np.ndarray, num_pdfs: int, dim: int,
 def emit_plan_from_jax(plan) -> EmitPlan:
     """A JAX ``EmitPlan`` (a NamedTuple of numpy arrays) -> the port's."""
     return EmitPlan(**{f: getattr(plan, f) for f in EmitPlan._fields})
+
+
+def band_plan_from_jax(plan) -> BandPlan:
+    """A JAX ``BandPlan`` (a NamedTuple of numpy arrays) -> the port's."""
+    return BandPlan(**{f: getattr(plan, f) for f in BandPlan._fields})

@@ -7,6 +7,9 @@
 * ``synth_decode_graph`` / ``random_am``: the repo's full-width decode shape
   (``bench.py``): an HCLG-shaped 60k-state / 480k-arc graph and a
   2000-pdf x 5-Gaussian x 39-dim diagonal GMM, from numpy seeds.
+* ``synth_train_graph``: the repo's full-width training-alignment graph
+  (``bench.py``): a left-to-right chain of HMM states with self-loops and
+  optional skips, banded and dst-pure like a compiled training graph.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from .ops.graph import NEG_INF, DenseGraph
 ASSET_DIR = Path(__file__).parent / "assets" / "yesno_mono"
 
 __all__ = ["ASSET_DIR", "YesNoModel", "compute_wer_set", "load_yesno_mono",
-           "random_am", "synth_decode_graph"]
+           "random_am", "synth_decode_graph", "synth_train_graph"]
 
 
 @dataclass
@@ -87,3 +90,33 @@ def random_am(num_pdfs: int = 2000, max_mix: int = 5, dim: int = 39,
         rng.standard_normal((num_pdfs, max_mix, dim)).astype(np.float32),
         np.abs(rng.standard_normal((num_pdfs, max_mix, dim))).astype(np.float32) + 0.5,
         np.full((num_pdfs, max_mix), 1.0 / max_mix, np.float32))
+
+
+def synth_train_graph(num_states: int, num_pdfs: int, rng) -> DenseGraph:
+    """Synthetic training-alignment graph (``bench.py`` ``synth_train_graph``):
+    a left-to-right chain with self-loops and 25 % optional skip arcs, all
+    arcs entering a state sharing its pdf; start at state 0, final at the
+    last state."""
+    pdf_of = rng.integers(0, num_pdfs, size=num_states)
+    src, dst, score = [], [], []
+    for s in range(num_states):
+        src += [s, s]
+        dst += [s, min(s + 1, num_states - 1)]
+        score += [float(-rng.exponential(0.3)), float(-rng.exponential(0.3))]
+        if s + 2 < num_states and rng.random() < 0.25:  # optional-sil skip
+            src.append(s)
+            dst.append(s + 2)
+            score.append(float(-rng.exponential(0.5)))
+    pdf = [int(pdf_of[d]) for d in dst]
+    alpha0 = np.full(num_states, NEG_INF, np.float32)
+    alpha0[0] = 0.0
+    final = np.full(num_states, NEG_INF, np.float32)
+    final[num_states - 1] = 0.0
+    a = len(src)
+    return DenseGraph(
+        num_states=num_states, arc_src=np.asarray(src, np.int32),
+        arc_dst=np.asarray(dst, np.int32), arc_tid=np.asarray(pdf, np.int32),
+        arc_pdf=np.asarray(pdf, np.int32), arc_score=np.asarray(score, np.float32),
+        arc_oseq=np.zeros(a, np.int32), alpha0=alpha0,
+        start_oseq=np.zeros(num_states, np.int32), final_score=final,
+        final_oseq=np.zeros(num_states, np.int32), oseqs=[()])
