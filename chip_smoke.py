@@ -6,39 +6,58 @@ Phases, each of which must pass (any failure exits nonzero):
 
 1. Requires CUDA; turns TF32 off for matmul and cuDNN; prints the card's
    name and power limit (nvidia-smi).
-2. Builds the five CUDA sources from ``voicebridge_tpu_torch/csrc`` with
+2. Builds the six CUDA sources from ``voicebridge_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the compiler's
    register/shared-memory report.
 3. Holds each kernel against its plain PyTorch version on the card at the
    full-width shapes, and times both with CUDA events:
    K1 MFCC frames (128 x 10 s of 16 kHz audio), K2 GMM log-likelihoods
    (128k frames x 2000 pdfs x 5 Gaussians x 39 dims), K3 Viterbi frame steps
-   (60k-state / 480k-arc graph, B = 128), K4 banded alignment forward and
+   (60k-state / 480k-arc graph, B = 128), K5 lattice recompute-and-test
+   steps on the same graph and lanes (bit-equal alpha, identical survivor
+   bytes, and alpha equal to K3's), K4 banded alignment forward and
    backtrace (192 utterances x 400 frames, 384-state training graphs;
    bit-equal scores, equal band-slot codes and arcs), K6 aligned E-step
    statistics (77k aligned frames, 2000 x 5 x 39).
 4. Decodes the committed Yes-No model on the card from waves to words: the
    JAX package's stored hypotheses for all 32 utterances, test WER <= 5%,
    train WER <= 2%, and every decoding kernel launched.
-5. Trains the Yes-No monophone model on the card with the port (the recipe
+5. Decodes the same model into lattices on the card and sweeps them over
+   ``DecodeOptions``' 33-point (LMWT, WIP) grid (``decode_sweep_lattice``):
+   every lattice's best path at the decode acoustic scale gives the stored
+   hypothesis for all 32 utterances, every frame of every lattice holds an
+   arc, test WER at the sweep's best point <= 5%, K1, K2, K3 and K5
+   launched.
+6. Trains the Yes-No monophone model on the card with the port (the recipe
    of ``tools/make_torch_fixture.py``: 14 EM iterations to 200 Gaussians,
    realigned at 1-13), builds its HCLG on the host and decodes with it:
    test WER <= 5%, train WER <= 2%; K2, K4 and K6 launched in training.
    Utterances whose words differ from the JAX-trained model's go to the log.
-6. The decoding path at full width: waves -> make_features ->
+7. The decoding path at full width: waves -> make_features ->
    Decoder.decode_batch (B = 128 utterances of T = 1000 frames, the
    2000 x 5 x 39 GMM, the 60k-state graph), with the launch counts of this
    run; every utterance must get a T-arc path.  Prints the median audio
    seconds per second of this run and five more; one further run under
    torch.profiler gives the device busy share and time by kernel, one under
    cProfile the host time by function (both into the log).
-7. The training path at full width (``bench.py``'s training shape): one EM
+8. The training path at full width (``bench.py``'s training shape): one EM
    iteration = K2 emissions -> K4 alignment -> K6 statistics -> host M-step
    over 192 utterances of T = 400 frames, 384-state training graphs and the
    2000 x 5 x 39 GMM, with the launch counts of this run (K4's forward
    once per sub-batch); every utterance must align.  Median audio seconds
    per second of this run and five more, and the device busy share of one
    profiled run.
+9. The lattice path at full width: waves -> make_features ->
+   Decoder.decode_lattice at the decode shape of phase 7 (acoustic scale
+   1/13, the default lattice beam, a GMM of phase 7's size drawn on the
+   features' scale), with the launch counts of this run.  Every lattice's
+   best path must score within 1e-2 or relative 1e-5 of the exact best
+   path (``decode_batch``'s search), its arcs rescored in float64, and
+   every frame must hold an arc.  Prints survivors per frame and arcs per
+   lattice, the median audio seconds per second of this run and five more,
+   the device busy share of one profiled run, and the time of one
+   decode_sweep_lattice over the 33-point grid, timed on its own (its host
+   grid pass dominates).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
@@ -78,7 +97,7 @@ REPEATS = 5  # timed full-width runs after the counted one
 # (rtol, atol); K6's atol is scaled by each accumulator's largest magnitude
 TOL = {"mfcc_frames": (2e-4, 2e-3), "gmm_loglikes": (2e-5, 2e-4),
        "viterbi_step": (1e-6, 0.0), "align_forward": (0.0, 0.0),
-       "align_backtrace": (0.0, 0.0), "gmm_stats": (1e-5, 1e-5)}
+       "align_backtrace": (0.0, 0.0), "gmm_stats": (1e-5, 1e-5), "lattice_fb": (0.0, 0.0)}
 SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
                            "voicebridge_tpu/ops/pallas_mfcc.py:57"),
            "gmm_loglikes": ("voicebridge_tpu_torch/csrc/gmm_loglik.cu",
@@ -90,9 +109,12 @@ SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
            "align_backtrace": ("voicebridge_tpu_torch/csrc/align_band.cu",
                                "voicebridge_tpu/ops/align_band.py:233"),
            "gmm_stats": ("voicebridge_tpu_torch/csrc/gmm_stats.cu",
-                         "voicebridge_tpu/ops/gmm_kernels.py:127")}
+                         "voicebridge_tpu/ops/gmm_kernels.py:127"),
+           "lattice_fb": ("voicebridge_tpu_torch/csrc/lattice_fb.cu",
+                          "voicebridge_tpu/ops/lattice.py:367")}
 DECODE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step")
 TRAIN_KERNELS = ("gmm_loglikes", "align_forward", "align_backtrace", "gmm_stats")
+LATTICE_KERNELS = DECODE_KERNELS + ("lattice_fb",)
 
 
 class SmokeFailure(Exception):
@@ -203,6 +225,7 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
     dev = DC.plan_to_device(plan, device)
     b = width.batch
     ll_t = ll.view(b, width.frames, -1).permute(1, 2, 0)[: width.k3_frames].contiguous()
+    ll_k = ll.view(b, width.frames, -1)[:, : width.k3_frames].contiguous()
     del ll
     nf = torch.full((b,), width.frames, dtype=torch.int32, device=device)
     s1 = plan.num_states + 1
@@ -211,6 +234,7 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
     acwt = float(np.float32(1.0 / 13.0))
     bp_dtype = torch.uint8 if plan.packed else torch.int16
     worst, codes_equal = None, True
+    k3_alphas = [alpha]
     for t in range(width.k3_frames):
         bp_k = torch.empty((s1, b), dtype=bp_dtype, device=device)
         bp_p = torch.empty_like(bp_k)
@@ -222,6 +246,7 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
         if worst is None or (a_k - a_p).abs().max() > (worst[0] - worst[1]).abs().max():
             worst = (a_k, a_p)
         alpha = a_k
+        k3_alphas.append(a_k)
     scratch = torch.full_like(alpha, DC.NEG_INF)
     bp = torch.empty((s1, b), dtype=bp_dtype, device=device)
     record("viterbi_step", [worst],
@@ -231,9 +256,60 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
                                          plan.rspec, plan.packed, bp),
            equal=codes_equal)
     check(codes_equal, "viterbi_step backpointer codes differ from the plain version")
-    del ll_t, alpha, scratch, bp, dev
+    del alpha, scratch, bp
+    compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
+                           record, log)
+    del ll_t, ll_k, k3_alphas, dev
     compare_training_kernels(torch, device, width, w, record)
     return results
+
+
+def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
+                           record, log) -> None:
+    """Phase 3, K5: the recompute-and-test step over the K3 frames, as the
+    lattice FB runs it for utterances of that many frames: the threshold
+    from the FB itself, beta_eff from K3 over the backward plan.  The kernel
+    and its plain version get the same inputs each frame; the recomputed
+    alpha must also equal K3's forward alpha."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import DecodeOptions
+    from voicebridge_tpu_torch.ops import decode_core as DC
+    from voicebridge_tpu_torch.ops import lattice as LAT
+
+    b, k, _p = ll_k.shape
+    beam = float(np.float32(DecodeOptions().lattice_beam))
+    plans = LAT.build_lattice_plans(graph, fwd_plan=plan, device=device)
+    _fwd, _fwd_dev, bwd_plan, bwd_dev, row_dst = plans
+    _surv, best, _end, use_final = LAT.lattice_forward_backward_rows(
+        graph, *plans, ll_k, np.full(b, k, np.int32), acwt, beam, window=k)
+    check(bool(use_final.all()), "K5 inputs: a lane reaches no final state")
+    thresh = (best - beam).contiguous()
+    final_eff = torch.from_numpy(np.concatenate(
+        [graph.final_score[bwd_plan.sperm[:-1]], [DC.NEG_INF]]).astype(np.float32)).to(device)
+    final_eff = final_eff[:, None].expand(-1, b)
+    nf = torch.full((b,), k, dtype=torch.int32, device=device)
+    row_dst = torch.from_numpy(row_dst).to(device)
+    slab = torch.empty((k,) + tuple(k3_alphas[0].shape), device=device)
+    beta, scratch = torch.full_like(slab[0], DC.NEG_INF), torch.empty_like(slab[0])
+    for t in range(k - 1, -1, -1):
+        eff = torch.where((t + 1 == nf)[None, :], final_eff, beta, out=slab[t])
+        beta, _ = DC.viterbi_step(eff, scratch, ll_t[t], bwd_dev, nf, t, acwt, bwd_plan.rspec,
+                                  bwd_plan.packed)
+    words = torch.empty((plan.num_rows, b), dtype=torch.uint8, device=device)
+    same, worst = True, None
+    for t in range(k):
+        args = (k3_alphas[t], ll_t[t], dev, row_dst, slab[t], nf, t, acwt, thresh, plan.rspec)
+        a_k = LAT.fb_frame(*args, words)
+        a_p, w_p = LAT.fb_frame_plain(*args)
+        same = (same and torch.equal(words, w_p) and torch.equal(a_k, a_p)
+                and torch.equal(a_k, k3_alphas[t + 1]))
+        if worst is None or (a_k - a_p).abs().max() > (worst[0] - worst[1]).abs().max():
+            worst = (a_k, a_p)
+    log(f"lattice_fb: {k} frames x {b} lanes, survivor bytes nonzero "
+        f"{int((w_p != 0).sum())} of {w_p.numel()} in the last frame")
+    record("lattice_fb", [worst], lambda: LAT.fb_frame(*args, words),
+           lambda: LAT.fb_frame_plain(*args), equal=same)
 
 
 def train_shape(width: Width, device):
@@ -322,8 +398,48 @@ def decode_yesno(torch, device, log) -> None:
         check(stats.wer <= bound, f"yes-no {name}: WER {stats.wer} > {bound}")
 
 
+def lattice_yesno(torch, device, log) -> None:
+    """Phase 5: the JAX-trained Yes-No model decoded into lattices on the
+    device and swept over the (LMWT, WIP) grid."""
+    from synth import make_corpus
+    from voicebridge_tpu.steps.score import score_sweep
+    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions
+    from voicebridge_tpu_torch.lat import lattice_best_path, lattice_depth_per_frame
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
+    from voicebridge_tpu_torch.testing import load_yesno_mono
+
+    m = load_yesno_mono()
+    train, test = make_corpus(**m.corpus)
+    opts = MfccOptions(frame_opts=FrameOptions(samp_freq=m.samp_freq, dither=0.0))
+    dopts = DecodeOptions(beam=1e9)
+    dec = Decoder(m.hclg, m.trans_model, m.am, dopts, device=device)
+    lmwts = list(range(dopts.min_lmwt, dopts.max_lmwt + 1))
+    for name, corpus in (("test", test), ("train", train)):
+        feats = make_features({u: w for u, (w, _) in corpus.items()},
+                              {u: u for u in corpus}, opts, device=device)
+        utts = sorted(feats)
+        batch, nf = pad_features(feats, utts)
+        sweep, lats = dec.decode_sweep_lattice(utts, batch, nf, lmwts, dopts.word_ins_penalties)
+        check(len(sweep) == 33, f"yes-no {name}: the sweep has {len(sweep)} grid points")
+        best = {u: [m.words.sym(w) for w in
+                    lattice_best_path(lats[u], 1.0, dopts.acoustic_scale)["words"]] for u in utts}
+        bad = [u for u in utts if best[u] != m.hyps[u]]
+        check(not bad, f"yes-no {name}: lattice best paths differ from the reference for {bad}")
+        shallow = [u for u in utts if not (lattice_depth_per_frame(lats[u]) >= 1).all()]
+        check(not shallow, f"yes-no {name}: lattices with an empty frame: {shallow}")
+        res = score_sweep({u: list(corpus[u][1]) for u in utts},
+                          {gp: {r.utt: [m.words.sym(w) for w in r.words] for r in rs}
+                           for gp, rs in sweep.items()})
+        log(f"yes-no {name} lattices: {sum(lat.num_arcs for lat in lats.values())} arcs in "
+            f"{len(utts)} lattices; sweep best LMWT {res.best_lmwt}, WIP {res.best_wip}: "
+            f"{res.best_wer}")
+        if name == "test":
+            check(res.best_wer.wer <= 5.0, f"yes-no test: sweep WER {res.best_wer.wer} > 5")
+
+
 def decode_full_width(torch, device, width: Width, log) -> dict:
-    """Phase 6: the decoding path at full width.  Returns timing facts."""
+    """Phase 7: the decoding path at full width.  Returns timing facts."""
     import numpy as np
 
     from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MelOptions, MfccOptions
@@ -412,7 +528,7 @@ def profile_run(torch, run, log, what: str) -> dict:
 
 
 def train_yesno(torch, device, log) -> dict:
-    """Phase 5: the Yes-No monophone model trained on the device by the
+    """Phase 6: the Yes-No monophone model trained on the device by the
     port, then decoded with an HCLG built from it.  Returns the launch
     counts of the training."""
     from synth import LEXICON, make_corpus
@@ -462,7 +578,7 @@ def train_yesno(torch, device, log) -> dict:
 
 
 def train_full_width(torch, device, width: Width, log) -> dict:
-    """Phase 7: EM iterations at the full-width training shape.  Returns
+    """Phase 8: EM iterations at the full-width training shape.  Returns
     timing facts."""
     import copy
     import math
@@ -517,8 +633,105 @@ def train_full_width(torch, device, width: Width, log) -> dict:
     return facts
 
 
+def lattice_full_width(torch, device, width: Width, log) -> dict:
+    """Phase 9: the lattice path at full width.  Returns timing facts."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MelOptions, MfccOptions
+    from voicebridge_tpu_torch import _build
+    from voicebridge_tpu_torch.lat import lattice_best_path, lattice_depth_per_frame
+    from voicebridge_tpu_torch.ops import decode_core as DC
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
+    from voicebridge_tpu_torch.testing import feature_scaled_am, synth_decode_graph
+
+    waves = synth_waves(width, seed=3)
+    utt2spk = {u: f"spk{i % 8}" for i, u in enumerate(sorted(waves))}
+    opts = MfccOptions(frame_opts=FrameOptions(samp_freq=width.samp_freq, dither=1.0),
+                       mel_opts=MelOptions(num_bins=23))
+    dopts = DecodeOptions(acoustic_scale=1.0 / 13.0)
+    t0 = time.perf_counter()
+    x = torch.cat(list(make_features(waves, utt2spk, opts, device=device).values())).double()
+    # Gaussians 30 times narrower than the features' spread: about -40 per
+    # frame after the acoustic scale and tens of arcs per frame.  Phase 7's
+    # random_am scores about -390 per frame; at a total near -4e5 the f32
+    # survivor test (alpha + beta against the forward's best, in the JAX
+    # package's arithmetic) drifts by more than the beam (PERF.md, section 6).
+    am = feature_scaled_am(x.mean(0).cpu().numpy(), x.var(0).cpu().numpy() / 30.0,
+                           width.num_pdfs, width.max_mix)
+    dec = Decoder.from_dense_graph(synth_decode_graph(width.num_states, num_pdfs=width.num_pdfs),
+                                   am, dopts, device=device, row_width=8)
+    setup_s = time.perf_counter() - t0
+
+    def run():
+        t_start = time.perf_counter()
+        feats = make_features(waves, utt2spk, opts, device=device)
+        utts = sorted(feats)
+        batch, nf = pad_features(feats, utts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_feats = time.perf_counter()
+        lats = dec.decode_lattice(utts, batch, nf)
+        return lats, utts, batch, nf, t_feats - t_start, time.perf_counter() - t_feats
+
+    for k in _build.launches:
+        _build.launches[k] = 0
+    lats, utts, batch, nf, feat_s, lat_s = run()
+    launches = dict(_build.launches)
+    check(len(lats) == width.batch, f"{len(lats)} lattices for {width.batch} utterances")
+    depth = np.stack([lattice_depth_per_frame(lats[u]) for u in utts])
+    check(depth.shape == (width.batch, width.frames) and bool((depth >= 1).all()),
+          "a lattice frame holds no arc")
+    # the exact best path (decode_batch's search, DC.decode_best_path), its
+    # arcs rescored in float64: its float32 score drifts by up to about 1e-5
+    # relative over 1000 frames, the lattice's host best path does not
+    acwt = dopts.acoustic_scale
+    g = dec.graph
+    ll = dec._loglikes(batch.contiguous())
+    paths = DC.decode_best_path(g, dec.plan, dec.plan_dev, ll, np.asarray(nf.cpu()), acwt)
+    arcs = np.stack([p["arcs"] for p in paths])
+    check(arcs.shape == (width.batch, width.frames), "an utterance has no path of T arcs")
+    pdf = torch.from_numpy(g.arc_pdf[arcs]).long().to(device)
+    am = ll.gather(2, pdf[:, :, None])[..., 0].double().sum(dim=1).cpu().numpy()
+    exact = (g.alpha0[g.arc_src[arcs[:, 0]]].astype(np.float64)
+             + g.arc_score[arcs].astype(np.float64).sum(axis=1) + acwt * am)
+    del ll, pdf
+    worst, drift = 0.0, 0.0
+    for u, p, e in zip(utts, paths, exact):
+        got = lattice_best_path(lats[u], 1.0, acwt)["score"]
+        check(abs(got - e) <= max(1e-2, 1e-5 * abs(e)),
+              f"{u}: lattice best path {got} against the best path's {e}")
+        worst = max(worst, abs(got - e) / abs(e))
+        drift = max(drift, abs(p["score"] - e) / abs(e))
+    arcs = np.array([lats[u].num_arcs for u in utts])
+    walls = [feat_s + lat_s]
+    for _ in range(REPEATS):
+        *_, f_s, l_s = run()
+        walls.append(f_s + l_s)
+    audio_s = width.batch * width.frames * 0.01
+    lmwts = list(range(dopts.min_lmwt, dopts.max_lmwt + 1))
+    t0 = time.perf_counter()
+    sweep, _ = dec.decode_sweep_lattice(utts, batch, nf, lmwts, dopts.word_ins_penalties)
+    sweep_s = time.perf_counter() - t0
+    points = len(lmwts) * len(dopts.word_ins_penalties)
+    check(len(sweep) == points and all(len(r) == width.batch for r in sweep.values()),
+          "the full-width sweep lost grid points or utterances")
+    facts = {"setup_s": setup_s, "first_run_features_s": feat_s, "first_run_lattice_s": lat_s,
+             "audio_s": audio_s, "runs_s": walls,
+             "median_audio_s_per_s": audio_s / float(np.median(walls)), "launches": launches,
+             "survivors_per_frame_mean": float(depth.mean()),
+             "survivors_per_frame_max": int(depth.max()),
+             "arcs_per_lattice": [int(arcs.min()), float(arcs.mean()), int(arcs.max())],
+             "best_path_rel_err_max": worst, "decode_f32_rel_drift_max": drift,
+             "sweep_points": points, "sweep_s": sweep_s}
+    if device.type == "cuda":
+        facts["profile"] = profile_run(torch, run, log, "full-width lattice decode")
+    log(f"full-width lattice decode: {json.dumps(facts)}")
+    return facts
+
+
 def run(device, width: Width, log=print) -> dict:
-    """Phases 2-7 on ``device``; returns the kernels report.  On a CPU
+    """Phases 2-9 on ``device``; returns the kernels report.  On a CPU
     device the wrappers take their plain versions, so this rehearses the
     control flow without kernels."""
     import torch
@@ -541,16 +754,24 @@ def run(device, width: Width, log=print) -> dict:
         _build.launches[k] = 0
     decode_yesno(torch, device, log)
     launched(_build.launches, DECODE_KERNELS, "yes-no decode")
+    for k in _build.launches:
+        _build.launches[k] = 0
+    lattice_yesno(torch, device, log)
+    launched(_build.launches, LATTICE_KERNELS, "yes-no lattice decode")
     launched(train_yesno(torch, device, log), TRAIN_KERNELS, "yes-no training")
     decode = decode_full_width(torch, device, width, log)
     launched(decode["launches"], DECODE_KERNELS, "the full-width decode")
     train = train_full_width(torch, device, width, log)
     launched(train["launches"], TRAIN_KERNELS, "the full-width EM iteration")
+    lattice = lattice_full_width(torch, device, width, log)
+    launched(lattice["launches"], LATTICE_KERNELS, "the full-width lattice decode")
+    runs = (decode, train, lattice)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
-         "launches": decode["launches"][name] + train["launches"][name],
-         **kernels[name]} for name in SOURCES], "full_width": decode, "train": train}
+         "launches": sum(r["launches"][name] for r in runs),
+         **kernels[name]} for name in SOURCES],
+        "full_width": decode, "train": train, "lattice": lattice}
 
 
 def main() -> int:
@@ -587,12 +808,17 @@ def main() -> int:
         except SmokeFailure as e:
             log(f"FAIL: {e}")
             return 1
-    for key, what in (("full_width", "decode"), ("train", "EM training")):
+    for key, what in (("full_width", "decode"), ("train", "EM training"),
+                      ("lattice", "lattice decode")):
         facts = report.pop(key)
         busy = facts["profile"]["device_busy_share"]
         print(f"full-width {what} on {card}: {facts['median_audio_s_per_s']:.1f} audio-s/s "
               f"(median of {len(facts['runs_s'])} runs of {facts['audio_s']:.0f} audio s); "
               f"device busy {100 * busy:.1f} % of one profiled run")
+    print(f"full-width lattices: {facts['survivors_per_frame_mean']:.2f} survivors per frame "
+          f"(max {facts['survivors_per_frame_max']}), arcs per lattice (min, mean, max) "
+          f"{facts['arcs_per_lattice']}; one decode_sweep_lattice over "
+          f"{facts['sweep_points']} grid points {facts['sweep_s']:.2f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

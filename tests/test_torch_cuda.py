@@ -4,7 +4,9 @@ not reach (fbank rows, energy and window options, wide feature dims, ragged
 mixtures, int16 backpointers, the recompute decode; for the aligner K4
 ragged and empty utterances, a failed utterance and a band matrix W too
 large for shared memory; for the E-step K6 a pdf holding most frames,
-zero-weight frames and two different feature arrays).  They need an NVIDIA
+zero-weight frames and two different feature arrays; for the lattice step K5
+row widths 2 and 8, ragged and empty utterances, utterances that reach no
+final state and two window sizes, and the lattice decode against the CPU).  They need an NVIDIA
 GPU and nvcc, and skip without one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -14,15 +16,17 @@ import numpy as np
 import pytest
 import torch
 
-from voicebridge_tpu.config import FrameOptions, MelOptions, MfccOptions
+from voicebridge_tpu.config import DecodeOptions, FrameOptions, MelOptions, MfccOptions
 from voicebridge_tpu.models.gmm import AmDiagGmm
-from voicebridge_tpu_torch import convert
+from voicebridge_tpu_torch import _build, convert
 from voicebridge_tpu_torch.ops import align_band as AB
 from voicebridge_tpu_torch.ops import decode_core as DC
 from voicebridge_tpu_torch.ops import features as TF
 from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel, mfcc_kernel
+from voicebridge_tpu_torch.ops import lattice as LAT
 from voicebridge_tpu_torch.ops.graph import DenseGraph
-from voicebridge_tpu_torch.testing import synth_decode_graph, synth_train_graph
+from voicebridge_tpu_torch.steps.decode import Decoder
+from voicebridge_tpu_torch.testing import random_am, synth_decode_graph, synth_train_graph
 
 pytestmark = pytest.mark.cuda
 
@@ -245,3 +249,75 @@ def test_gmm_stats_matches_plain(cuda, case):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=atol)
     again = gmm_stats_kernel.acc_stats(w, *args, 40)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
+
+
+def _fb_frame_plain(alpha, ll_t, dev, row_dst, beta_next, nf, t, acwt, thresh, rspec,
+                    words_out):
+    na, words = LAT.fb_frame_plain(alpha, ll_t, dev, row_dst, beta_next, nf, t, acwt, thresh,
+                                   rspec)
+    words_out.copy_(words)
+    return na
+
+
+@pytest.mark.parametrize("window", [3, 16])
+@pytest.mark.parametrize("d", [2, 8])
+def test_lattice_fb_matches_plain(cuda, monkeypatch, d, window):
+    """The whole lattice forward-backward with K5 against the same run with
+    K5's plain version, on the same CUDA tensors: identical survivors and
+    bit-equal total_best and alpha_at_end.  Lanes of 0, 1 and T frames,
+    ragged ones, and lanes of 1 and 3 frames that reach no final state."""
+    graph = synth_decode_graph(700, num_pdfs=40, seed=2)
+    final = np.full(700, DC.NEG_INF, np.float32)
+    final[600:] = 0.0  # more than 3 frames of jumps of at most 63 from state 0
+    graph = graph._replace(final_score=final)
+    plans = LAT.build_lattice_plans(graph, d=d, device=cuda)
+    assert plans[0].d == d
+    t = 40
+    nf = np.array([0, 1, t, 37, 3, 20, t, 12, 29, 5], np.int32)
+    rng = np.random.default_rng(9)
+    ll = torch.from_numpy((rng.standard_normal((len(nf), t, 40)) * 5 - 30)
+                          .astype(np.float32)).to(cuda)
+    args = (graph, *plans, ll, nf, 0.25, 6.0)
+    before = _build.launches["lattice_fb"]
+    got = LAT.lattice_forward_backward_rows(*args, window=window)
+    torch.cuda.synchronize()
+    assert _build.launches["lattice_fb"] - before == t
+    monkeypatch.setattr(LAT, "fb_frame", _fb_frame_plain)
+    ref = LAT.lattice_forward_backward_rows(*args, window=window)
+    torch.cuda.synchronize()
+    assert _build.launches["lattice_fb"] - before == t
+    surv, surv_ref = got[0], ref[0]
+    for x, y in zip(surv[:3], surv_ref[:3]):
+        assert torch.equal(x, y)
+    np.testing.assert_array_equal(surv.counts, surv_ref.counts)
+    assert surv.counts[0] == 0 and (surv.counts[1:] > 0).all()
+    for x, y in zip(got[1:], ref[1:]):
+        assert torch.equal(x, y)
+    assert got[3].cpu().tolist() == [False, False, True, True, False, True, True, True, True,
+                                     False]
+
+
+def test_decode_lattice_cuda_matches_cpu(cuda):
+    """decode_lattice on the card against decode_lattice on the CPU over a
+    2000-state graph: identical arc_t/arc_id, acoustic costs within 2e-5
+    relative (K2 against its plain version)."""
+    graph = synth_decode_graph(2000, num_pdfs=30, seed=1)
+    am = random_am(30, 3, 13, seed=2)
+    rng = np.random.default_rng(4)
+    feats = rng.standard_normal((6, 60, 13)).astype(np.float32)
+    nf = np.array([60, 0, 31, 1, 59, 60], np.int32)
+    utts = [f"u{i}" for i in range(len(nf))]
+    # acoustic scale 1: gammas spread wide, so the two loglik versions' 1e-6
+    # differences move no arc instance across the lattice beam
+    opts = DecodeOptions(acoustic_scale=1.0, lattice_beam=4.0)
+    lats = {}
+    for dev in (cuda, "cpu"):
+        dec = Decoder.from_dense_graph(graph, am, opts, device=dev, row_width=8)
+        lats[str(dev)] = dec.decode_lattice(utts, feats, nf)
+    for u, n in zip(utts, nf):
+        a, b = lats[str(cuda)][u], lats["cpu"][u]
+        assert a.nf == b.nf == n and a.use_final == b.use_final
+        np.testing.assert_array_equal(a.arc_t, b.arc_t)
+        np.testing.assert_array_equal(a.arc_id, b.arc_id)
+        np.testing.assert_allclose(a.acoustic_cost, b.acoustic_cost, rtol=2e-5, atol=0)
+        assert a.num_arcs >= n

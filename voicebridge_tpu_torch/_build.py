@@ -23,12 +23,12 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("mfcc.cu", "gmm_loglik.cu", "viterbi_step.cu", "align_band.cu",
-           "gmm_stats.cu")
+           "gmm_stats.cu", "lattice_fb.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 launches = {"mfcc_frames": 0, "gmm_loglikes": 0, "viterbi_step": 0,
-            "align_forward": 0, "align_backtrace": 0, "gmm_stats": 0}
+            "align_forward": 0, "align_backtrace": 0, "gmm_stats": 0, "lattice_fb": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -52,6 +52,10 @@ _SIGNATURES = {
     # x_post, x_acc, weights, d, w, m, order, blk_pdf, blk_lo, blk_hi, nblk,
     # pdf_blk_lo, pdf_blk_hi, num_pdfs, partial, out, stream
     "vbt_gmm_stats": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P),
+    # alpha, alpha_out, words, ll_t, beta_next, thresh, row_start, row_src,
+    # row_w, row_pdf, row_dst, num_frames, t, acwt, s1, b, d, stream
+    "vbt_lattice_fb": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
+                       _I, _P),
 }
 
 _lib = None

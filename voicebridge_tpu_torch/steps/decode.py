@@ -1,10 +1,16 @@
-"""Decoding: exact batched Viterbi best path over a shared HCLG graph.
+"""Decoding over a shared HCLG graph: exact batched Viterbi best paths and
+lattices.
 
 Port of ``voicebridge_tpu/steps/decode.py`` (``DecodeResult``, and from
-``Decoder``: ``_loglikes``, ``decode_batch``, ``decode_sweep``).  GMM
-log-likelihoods come from the K2 wrapper and the forward relaxation from the
-K3 wrapper; the tensor's device decides between kernel and plain version.
-The LM-weight sweep re-runs the exact search per acoustic scale.
+``Decoder``: ``_loglikes``, ``decode_batch``, ``decode_sweep``,
+``decode_lattice``, ``decode_sweep_lattice``, ``decode_mbr``).  GMM
+log-likelihoods come from the K2 wrapper, the forward relaxation from the K3
+wrapper and the lattice survivor test from the K5 wrapper; the tensor's
+device decides between kernel and plain version.  ``decode_sweep`` re-runs
+the exact search per acoustic scale; ``decode_sweep_lattice`` decodes once
+into lattices and rescales them on the host per (LMWT, WIP) grid point, as
+the reference's ``score_kaldi_wer.cpp`` does.  ``DecodeOptions.beam`` and
+``max_active`` are ignored: both searches are exact.
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ from voicebridge_tpu.models.transition import TransitionModel
 
 from .. import convert
 from ..device import free_bytes, resolve_device
+from ..lat import lattice_best_path, lattice_best_path_grid, lattice_mbr
 from ..ops import decode_core as DC
 from ..ops import gmm_kernel
+from ..ops import lattice as LAT
 from ..ops.graph import DenseGraph, compile_dense_graph
 
 
@@ -58,6 +66,7 @@ class Decoder:
         self.plan_dev = DC.plan_to_device(plan, self.device)
         self.opts = opts
         self.gmm_w = convert.kernel_params_from_am(am, self.device)  # [P, M, 2D+1]
+        self._lat_plans = None  # (bwd_plan, bwd_dev, row_dst), built at first use
 
     def _loglikes(self, feats: torch.Tensor) -> torch.Tensor:
         """[B, T, D] -> [B, T, P] acoustic log-likelihoods."""
@@ -97,3 +106,67 @@ class Decoder:
         """Exact best path per LM weight: {lmwt: [DecodeResult]}."""
         return {w: self.decode_batch(utts, feats, num_frames, acoustic_scale=1.0 / w)
                 for w in lmwts}
+
+    def _lattice_chunk(self, t: int, d: int) -> int:
+        """Utterances per lattice sub-batch so its features, the two [B, T, P]
+        loglik layouts and the FB's window residency take at most a quarter
+        of the free device memory; the survivors take from the rest."""
+        _w, fb_bytes = LAT.lattice_window(t, self.plan.num_states + 1, self.plan.num_rows, 1)
+        per_utt = 4 * t * (2 * self.gmm_w.shape[0] + d) + fb_bytes
+        return max(1, free_bytes(self.device) // (4 * per_utt))
+
+    def decode_lattice(self, utts: list[str], feats, num_frames,
+                       acoustic_scale: float | None = None) -> dict:
+        """Lattice-generating decode (``gmm-latgen-faster``'s lattice output):
+        the row-based forward-backward (``ops/lattice.py``); arcs whose best
+        complete path is within ``lattice_beam`` of the best survive.
+        Returns {utt: Lattice} with graph and acoustic costs kept apart."""
+        acwt = self.opts.acoustic_scale if acoustic_scale is None else acoustic_scale
+        feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
+        num_frames = np.asarray(torch.as_tensor(num_frames).cpu())
+        if self._lat_plans is None:
+            _plan, _fwd_dev, bwd_plan, bwd_dev, row_dst = LAT.build_lattice_plans(
+                self.graph, fwd_plan=self.plan, device=self.device)
+            self._lat_plans = (bwd_plan, bwd_dev, torch.from_numpy(row_dst).to(self.device))
+        bwd_plan, bwd_dev, row_dst = self._lat_plans
+        b_chunk = self._lattice_chunk(feats.shape[1], feats.shape[2])
+        out = {}
+        for lo in range(0, len(utts), b_chunk):
+            hi = min(len(utts), lo + b_chunk)
+            ll = self._loglikes(feats[lo:hi].contiguous())
+            surv, _best, _end, use_final = LAT.lattice_forward_backward_rows(
+                self.graph, self.plan, self.plan_dev, bwd_plan, bwd_dev, row_dst, ll,
+                num_frames[lo:hi], acoustic_scale=acwt, lattice_beam=self.opts.lattice_beam)
+            out.update(zip(utts[lo:hi], LAT.survivor_lattices(
+                self.graph, surv, num_frames[lo:hi], use_final, ll)))
+        return out
+
+    def decode_sweep_lattice(self, utts: list[str], feats, num_frames, lmwts: list[int],
+                             word_ins_penalties: tuple = (0.0,)) -> tuple[dict, dict]:
+        """Decode once into lattices at the decoder's acoustic scale, then per
+        (LMWT, WIP) grid point rescale, add the word-insertion penalty and
+        take the best path on the host (``lattice-scale`` ->
+        ``lattice-add-penalty`` -> ``lattice-best-path``,
+        ``score_kaldi_wer.cpp:279-356``), the whole grid in one vectorized
+        pass per utterance.  Returns ({(lmwt, wip): [DecodeResult]},
+        {utt: Lattice})."""
+        lats = self.decode_lattice(utts, feats, num_frames)
+        grid = [(w, wip) for w in lmwts for wip in word_ins_penalties]
+        points = [(1.0, 1.0 / w, wip) for (w, wip) in grid]
+        sweep = {gp: [] for gp in grid}
+        for u in utts:
+            for gp, p in zip(grid, lattice_best_path_grid(lats[u], points)):
+                sweep[gp].append(DecodeResult(u, p["words"], p["score"], p["tids"]))
+        return sweep, lats
+
+    def decode_mbr(self, utts: list[str], feats, num_frames, nbest: int = 8) -> list[DecodeResult]:
+        """MBR consensus decoding over lattices (``lattice-mbr-decode`` role):
+        one lattice decode, then a confusion network from each lattice's
+        word-unique N best paths."""
+        lats = self.decode_lattice(utts, feats, num_frames)
+        acwt = self.opts.acoustic_scale
+        out = []
+        for u in utts:
+            words, _conf = lattice_mbr(lats[u], n=nbest, lm_scale=1.0, acoustic_scale=acwt)
+            out.append(DecodeResult(u, words, lattice_best_path(lats[u], 1.0, acwt)["score"]))
+        return out

@@ -7,6 +7,8 @@
 * ``synth_decode_graph`` / ``random_am``: the repo's full-width decode shape
   (``bench.py``): an HCLG-shaped 60k-state / 480k-arc graph and a
   2000-pdf x 5-Gaussian x 39-dim diagonal GMM, from numpy seeds.
+  ``feature_scaled_am`` draws a GMM of the same size on the scale of given
+  features.
 * ``synth_train_graph``: the repo's full-width training-alignment graph
   (``bench.py``): a left-to-right chain of HMM states with self-loops and
   optional skips, banded and dst-pure like a compiled training graph.
@@ -32,8 +34,8 @@ from .ops.graph import NEG_INF, DenseGraph
 
 ASSET_DIR = Path(__file__).parent / "assets" / "yesno_mono"
 
-__all__ = ["ASSET_DIR", "YesNoModel", "compute_wer_set", "load_yesno_mono",
-           "random_am", "synth_decode_graph", "synth_train_graph"]
+__all__ = ["ASSET_DIR", "YesNoModel", "compute_wer_set", "feature_scaled_am",
+           "load_yesno_mono", "random_am", "synth_decode_graph", "synth_train_graph"]
 
 
 @dataclass
@@ -90,6 +92,19 @@ def random_am(num_pdfs: int = 2000, max_mix: int = 5, dim: int = 39,
         rng.standard_normal((num_pdfs, max_mix, dim)).astype(np.float32),
         np.abs(rng.standard_normal((num_pdfs, max_mix, dim))).astype(np.float32) + 0.5,
         np.full((num_pdfs, max_mix), 1.0 / max_mix, np.float32))
+
+
+def feature_scaled_am(mean: np.ndarray, var: np.ndarray, num_pdfs: int = 2000,
+                      max_mix: int = 5, seed: int = 5) -> AmDiagGmm:
+    """Random diagonal GMM on the scale of features with per-dimension
+    ``mean`` and ``var``: component means at mean + sqrt(var) * N(0, 1),
+    variances var / U(0.5, 2), equal weights."""
+    rng = np.random.default_rng(seed)
+    d = len(mean)
+    means = mean + np.sqrt(var) * rng.standard_normal((num_pdfs, max_mix, d))
+    inv_vars = rng.uniform(0.5, 2.0, (num_pdfs, max_mix, d)) / var
+    return AmDiagGmm((means * inv_vars).astype(np.float32), inv_vars.astype(np.float32),
+                     np.full((num_pdfs, max_mix), 1.0 / max_mix, np.float32))
 
 
 def synth_train_graph(num_states: int, num_pdfs: int, rng) -> DenseGraph:
