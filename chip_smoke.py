@@ -6,7 +6,7 @@ Phases, each of which must pass (any failure exits nonzero):
 
 1. Requires CUDA; turns TF32 off for matmul and cuDNN; prints the card's
    name and power limit (nvidia-smi).
-2. Builds the six CUDA sources from ``voicebridge_tpu_torch/csrc`` with
+2. Builds the eight CUDA sources from ``voicebridge_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the compiler's
    register/shared-memory report.
 3. Holds each kernel against its plain PyTorch version on the card at the
@@ -18,7 +18,14 @@ Phases, each of which must pass (any failure exits nonzero):
    bytes, and alpha equal to K3's), K4 banded alignment forward and
    backtrace (192 utterances x 400 frames, 384-state training graphs;
    bit-equal scores, equal band-slot codes and arcs), K6 aligned E-step
-   statistics (77k aligned frames, 2000 x 5 x 39).
+   statistics (77k aligned frames, 2000 x 5 x 39), K7 N-best frame steps
+   (the 60k-state graph, 32 lanes x 4 hypotheses per state, beam 13, at the
+   start and after 60 frames; bit-equal scores, equal arcs and slots), the
+   generic aligner's forward and backtrace (192 x 400 frames over 384-state
+   graphs with back arcs, which the banded form refuses; bit-equal scores,
+   equal backpointers and arcs).  Beside each time stands the kernel's
+   bound: the larger of its bytes (inputs once, outputs once) over 3.35 TB/s
+   and its operations over 67 TFLOP/s (float32), from this run's shapes.
 4. Decodes the committed Yes-No model on the card from waves to words: the
    JAX package's stored hypotheses for all 32 utterances, test WER <= 5%,
    train WER <= 2%, and every decoding kernel launched.
@@ -56,8 +63,26 @@ Phases, each of which must pass (any failure exits nonzero):
    every frame must hold an arc.  Prints survivors per frame and arcs per
    lattice, the median audio seconds per second of this run and five more,
    the device busy share of one profiled run, and the time of one
-   decode_sweep_lattice over the 33-point grid, timed on its own (its host
-   grid pass dominates).
+   decode_sweep_lattice of 16 of the utterances over the 33-point grid,
+   timed on its own (its host grid pass dominates).
+
+10. N-best decoding of the Yes-No model on the card (``decode_nbest``,
+   nbest 3 and 8): the first hypothesis gives the stored words for all 32
+   utterances, scores fall, no two hypotheses share an arc sequence; K1, K2
+   and K7 launched.
+11. N-best at full width: waves -> make_features -> Decoder.decode_nbest
+   (32 utterances of T = 1000 frames, nbest 4, the 60k-state graph and the
+   GMM of phase 9, exact search) in sub-batches sized from the card's free
+   memory, with the launch counts of this run.  Every utterance's first
+   hypothesis must score within 1e-2 or relative 1e-5 of ``decode_batch``'s
+   best path, and scores must fall.
+12. Generic alignment at full width: the training shape of phase 8 over
+   graphs with back arcs, which ``build_band_plan`` refuses (the reason goes
+   to the log), aligned by ``AlignmentSet.align_feats`` through the generic
+   aligner's kernels, with the launch counts of this run; every utterance
+   must align.  On the banded set of phase 8 the banded and the generic
+   aligner must give equal scores, and equal transition ids unless two best
+   paths tie in float32 (both then score the same, rescored in float64).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
@@ -66,6 +91,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -87,17 +113,26 @@ class Width:
     train_batch: int  # utterances of the training shape
     train_frames: int  # frames per training utterance
     train_states: int  # states per training graph
+    back_arcs: int  # back arcs per graph of the non-banded training set
+    nbest_batch: int  # utterances of the N-best shape
+    nbest: int  # hypotheses per state
+    nbest_warm: int  # frames run before the second K7 comparison
+    sweep_batch: int  # utterances of the timed host sweep
 
 
 FULL = Width(batch=128, frames=1000, samp_freq=16000.0, num_states=60_000,
              num_pdfs=2000, max_mix=5, k3_frames=4, train_batch=192, train_frames=400,
-             train_states=384)
+             train_states=384, back_arcs=2, nbest_batch=32, nbest=4, nbest_warm=60, sweep_batch=16)
 
 REPEATS = 5  # timed full-width runs after the counted one
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
 # (rtol, atol); K6's atol is scaled by each accumulator's largest magnitude
 TOL = {"mfcc_frames": (2e-4, 2e-3), "gmm_loglikes": (2e-5, 2e-4),
        "viterbi_step": (1e-6, 0.0), "align_forward": (0.0, 0.0),
-       "align_backtrace": (0.0, 0.0), "gmm_stats": (1e-5, 1e-5), "lattice_fb": (0.0, 0.0)}
+       "align_backtrace": (0.0, 0.0), "gmm_stats": (1e-5, 1e-5), "lattice_fb": (0.0, 0.0),
+       "viterbi_nbest": (0.0, 0.0), "generic_forward": (0.0, 0.0),
+       "generic_backtrace": (0.0, 0.0)}
 SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
                            "voicebridge_tpu/ops/pallas_mfcc.py:57"),
            "gmm_loglikes": ("voicebridge_tpu_torch/csrc/gmm_loglik.cu",
@@ -111,10 +146,18 @@ SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
            "gmm_stats": ("voicebridge_tpu_torch/csrc/gmm_stats.cu",
                          "voicebridge_tpu/ops/gmm_kernels.py:127"),
            "lattice_fb": ("voicebridge_tpu_torch/csrc/lattice_fb.cu",
-                          "voicebridge_tpu/ops/lattice.py:367")}
+                          "voicebridge_tpu/ops/lattice.py:367"),
+           "viterbi_nbest": ("voicebridge_tpu_torch/csrc/viterbi_nbest.cu",
+                             "voicebridge_tpu/ops/viterbi.py:513"),
+           "generic_forward": ("voicebridge_tpu_torch/csrc/viterbi_generic.cu",
+                               "voicebridge_tpu/ops/viterbi.py:452"),
+           "generic_backtrace": ("voicebridge_tpu_torch/csrc/viterbi_generic.cu",
+                                 "voicebridge_tpu/ops/viterbi.py:842")}
 DECODE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step")
 TRAIN_KERNELS = ("gmm_loglikes", "align_forward", "align_backtrace", "gmm_stats")
 LATTICE_KERNELS = DECODE_KERNELS + ("lattice_fb",)
+NBEST_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_nbest")
+GENERIC_KERNELS = ("gmm_loglikes", "generic_forward", "generic_backtrace")
 
 
 class SmokeFailure(Exception):
@@ -163,6 +206,10 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def compare_kernels(torch, device, width: Width, log) -> dict:
     """Phase 3: every kernel against its plain version at full width."""
     import numpy as np
@@ -175,9 +222,10 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
     timed = device.type == "cuda"
     results = {}
 
-    def record(name, pairs, kernel_fn, plain_fn, equal=True):
-        """Hold each (kernel, plain) output pair within TOL[name] and time
-        both versions."""
+    def record(name, pairs, kernel_fn, plain_fn, work, equal=True):
+        """Hold each (kernel, plain) output pair within TOL[name], time both
+        versions, and work out the kernel's bound from ``work``: the bytes
+        it must move (inputs once, outputs once) and its operations."""
         rtol, atol = TOL[name]
         err, ok = 0.0, equal
         for got, ref in pairs:
@@ -185,11 +233,18 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
             a = atol * max(1.0, float(ref.abs().max())) if name == "gmm_stats" else atol
             err = max(err, float((got - ref).abs().max()))
             ok = ok and bool(torch.allclose(got, ref, rtol=rtol, atol=a))
+        byte_ms = 1e3 * work[0] / HBM_BYTES_PER_S
+        op_ms = 1e3 * work[1] / FP32_OPS_PER_S
         results[name] = {"max_abs_err": err,
                          "ms": cuda_ms(torch, kernel_fn) if timed else None,
-                         "plain_ms": cuda_ms(torch, plain_fn) if timed else None}
+                         "plain_ms": cuda_ms(torch, plain_fn) if timed else None,
+                         "bound_ms": max(byte_ms, op_ms),
+                         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                         "library_ms": None}  # no single PyTorch call computes it
         log(f"{name}: max_abs_err {err:.3g} (rtol {rtol}, atol {atol}) "
-            f"kernel {results[name]['ms']} ms, plain {results[name]['plain_ms']} ms")
+            f"kernel {results[name]['ms']} ms, plain {results[name]['plain_ms']} ms; "
+            f"{work[0]:.4g} bytes ({byte_ms:.4g} ms), {work[1]:.4g} operations "
+            f"({op_ms:.4g} ms)")
         check(ok, f"{name} disagrees with its plain version (max abs err {err})")
 
     # K1
@@ -202,8 +257,15 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
     tables = features.MfccTables.build(opts, False, device)
     got = mfcc_kernel.mfcc_frames(frames, tables)
     ref = features.mfcc_from_frames(frames, tables)
+    n_fft, ws = opts.frame_opts.padded_window_size, frames.shape[1]
+    bins, ceps = tables.dct_t.shape
+    # per frame: DC removal, preemphasis and window; a radix-2 FFT; the power
+    # spectrum; the mel and DCT products
+    k1_ops = frames.shape[0] * (3 * ws + 5 * n_fft * math.log2(n_fft) + 3 * (n_fft // 2)
+                                + 2 * bins * (n_fft // 2) + 2 * bins * ceps)
     record("mfcc_frames", [(got, ref)], lambda: mfcc_kernel.mfcc_frames(frames, tables),
-           lambda: features.mfcc_from_frames(frames, tables))
+           lambda: features.mfcc_from_frames(frames, tables),
+           (nbytes(frames, got, tables.window, tables.mel_t, tables.dct_t), k1_ops))
     del got, ref
 
     # K2
@@ -215,8 +277,10 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
                                              dtype=np.float32)).to(device)
     ll = gmm_kernel.loglikes(x, w)
     ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
+    # one multiply-add per (frame, Gaussian, row of [x, x^2])
     record("gmm_loglikes", [(ll, ref)], lambda: gmm_kernel.loglikes(x, w),
-           lambda: gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x))
+           lambda: gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x),
+           (nbytes(x, w, ll), 2 * x.shape[0] * w.shape[0] * w.shape[1] * 2 * dim))
     del ref
 
     # K3: a few frame steps from the start state, fed the K2 scores
@@ -254,13 +318,20 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
                                    plan.rspec, plan.packed, bp),
            lambda: DC.viterbi_step_plain(alpha, scratch, ll_t[0], dev, nf, 0, acwt,
                                          plan.rspec, plan.packed, bp),
+           # alpha in and out, the frame's logliks, the backpointers, the plan;
+           # an add and a compare per (row slot, lane), an add and a compare per row
+           (2 * nbytes(alpha) + nbytes(ll_t[0], bp, *dev),
+            2 * dev.row_src.numel() * b + 2 * plan.num_rows * b),
            equal=codes_equal)
     check(codes_equal, "viterbi_step backpointer codes differ from the plain version")
     del alpha, scratch, bp
     compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
                            record, log)
-    del ll_t, ll_k, k3_alphas, dev
+    del k3_alphas, dev
+    compare_nbest_kernel(torch, device, width, graph, ll_k, acwt, record, log)
+    del ll_t, ll_k
     compare_training_kernels(torch, device, width, w, record)
+    compare_generic_kernels(torch, device, width, w, record, log)
     return results
 
 
@@ -308,13 +379,69 @@ def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alpha
             worst = (a_k, a_p)
     log(f"lattice_fb: {k} frames x {b} lanes, survivor bytes nonzero "
         f"{int((w_p != 0).sum())} of {w_p.numel()} in the last frame")
+    # K3's reads without the backpointers, beta and the threshold in, the
+    # survivor bytes out; per row slot the forward add and compare and the
+    # survivor test's two adds and compare
     record("lattice_fb", [worst], lambda: LAT.fb_frame(*args, words),
-           lambda: LAT.fb_frame_plain(*args), equal=same)
+           lambda: LAT.fb_frame_plain(*args),
+           (3 * nbytes(a_k) + nbytes(ll_t[0], words, row_dst, thresh, *dev),
+            5 * dev.row_src.numel() * b + 2 * plan.num_rows * b), equal=same)
 
 
-def train_shape(width: Width, device):
-    """The full-width training shape: synthetic banded training graphs, the
-    alignment set over them, features and frame counts (numpy seed 3)."""
+def compare_nbest_kernel(torch, device, width: Width, graph, ll_k, acwt, record, log) -> None:
+    """Phase 3, K7: N-best frame steps on the full-width graph at the
+    sub-batch and list length of phase 11, with the decoder's default beam:
+    the first frames from the start state, then, after ``nbest_warm`` frames
+    of the kernel alone have spread the hypotheses, as many again.  Kernel
+    and plain version get the same inputs each frame."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import DecodeOptions
+    from voicebridge_tpu_torch.ops import viterbi as V
+
+    b, k = min(width.nbest_batch, ll_k.shape[0]), width.nbest
+    frames = ll_k.shape[1]
+    ll = ll_k[:b]
+    plan = V.build_nbest_plan(graph, device)
+    s = plan.num_states
+    beam = float(np.float32(DecodeOptions().beam))
+    total = frames + width.nbest_warm + frames
+    nf = torch.full((b,), total, dtype=torch.int32, device=device)
+    alpha = torch.full((b, s, k), V.NEG_INF, dtype=torch.float32, device=device)
+    alpha[:, :, 0] = torch.from_numpy(graph.alpha0).to(device)[None, :]
+    scratch = torch.full_like(alpha, V.NEG_INF)
+    arc_k = torch.empty((b, s, k), dtype=torch.int32, device=device)
+    slot_k = torch.empty((b, s, k), dtype=torch.int8, device=device)
+    arc_p, slot_p = torch.empty_like(arc_k), torch.empty_like(slot_k)
+    same, worst, live = True, None, 0
+    for t in range(total):
+        args = (plan, alpha, scratch, ll[:, t % frames], nf, t, acwt, beam)
+        a_k, _ = V.nbest_step(*args, arc_k, slot_k)
+        if t < frames or t >= frames + width.nbest_warm:
+            a_p, _ = V.nbest_step_plain(*args, arc_p, slot_p)
+            same = (same and torch.equal(a_k, a_p) and torch.equal(arc_k, arc_p)
+                    and torch.equal(slot_k, slot_p))
+            if worst is None or (a_k - a_p).abs().max() > (worst[0] - worst[1]).abs().max():
+                worst = (a_k, a_p)
+            live = int((arc_k >= 0).sum())
+        if t + 1 < total:
+            alpha = a_k
+    # candidates this frame's data needs: one per live slot of every arc's
+    # source, an add and a compare each, and an add and a multiply per arc
+    cands = int((alpha > V.NEG_INF).sum(dim=2)[:, plan.src.long()].sum())
+    log(f"viterbi_nbest: {b} lanes x {k} slots, {live} live slots of {arc_k.numel()} after "
+        f"{total} frames at beam {beam}, {cands} candidates in the timed frame")
+    record("viterbi_nbest", [worst], lambda: V.nbest_step(*args, arc_k, slot_k),
+           lambda: V.nbest_step_plain(*args, arc_p, slot_p),
+           (2 * nbytes(alpha) + nbytes(arc_k, slot_k, args[3], nf, plan.in_start, plan.src,
+                                       plan.pdf, plan.score, plan.arc),
+            2 * cands + 2 * plan.src.numel() * b), equal=same)
+
+
+def train_shape(width: Width, device, back_arcs: int = 0):
+    """The full-width training shape: synthetic banded training graphs (with
+    ``back_arcs`` no longer banded), the alignment set over them, features
+    and frame counts (numpy seed 3)."""
     import numpy as np
     import torch
 
@@ -322,7 +449,7 @@ def train_shape(width: Width, device):
     from voicebridge_tpu_torch.testing import synth_train_graph
 
     rng = np.random.default_rng(3)
-    graphs = [synth_train_graph(width.train_states, width.num_pdfs, rng)
+    graphs = [synth_train_graph(width.train_states, width.num_pdfs, rng, back_arcs)
               for _ in range(width.train_batch)]
     feats = torch.from_numpy(rng.standard_normal(
         (width.train_batch, width.train_frames, 39), dtype=np.float32)).to(device)
@@ -348,14 +475,23 @@ def compare_training_kernels(torch, device, width: Width, w, record) -> None:
     ae_k, bps_k = AB.viterbi_forward_banded(*fwd)
     ae_p, bps_p = AB.viterbi_forward_banded_plain(*fwd)
     same = bool(torch.equal(ae_k, ae_p) and torch.equal(bps_k, bps_p))
+    b, s, k = plan.W.shape
+    t = ll.shape[1]
+    # the band, one gathered loglik per (frame, state), the backpointers out;
+    # an add and a compare per band slot, an add and a multiply per state
     record("align_forward", [(ae_k, ae_p)], lambda: AB.viterbi_forward_banded(*fwd),
-           lambda: AB.viterbi_forward_banded_plain(*fwd), equal=same)
+           lambda: AB.viterbi_forward_banded_plain(*fwd),
+           (nbytes(plan.W, plan.pdf, plan.alpha0, nf, ae_k, bps_k) + 4 * b * t * s,
+            2 * b * t * s * k + 2 * b * t * s), equal=same)
     del bps_p
     bt = (ae_k, plan.final, bps_k, nf, plan.offsets, plan.arc_of)
     got, ref = AB.backtrace_banded(*bt), AB.backtrace_banded_plain(*bt)
     same = all(bool(torch.equal(g, r.to(g.dtype))) for g, r in zip(got, ref))
+    # the end scores, then per (frame, utterance) one backpointer, one arc
+    # id looked up and one written
     record("align_backtrace", [(got[3], ref[3])], lambda: AB.backtrace_banded(*bt),
-           lambda: AB.backtrace_banded_plain(*bt), equal=same)
+           lambda: AB.backtrace_banded_plain(*bt),
+           (nbytes(ae_k, plan.final, nf) + 9 * b * t, b * s + b * t), equal=same)
     check(bool(got[2].all()), "align_backtrace: an utterance has no path")
     arcs = got[0].cpu().numpy()
     del ll, bps_k, bt
@@ -366,10 +502,67 @@ def compare_training_kernels(torch, device, width: Width, w, record) -> None:
     twin = convert.twin_params_from_kernel(w)
     got = gmm_stats_kernel.acc_stats(w, *args, width.num_pdfs)
     ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3], width.num_pdfs, args[3])
+    # per (frame, Gaussian of its pdf): a multiply-add per row of [x, x^2]
+    # for the posterior and one per dimension for each of the two sums
     record("gmm_stats", list(zip(got, ref)),
            lambda: gmm_stats_kernel.acc_stats(w, *args, width.num_pdfs),
            lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3],
-                                                              width.num_pdfs, args[3]))
+                                                              width.num_pdfs, args[3]),
+           (nbytes(w, *args, *got), 8 * x.shape[0] * w.shape[1] * x.shape[1]))
+
+
+def compare_generic_kernels(torch, device, width: Width, w, record, log) -> None:
+    """Phase 3, generic aligner: forward and backtrace against their plain
+    versions at the full-width training shape, over graphs with back arcs
+    (refused by the banded form), unpruned as training calls it."""
+    import numpy as np
+
+    from voicebridge_tpu_torch.ops import gmm_kernel
+    from voicebridge_tpu_torch.ops import viterbi as V
+
+    graphs, aset, feats, nf_np = train_shape(width, device, width.back_arcs)
+    check(aset.band is None, "the graphs with back arcs fit the banded form")
+    p = aset.padded
+    nf = torch.from_numpy(nf_np).to(device)
+    ll = gmm_kernel.loglikes_batch(feats, w)
+    acwt, beam = 0.1, 1e9
+
+    def tensor(name, dtype):
+        return torch.from_numpy(p[name]).to(device, dtype)
+
+    fwd = (p["arc_src"], p["arc_dst"], p["arc_pdf"], p["arc_score"], p["alpha0"], ll, nf_np,
+           acwt, beam, p["num_states"])
+    plain = (tensor("arc_src", torch.int64), tensor("arc_dst", torch.int64),
+             tensor("arc_pdf", torch.int64), tensor("arc_score", torch.float32),
+             tensor("alpha0", torch.float32), ll, nf, float(np.float32(acwt)),
+             float(np.float32(beam)))
+    ae_k, bps_k = V.viterbi_forward_batched(*fwd)
+    ae_p, bps_p = V.viterbi_forward_batched_plain(*plain)
+    same = bool(torch.equal(ae_k, ae_p) and torch.equal(bps_k, bps_p))
+    b, t, _ = ll.shape
+    a, s = p["arc_src"].shape[1], p["num_states"]
+    pdfs = sum(len(np.unique(g.arc_pdf)) for g in graphs)  # logliks a frame needs
+    log(f"generic aligner: {b} graphs of {s} states, up to {a} arcs, {pdfs / b:.1f} distinct "
+        f"pdfs each")
+    # the arcs (source, destination, pdf, score), one loglik per (frame, pdf
+    # of the graph), the backpointers out; per (frame, arc) two adds, a
+    # multiply and a compare, per (frame, state) the beam's max and compare
+    record("generic_forward", [(ae_k, ae_p)], lambda: V.viterbi_forward_batched(*fwd),
+           lambda: V.viterbi_forward_batched_plain(*plain),
+           (16 * b * a + nbytes(ae_k, ae_k, bps_k, nf) + 4 * t * pdfs,
+            4 * b * t * a + 2 * b * t * s), equal=same)
+    del bps_p
+    bt = (p["arc_src"], ae_k, p["final_score"], bps_k, nf_np)
+    bt_plain = (plain[0], ae_k, tensor("final_score", torch.float32), bps_k, nf)
+    got, ref = V.backtrace_batched_device(*bt), V.backtrace_batched_plain(*bt_plain)
+    same = all(bool(torch.equal(g, r.to(g.dtype))) for g, r in zip(got, ref))
+    # the end scores, then per (frame, utterance) one backpointer, one arc's
+    # source looked up and one arc id written
+    record("generic_backtrace", [(got[3], ref[3])],
+           lambda: V.backtrace_batched_device(*bt),
+           lambda: V.backtrace_batched_plain(*bt_plain),
+           (2 * nbytes(ae_k) + nbytes(nf) + 12 * b * t, b * s + b * t), equal=same)
+    check(bool(got[1].all()), "generic_backtrace: an utterance has no path")
 
 
 def decode_yesno(torch, device, log) -> None:
@@ -402,7 +595,7 @@ def lattice_yesno(torch, device, log) -> None:
     """Phase 5: the JAX-trained Yes-No model decoded into lattices on the
     device and swept over the (LMWT, WIP) grid."""
     from synth import make_corpus
-    from voicebridge_tpu.steps.score import score_sweep
+    from voicebridge_tpu_torch.steps.score import score_sweep
     from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions
     from voicebridge_tpu_torch.lat import lattice_best_path, lattice_depth_per_frame
     from voicebridge_tpu_torch.steps.decode import Decoder
@@ -496,24 +689,41 @@ def decode_full_width(torch, device, width: Width, log) -> dict:
 
 
 def profile_run(torch, run, log, what: str) -> dict:
-    """Two more runs of ``run``: one under torch.profiler (device time by
-    kernel and the device busy share of the run's wall time), one under
-    cProfile (host time by function, into the log)."""
+    """Three more runs of ``run``: two under torch.profiler, the second of
+    them marked and read (device time by kernel and the device busy share of
+    that run's wall time), and one under cProfile (host time by function,
+    into the log)."""
     import cProfile
     import io
     import pstats
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    mark = "smoke_profiled_run"
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        # after earlier large traces in one process, a trace was seen to miss
+        # the device work of its first milliseconds: a run that is not read
+        # goes first, and only what starts inside the marked run counts
         run()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function(mark):
+            run()
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    events = prof.events()
+    span = next(e.time_range for e in events
+                if e.name == mark and e.device_type == DeviceType.CPU)
+    by_name: dict = {}
+    for e in events:
+        if (e.device_type == DeviceType.CUDA and e.name != mark
+                and span.start <= e.time_range.start <= span.end):
+            total = by_name.setdefault(e.name, [0.0, 0])
+            total[0] += e.time_range.end - e.time_range.start
+            total[1] += 1
+    busy_us = sum(us for us, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     host = cProfile.Profile()
     host.enable()
     run()
@@ -523,8 +733,7 @@ def profile_run(torch, run, log, what: str) -> dict:
     log(f"host profile of one {what} run (cProfile):\n" + text.getvalue())
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall,
-            "top_device_ms": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                              for e in top]}
+            "top_device_ms": [[name[:60], us / 1e3, count] for name, (us, count) in top]}
 
 
 def train_yesno(torch, device, log) -> dict:
@@ -532,11 +741,11 @@ def train_yesno(torch, device, log) -> dict:
     port, then decoded with an HCLG built from it.  Returns the launch
     counts of the training."""
     from synth import LEXICON, make_corpus
-    from voicebridge_tpu.config import LangOptions, MonoTrainOptions
-    from voicebridge_tpu.data.lang import prepare_lang
-    from voicebridge_tpu.fst.hclg import mkgraph
-    from voicebridge_tpu.lm.arpa import arpa_to_fst
-    from voicebridge_tpu.lm.ngram import estimate_ngram
+    from voicebridge_tpu_torch.config import LangOptions, MonoTrainOptions
+    from voicebridge_tpu_torch.data.lang import prepare_lang
+    from voicebridge_tpu_torch.fst.hclg import mkgraph
+    from voicebridge_tpu_torch.lm.arpa import arpa_to_fst
+    from voicebridge_tpu_torch.lm.ngram import estimate_ngram
     from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions, _build
     from voicebridge_tpu_torch.steps.decode import Decoder
     from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
@@ -710,11 +919,13 @@ def lattice_full_width(torch, device, width: Width, log) -> dict:
         walls.append(f_s + l_s)
     audio_s = width.batch * width.frames * 0.01
     lmwts = list(range(dopts.min_lmwt, dopts.max_lmwt + 1))
+    n_sweep = min(width.sweep_batch, width.batch)  # the host grid pass is slow: a part
     t0 = time.perf_counter()
-    sweep, _ = dec.decode_sweep_lattice(utts, batch, nf, lmwts, dopts.word_ins_penalties)
+    sweep, _ = dec.decode_sweep_lattice(utts[:n_sweep], batch[:n_sweep], nf[:n_sweep], lmwts,
+                                        dopts.word_ins_penalties)
     sweep_s = time.perf_counter() - t0
     points = len(lmwts) * len(dopts.word_ins_penalties)
-    check(len(sweep) == points and all(len(r) == width.batch for r in sweep.values()),
+    check(len(sweep) == points and all(len(r) == n_sweep for r in sweep.values()),
           "the full-width sweep lost grid points or utterances")
     facts = {"setup_s": setup_s, "first_run_features_s": feat_s, "first_run_lattice_s": lat_s,
              "audio_s": audio_s, "runs_s": walls,
@@ -723,15 +934,191 @@ def lattice_full_width(torch, device, width: Width, log) -> dict:
              "survivors_per_frame_max": int(depth.max()),
              "arcs_per_lattice": [int(arcs.min()), float(arcs.mean()), int(arcs.max())],
              "best_path_rel_err_max": worst, "decode_f32_rel_drift_max": drift,
-             "sweep_points": points, "sweep_s": sweep_s}
+             "sweep_points": points, "sweep_utts": n_sweep, "sweep_s": sweep_s}
     if device.type == "cuda":
         facts["profile"] = profile_run(torch, run, log, "full-width lattice decode")
     log(f"full-width lattice decode: {json.dumps(facts)}")
     return facts
 
 
+def nbest_yesno(torch, device, log) -> None:
+    """Phase 10: N-best decoding of the JAX-trained Yes-No model on the
+    device."""
+    from synth import make_corpus
+    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
+    from voicebridge_tpu_torch.testing import load_yesno_mono
+
+    m = load_yesno_mono()
+    train, test = make_corpus(**m.corpus)
+    opts = MfccOptions(frame_opts=FrameOptions(samp_freq=m.samp_freq, dither=0.0))
+    dec = Decoder(m.hclg, m.trans_model, m.am, DecodeOptions(beam=1e9), device=device)
+    for name, corpus in (("test", test), ("train", train)):
+        feats = make_features({u: w for u, (w, _) in corpus.items()},
+                              {u: u for u in corpus}, opts, device=device)
+        utts = sorted(feats)
+        batch, nf = pad_features(feats, utts)
+        for nbest in (3, 8):
+            hyps = dec.decode_nbest(utts, batch, nf, nbest=nbest, keep_arcs=True)
+            check_nbest(hyps, utts, f"yes-no {name}, nbest {nbest}")
+            bad = [u for u in utts if [m.words.sym(w) for w in hyps[u][0][0]] != m.hyps[u]]
+            check(not bad, f"yes-no {name}, nbest {nbest}: first hypotheses differ from the "
+                           f"reference for {bad}")
+            log(f"yes-no {name}, nbest {nbest}: {sum(len(h) for h in hyps.values())} "
+                f"hypotheses for {len(utts)} utterances")
+
+
+def check_nbest(hyps: dict, utts: list, what: str) -> None:
+    """Every utterance has a hypothesis, scores fall, arc sequences differ."""
+    for u in utts:
+        check(bool(hyps.get(u)), f"{what}: no hypothesis for {u}")
+        scores = [h[1] for h in hyps[u]]
+        check(all(math.isfinite(x) for x in scores), f"{what}: {u} has a score that is not finite")
+        check(scores == sorted(scores, reverse=True), f"{what}: scores of {u} do not fall")
+        arcs = [tuple(h[2]) for h in hyps[u]]
+        check(len(set(arcs)) == len(arcs), f"{what}: two hypotheses of {u} share an arc sequence")
+
+
+def nbest_full_width(torch, device, width: Width, log) -> dict:
+    """Phase 11: the N-best path at full width.  Returns timing facts."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MelOptions, MfccOptions
+    from voicebridge_tpu_torch import _build
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
+    from voicebridge_tpu_torch.testing import feature_scaled_am, synth_decode_graph
+
+    waves = dict(list(synth_waves(width, seed=3).items())[: width.nbest_batch])
+    utt2spk = {u: f"spk{i % 8}" for i, u in enumerate(sorted(waves))}
+    opts = MfccOptions(frame_opts=FrameOptions(samp_freq=width.samp_freq, dither=1.0),
+                       mel_opts=MelOptions(num_bins=23))
+    # exact search, as the Yes-No phases: with a beam the best path may be
+    # pruned, and decode_batch, which it is held against, never prunes
+    dopts = DecodeOptions(acoustic_scale=1.0 / 13.0, beam=1e9)
+    t0 = time.perf_counter()
+    x = torch.cat(list(make_features(waves, utt2spk, opts, device=device).values())).double()
+    am = feature_scaled_am(x.mean(0).cpu().numpy(), x.var(0).cpu().numpy() / 30.0,
+                           width.num_pdfs, width.max_mix)  # as phase 9
+    dec = Decoder.from_dense_graph(synth_decode_graph(width.num_states, num_pdfs=width.num_pdfs),
+                                   am, dopts, device=device, row_width=8)
+    del x
+    setup_s = time.perf_counter() - t0
+
+    def run():
+        t_start = time.perf_counter()
+        feats = make_features(waves, utt2spk, opts, device=device)
+        utts = sorted(feats)
+        batch, nf = pad_features(feats, utts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()  # the sub-batch is sized from the free memory
+        t_feats = time.perf_counter()
+        hyps = dec.decode_nbest(utts, batch, nf, nbest=width.nbest, keep_arcs=True)
+        return hyps, utts, batch, nf, t_feats - t_start, time.perf_counter() - t_feats
+
+    for k in _build.launches:
+        _build.launches[k] = 0
+    hyps, utts, batch, nf, feat_s, nbest_s = run()
+    launches = dict(_build.launches)
+    check(len(hyps) == len(waves), f"{len(hyps)} N-best lists for {len(waves)} utterances")
+    check_nbest(hyps, utts, "full-width N-best")
+    check(all(len(h[2]) == width.frames for u in utts for h in hyps[u]),
+          "a hypothesis is not a path of T arcs")
+    best = dec.decode_batch(utts, batch, nf)
+    worst = 0.0
+    for u, r in zip(utts, best):
+        got = hyps[u][0][1]
+        check(abs(got - r.score) <= max(1e-2, 1e-5 * abs(r.score)),
+              f"{u}: first hypothesis {got} against decode_batch's {r.score}")
+        worst = max(worst, abs(got - r.score) / abs(r.score))
+    walls = [feat_s + nbest_s]
+    for _ in range(REPEATS):
+        *_, f_s, n_s = run()
+        walls.append(f_s + n_s)
+    audio_s = len(waves) * width.frames * 0.01
+    facts = {"setup_s": setup_s, "first_run_features_s": feat_s, "first_run_nbest_s": nbest_s,
+             "audio_s": audio_s, "runs_s": walls,
+             "sub_batches": launches["viterbi_nbest"] // width.frames or None,
+             "median_audio_s_per_s": audio_s / float(np.median(walls)), "launches": launches,
+             "hypotheses_per_utt": float(np.mean([len(hyps[u]) for u in utts])),
+             "first_hyp_rel_err_max": worst}
+    if device.type == "cuda":
+        facts["profile"] = profile_run(torch, run, log, "full-width N-best decode")
+    log(f"full-width N-best decode: {json.dumps(facts)}")
+    return facts
+
+
+def generic_full_width(torch, device, width: Width, log) -> dict:
+    """Phase 12: generic alignment at full width.  Returns timing facts."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import _build, convert
+    from voicebridge_tpu_torch.ops import align_band as AB
+    from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels as K
+    from voicebridge_tpu_torch.steps import align as A
+    from voicebridge_tpu_torch.testing import random_am
+
+    t0 = time.perf_counter()
+    graphs, aset, feats, nf = train_shape(width, device, width.back_arcs)
+    params = K.pack_gmm(random_am(width.num_pdfs, width.max_mix, 39, seed=4), device)
+    why: list = []
+    check(AB.build_band_plan(graphs, reason=why) is None and aset.band is None,
+          "the graphs with back arcs fit the banded form")
+    log(f"full-width generic alignment: build_band_plan refuses the set: {why[0]}")
+    setup_s = time.perf_counter() - t0
+
+    def run():
+        t_start = time.perf_counter()
+        alis = aset.align_feats(params, feats, nf, acoustic_scale=0.1)
+        return alis, time.perf_counter() - t_start
+
+    for k in _build.launches:
+        _build.launches[k] = 0
+    alis, wall = run()
+    launches = dict(_build.launches)
+    check(all(len(r["arcs"]) == n and np.isfinite(r["score"]) for r, n in zip(alis, nf)),
+          "full-width generic alignment: an utterance did not align")
+    back = sum(int((g.arc_dst[r["arcs"]] < g.arc_src[r["arcs"]]).sum())
+               for g, r in zip(graphs, alis))
+    walls = [wall] + [run()[1] for _ in range(REPEATS)]
+    # a banded set through both aligners
+    b_graphs, b_aset, b_feats, b_nf = train_shape(width, device)
+    want = b_aset.align_feats(params, b_feats, b_nf, acoustic_scale=0.1)
+    ll = gmm_kernel.loglikes_batch(b_feats, convert.kernel_params_from_twin(params))
+    got = A._align_generic(b_aset.padded, b_graphs, ll, b_nf, 0.1, 1e9)
+    differ = [i for i, (g, w_) in enumerate(zip(got, want)) if g["score"] != w_["score"]]
+    check(not differ, f"banded and generic aligner score utterances {differ[:8]} differently")
+    # equal scores, so where the transition ids differ two best paths tie in
+    # float32 (K4 takes the first band slot, the generic aligner the lowest
+    # arc id): then both paths, rescored in float64, must score the same to
+    # within float32's rounding over T frames
+    tied = [i for i, (g, w_) in enumerate(zip(got, want)) if g["tids"] != w_["tids"]]
+    for i in tied:
+        g = b_graphs[i]
+        a_g, a_w = (np.asarray(r[i]["arcs"]) for r in (got, want))
+        ll_i = ll[i].double().cpu().numpy()
+        s_g, s_w = (float(g.alpha0[g.arc_src[a[0]]]) + g.arc_score[a].astype(np.float64).sum()
+                    + 0.1 * ll_i[np.arange(len(a)), g.arc_pdf[a]].sum()
+                    + float(g.final_score[g.arc_dst[a[-1]]]) for a in (a_g, a_w))
+        check(abs(s_g - s_w) <= max(1e-2, 1e-5 * abs(s_w)),
+              f"utterance {i}: the generic aligner's path scores {s_g}, the banded one's {s_w}")
+    log(f"banded against generic aligner on the banded set: equal scores for all "
+        f"{len(got)} utterances; transition ids differ for {tied}, where two paths tie in "
+        f"float32 and score the same in float64")
+    audio_s = float(nf.sum()) * 0.01
+    facts = {"setup_s": setup_s, "audio_s": audio_s, "runs_s": walls,
+             "median_audio_s_per_s": audio_s / float(np.median(walls)), "launches": launches,
+             "back_arcs_taken": back, "tied_with_banded": len(tied)}
+    if device.type == "cuda":
+        facts["profile"] = profile_run(torch, run, log, "full-width generic alignment")
+    log(f"full-width generic alignment: {json.dumps(facts)}")
+    return facts
+
+
 def run(device, width: Width, log=print) -> dict:
-    """Phases 2-9 on ``device``; returns the kernels report.  On a CPU
+    """Phases 2-12 on ``device``; returns the kernels report.  On a CPU
     device the wrappers take their plain versions, so this rehearses the
     control flow without kernels."""
     import torch
@@ -765,13 +1152,22 @@ def run(device, width: Width, log=print) -> dict:
     launched(train["launches"], TRAIN_KERNELS, "the full-width EM iteration")
     lattice = lattice_full_width(torch, device, width, log)
     launched(lattice["launches"], LATTICE_KERNELS, "the full-width lattice decode")
-    runs = (decode, train, lattice)
+    for k in _build.launches:
+        _build.launches[k] = 0
+    nbest_yesno(torch, device, log)
+    launched(_build.launches, NBEST_KERNELS, "yes-no N-best decode")
+    nbest = nbest_full_width(torch, device, width, log)
+    launched(nbest["launches"], NBEST_KERNELS, "the full-width N-best decode")
+    generic = generic_full_width(torch, device, width, log)
+    launched(generic["launches"], GENERIC_KERNELS, "the full-width generic alignment")
+    runs = (decode, train, lattice, nbest, generic)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in runs),
          **kernels[name]} for name in SOURCES],
-        "full_width": decode, "train": train, "lattice": lattice}
+        "full_width": decode, "train": train, "lattice": lattice, "nbest": nbest,
+        "generic": generic}
 
 
 def main() -> int:
@@ -809,16 +1205,19 @@ def main() -> int:
             log(f"FAIL: {e}")
             return 1
     for key, what in (("full_width", "decode"), ("train", "EM training"),
-                      ("lattice", "lattice decode")):
+                      ("lattice", "lattice decode"), ("nbest", "N-best decode"),
+                      ("generic", "generic alignment")):
         facts = report.pop(key)
         busy = facts["profile"]["device_busy_share"]
         print(f"full-width {what} on {card}: {facts['median_audio_s_per_s']:.1f} audio-s/s "
               f"(median of {len(facts['runs_s'])} runs of {facts['audio_s']:.0f} audio s); "
               f"device busy {100 * busy:.1f} % of one profiled run")
-    print(f"full-width lattices: {facts['survivors_per_frame_mean']:.2f} survivors per frame "
-          f"(max {facts['survivors_per_frame_max']}), arcs per lattice (min, mean, max) "
-          f"{facts['arcs_per_lattice']}; one decode_sweep_lattice over "
-          f"{facts['sweep_points']} grid points {facts['sweep_s']:.2f} s")
+        if key == "lattice":
+            print(f"full-width lattices: {facts['survivors_per_frame_mean']:.2f} survivors per "
+                  f"frame (max {facts['survivors_per_frame_max']}), arcs per lattice (min, mean, "
+                  f"max) {facts['arcs_per_lattice']}; one decode_sweep_lattice of "
+                  f"{facts['sweep_utts']} utterances over {facts['sweep_points']} grid points "
+                  f"{facts['sweep_s']:.2f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

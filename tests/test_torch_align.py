@@ -184,16 +184,27 @@ def test_generic_aligner_matches_jax():
     nf = np.asarray([10, 7], np.int32)
     p = JV.pad_graphs(graphs)
     tp = V.pad_graphs(graphs)
-    for lv_j, lv_t in zip(p["levels"], tp["levels"]):
-        np.testing.assert_array_equal(lv_t, lv_j)
+    for name in ("arc_src", "arc_dst", "arc_pdf", "arc_score", "alpha0", "final_score"):
+        np.testing.assert_array_equal(tp[name], p[name])
     ae_j, bps_j = JV.viterbi_forward_batched(
         p["arc_src"], p["levels"], p["arc_pdf"], p["arc_score"], p["alpha0"],
         jnp.asarray(ll), jnp.asarray(nf), np.float32(0.5), np.float32(1e9), p["num_states"])
     ae_t, bps_t = V.viterbi_forward_batched(
-        tp["arc_src"], tp["levels"], tp["arc_pdf"], tp["arc_score"], tp["alpha0"],
+        tp["arc_src"], tp["arc_dst"], tp["arc_pdf"], tp["arc_score"], tp["alpha0"],
         torch.from_numpy(ll), nf, 0.5, 1e9, tp["num_states"])
     np.testing.assert_allclose(ae_t.numpy(), np.asarray(ae_j), rtol=1e-6)
-    np.testing.assert_array_equal(bps_t.numpy(), np.asarray(bps_j))
+    # the port writes -1 at frames past an utterance's end, which no backtrace reads
+    active = np.arange(t)[:, None] < nf[None, :]
+    np.testing.assert_array_equal(bps_t.numpy()[active], np.asarray(bps_j)[active])
+    assert (bps_t.numpy()[~active] == -1).all()
+    arcs_j, ok_j, end_j, score_j = JV.backtrace_batched_device(
+        p["arc_src"], ae_j, p["final_score"], bps_j, jnp.asarray(nf))
+    arcs_t, ok_t, end_t, score_t = V.backtrace_batched_device(
+        tp["arc_src"], ae_t, tp["final_score"], bps_t, nf)
+    np.testing.assert_array_equal(arcs_t.numpy(), np.asarray(arcs_j))
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+    np.testing.assert_array_equal(end_t.numpy(), np.asarray(end_j))
+    np.testing.assert_allclose(score_t.numpy(), np.asarray(score_j), rtol=1e-6)
     aset = A.AlignmentSet(graphs, device="cpu")
     assert aset.band is None
     got = aset.align(ll, nf, acoustic_scale=0.5)

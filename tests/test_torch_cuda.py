@@ -6,8 +6,12 @@ ragged and empty utterances, a failed utterance and a band matrix W too
 large for shared memory; for the E-step K6 a pdf holding most frames,
 zero-weight frames and two different feature arrays; for the lattice step K5
 row widths 2 and 8, ragged and empty utterances, utterances that reach no
-final state and two window sizes, and the lattice decode against the CPU).  They need an NVIDIA
-GPU and nvcc, and skip without one:
+final state and two window sizes, and the lattice decode against the CPU;
+for the N-best step K7 list lengths 1 to 16, a finite beam, ragged and empty
+utterances, and ``decode_nbest`` against the CPU; for the generic aligner
+ragged and empty utterances, a finite beam, graphs whose arcs or whose alpha
+outgrow the default shared memory, and ``max_active``, which its kernel
+refuses).  They need an NVIDIA GPU and nvcc, and skip without one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
@@ -16,14 +20,15 @@ import numpy as np
 import pytest
 import torch
 
-from voicebridge_tpu.config import DecodeOptions, FrameOptions, MelOptions, MfccOptions
-from voicebridge_tpu.models.gmm import AmDiagGmm
 from voicebridge_tpu_torch import _build, convert
+from voicebridge_tpu_torch.config import DecodeOptions, FrameOptions, MelOptions, MfccOptions
+from voicebridge_tpu_torch.models.gmm import AmDiagGmm
 from voicebridge_tpu_torch.ops import align_band as AB
 from voicebridge_tpu_torch.ops import decode_core as DC
 from voicebridge_tpu_torch.ops import features as TF
 from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel, mfcc_kernel
 from voicebridge_tpu_torch.ops import lattice as LAT
+from voicebridge_tpu_torch.ops import viterbi as V
 from voicebridge_tpu_torch.ops.graph import DenseGraph
 from voicebridge_tpu_torch.steps.decode import Decoder
 from voicebridge_tpu_torch.testing import random_am, synth_decode_graph, synth_train_graph
@@ -321,3 +326,116 @@ def test_decode_lattice_cuda_matches_cpu(cuda):
         np.testing.assert_array_equal(a.arc_id, b.arc_id)
         np.testing.assert_allclose(a.acoustic_cost, b.acoustic_cost, rtol=2e-5, atol=0)
         assert a.num_arcs >= n
+
+
+@pytest.mark.parametrize("beam", [1e9, 5.0])
+@pytest.mark.parametrize("nbest", [1, 3, 4, 8, 16])
+def test_nbest_step_matches_plain(cuda, nbest, beam):
+    """K7 frame by frame against its plain version on the same CUDA tensors:
+    bit-equal scores, equal arcs and slots; lanes of 0, 1 and T frames."""
+    g = synth_decode_graph(700, arcs_per_state=5, num_pdfs=40, seed=nbest)
+    plan = V.build_nbest_plan(g, cuda)
+    rng = np.random.default_rng(nbest)
+    b, t_total, s = 5, 14, g.num_states
+    ll = torch.from_numpy(rng.standard_normal((b, t_total, 40)).astype(np.float32) * 3).to(cuda)
+    nf = torch.tensor([t_total, 9, 0, 1, t_total], dtype=torch.int32, device=cuda)
+    alpha = torch.full((b, s, nbest), V.NEG_INF, device=cuda)
+    alpha[:, :, 0] = torch.from_numpy(g.alpha0).to(cuda)[None, :]
+    end_k = torch.where((nf == 0)[:, None, None], alpha, torch.full_like(alpha, V.NEG_INF))
+    end_p = end_k.clone()
+    arc_k = torch.empty((b, s, nbest), dtype=torch.int32, device=cuda)
+    slot_k = torch.empty((b, s, nbest), dtype=torch.int8, device=cuda)
+    arc_p, slot_p = torch.empty_like(arc_k), torch.empty_like(slot_k)
+    before = _build.launches["viterbi_nbest"]
+    for t in range(t_total):
+        args = (plan, alpha, None, ll[:, t], nf, t, 0.7, beam)
+        a_k, end_k = V.nbest_step(*args[:2], end_k, *args[3:], arc_k, slot_k)
+        a_p, end_p = V.nbest_step_plain(*args[:2], end_p, *args[3:], arc_p, slot_p)
+        torch.cuda.synchronize()
+        assert torch.equal(a_k, a_p), t
+        assert torch.equal(arc_k, arc_p) and torch.equal(slot_k, slot_p), t
+        assert torch.equal(end_k, end_p), t
+        alpha = a_k
+    assert _build.launches["viterbi_nbest"] == before + t_total
+    assert int((arc_k >= 0).sum()) > 0
+
+
+def test_decode_nbest_cuda_matches_cpu(cuda):
+    g = synth_decode_graph(400, arcs_per_state=4, num_pdfs=30, seed=2)
+    am = random_am(30, 2, 13, seed=3)
+    rng = np.random.default_rng(4)
+    feats = rng.standard_normal((6, 25, 13)).astype(np.float32)
+    nf = np.array([25, 20, 25, 3, 0, 11], np.int32)
+    utts = [f"u{i}" for i in range(6)]
+    out = {}
+    for dev in ("cpu", cuda):
+        dec = Decoder.from_dense_graph(g, am, DecodeOptions(acoustic_scale=0.3), device=dev)
+        out[str(dev)] = dec.decode_nbest(utts, feats, nf, nbest=4, keep_arcs=True,
+                                         batch_chunk=4)
+    for u in utts:
+        got, want = out[str(cuda)][u], out["cpu"][u]
+        assert [h[2] for h in got] == [h[2] for h in want], u
+        np.testing.assert_allclose([h[1] for h in got], [h[1] for h in want], rtol=1e-5)
+
+
+def _generic_case(case):
+    rng = np.random.default_rng(5)
+    if case == "global_arcs":  # 12 bytes an arc beyond 96 KB: arcs read through L2
+        graphs = [synth_train_graph(2400, 50, rng, back_arcs=1500) for _ in range(3)]
+        t_total, nf = 40, [40, 33, 0]
+    elif case == "big_alpha":  # alpha beyond 48 KB: the shared-memory opt-in
+        graphs = [synth_train_graph(5000, 50, rng, back_arcs=3) for _ in range(2)]
+        t_total, nf = 30, [30, 12]
+    else:
+        graphs = [synth_train_graph(int(n), 50, rng, back_arcs=2) for n in (160, 170, 165, 175)]
+        t_total, nf = 180, [180, 150, 0, 1]
+    return graphs, t_total, np.asarray(nf, np.int32)
+
+
+@pytest.mark.parametrize("case", ["ragged", "pruned", "global_arcs", "big_alpha"])
+def test_generic_aligner_matches_plain(cuda, case):
+    """The generic aligner's kernels against their plain versions on the
+    same CUDA tensors: bit-equal scores, equal backpointers and arcs."""
+    graphs, t_total, nf_np = _generic_case(case)
+    beam = 6.0 if case == "pruned" else 1e9
+    p = V.pad_graphs(graphs)
+    b = len(graphs)
+    rng = np.random.default_rng(6)
+    ll = torch.from_numpy(rng.standard_normal((b, t_total, 50)).astype(np.float32)).to(cuda)
+    nf = torch.from_numpy(nf_np).to(cuda)
+
+    def tensor(name, dtype):
+        return torch.from_numpy(p[name]).to(cuda, dtype)
+
+    before = dict(_build.launches)
+    ae_k, bps_k = V.viterbi_forward_batched(
+        p["arc_src"], p["arc_dst"], p["arc_pdf"], p["arc_score"], p["alpha0"], ll, nf_np, 0.5,
+        beam, p["num_states"])
+    ae_p, bps_p = V.viterbi_forward_batched_plain(
+        tensor("arc_src", torch.int64), tensor("arc_dst", torch.int64),
+        tensor("arc_pdf", torch.int64), tensor("arc_score", torch.float32),
+        tensor("alpha0", torch.float32), ll, nf, 0.5, float(np.float32(beam)))
+    torch.cuda.synchronize()
+    assert torch.equal(ae_k, ae_p)
+    assert torch.equal(bps_k, bps_p)
+    got = V.backtrace_batched_device(p["arc_src"], ae_k, p["final_score"], bps_k, nf_np)
+    ref = V.backtrace_batched_plain(tensor("arc_src", torch.int64), ae_k,
+                                    tensor("final_score", torch.float32), bps_k, nf)
+    torch.cuda.synchronize()
+    for g_, r_ in zip(got, ref):
+        assert torch.equal(g_, r_.to(g_.dtype))
+    assert _build.launches["generic_forward"] == before["generic_forward"] + 1
+    assert _build.launches["generic_backtrace"] == before["generic_backtrace"] + 1
+    if case == "ragged":
+        assert bool(got[1][0]) and not bool(got[1][2])  # a full path; no frames, no path
+
+
+def test_generic_aligner_kernel_refuses_max_active(cuda):
+    graphs, t_total, nf_np = _generic_case("ragged")
+    p = V.pad_graphs(graphs)
+    ll = torch.zeros((len(graphs), t_total, 50), device=cuda)
+    with pytest.raises(NotImplementedError, match="max_active"):
+        V.viterbi_forward_batched(p["arc_src"], p["arc_dst"], p["arc_pdf"], p["arc_score"],
+                                  p["alpha0"], ll, nf_np, 0.5, 8.0, p["num_states"],
+                                  max_active=10)
+

@@ -173,5 +173,6 @@ def test_wrappers_reject_other_devices():
     tables = TF.MfccTables.build(_opts(8000.0), False, "cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         mfcc_kernel.mfcc_frames(torch.empty((4, 200), device="meta"), tables)
-    with pytest.raises(ValueError, match="explicit device"):
-        TF.MfccExtractor(_opts(8000.0), device=None)
+    if not torch.cuda.is_available():  # no device means the card
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TF.MfccExtractor(_opts(8000.0), device=None)

@@ -1,0 +1,229 @@
+"""The port's own numpy host modules against the JAX package's: the same
+inputs give identical arrays, files written by one package load in the
+other, ``convert`` builds the port's objects from the JAX package's arrays,
+and the native WFST library (built at first use) gives the FSTs of the
+pure-Python implementations."""
+
+import importlib
+import json
+
+import numpy as np
+import pytest
+
+from voicebridge_tpu_torch import convert
+
+from synth import LEXICON
+
+HOST_MODULES = [
+    "config", "utils.logging", "utils.text", "utils.health", "utils.io", "utils.checkpoint",
+    "models.topology", "models.transition", "models.tree", "models.gmm", "fst.core",
+    "fst.compose", "fst.context", "fst.determinize", "fst.epsilon", "fst.hmm_graph",
+    "fst.lexicon", "fst.minimize", "fst.push", "fst.shortest", "fst.misc", "fst.hclg",
+    "fst.native_bridge", "data.lang", "lm.arpa", "lm.ngram", "steps.score", "steps.mbr",
+]
+
+SENTENCES = [["YES", "NO", "YES"], ["NO", "NO"], ["YES"], ["NO", "YES", "YES", "NO"]]
+
+
+def _both(name: str):
+    return (importlib.import_module("voicebridge_tpu_torch." + name),
+            importlib.import_module("voicebridge_tpu." + name))
+
+
+def _fst_arrays(f):
+    return (*f.to_arrays(), np.asarray(f.finals, np.float64), np.asarray([f.start]))
+
+
+def _assert_same_fst(got, want, weight_atol=0.0):
+    """States, arcs and labels identical; weights identical too unless
+    ``weight_atol`` allows for float32 against float64 arithmetic."""
+    for a, b in zip(_fst_arrays(got), _fst_arrays(want)):
+        if weight_atol and a.dtype.kind == "f":
+            np.testing.assert_array_equal(np.isinf(a), np.isinf(b))
+            np.testing.assert_allclose(a[np.isfinite(a)], b[np.isfinite(b)], rtol=0,
+                                       atol=weight_atol)
+        else:
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", HOST_MODULES)
+def test_host_module_is_a_copy_with_the_same_names(name):
+    """Every copied module offers the public names of its counterpart."""
+    port, jax_mod = _both(name)
+    assert port.__file__ != jax_mod.__file__
+    public = {n for n in vars(jax_mod) if not n.startswith("_")}
+    if name == "fst.hclg":  # the port always takes the native library
+        public -= {"remove_eps_local"}
+    if name == "fst.native_bridge":  # built at first use or raises: nothing to ask
+        public -= {"available", "Path"}
+    assert public <= set(vars(port))
+
+
+def _build_hclg(pkg: str):
+    cfg = importlib.import_module(pkg + ".config")
+    lang_mod = importlib.import_module(pkg + ".data.lang")
+    hclg_mod = importlib.import_module(pkg + ".fst.hclg")
+    arpa = importlib.import_module(pkg + ".lm.arpa")
+    ngram = importlib.import_module(pkg + ".lm.ngram")
+    tree_mod = importlib.import_module(pkg + ".models.tree")
+    trans_mod = importlib.import_module(pkg + ".models.transition")
+    lang = lang_mod.prepare_lang(LEXICON, ["SIL"], "SIL", cfg.LangOptions())
+    model = ngram.estimate_ngram(SENTENCES, order=2)
+    g = arpa.arpa_to_fst(model, lang.words.id, lang.word_disambig_id)
+    pdf_classes = {p: lang.topo.num_emitting_states(p) for p in lang.topo.phones()}
+    tree = tree_mod.MonophoneTree([[p] for p in sorted(pdf_classes)], pdf_classes)
+    tm = trans_mod.TransitionModel(lang.topo, tree)
+    hclg = hclg_mod.mkgraph(lang, tree, tm, g)
+    compiler = hclg_mod.TrainingGraphCompiler(lang, tree, tm)
+    train = compiler.compile([lang.words.id("YES"), lang.words.id("NO")])
+    return dict(lang=lang, arpa=model, g=g, tree=tree, tm=tm, hclg=hclg, train=train)
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return _build_hclg("voicebridge_tpu_torch"), _build_hclg("voicebridge_tpu")
+
+
+@pytest.mark.parametrize("which", ["g", "hclg", "train"])
+def test_graph_builds_are_identical(graphs, which):
+    """ARPA -> G, mkgraph and a training graph on the Yes-No lang."""
+    port, jax_side = graphs
+    assert port[which].num_states > 1
+    _assert_same_fst(port[which], jax_side[which])
+
+
+def test_lang_and_transition_model_are_identical(graphs):
+    port, jax_side = graphs
+    assert list(port["lang"].phones.items()) == list(jax_side["lang"].phones.items())
+    assert list(port["lang"].words.items()) == list(jax_side["lang"].words.items())
+    assert port["tm"].tuples == jax_side["tm"].tuples
+    np.testing.assert_array_equal(port["tm"].log_probs, jax_side["tm"].log_probs)
+    np.testing.assert_array_equal(port["tm"].tid2pdf, jax_side["tm"].tid2pdf)
+    assert port["arpa"].ngrams == jax_side["arpa"].ngrams
+
+
+def test_native_library_matches_python_paths(graphs):
+    """The g++-built library (no binary is committed) against the port's
+    pure-Python compose / determinize / minimize / remove-eps-local: the
+    same states, arcs and labels, weights within 1e-6 (the library computes
+    in float32, Python in float64)."""
+    from voicebridge_tpu_torch.fst import native_bridge as nb
+    from voicebridge_tpu_torch.fst.compose import compose
+    from voicebridge_tpu_torch.fst.determinize import determinize_star
+    from voicebridge_tpu_torch.fst.epsilon import remove_eps_local
+    from voicebridge_tpu_torch.fst.minimize import minimize_encoded
+
+    lang, g = graphs[0]["lang"], graphs[0]["g"]
+    l_fst = lang.L_disambig
+    lg_py = compose(l_fst, g)
+    _assert_same_fst(nb.compose(l_fst, g), lg_py, 1e-6)
+    det_py = determinize_star(lg_py, use_log=True)
+    _assert_same_fst(nb.determinize_star(lg_py, True), det_py, 1e-6)
+    _assert_same_fst(nb.minimize_encoded(det_py), minimize_encoded(det_py), 1e-6)
+    _assert_same_fst(nb.remove_eps_local(det_py), remove_eps_local(det_py), 1e-6)
+    assert "voicebridge_tpu_torch/_build" in str(nb._build()).replace("\\", "/")
+
+
+def test_mle_update_is_identical():
+    port, jax_mod = _both("models.gmm")
+    rng = np.random.default_rng(0)
+    p, m, d = 7, 3, 5
+    args = (rng.standard_normal((p, m, d)).astype(np.float32),
+            np.abs(rng.standard_normal((p, m, d))).astype(np.float32) + 0.5,
+            np.full((p, m), 1.0 / m, np.float32))
+    occ = rng.uniform(0.0, 40.0, (p, m))
+    occ[2, 1] = 0.0
+    mean_acc = rng.standard_normal((p, m, d)) * occ[..., None]
+    var_acc = (rng.standard_normal((p, m, d)) ** 2 + 1.0) * occ[..., None]
+    ams = []
+    for mod in (port, jax_mod):
+        am = mod.AmDiagGmm(*[a.copy() for a in args])
+        am.mle_update(occ.copy(), mean_acc.copy(), var_acc.copy())
+        am.split_to_target(p * m + 4, occ)
+        ams.append(am)
+    for name in ("means_invvars", "inv_vars", "weights", "gconsts"):
+        np.testing.assert_array_equal(getattr(ams[0], name), getattr(ams[1], name))
+
+
+def test_scoring_and_mbr_are_identical():
+    port_score, jax_score = _both("steps.score")
+    port_mbr, jax_mbr = _both("steps.mbr")
+    refs = {"a": ["YES", "NO", "YES"], "b": ["NO"], "c": ["YES", "YES"]}
+    hyps_by = {(7, 0.0): {"a": ["YES", "YES"], "b": ["NO"], "c": ["YES", "NO", "YES"]},
+               (9, 0.5): {"a": ["YES", "NO", "YES"], "b": [], "c": ["YES", "YES"]}}
+    for hyps in hyps_by.values():
+        got, want = port_score.compute_wer_set(refs, hyps), jax_score.compute_wer_set(refs, hyps)
+        assert vars(got) == vars(want)
+    got, want = port_score.score_sweep(refs, hyps_by), jax_score.score_sweep(refs, hyps_by)
+    assert (got.best_lmwt, vars(got.best_wer)) == (want.best_lmwt, vars(want.best_wer))
+    nbest = [(["YES", "NO"], 0.5), (["YES", "YES"], 0.3), (["NO"], 0.2)]
+    assert port_mbr.mbr_decode(nbest) == jax_mbr.mbr_decode(nbest)
+
+
+@pytest.mark.parametrize("writer,reader", [("voicebridge_tpu_torch", "voicebridge_tpu"),
+                                           ("voicebridge_tpu", "voicebridge_tpu_torch")])
+def test_files_written_by_one_load_in_the_other(graphs, tmp_path, writer, reader):
+    src = graphs[0] if writer == "voicebridge_tpu_torch" else graphs[1]
+    rd = {n: importlib.import_module(f"{reader}.{n}")
+          for n in ("fst.core", "models.gmm", "models.topology", "models.tree",
+                    "models.transition", "data.lang", "lm.arpa")}
+    wr_gmm = importlib.import_module(writer + ".models.gmm")
+    rng = np.random.default_rng(1)
+    am = wr_gmm.AmDiagGmm(rng.standard_normal((4, 2, 3)).astype(np.float32),
+                          np.abs(rng.standard_normal((4, 2, 3))).astype(np.float32) + 0.5,
+                          np.full((4, 2), 0.5, np.float32))
+    am.save(tmp_path / "am.npz")
+    src["hclg"].save(tmp_path / "hclg.npz")
+    src["lang"].topo.save(tmp_path / "topo.json")
+    src["tree"].save(tmp_path / "tree.json")
+    src["tm"].save(tmp_path / "trans.json")
+    src["lang"].save(tmp_path / "lang")
+    src["arpa"].write(tmp_path / "lm.arpa")
+
+    am2 = rd["models.gmm"].AmDiagGmm.load(tmp_path / "am.npz")
+    assert type(am2) is not type(am)
+    np.testing.assert_array_equal(am2.means_invvars, am.means_invvars)
+    np.testing.assert_array_equal(am2.gconsts, am.gconsts)
+    hclg2 = rd["fst.core"].Fst.load(tmp_path / "hclg.npz")
+    for a, b in zip(hclg2.to_arrays(), src["hclg"].to_arrays()):
+        np.testing.assert_array_equal(a, b)
+    tm2 = rd["models.transition"].TransitionModel(
+        rd["models.topology"].HmmTopology.load(tmp_path / "topo.json"),
+        rd["models.tree"].load_tree(tmp_path / "tree.json"))
+    tm2.load_probs(tmp_path / "trans.json")
+    assert tm2.tuples == src["tm"].tuples
+    np.testing.assert_array_equal(tm2.tid2pdf, src["tm"].tid2pdf)
+    lang2 = rd["data.lang"].Lang.load(tmp_path / "lang")
+    assert list(lang2.words.items()) == list(src["lang"].words.items())
+    assert rd["lm.arpa"].ArpaModel.read(tmp_path / "lm.arpa").order == src["arpa"].order
+
+
+def test_convert_builds_the_ports_objects_from_arrays(graphs, tmp_path):
+    """The JAX package's objects, handed over as arrays and json objects."""
+    from voicebridge_tpu_torch.fst.core import Fst
+    from voicebridge_tpu_torch.models.gmm import AmDiagGmm
+    from voicebridge_tpu_torch.models.transition import TransitionModel
+
+    _, jax_mod = _both("models.gmm")
+    j = graphs[1]
+    rng = np.random.default_rng(2)
+    jam = jax_mod.AmDiagGmm(rng.standard_normal((4, 2, 3)).astype(np.float32),
+                            np.abs(rng.standard_normal((4, 2, 3))).astype(np.float32) + 0.5,
+                            np.full((4, 2), 0.5, np.float32))
+    am = convert.am_from_arrays(jam.means_invvars, jam.inv_vars, jam.weights)
+    assert type(am) is AmDiagGmm
+    np.testing.assert_array_equal(am.gconsts, jam.gconsts)
+    f = convert.fst_from_arrays(*j["hclg"].to_arrays(), j["hclg"].finals, j["hclg"].start)
+    assert type(f) is Fst
+    for a, b in zip(f.to_arrays(), j["hclg"].to_arrays()):
+        np.testing.assert_array_equal(a, b)
+    j["lang"].topo.save(tmp_path / "topo.json")
+    j["tree"].save(tmp_path / "tree.json")
+    j["tm"].save(tmp_path / "trans.json")
+    tm = convert.transition_model_from_json(
+        *[json.loads((tmp_path / n).read_text()) for n in ("topo.json", "tree.json",
+                                                            "trans.json")])
+    assert type(tm) is TransitionModel
+    assert tm.tuples == j["tm"].tuples
+    np.testing.assert_array_equal(tm.log_probs, j["tm"].log_probs)
+    np.testing.assert_array_equal(tm.tid2pdf, j["tm"].tid2pdf)

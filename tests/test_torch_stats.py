@@ -27,6 +27,11 @@ def assert_stats_close(got, want, what=""):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol, err_msg=what)
 
 
+def _port(am):
+    """The port's AmDiagGmm from the JAX package's arrays."""
+    return convert.am_from_arrays(am.means_invvars, am.inv_vars, am.weights)
+
+
 def _inputs(num_pdfs=17, max_mix=3, dim=9, n=501, seed=0, skew=False):
     rng = np.random.default_rng(seed)
     am = AmDiagGmm(rng.standard_normal((num_pdfs, max_mix, dim)).astype(np.float32),
@@ -52,8 +57,8 @@ def test_aligned_twofeats_matches_jax(skew):
                                              jnp.asarray(w))
     args = (torch.from_numpy(x_post), torch.from_numpy(x_acc), torch.from_numpy(pdfs), p,
             torch.from_numpy(w))
-    got = K.acc_gmm_stats_aligned_twofeats(K.pack_gmm(am, "cpu"), *args)
-    wrapped = K6.acc_stats(convert.kernel_params_from_am(am, "cpu"), *args[:3],
+    got = K.acc_gmm_stats_aligned_twofeats(K.pack_gmm(_port(am), "cpu"), *args)
+    wrapped = K6.acc_stats(convert.kernel_params_from_am(_port(am), "cpu"), *args[:3],
                            torch.from_numpy(w), p)
     for name, g, gw, ref in zip(("occ", "mean_acc", "var_acc", "ll"), got, wrapped, want):
         assert g.dtype == torch.float32 and gw.dtype == torch.float64
@@ -64,7 +69,7 @@ def test_aligned_twofeats_matches_jax(skew):
 def test_single_feature_and_all_pdf_oracle():
     am, x, _, pdfs, w = _inputs(num_pdfs=11, max_mix=4, dim=6, n=300, seed=1)
     p = am.num_pdfs
-    jp, tp = JK.pack_gmm(am), K.pack_gmm(am, "cpu")
+    jp, tp = JK.pack_gmm(am), K.pack_gmm(_port(am), "cpu")
     xt, pt, wt = torch.from_numpy(x), torch.from_numpy(pdfs), torch.from_numpy(w)
     want = JK.acc_gmm_stats(jp, jnp.asarray(x), jnp.asarray(pdfs), p, jnp.asarray(w))
     got = K.acc_gmm_stats(tp, xt, pt, p, wt)
@@ -87,13 +92,13 @@ def test_chunked_matches_jax(chunk):
     p = am.num_pdfs
     want = JK.acc_gmm_stats_twofeats_chunked(JK.pack_gmm(am), x_post, x_acc, pdfs, p, w,
                                              chunk=chunk or 1 << 18)
-    got = K.acc_gmm_stats_twofeats_chunked(K.pack_gmm(am, "cpu"), x_post, x_acc, pdfs, p, w,
+    got = K.acc_gmm_stats_twofeats_chunked(K.pack_gmm(_port(am), "cpu"), x_post, x_acc, pdfs, p, w,
                                            chunk=chunk)
     for name, g, ref in zip(("occ", "mean_acc", "var_acc"), got[:3], want[:3]):
         assert g.dtype == np.float32 and g.shape == ref.shape
         assert_stats_close(g, ref, name)
     assert abs(got[3] - want[3]) <= 1e-5 * abs(want[3])
-    single = K.acc_gmm_stats_chunked(K.pack_gmm(am, "cpu"), x_post, pdfs, p, None, chunk)
+    single = K.acc_gmm_stats_chunked(K.pack_gmm(_port(am), "cpu"), x_post, pdfs, p, None, chunk)
     want1 = JK.acc_gmm_stats_chunked(JK.pack_gmm(am), x_post, pdfs, p, None)
     for name, g, ref in zip(("occ", "mean_acc", "var_acc"), single[:3], want1[:3]):
         assert_stats_close(g, ref, name)

@@ -12,6 +12,8 @@ float32 softmaxes in another order) and variances within rtol 1e-3 (they are
 E[x^2] - mean^2, which cancels).  Resuming from the last checkpoint gives
 back the same model."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,10 @@ from voicebridge_tpu.steps.train_mono import train_mono as jax_train_mono
 from voicebridge_tpu.utils.checkpoint import TrainCheckpoint
 from voicebridge_tpu_torch.steps import align as A
 from voicebridge_tpu_torch.steps.train_mono import train_mono
+
+from voicebridge_tpu_torch import config as port_config
+from voicebridge_tpu_torch import convert
+from voicebridge_tpu_torch.data.lang import prepare_lang as port_prepare_lang
 
 from synth import LEXICON, SR, make_corpus
 
@@ -38,7 +44,14 @@ def corpus():
                               opts)
     lang = prepare_lang(LEXICON, ["SIL"], "SIL", LangOptions())
     transcripts = {u: [lang.words.id(w) for w in words] for u, (_, words) in train.items()}
-    return feats, transcripts, lang
+    # each package trains from its own lang (equal symbol tables and FSTs)
+    port_lang = port_prepare_lang(LEXICON, ["SIL"], "SIL", port_config.LangOptions())
+    assert list(port_lang.words.items()) == list(lang.words.items())
+    return feats, transcripts, lang, port_lang
+
+
+def _port_opts(opts):
+    return port_config.MonoTrainOptions(**vars(opts))
 
 
 def _assert_models_close(got, want):
@@ -55,12 +68,12 @@ def _assert_models_close(got, want):
 
 @pytest.mark.parametrize("iters", [0, 2])
 def test_train_mono_matches_jax(corpus, iters, tmp_path):
-    feats, transcripts, lang = corpus
+    feats, transcripts, lang, port_lang = corpus
     opts = MonoTrainOptions(num_iters=iters, totgauss=200, max_iter_inc=10,
                             realign_iters=(1, 2))
     want = jax_train_mono(feats, transcripts, lang, opts, out_dir=tmp_path / "jax",
                           checkpoint_every=1)
-    got = train_mono(feats, transcripts, lang, opts, out_dir=tmp_path / "port",
+    got = train_mono(feats, transcripts, port_lang, _port_opts(opts), out_dir=tmp_path / "port",
                      checkpoint_every=1, device="cpu")
     np.testing.assert_array_equal((got.am.weights > 0).sum(axis=1),
                                   (want.am.weights > 0).sum(axis=1))
@@ -72,21 +85,30 @@ def test_train_mono_matches_jax(corpus, iters, tmp_path):
         np.testing.assert_array_equal(ours["tids"], theirs["tids"])
         np.testing.assert_array_equal(ours["weights"], theirs["weights"])
         # a second call resumes after the last checkpoint: the same model
-        again = train_mono(feats, transcripts, lang, opts, out_dir=tmp_path / "port",
+        again = train_mono(feats, transcripts, port_lang, _port_opts(opts),
+                           out_dir=tmp_path / "port",
                            checkpoint_every=1, device="cpu")
         np.testing.assert_array_equal(again.am.means_invvars, got.am.means_invvars)
     assert (tmp_path / "port" / "final.am.npz").exists()
 
 
-def test_align_utterances_matches_jax(corpus):
+def test_align_utterances_matches_jax(corpus, tmp_path):
     from voicebridge_tpu.steps.align import align_utterances as jax_align_utterances
 
-    feats, transcripts, lang = corpus
+    feats, transcripts, lang, port_lang = corpus
     opts = MonoTrainOptions(num_iters=1, totgauss=100, max_iter_inc=1, realign_iters=(1,))
     model = jax_train_mono(feats, transcripts, lang, opts)
     want = jax_align_utterances(model.am, model.trans_model, lang, feats, transcripts,
                                 acoustic_scale=0.1)
-    got = A.align_utterances(model.am, model.trans_model, lang, feats, transcripts,
+    # the JAX-trained model goes to the port as arrays and json objects
+    am = convert.am_from_arrays(model.am.means_invvars, model.am.inv_vars, model.am.weights)
+    model.lang.topo.save(tmp_path / "topo.json")
+    model.tree.save(tmp_path / "tree.json")
+    model.trans_model.save(tmp_path / "trans.json")
+    tm = convert.transition_model_from_json(
+        *[json.loads((tmp_path / n).read_text()) for n in ("topo.json", "tree.json",
+                                                            "trans.json")])
+    got = A.align_utterances(am, tm, port_lang, feats, transcripts,
                              acoustic_scale=0.1, device="cpu")
     assert got == want
     assert all(len(got[u]) == feats[u].shape[0] for u in feats)

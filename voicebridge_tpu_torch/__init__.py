@@ -5,12 +5,12 @@ wave -> MFCC (kernel ``csrc/mfcc.cu``) -> per-speaker CMVN -> deltas ->
 diagonal-GMM log-likelihoods (``csrc/gmm_loglik.cu``) -> exact Viterbi best
 path over an HCLG graph (one ``csrc/viterbi_step.cu`` launch per frame) ->
 words.  Every kernel has a plain PyTorch version beside it; a CPU tensor goes
-to the plain version, a CUDA tensor to the kernel.  The numpy host modules of
-``voicebridge_tpu`` (config, models, fst, lm, data, scoring) are shared by
-import; the package never imports jax.
+to the plain version, a CUDA tensor to the kernel.  The package stands alone:
+it keeps its own numpy host modules (config, utils, models, fst, lm, data,
+scoring; copies of the JAX package's under the same relative names) and
+imports neither jax nor ``voicebridge_tpu``.
 """
 
-from voicebridge_tpu.config import (DecodeOptions, DeltaOptions, FrameOptions,
-                                    MelOptions, MfccOptions)
+from .config import DecodeOptions, DeltaOptions, FrameOptions, MelOptions, MfccOptions
 
 __all__ = ["DecodeOptions", "DeltaOptions", "FrameOptions", "MelOptions", "MfccOptions"]

@@ -23,12 +23,13 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("mfcc.cu", "gmm_loglik.cu", "viterbi_step.cu", "align_band.cu",
-           "gmm_stats.cu", "lattice_fb.cu")
+           "gmm_stats.cu", "lattice_fb.cu", "viterbi_nbest.cu", "viterbi_generic.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 launches = {"mfcc_frames": 0, "gmm_loglikes": 0, "viterbi_step": 0,
-            "align_forward": 0, "align_backtrace": 0, "gmm_stats": 0, "lattice_fb": 0}
+            "align_forward": 0, "align_backtrace": 0, "gmm_stats": 0, "lattice_fb": 0,
+            "viterbi_nbest": 0, "generic_forward": 0, "generic_backtrace": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -56,6 +57,17 @@ _SIGNATURES = {
     # row_w, row_pdf, row_dst, num_frames, t, acwt, s1, b, d, stream
     "vbt_lattice_fb": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
                        _I, _P),
+    # alpha, alpha_out, alpha_end, bp_arc, bp_slot, best, ll_t, ll_stride,
+    # in_start, src, pdf, score, arc, num_frames, t, acwt, beam, b, s, k, stream
+    "vbt_viterbi_nbest": (_P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _F,
+                          _F, _I, _I, _I, _P),
+    # arc_src, arc_pdf, arc_score, in_start, in_arc, alpha0, ll, num_frames,
+    # acwt, beam, b, s, a, t, p, alpha_end, bps, stream
+    "vbt_generic_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P,
+                            _P, _P),
+    # arc_src, alpha_end, final_score, bps, num_frames, b, s, a, t, arcs, ok,
+    # end_state, score, stream
+    "vbt_generic_backtrace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -1,10 +1,16 @@
 """Parameter conversion into the port's layouts.
 
 The JAX package's parameters arrive as numpy arrays (``np.asarray`` of its
-device arrays), so both packages can compute from identical numbers:
+device arrays, or the arrays of its host objects) or as the npz/json files
+both packages write, so both packages can compute from identical numbers and
+this module imports nothing of the JAX package:
 
-* ``AmDiagGmm`` -> the plain version's ``GmmParams`` and the GMM kernel's
-  packed ``w [P, M, 2D+1]`` (rows ``[miv, -0.5*iv, gconst]``);
+* GMM arrays ``means_invvars, inv_vars, weights`` -> the port's ``AmDiagGmm``
+  (``am_from_arrays``), and from there the plain version's ``GmmParams`` and
+  the GMM kernel's packed ``w [P, M, 2D+1]`` (rows ``[miv, -0.5*iv, gconst]``);
+* flat arc arrays -> the port's ``Fst`` (``fst_from_arrays``);
+* the json objects of a topology, a tree and a transition model -> the
+  port's ``HmmTopology``, tree and ``TransitionModel`` (``*_from_json``);
 * the JAX ``GmmParams`` (``w_matrix [2D, P*M]``, ``gconsts [P, M]``) and the
   Pallas ``w3 [128, M, P_pad]`` -> the same two;
 * a JAX ``EmitPlan`` -> the port's ``EmitPlan`` (then
@@ -18,11 +24,70 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from voicebridge_tpu.models.gmm import AmDiagGmm
-
+from .fst.core import Fst
+from .models.gmm import AmDiagGmm
+from .models.topology import HmmTopology, TopologyState
+from .models.transition import TransitionModel
+from .models.tree import ContextTree, MonophoneTree
 from .ops.align_band import BandPlan
 from .ops.decode_core import EmitPlan
 from .ops.gmm_kernels import GmmParams, pack_gmm
+
+
+def am_from_arrays(means_invvars: np.ndarray, inv_vars: np.ndarray,
+                   weights: np.ndarray) -> AmDiagGmm:
+    """The three arrays of a diagonal GMM (``[P, M, D]``, ``[P, M, D]``,
+    ``[P, M]``; what ``am.npz`` holds) -> the port's ``AmDiagGmm``."""
+    return AmDiagGmm(np.array(means_invvars, np.float32), np.array(inv_vars, np.float32),
+                     np.array(weights, np.float32))
+
+
+def fst_from_arrays(src, ilabel, olabel, weight, nextstate, finals, start: int) -> Fst:
+    """Flat arc arrays (``Fst.to_arrays`` order), per-state final weights and
+    the start state (what ``Fst.save`` writes) -> the port's ``Fst``."""
+    f = Fst()
+    f.add_states(len(finals))
+    f.finals = [float(x) for x in finals]
+    f.start = int(start)
+    for s, i, o, w, ns in zip(src, ilabel, olabel, weight, nextstate):
+        f.add_arc(int(s), int(i), int(o), float(w), int(ns))
+    return f
+
+
+def topology_from_json(obj: dict) -> HmmTopology:
+    """The object ``HmmTopology.save`` writes -> the port's ``HmmTopology``."""
+    return HmmTopology({
+        int(p): tuple(TopologyState(s["pdf_class"],
+                                    tuple((n, pr) for n, pr in s["transitions"]))
+                      for s in states)
+        for p, states in obj.items()})
+
+
+def tree_from_json(obj: dict):
+    """The object a tree's ``save`` writes -> ``MonophoneTree`` or
+    ``ContextTree`` of the port."""
+    if obj["type"] == "mono":
+        t = MonophoneTree.__new__(MonophoneTree)
+        t.context_width = 1
+        t.central_position = 0
+        t._map = {(p, c): v for p, c, v in obj["map"]}
+        t.num_pdfs = obj["num_pdfs"]
+        return t
+    nodes = [{"pdf": n["pdf"]} if "pdf" in n else
+             {"key": n["key"], "values": set(n["values"]), "yes": n["yes"], "no": n["no"]}
+             for n in obj["nodes"]]
+    return ContextTree(obj["N"], obj["P"], nodes, obj["num_pdfs"])
+
+
+def transition_model_from_json(topo: dict, tree: dict, trans: dict) -> TransitionModel:
+    """The three json objects of a transition model (topology, tree, and the
+    ``tuples``/``log_probs`` that ``TransitionModel.save`` writes) -> the
+    port's ``TransitionModel``."""
+    tm = TransitionModel(topology_from_json(topo), tree_from_json(tree))
+    if [tuple(t) for t in trans["tuples"]] != tm.tuples:
+        raise ValueError("transition tuples do not match the topology and tree")
+    tm.log_probs = np.asarray(trans["log_probs"], dtype=np.float32)
+    return tm
 
 
 def kernel_params_from_twin(params: GmmParams) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Explicit device handling: every entry point of the port takes a device,
-and nothing falls back from CUDA to the CPU."""
+"""Device handling: every entry point of the port runs on the card unless
+the caller asks for the CPU, and nothing falls back from CUDA to the CPU."""
 
 from __future__ import annotations
 
@@ -9,12 +9,10 @@ import torch
 
 
 def resolve_device(device) -> torch.device:
-    """Validate an explicit device (``"cpu"``, ``"cuda"``, ``"cuda:N"`` or a
-    ``torch.device``).  A CUDA device must exist; an index-less one becomes
-    the current CUDA device."""
-    if device is None:
-        raise ValueError("an explicit device is required")
-    dev = torch.device(device)
+    """Validate a device (``None``, ``"cpu"``, ``"cuda"``, ``"cuda:N"`` or a
+    ``torch.device``).  ``None`` means the card, ``cuda:0``.  A CUDA device
+    must exist; an index-less one becomes the current CUDA device."""
+    dev = torch.device("cuda:0" if device is None else device)
     if dev.type == "cpu":
         return dev
     if dev.type != "cuda":

@@ -163,7 +163,7 @@ def build_lattices_sparse(graph: DenseGraph, row_arc: np.ndarray,
     pass no handler (external API users) get a log.warning instead of a
     silent clip; the production Decoder passes a collector and refetches
     the whole chunk dense, so its lattices are never clipped."""
-    from voicebridge_tpu.utils.logging import get_logger
+    from ..utils.logging import get_logger
 
     if log_warn is None:
         log_warn = (lambda i, t0, c, k: get_logger().warning(
@@ -531,7 +531,7 @@ def lattice_mbr(lat: Lattice, n: int = 20, lm_scale: float = 1.0,
     TRUE-determinized lattice's N best word sequences (``lattice-mbr-decode``
     / sausages role; ``lat/sausages.h:76`` — the reference also determinizes
     before MBR, ``lattice-mbr-decode.cc``).  Returns (words, confidences)."""
-    from voicebridge_tpu.steps.mbr import mbr_decode
+    from ..steps.mbr import mbr_decode
     from .determinize import determinize_lattice_pruned_safe
 
     clat = determinize_lattice_pruned_safe(

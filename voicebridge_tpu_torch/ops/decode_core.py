@@ -34,7 +34,7 @@ from .graph import NEG_INF, DenseGraph
 
 __all__ = [
     "EmitPlan", "build_emit_plan", "plan_to_device", "viterbi_step",
-    "viterbi_scan", "decode_best_path", "reduce_rows",
+    "viterbi_scan", "decode_best_path", "reduce_rows", "prune",
 ]
 
 
@@ -325,13 +325,27 @@ def viterbi_step(alpha: torch.Tensor, alpha_end: torch.Tensor, ll_t: torch.Tenso
     return out, alpha_end
 
 
+def prune(alpha: torch.Tensor, beam: float, max_active: int = 0, dim: int = 1) -> torch.Tensor:
+    """Keep the states (along ``dim``) within ``beam`` of each utterance's
+    best, and at most ``max_active`` of them; the rest become NEG_INF."""
+    best = alpha.amax(dim=dim, keepdim=True)
+    out = torch.where(alpha >= best - beam, alpha, NEG_INF)
+    if max_active and max_active < out.shape[dim]:
+        kth = torch.topk(out, max_active, dim=dim).values.narrow(dim, max_active - 1, 1)
+        out = torch.where(out >= kth, out, NEG_INF)
+    return out
+
+
 def viterbi_scan(dev: EmitPlanDev, alpha, alpha_end, ll: torch.Tensor,
                  num_frames: torch.Tensor, t0: int, acwt: float, rspec: tuple,
-                 packed: bool, with_bp: bool = True):
+                 packed: bool, with_bp: bool = True, beam: Optional[float] = None,
+                 max_active: int = 0):
     """Forward Viterbi over a block of frames, resuming from
     (alpha, alpha_end) at absolute frame ``t0``.
 
-    ll [W, P, B] frame-major, batch-minor; num_frames [B] int32.  Returns
+    ll [W, P, B] frame-major, batch-minor; num_frames [B] int32.  With a
+    ``beam`` every frame's scores are pruned (``prune``) after the
+    relaxation; without one the search is exact.  Returns
     ((alpha, alpha_end), bps [W, S+1, B] or None when ``with_bp`` is
     False)."""
     w = ll.shape[0]
@@ -341,6 +355,11 @@ def viterbi_scan(dev: EmitPlanDev, alpha, alpha_end, ll: torch.Tensor,
         alpha, alpha_end = viterbi_step(alpha, alpha_end, ll[i], dev, num_frames,
                                         t0 + i, acwt, rspec, packed,
                                         None if bps is None else bps[i])
+        if beam is not None:
+            # lanes past their end kept their (already pruned) scores
+            alpha = torch.where((t0 + i < num_frames)[None, :],
+                                prune(alpha, beam, max_active, dim=0), alpha)
+            alpha_end = torch.where((t0 + i + 1 == num_frames)[None, :], alpha, alpha_end)
     return (alpha, alpha_end), bps
 
 
@@ -382,7 +401,8 @@ def select_end_state(alpha_end: torch.Tensor, final_score: torch.Tensor):
 
 def decode_best_path(graph: DenseGraph, plan: EmitPlan, dev: EmitPlanDev,
                      loglikes: torch.Tensor, num_frames, acoustic_scale: float,
-                     bp_bytes_budget: Optional[int] = None) -> list[dict]:
+                     bp_bytes_budget: Optional[int] = None, window: Optional[int] = None,
+                     beam: Optional[float] = None, max_active: int = 0) -> list[dict]:
     """Full 1-best decode: forward + device backtrace + host assembly.
 
     loglikes [B, T, P] on the decode device; returns
@@ -395,7 +415,9 @@ def decode_best_path(graph: DenseGraph, plan: EmitPlan, dev: EmitPlanDev,
     the blocks in reverse, recomputing each block's forward with
     backpointers from its snapshot and backtracing it at once, so at most one
     block's table is resident.  Blocks carry ``alpha`` forward and the
-    backtrace walks them in reverse."""
+    backtrace walks them in reverse.  ``window`` forces that mode with blocks
+    of ``window`` frames; ``beam``/``max_active`` prune every frame's scores
+    (the search is exact without them)."""
     device = loglikes.device
     b, t_total, p = loglikes.shape
     if plan.num_rows and int(plan.row_pdf.max()) >= p:
@@ -416,7 +438,9 @@ def decode_best_path(graph: DenseGraph, plan: EmitPlan, dev: EmitPlanDev,
         bp_bytes_budget = free_bytes(device) // 2
     recompute = t_total * s1 * b * bp_width > bp_bytes_budget
     step_t = max(t_total, 1)
-    if recompute:
+    if window is not None:
+        recompute, step_t = True, max(1, int(window))
+    elif recompute:
         # a block length that keeps one resident [W, S+1, B] table in budget
         step_t = max(16, min(t_total, bp_bytes_budget // (s1 * b * bp_width)))
     ll = loglikes.permute(1, 2, 0).contiguous()  # [T, P, B]: coalesced per frame
@@ -429,11 +453,11 @@ def decode_best_path(graph: DenseGraph, plan: EmitPlan, dev: EmitPlanDev,
             chunks.append((lo, alpha))
             (alpha, alpha_end), _ = viterbi_scan(
                 dev, alpha, alpha_end, ll[lo:lo + step_t], nf, lo, acwt, rspec,
-                plan.packed, with_bp=False)
+                plan.packed, with_bp=False, beam=beam, max_active=max_active)
         else:
             (alpha, alpha_end), bps = viterbi_scan(
                 dev, alpha, alpha_end, ll[lo:lo + step_t], nf, lo, acwt, rspec,
-                plan.packed)
+                plan.packed, beam=beam, max_active=max_active)
             chunks.append((lo, bps))
 
     final_plan = torch.from_numpy(graph.final_score[plan.sperm[:-1]]).to(device)
@@ -449,7 +473,8 @@ def decode_best_path(graph: DenseGraph, plan: EmitPlan, dev: EmitPlanDev,
     for lo, item in reversed(chunks):
         if recompute:
             _, bps = viterbi_scan(dev, item, torch.full_like(item, NEG_INF),
-                                  ll[lo:lo + step_t], nf, lo, acwt, rspec, plan.packed)
+                                  ll[lo:lo + step_t], nf, lo, acwt, rspec, plan.packed,
+                                  beam=beam, max_active=max_active)
         else:
             bps = item
         codes_c, state = backtrace_scan(dev.row_start, dev.row_src, plan.d, bps,

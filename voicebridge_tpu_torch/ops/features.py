@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from voicebridge_tpu.config import DeltaOptions, FrameOptions, MfccOptions
+from ..config import DeltaOptions, FrameOptions, MfccOptions
 
 from ..device import resolve_device
 from . import mfcc_kernel
@@ -245,7 +245,7 @@ class MfccExtractor:
     """MFCC (or, with ``fbank=True``, log-mel fbank) features of padded wave
     batches on one device, through the K1 kernel wrapper."""
 
-    def __init__(self, opts: MfccOptions = MfccOptions(), *, device,
+    def __init__(self, opts: MfccOptions = MfccOptions(), *, device=None,
                  fbank: bool = False):
         self.opts = opts
         self.device = resolve_device(device)

@@ -23,7 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from voicebridge_tpu.models.gmm import AmDiagGmm
+from ..models.gmm import AmDiagGmm
 
 from ..device import free_bytes
 

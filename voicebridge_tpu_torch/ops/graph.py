@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from voicebridge_tpu.fst.core import EPS, Fst, ZERO
+from ..fst.core import EPS, Fst, ZERO
 
 NEG_INF = -1.0e30
 

@@ -1,18 +1,30 @@
-"""Generic per-utterance Viterbi alignment (plain PyTorch).
+"""The frame-synchronous searches of ``ops/viterbi.py``: generic per-utterance
+alignment, N-best decoding and the windowed best-path decode.
 
-Port of the training-alignment half of ``voicebridge_tpu/ops/viterbi.py``,
-used only when a set of training graphs does not fit the banded form of
-``ops/align_band.py`` (band too wide, or pdfs not dst-pure).  Each frame
-gathers the source scores of every arc, adds the graph and acoustic scores,
-and takes the per-destination max through a fixed-depth gather reduction
-tree (``ReductionPlan``), with optional beam pruning.
+Port of ``voicebridge_tpu/ops/viterbi.py``.  The JAX package takes the
+per-destination max (or top K) through a fixed-depth gather reduction tree,
+because the TPU wants static gathers.  Here the arcs are grouped by
+destination instead (CSR from a stable sort by ``arc_dst``) and a thread walks
+a state's in-arcs; the results are the same, ties included: the tree's
+``argmax``/``top_k`` take the lowest position in the destination-sorted arc
+list, which is the lowest arc id among equals.
 
-The host half (``pad_graphs``, ``ReductionPlan``, ``build_reduction_plan``,
-``batched_plan_spec``, ``build_batched_plans``, ``assemble_batched_results``)
-is the JAX package's numpy code, copied so both packages build identical
-arrays.  The device half (``viterbi_forward_batched``,
-``backtrace_batched_device``) is plain torch on any device; it has no kernel
-yet.  Scores are max-plus (higher is better).
+* **Generic aligner** (``viterbi_forward_batched``,
+  ``backtrace_batched_device``; ``csrc/viterbi_generic.cu``): per-utterance
+  graphs ``arc_* [B, A]``, used when a set of training graphs does not fit
+  the banded form of ``ops/align_band.py``.  One CTA per utterance runs all
+  frames with alpha in shared memory; the backtrace is one launch.
+* **N-best** (``viterbi_nbest_forward``, K7, ``csrc/viterbi_nbest.cu``): every
+  state of a shared graph carries its K best partial-path scores with (arc,
+  slot) provenance; one launch per frame.  ``backtrace_nbest`` is the JAX
+  package's numpy code, ``backtrace_nbest_device`` walks the same
+  backpointers where they lie.
+* **Windowed decode** (``viterbi_decode_windowed``): alpha snapshots per
+  window, then each window re-run with backpointers in reverse, over the emit
+  plan and K3 (``ops/decode_core.py``).
+
+Every wrapper sends a CPU tensor to the plain version beside it and a CUDA
+tensor to its kernel.  Scores are max-plus (higher is better).
 """
 
 from __future__ import annotations
@@ -22,22 +34,24 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import _build
+from ..device import stream_handle
+from . import decode_core as DC
 from .graph import NEG_INF, DenseGraph, compile_dense_graph
 
 __all__ = ["NEG_INF", "DenseGraph", "compile_dense_graph", "pad_graphs",
-           "ReductionPlan", "build_reduction_plan", "batched_plan_spec",
-           "build_batched_plans", "viterbi_forward_batched",
-           "backtrace_batched_device", "assemble_batched_results"]
+           "viterbi_forward_batched", "backtrace_batched_device",
+           "assemble_batched_results", "NbestPlan", "build_nbest_plan", "nbest_step",
+           "viterbi_nbest_forward", "backtrace_nbest", "backtrace_nbest_device",
+           "viterbi_decode_windowed", "NBEST_MAX"]
+
+NBEST_MAX = 16  # K7 keeps a state's list in registers
 
 
 def pad_graphs(graphs: list[DenseGraph], pad_states: Optional[int] = None,
-               pad_arcs: Optional[int] = None, plans: list | None = None,
-               plan_depth: int | None = None,
-               plan_rows: list[int] | None = None):
+               pad_arcs: Optional[int] = None) -> dict:
     """Stack per-utterance graphs into padded batch arrays.  Padding arcs
-    point from/to a dead padding state with NEG_INF score.  ``plans`` (+
-    optional ``plan_depth``/``plan_rows`` global targets from
-    :func:`batched_plan_spec`) reuse precomputed reduction plans."""
+    point from/to a dead padding state with NEG_INF score."""
     s_max = pad_states or max(g.num_states for g in graphs)
     a_max = pad_arcs or max(g.num_arcs for g in graphs)
     s_pad = s_max + 1  # last state = dead state
@@ -49,217 +63,182 @@ def pad_graphs(graphs: list[DenseGraph], pad_states: Optional[int] = None,
             out[i, : g.num_arcs] = getattr(g, field)
         return out
 
-    arc_src = pad_arc("arc_src", s_max, np.int32)
-    arc_dst = pad_arc("arc_dst", s_max, np.int32)
-    arc_tid = pad_arc("arc_tid", 0, np.int32)
-    arc_pdf = pad_arc("arc_pdf", 0, np.int32)
-    arc_score = pad_arc("arc_score", NEG_INF, np.float32)
-    arc_oseq = pad_arc("arc_oseq", 0, np.int32)
-
     def pad_state(field, fill, dtype):
         out = np.full((b, s_pad), fill, dtype=dtype)
         for i, g in enumerate(graphs):
             out[i, : g.num_states] = getattr(g, field)
         return out
 
-    alpha0 = pad_state("alpha0", NEG_INF, np.float32)
-    final_score = pad_state("final_score", NEG_INF, np.float32)
-    levels = build_batched_plans([g.arc_dst for g in graphs],
-                                 [g.num_arcs for g in graphs], s_pad,
-                                 plans=plans, depth=plan_depth,
-                                 rows_per_level=plan_rows)
     return dict(
-        arc_src=arc_src, arc_dst=arc_dst, arc_tid=arc_tid, arc_pdf=arc_pdf,
-        arc_score=arc_score, arc_oseq=arc_oseq, alpha0=alpha0,
-        final_score=final_score, num_states=s_pad, levels=levels,
+        arc_src=pad_arc("arc_src", s_max, np.int32),
+        arc_dst=pad_arc("arc_dst", s_max, np.int32),
+        arc_tid=pad_arc("arc_tid", 0, np.int32),
+        arc_pdf=pad_arc("arc_pdf", 0, np.int32),
+        arc_score=pad_arc("arc_score", NEG_INF, np.float32),
+        arc_oseq=pad_arc("arc_oseq", 0, np.int32),
+        alpha0=pad_state("alpha0", NEG_INF, np.float32),
+        final_score=pad_state("final_score", NEG_INF, np.float32),
+        num_states=s_pad,
     )
 
 
-class ReductionPlan(NamedTuple):
-    """Host-built plan for per-destination max over arc scores.
-
-    ``levels[0]`` indexes arcs; each subsequent level indexes the previous
-    level's row outputs; the last level has exactly ``num_states`` rows (row s
-    = state s).  Entries are -1 where padded.
-    """
-
-    levels: tuple  # tuple[np.ndarray [R_i, K] int32]
-    num_states: int
+def _check(name: str, x: torch.Tensor, dtype: torch.dtype, device, shape=None) -> None:
+    if x.device != device or x.dtype != dtype or not x.is_contiguous():
+        raise ValueError(f"{name}: need contiguous {dtype} on {device}, "
+                         f"got {x.dtype} on {x.device}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(x.shape)}")
 
 
-def build_reduction_plan(arc_dst: np.ndarray, num_states: int, k: int = 16) -> ReductionPlan:
-    order = np.argsort(arc_dst, kind="stable").astype(np.int32)
-    groups = np.asarray(arc_dst, np.int32)[order]  # sorted dst per element
-    elems = order  # element ids at current level = arc indices
-    levels = []
-    while True:
-        n = len(elems)
-        if n == 0:
-            levels.append(np.full((num_states, k), -1, np.int32))
-            return ReductionPlan(tuple(levels), num_states)
-        # runs of equal group
-        boundaries = np.flatnonzero(np.diff(groups)) + 1
-        run_starts = np.concatenate([[0], boundaries]).astype(np.int64)
-        run_ends = np.concatenate([boundaries, [n]]).astype(np.int64)
-        run_lens = run_ends - run_starts
-        chunks_per_run = -(-run_lens // k)
-        r = int(chunks_per_run.sum())
-        first_chunk = np.concatenate([[0], np.cumsum(chunks_per_run[:-1])])
-        chunk_run = np.repeat(np.arange(len(run_starts)), chunks_per_run)
-        chunk_rank = np.arange(r) - first_chunk[chunk_run]
-        chunk_start = run_starts[chunk_run] + k * chunk_rank
-        pos = chunk_start[:, None] + np.arange(k)[None, :]
-        valid = pos < run_ends[chunk_run][:, None]
-        idx = np.where(valid, elems[np.minimum(pos, n - 1)], -1).astype(np.int32)
-        row_groups = groups[run_starts][chunk_run]
-        if int(chunks_per_run.max()) <= 1:
-            final = np.full((num_states, k), -1, np.int32)
-            final[row_groups] = idx
-            levels.append(final)
-            return ReductionPlan(tuple(levels), num_states)
-        levels.append(idx)
-        elems = np.arange(r, dtype=np.int32)
-        groups = row_groups.astype(np.int32)
+# ---------------------------------------------------------------------------
+# Generic aligner (per-utterance graphs)
+# ---------------------------------------------------------------------------
 
 
-def _aligned_levels(plan_levels: tuple, num_arcs: int, depth: int, k: int):
-    """Pad a per-graph plan to ``depth`` levels by inserting identity
-    passthrough levels before the final state-level."""
-    levels = list(plan_levels)
-    while len(levels) < depth:
-        dom = levels[-2].shape[0] if len(levels) >= 2 else num_arcs
-        ident = np.full((dom, k), -1, np.int32)
-        ident[:, 0] = np.arange(dom, dtype=np.int32)
-        levels.insert(len(levels) - 1, ident)
-    return levels
+def viterbi_forward_batched_plain(arc_src, arc_dst, arc_pdf, arc_score, alpha0, loglikes,
+                                  num_frames, acwt: float, beam: float, max_active: int = 0):
+    """Plain version of the generic aligner's forward pass (tensors on one
+    device): per frame a scatter-max of the arc scores by destination, the
+    winner being the lowest arc id among a state's maximal arcs."""
+    b, t_total, _ = loglikes.shape
+    a = arc_src.shape[1]
+    arc_ids = torch.arange(a, device=loglikes.device).expand(b, a)
+    alpha = alpha0
+    alpha_end = torch.where((num_frames == 0)[:, None], alpha, torch.full_like(alpha, NEG_INF))
+    bps = torch.empty((t_total,) + tuple(alpha.shape), dtype=torch.int32,
+                      device=loglikes.device)
+    for t in range(t_total):
+        active = (t < num_frames)[:, None]
+        am = torch.gather(loglikes[:, t], 1, arc_pdf) * acwt
+        score = torch.gather(alpha, 1, arc_src) + arc_score + am
+        new_alpha = torch.full_like(alpha, NEG_INF).scatter_reduce_(
+            1, arc_dst, score, reduce="amax", include_self=True)
+        wins = score == torch.gather(new_alpha, 1, arc_dst)
+        winner = torch.full(alpha.shape, a, dtype=torch.int64, device=alpha.device)
+        winner.scatter_reduce_(1, arc_dst, torch.where(wins, arc_ids, a), reduce="amin",
+                               include_self=True)
+        winner = torch.where((new_alpha > NEG_INF / 2) & (winner < a), winner, -1)
+        bps[t] = torch.where(active, winner, -1).to(torch.int32)
+        new_alpha = DC.prune(new_alpha, beam, max_active)
+        alpha = torch.where(active, new_alpha, alpha)
+        alpha_end = torch.where((t + 1 == num_frames)[:, None], alpha, alpha_end)
+    return alpha_end, bps
 
 
-def batched_plan_spec(plans: list, num_arcs_each: list[int], k: int = 16):
-    """Global (depth, rows-per-level) targets over a set of per-graph plans,
-    so that any subset stacked with these targets shares one padded shape."""
-    depth = max(len(p.levels) for p in plans)
-    rows = [0] * depth
-    for p, na in zip(plans, num_arcs_each):
-        lv = _aligned_levels(p.levels, na, depth, k)
-        for d in range(depth):
-            rows[d] = max(rows[d], lv[d].shape[0])
-    return depth, rows
-
-
-def build_batched_plans(graphs_arc_dst: list[np.ndarray], num_arcs_each: list[int],
-                        num_states: int, k: int = 16, plans: list | None = None,
-                        depth: int | None = None,
-                        rows_per_level: list[int] | None = None) -> tuple:
-    """Per-graph reduction plans padded to a common (depth, rows) shape and
-    stacked on the batch axis: tuple of [B, R_i, K] int32 arrays (graphs with
-    shallower trees get identity passthrough levels)."""
-    if plans is None:
-        plans = [build_reduction_plan(np.asarray(dst[:na]), num_states, k)
-                 for dst, na in zip(graphs_arc_dst, num_arcs_each)]
-    depth = depth or max(len(p.levels) for p in plans)
-    fixed = [_aligned_levels(p.levels, na, depth, k)
-             for p, na in zip(plans, num_arcs_each)]
-    out = []
-    for d in range(depth):
-        r_max = max(f[d].shape[0] for f in fixed)
-        if rows_per_level is not None:
-            r_max = max(r_max, rows_per_level[d])
-        stack = np.full((len(fixed), r_max, k), -1, np.int32)
-        for i, f in enumerate(fixed):
-            stack[i, : f[d].shape[0]] = f[d]
-        out.append(stack)
-    return tuple(out)
-
-
-def _tree_reduce_max(values: torch.Tensor, levels: list[torch.Tensor]):
-    """values [B, A] -> (state max [B, S], winner arc [B, S], -1 where no
-    finite candidate); ``levels`` [B, R_i, K] index tensors."""
-    b = values.shape[0]
-    v, widx = values, None
-    for idx in levels:
-        r, k = idx.shape[1], idx.shape[2]
-        safe = idx.clamp(min=0).long()
-        g = torch.gather(v, 1, safe.view(b, r * k)).view(b, r, k)
-        g = torch.where(idx >= 0, g, NEG_INF)
-        arg = torch.argmax(g, dim=2, keepdim=True)  # first maximal slot
-        v = torch.gather(g, 2, arg)[..., 0]
-        chosen = torch.gather(idx, 2, arg)[..., 0].long()
-        if widx is None:
-            widx = chosen  # arc ids
-        else:
-            widx = torch.where(chosen >= 0, torch.gather(widx, 1, chosen.clamp(min=0)), -1)
-        widx = torch.where(v > NEG_INF / 2, widx, -1)
-    return v, widx
-
-
-def _prune(new_alpha: torch.Tensor, beam: float, max_active: int) -> torch.Tensor:
-    """Keep states within ``beam`` of each utterance's best, and at most
-    ``max_active`` of them."""
-    best = new_alpha.amax(dim=1, keepdim=True)
-    out = torch.where(new_alpha >= best - beam, new_alpha, NEG_INF)
-    if max_active and max_active < out.shape[1]:
-        kth = torch.topk(out, max_active, dim=1).values[:, -1:]
-        out = torch.where(out >= kth, out, NEG_INF)
-    return out
-
-
-def viterbi_forward_batched(arc_src, levels, arc_pdf, arc_score, alpha0, loglikes,
+def viterbi_forward_batched(arc_src, arc_dst, arc_pdf, arc_score, alpha0, loglikes,
                             num_frames, acoustic_scale: float, beam: float,
                             num_states: int, max_active: int = 0):
     """Per-utterance graphs: arc_* [B, A], alpha0 [B, S], loglikes [B, T, P]
-    (a tensor; the other operands may be arrays and go to its device),
-    ``levels`` from :func:`build_batched_plans`.  Returns (alpha_end [B, S],
-    bps [T, B, S] int64 per-utterance arc ids, -1 where no arc won)."""
+    (a tensor; the other operands may be arrays and go to its device).
+    Returns (alpha_end [B, S] f32, bps [T, B, S] int32 per-utterance arc ids,
+    -1 where no arc won and at frames past an utterance's end).
+
+    On CUDA the forward pass is one launch of ``generic_forward``: the arcs
+    are grouped by destination here (a stable sort per utterance) and the
+    kernel runs all frames.  ``max_active`` is supported by the plain version
+    only; no caller of the aligner sets it."""
     dev = loglikes.device
 
-    def tensor(a, dtype):
-        return torch.as_tensor(a, dtype=dtype).to(dev)
+    def tensor(x, dtype):
+        return torch.as_tensor(x, dtype=dtype).to(dev)
 
-    arc_src = tensor(arc_src, torch.int64)
-    arc_pdf = tensor(arc_pdf, torch.int64)
-    arc_score = tensor(arc_score, torch.float32)
-    alpha = tensor(alpha0, torch.float32)
-    levels = [tensor(lv, torch.int32) for lv in levels]
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    alpha0 = tensor(alpha0, torch.float32).contiguous()
+    if alpha0.shape[1] != num_states:
+        raise ValueError(f"alpha0 has {alpha0.shape[1]} states, expected {num_states}")
     nf = tensor(np.asarray(num_frames), torch.int32)
     acwt = float(np.float32(acoustic_scale))
-    b, t_total, _ = loglikes.shape
-    alpha_end = torch.where((nf == 0)[:, None], alpha, torch.full_like(alpha, NEG_INF))
-    bps = torch.empty((t_total, b, num_states), dtype=torch.int64, device=dev)
-    for t in range(t_total):
-        am = torch.gather(loglikes[:, t], 1, arc_pdf) * acwt
-        score = torch.gather(alpha, 1, arc_src) + arc_score + am
-        new_alpha, bps[t] = _tree_reduce_max(score, levels)
-        new_alpha = _prune(new_alpha, float(np.float32(beam)), max_active)
-        alpha = torch.where((t < nf)[:, None], new_alpha, alpha)
-        alpha_end = torch.where((t + 1 == nf)[:, None], alpha, alpha_end)
+    beam = float(np.float32(beam))
+    if dev.type == "cpu":
+        return viterbi_forward_batched_plain(
+            tensor(arc_src, torch.int64), tensor(arc_dst, torch.int64),
+            tensor(arc_pdf, torch.int64), tensor(arc_score, torch.float32), alpha0,
+            loglikes, nf, acwt, beam, max_active)
+    if max_active:
+        raise NotImplementedError("the generic aligner's kernel has no max_active pruning")
+    arc_src = tensor(arc_src, torch.int32).contiguous()
+    arc_pdf = tensor(arc_pdf, torch.int32).contiguous()
+    arc_score = tensor(arc_score, torch.float32).contiguous()
+    arc_dst = tensor(arc_dst, torch.int64)
+    b, t_total, p = loglikes.shape
+    a = arc_src.shape[1]
+    s = num_states
+    # CSR by destination: in_arc[b, in_start[b, s] : in_start[b, s + 1]] are
+    # the arcs entering s in ascending arc id
+    in_arc = torch.argsort(arc_dst, dim=1, stable=True).to(torch.int32).contiguous()
+    counts = torch.zeros((b, s), dtype=torch.int64, device=dev).scatter_add_(
+        1, arc_dst, torch.ones_like(arc_dst))
+    in_start = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                          counts.cumsum(1)], dim=1).to(torch.int32).contiguous()
+    loglikes = loglikes.contiguous()
+    _check("loglikes", loglikes, torch.float32, dev)
+    for name, x in (("arc_src", arc_src), ("arc_pdf", arc_pdf), ("arc_score", arc_score)):
+        if tuple(x.shape) != (b, a):
+            raise ValueError(f"{name}: need shape {(b, a)}, got {tuple(x.shape)}")
+    if int(arc_pdf.max()) >= p:
+        raise ValueError(f"the graphs use pdf {int(arc_pdf.max())}, loglikes have only {p}")
+    alpha_end = torch.empty_like(alpha0)
+    bps = torch.empty((t_total, b, s), dtype=torch.int32, device=dev)
+    _build.launch("generic_forward", arc_src.data_ptr(), arc_pdf.data_ptr(),
+                  arc_score.data_ptr(), in_start.data_ptr(), in_arc.data_ptr(),
+                  alpha0.data_ptr(), loglikes.data_ptr(), nf.data_ptr(), acwt, beam,
+                  b, s, a, t_total, p, alpha_end.data_ptr(), bps.data_ptr(),
+                  stream_handle(dev))
     return alpha_end, bps
+
+
+def backtrace_batched_plain(arc_src, alpha_end, final_score, bps, num_frames):
+    """Plain version of the generic aligner's backtrace."""
+    b = arc_src.shape[0]
+    t_total = bps.shape[0]
+    score, end_state = torch.max(alpha_end + final_score, dim=1)
+    ok = score > NEG_INF / 2
+    bidx = torch.arange(b, device=bps.device)
+    s = end_state
+    arcs = torch.empty((t_total, b), dtype=torch.int32, device=bps.device)
+    for t in range(t_total - 1, -1, -1):
+        active = t < num_frames
+        a = bps[t, bidx, s].long()
+        valid = a >= 0
+        ok = torch.where(active, ok & valid, ok)
+        s = torch.where(active & valid, arc_src[bidx, a.clamp(min=0)], s)
+        arcs[t] = torch.where(active, a, -1).to(torch.int32)
+    return arcs, ok, end_state.to(torch.int32), score
 
 
 def backtrace_batched_device(arc_src, alpha_end, final_score, bps, num_frames):
     """Backtrace for per-utterance padded graphs on the device of ``bps``.
 
-    arc_src [B, A]; alpha_end/final_score [B, S]; bps [T, B, S] arc ids.
-    Returns (arcs [T, B] int64, -1 at inactive frames; ok [B] bool;
-    end_state [B] int64; score [B] f32)."""
+    arc_src [B, A]; alpha_end/final_score [B, S]; bps [T, B, S] int32 arc
+    ids.  Returns (arcs [T, B] int32, -1 at inactive frames; ok [B] bool;
+    end_state [B] int32, the first state with the best final-weighted score;
+    score [B] f32).  On CUDA it is one launch of ``generic_backtrace``, a
+    thread per utterance."""
     dev = bps.device
-    arc_src = torch.as_tensor(arc_src, dtype=torch.int64).to(dev)
-    final_score = torch.as_tensor(final_score, dtype=torch.float32).to(dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    final_score = torch.as_tensor(final_score, dtype=torch.float32).to(dev).contiguous()
     nf = torch.as_tensor(np.asarray(num_frames), dtype=torch.int32).to(dev)
-    b = arc_src.shape[0]
-    t_total = bps.shape[0]
-    score, end_state = torch.max(alpha_end + final_score, dim=1)
-    ok = score > NEG_INF / 2
-    bidx = torch.arange(b, device=dev)
-    s = end_state
-    arcs = torch.empty((t_total, b), dtype=torch.int64, device=dev)
-    for t in range(t_total - 1, -1, -1):
-        active = t < nf
-        a = bps[t, bidx, s]
-        valid = a >= 0
-        ok = torch.where(active, ok & valid, ok)
-        s = torch.where(active & valid, arc_src[bidx, a.clamp(min=0)], s)
-        arcs[t] = torch.where(active, a, -1)
-    return arcs, ok, end_state, score
+    if dev.type == "cpu":
+        return backtrace_batched_plain(torch.as_tensor(arc_src, dtype=torch.int64),
+                                       alpha_end, final_score, bps, nf)
+    arc_src = torch.as_tensor(arc_src, dtype=torch.int32).to(dev).contiguous()
+    t_total, b, s = bps.shape
+    _check("bps", bps, torch.int32, dev)
+    _check("alpha_end", alpha_end, torch.float32, dev, (b, s))
+    _check("final_score", final_score, torch.float32, dev, (b, s))
+    if arc_src.shape[0] != b or nf.shape != (b,):
+        raise ValueError("backtrace_batched_device: inconsistent shapes")
+    arcs = torch.empty((t_total, b), dtype=torch.int32, device=dev)
+    ok = torch.empty(b, dtype=torch.uint8, device=dev)
+    end_state = torch.empty(b, dtype=torch.int32, device=dev)
+    score = torch.empty(b, dtype=torch.float32, device=dev)
+    _build.launch("generic_backtrace", arc_src.data_ptr(), alpha_end.data_ptr(),
+                  final_score.data_ptr(), bps.data_ptr(), nf.data_ptr(), b, s,
+                  arc_src.shape[1], t_total, arcs.data_ptr(), ok.data_ptr(),
+                  end_state.data_ptr(), score.data_ptr(), stream_handle(dev))
+    return arcs, ok.bool(), end_state, score
 
 
 def assemble_batched_results(graphs: list[DenseGraph], arcs: np.ndarray,
@@ -287,3 +266,287 @@ def assemble_batched_results(graphs: list[DenseGraph], arcs: np.ndarray,
             "arcs": a_i.tolist(),
         })
     return out
+
+
+# ---------------------------------------------------------------------------
+# N-best Viterbi (per-state K-hypothesis lists), K7
+# ---------------------------------------------------------------------------
+
+
+class NbestPlan(NamedTuple):
+    """A shared graph's arcs grouped by destination, on one device: the arcs
+    entering state s are ``in_start[s] : in_start[s + 1]`` of the other
+    arrays, in ascending arc id."""
+
+    in_start: torch.Tensor  # [S+1] int32
+    src: torch.Tensor  # [A] int32 source state
+    pdf: torch.Tensor  # [A] int32
+    score: torch.Tensor  # [A] f32 graph score
+    arc: torch.Tensor  # [A] int32 original arc id
+    dst: torch.Tensor  # [A] int64 destination (plain version only)
+
+    @property
+    def num_states(self) -> int:
+        return self.in_start.shape[0] - 1
+
+
+def build_nbest_plan(graph: DenseGraph, device) -> NbestPlan:
+    order = np.argsort(graph.arc_dst, kind="stable")
+    counts = np.bincount(graph.arc_dst, minlength=graph.num_states)
+    in_start = np.concatenate([[0], np.cumsum(counts)])
+
+    def dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    return NbestPlan(in_start=dev(in_start, np.int32), src=dev(graph.arc_src[order], np.int32),
+                     pdf=dev(graph.arc_pdf[order], np.int32),
+                     score=dev(graph.arc_score[order], np.float32),
+                     arc=dev(order, np.int32), dst=dev(graph.arc_dst[order], np.int64))
+
+
+def nbest_step_plain(plan: NbestPlan, alpha, alpha_end, ll_t, num_frames, t: int,
+                     acwt: float, beam: float, bp_arc, bp_slot):
+    """Plain version of K7's frame.  The per-destination top K comes from two
+    stable sorts of the ``[B, A * K]`` candidates: by value, descending, then
+    by destination, so that a state's candidates stand together, best first,
+    equals in (arc position, source slot) order."""
+    b, s, k = alpha.shape
+    a = plan.src.shape[0]
+    w = plan.score[None, :] + ll_t[:, plan.pdf.long()] * acwt  # [B, A]
+    cand = alpha[:, plan.src.long(), :] + w[:, :, None]  # [B, A, K]
+    vals, i1 = cand.reshape(b, a * k).sort(dim=1, descending=True, stable=True)
+    group = plan.dst.repeat_interleave(k)[i1]
+    _, i2 = group.sort(dim=1, stable=True)
+    vals = vals.gather(1, i2)
+    flat = i1.gather(1, i2)  # candidate index (arc position * K + slot)
+    start = plan.in_start.long()
+    pos = start[:-1, None] * k + torch.arange(k, device=alpha.device)[None, :]  # [S, K]
+    valid = (pos < start[1:, None] * k).reshape(-1)
+    pos = pos.clamp(max=max(a * k - 1, 0)).reshape(-1)
+    if a == 0:
+        scores = torch.full_like(alpha, NEG_INF)
+        flat_top = torch.zeros((b, s * k), dtype=torch.int64, device=alpha.device)
+    else:
+        scores = torch.where(valid, vals[:, pos], NEG_INF).view(b, s, k)
+        flat_top = flat[:, pos]
+    best = scores.amax(dim=(1, 2), keepdim=True)
+    scores = torch.where(scores >= best - beam, scores, NEG_INF)
+    active = (t < num_frames)[:, None, None]
+    live = active & (scores > NEG_INF)
+    if a:
+        arc = plan.arc.long()[flat_top // k].view(b, s, k)
+        slot = (flat_top % k).view(b, s, k)
+    else:
+        arc = slot = flat_top.view(b, s, k)
+    bp_arc.copy_(torch.where(live, arc, -1))
+    bp_slot.copy_(torch.where(live, slot, 0))
+    alpha = torch.where(active, scores, alpha)
+    return alpha, torch.where((t + 1 == num_frames)[:, None, None], alpha, alpha_end)
+
+
+def nbest_step(plan: NbestPlan, alpha: torch.Tensor, alpha_end: torch.Tensor,
+               ll_t: torch.Tensor, num_frames: torch.Tensor, t: int, acwt: float,
+               beam: float, bp_arc: torch.Tensor, bp_slot: torch.Tensor):
+    """One frame of the N-best relaxation (K7).  alpha, alpha_end [B, S, K]
+    f32; ll_t [B, P] f32 (a view with unit stride along P will do);
+    num_frames [B] int32; bp_arc [B, S, K] int32 and bp_slot [B, S, K] int8
+    are filled: the arc and the source slot each hypothesis came from, -1 and
+    0 where the slot holds NEG_INF or the utterance has ended.
+
+    Returns (alpha, alpha_end) after frame ``t``.  On CUDA ``alpha_end`` is
+    updated in place and returned."""
+    dev = alpha.device
+    if dev.type == "cpu":
+        return nbest_step_plain(plan, alpha, alpha_end, ll_t, num_frames, t, acwt, beam,
+                                bp_arc, bp_slot)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    b, s, k = alpha.shape
+    if not 1 <= k <= NBEST_MAX:
+        raise ValueError(f"nbest must be in 1..{NBEST_MAX}, got {k}")
+    a = plan.src.shape[0]
+    _check("alpha", alpha, torch.float32, dev)
+    _check("alpha_end", alpha_end, torch.float32, dev, alpha.shape)
+    _check("bp_arc", bp_arc, torch.int32, dev, alpha.shape)
+    _check("bp_slot", bp_slot, torch.int8, dev, alpha.shape)
+    _check("num_frames", num_frames, torch.int32, dev, (b,))
+    _check("in_start", plan.in_start, torch.int32, dev, (s + 1,))
+    for name, x, dtype in (("src", plan.src, torch.int32), ("pdf", plan.pdf, torch.int32),
+                           ("score", plan.score, torch.float32), ("arc", plan.arc, torch.int32)):
+        _check(name, x, dtype, dev, (a,))
+    if (ll_t.device != dev or ll_t.dtype != torch.float32 or ll_t.dim() != 2
+            or ll_t.shape[0] != b or (ll_t.shape[1] > 1 and ll_t.stride(1) != 1)):
+        raise ValueError("ll_t: need [B, P] float32 with unit stride along P on " + str(dev))
+    if alpha_end.data_ptr() == alpha.data_ptr():
+        raise ValueError("alpha_end must not share memory with alpha")
+    out = torch.empty_like(alpha)
+    best = torch.empty(b, dtype=torch.float32, device=dev)
+    _build.launch("viterbi_nbest", alpha.data_ptr(), out.data_ptr(), alpha_end.data_ptr(),
+                  bp_arc.data_ptr(), bp_slot.data_ptr(), best.data_ptr(), ll_t.data_ptr(),
+                  ll_t.stride(0), plan.in_start.data_ptr(), plan.src.data_ptr(),
+                  plan.pdf.data_ptr(), plan.score.data_ptr(), plan.arc.data_ptr(),
+                  num_frames.data_ptr(), t, acwt, beam, b, s, k, stream_handle(dev))
+    return out, alpha_end
+
+
+def viterbi_nbest_forward(plan: NbestPlan, alpha0, loglikes: torch.Tensor, num_frames,
+                          acoustic_scale: float, beam: float, nbest: int):
+    """Exact N-best Viterbi over a shared graph: every state carries its K
+    best partial-path scores (the role of lattice N-best,
+    ``lattice-nbest``/``nshortest``).
+
+    loglikes [B, T, P] on the plan's device; alpha0 [S].  Returns
+    (alpha_end [B, S, K] f32, bp_arc [T, B, S, K] int32, bp_slot [T, B, S, K]
+    int8): full backpointer storage, 5 bytes per (frame, state, slot), so a
+    caller splits its batch by the memory it has."""
+    dev = loglikes.device
+    b, t_total, p = loglikes.shape
+    s = plan.num_states
+    if plan.pdf.numel() and int(plan.pdf.max()) >= p:
+        raise ValueError(f"the graph uses pdf {int(plan.pdf.max())}, loglikes have only {p}")
+    nf = torch.as_tensor(np.asarray(num_frames), dtype=torch.int32).to(dev)
+    acwt = float(np.float32(acoustic_scale))
+    beam = float(np.float32(beam))
+    alpha = torch.full((b, s, nbest), NEG_INF, dtype=torch.float32, device=dev)
+    alpha[:, :, 0] = torch.as_tensor(alpha0, dtype=torch.float32).to(dev)[None, :]
+    alpha_end = torch.where((nf == 0)[:, None, None], alpha, torch.full_like(alpha, NEG_INF))
+    bp_arc = torch.empty((t_total, b, s, nbest), dtype=torch.int32, device=dev)
+    bp_slot = torch.empty((t_total, b, s, nbest), dtype=torch.int8, device=dev)
+    for t in range(t_total):
+        alpha, alpha_end = nbest_step(plan, alpha, alpha_end, loglikes[:, t], nf, t, acwt,
+                                      beam, bp_arc[t], bp_slot[t])
+    return alpha_end, bp_arc, bp_slot
+
+
+def _assemble_hyp(graph: DenseGraph, arcs: list, start_state: int, end_state: int,
+                  score: float) -> dict:
+    words = list(graph.oseqs[graph.start_oseq[start_state]])
+    for a in arcs:
+        words.extend(graph.oseqs[graph.arc_oseq[a]])
+    words.extend(graph.oseqs[graph.final_oseq[end_state]])
+    return {"words": words, "score": score,
+            "tids": [int(graph.arc_tid[a]) for a in arcs], "arcs": arcs}
+
+
+def backtrace_nbest(graph: DenseGraph, alpha_end, bp_arc, bp_slot, num_frames,
+                    nbest: int):
+    """-> per utterance: list of up to ``nbest`` dicts (words, tids, score,
+    arcs), from host copies of the whole backpointer tables."""
+    alpha_end = np.asarray(alpha_end)
+    bp_arc = np.asarray(bp_arc)
+    bp_slot = np.asarray(bp_slot)
+    b = alpha_end.shape[0]
+    out = []
+    for i in range(b):
+        t_end = int(num_frames[i])
+        total = alpha_end[i] + graph.final_score[:, None]  # [S, K]
+        flat = total.reshape(-1)
+        order = np.argsort(-flat, kind="stable")[: nbest * 4]
+        hyps = []
+        seen = set()
+        for fidx in order:
+            if flat[fidx] <= NEG_INF / 2 or len(hyps) >= nbest:
+                break
+            s, k = divmod(int(fidx), alpha_end.shape[2])
+            score = float(flat[fidx])
+            arcs = []
+            si, ki = s, k
+            ok = True
+            for t in range(t_end - 1, -1, -1):
+                a = int(bp_arc[t, i, si, ki])
+                if a < 0:
+                    ok = False
+                    break
+                ki = int(bp_slot[t, i, si, ki])
+                arcs.append(a)
+                si = int(graph.arc_src[a])
+            if not ok:
+                continue
+            arcs.reverse()
+            key = tuple(arcs)
+            if key in seen:
+                continue
+            seen.add(key)
+            hyps.append(_assemble_hyp(graph, arcs, si, s, score))
+        out.append(hyps)
+    return out
+
+
+def backtrace_nbest_device(graph: DenseGraph, alpha_end: torch.Tensor, bp_arc: torch.Tensor,
+                           bp_slot: torch.Tensor, num_frames, nbest: int):
+    """``backtrace_nbest`` without a host copy of the tables: the ``4 * nbest``
+    best end entries of every utterance are walked back together on the
+    tables' device (one gather per frame), and only their arcs ``[T, B, C]``
+    come to the host, where hypotheses are assembled and duplicate arc
+    sequences dropped as ``backtrace_nbest`` does."""
+    dev = alpha_end.device
+    b, s, k = alpha_end.shape
+    t_total = bp_arc.shape[0]
+    nf_np = np.asarray(num_frames).astype(np.int64)
+    nf = torch.from_numpy(nf_np).to(dev)
+    final = torch.from_numpy(np.asarray(graph.final_score, np.float32)).to(dev)
+    arc_src = torch.from_numpy(np.asarray(graph.arc_src, np.int64)).to(dev)
+    total = (alpha_end + final[None, :, None]).reshape(b, s * k)
+    c = min(nbest * 4, s * k)
+    score, fidx = total.sort(dim=1, descending=True, stable=True)
+    score, fidx = score[:, :c], fidx[:, :c]
+    si, ki = fidx // k, fidx % k
+    end_state = si.cpu().numpy()
+    ok = torch.ones((b, c), dtype=torch.bool, device=dev)
+    arcs = torch.full((t_total, b, c), -1, dtype=torch.int64, device=dev)
+    bidx = torch.arange(b, device=dev)[:, None]
+    for t in range(min(t_total, int(nf_np.max(initial=0))) - 1, -1, -1):
+        active = (t < nf)[:, None] & ok
+        a = bp_arc[t][bidx, si, ki].long()
+        ok = ok & ((a >= 0) | ~active)
+        step = active & (a >= 0)
+        ki = torch.where(step, bp_slot[t][bidx, si, ki].long(), ki)
+        si = torch.where(step, arc_src[a.clamp(min=0)], si)
+        arcs[t] = torch.where(step, a, -1)
+    arcs_np = arcs.cpu().numpy()
+    score_np = score.cpu().numpy()
+    ok_np = ok.cpu().numpy()
+    start_np = si.cpu().numpy()
+    out = []
+    for i in range(b):
+        hyps, seen = [], set()
+        for j in range(c):
+            if score_np[i, j] <= NEG_INF / 2 or len(hyps) >= nbest:
+                break
+            if not ok_np[i, j]:
+                continue
+            path = arcs_np[: int(nf_np[i]), i, j].tolist()
+            key = tuple(path)
+            if key in seen:
+                continue
+            seen.add(key)
+            hyps.append(_assemble_hyp(graph, path, int(start_np[i, j]),
+                                      int(end_state[i, j]), float(score_np[i, j])))
+        out.append(hyps)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Windowed best-path decode
+# ---------------------------------------------------------------------------
+
+
+def viterbi_decode_windowed(graph: DenseGraph, plan: DC.EmitPlan, plan_dev: DC.EmitPlanDev,
+                            loglikes: torch.Tensor, num_frames, acoustic_scale: float,
+                            beam: float, window: int = 64, max_active: int = 0):
+    """Memory-bounded Viterbi decode over a shared graph (long audio).
+
+    Phase 1: forward pass storing an alpha snapshot at each window start
+    (memory [NW, S+1, B] instead of backpointers [T, S+1, B]).  Phase 2: per
+    window, in reverse order, re-run the window recording backpointers and
+    backtrace through it on the device.  The frame step is K3's relaxation
+    over the emit plan followed by the beam / max-active prune; a beam of
+    1e8 or more prunes nothing and is not applied.
+
+    loglikes [B, T, P] on the plan's device.  Returns one
+    {"tids", "words", "score", "arcs"} per utterance, as
+    ``decode_core.decode_best_path``."""
+    pruned = beam < 1e8 or max_active > 0
+    return DC.decode_best_path(
+        graph, plan, plan_dev, loglikes, num_frames, acoustic_scale, window=window,
+        beam=float(np.float32(beam)) if pruned else None, max_active=max_active)

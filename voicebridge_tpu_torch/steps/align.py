@@ -17,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from voicebridge_tpu.fst.core import Fst
-from voicebridge_tpu.models.transition import TransitionModel
-from voicebridge_tpu.utils.logging import get_logger
+from ..fst.core import Fst
+from ..models.transition import TransitionModel
+from ..utils.logging import get_logger
 
 from .. import convert
 from ..device import free_bytes, resolve_device
@@ -60,7 +60,7 @@ def align_banded(plan: AB.BandPlan | AB.BandPlanDev, graphs: list, loglikes: tor
 def _align_generic(padded: dict, graphs: list, loglikes: torch.Tensor, num_frames,
                    acoustic_scale: float, beam: float):
     alpha_end, bps = V.viterbi_forward_batched(
-        padded["arc_src"], padded["levels"], padded["arc_pdf"], padded["arc_score"],
+        padded["arc_src"], padded["arc_dst"], padded["arc_pdf"], padded["arc_score"],
         padded["alpha0"], loglikes, num_frames, acoustic_scale, beam,
         padded["num_states"])
     arcs, ok, end_state, score = V.backtrace_batched_device(
@@ -74,12 +74,10 @@ class AlignmentSet:
     """Per-utterance dense training graphs aligned in sub-batches on one
     device."""
 
-    def __init__(self, graphs: list[V.DenseGraph], *, device):
+    def __init__(self, graphs: list[V.DenseGraph], *, device=None):
         self.graphs = graphs
         self.device = resolve_device(device)
         self._padded = None
-        self._plans = None
-        self._plan_spec = None
         self._band = _UNSET
         self._band_dev = None
 
@@ -111,16 +109,9 @@ class AlignmentSet:
             self._padded = V.pad_graphs(self.graphs)
         return self._padded
 
-    def _graph_plans(self, s_pad: int):
-        if self._plans is None:
-            self._plans = [V.build_reduction_plan(g.arc_dst, s_pad) for g in self.graphs]
-            self._plan_spec = V.batched_plan_spec(
-                self._plans, [g.num_arcs for g in self.graphs])
-        return self._plans, self._plan_spec
-
     @classmethod
     def from_fsts(cls, fsts: list[Fst], trans_model: TransitionModel, *,
-                  device) -> "AlignmentSet":
+                  device=None) -> "AlignmentSet":
         tid2pdf = trans_model.tid2pdf
         return cls([V.compile_dense_graph(f, tid2pdf) for f in fsts], device=device)
 
@@ -159,9 +150,6 @@ class AlignmentSet:
         s_max = max(g.num_states for g in self.graphs)
         a_max = max(g.num_arcs for g in self.graphs)
         band = self.band if beam >= _NO_PRUNE_BEAM else None
-        plans = depth = rows = None
-        if band is None:
-            plans, (depth, rows) = self._graph_plans(s_max + 1)
         b_chunk = self._batch_chunk(int(num_frames.max()), params.num_pdfs,
                                     feats.shape[2], s_max + 1)
         order = np.argsort(-num_frames, kind="stable")
@@ -177,9 +165,7 @@ class AlignmentSet:
                 chunk_res = align_banded(self.band_dev.take(idx), graphs_c, ll, nf_c,
                                          acoustic_scale)
             else:
-                padded = V.pad_graphs(graphs_c, pad_states=s_max, pad_arcs=a_max,
-                                      plans=[plans[i] for i in idx], plan_depth=depth,
-                                      plan_rows=rows)
+                padded = V.pad_graphs(graphs_c, pad_states=s_max, pad_arcs=a_max)
                 chunk_res = _align_generic(padded, graphs_c, ll, nf_c, acoustic_scale, beam)
             for j, i in enumerate(idx):
                 results[int(i)] = chunk_res[j]
@@ -193,7 +179,7 @@ def apply_alignments(results: list, tids: np.ndarray, weights: np.ndarray,
     failed utterances; failures are logged per utterance and a systemic
     failure (> max_fail_frac) aborts (``utils/health.py``).  Returns the
     number of failures."""
-    from voicebridge_tpu.utils.health import FailureTracker
+    from ..utils.health import FailureTracker
 
     tracker = FailureTracker(stage, total=len(results))
     tids[:] = 0
@@ -303,10 +289,10 @@ def alignment_to_tids(graph: V.DenseGraph, arc_frames: list[int]) -> list[int]:
 def align_utterances(am, trans_model, lang, feats_by_utt: dict, transcripts: dict,
                      acoustic_scale: float = 1.0, boost_silence: float = 1.0,
                      transition_scale: float = 1.0, self_loop_scale: float = 0.1,
-                     silence_pdfs: list | None = None, *, device) -> dict:
+                     silence_pdfs: list | None = None, *, device=None) -> dict:
     """AlignSi: align every utterance to its transcript with an existing
     model on ``device``; returns utt -> list[tid]."""
-    from voicebridge_tpu.fst.hclg import TrainingGraphCompiler
+    from ..fst.hclg import TrainingGraphCompiler
 
     from .train_mono import _batchify
 

@@ -3,14 +3,16 @@ lattices.
 
 Port of ``voicebridge_tpu/steps/decode.py`` (``DecodeResult``, and from
 ``Decoder``: ``_loglikes``, ``decode_batch``, ``decode_sweep``,
-``decode_lattice``, ``decode_sweep_lattice``, ``decode_mbr``).  GMM
-log-likelihoods come from the K2 wrapper, the forward relaxation from the K3
-wrapper and the lattice survivor test from the K5 wrapper; the tensor's
-device decides between kernel and plain version.  ``decode_sweep`` re-runs
+``decode_lattice``, ``decode_sweep_lattice``, ``decode_nbest``,
+``decode_mbr``).  GMM log-likelihoods come from the K2 wrapper, the forward
+relaxation from the K3 wrapper, the lattice survivor test from the K5 wrapper
+and the N-best relaxation from the K7 wrapper; the tensor's device decides
+between kernel and plain version.  ``decode_sweep`` re-runs
 the exact search per acoustic scale; ``decode_sweep_lattice`` decodes once
 into lattices and rescales them on the host per (LMWT, WIP) grid point, as
 the reference's ``score_kaldi_wer.cpp`` does.  ``DecodeOptions.beam`` and
-``max_active`` are ignored: both searches are exact.
+``max_active`` are ignored by the best-path and lattice searches, which are
+exact; ``decode_nbest`` prunes with ``beam`` as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -20,10 +22,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from voicebridge_tpu.config import DecodeOptions
-from voicebridge_tpu.fst.core import Fst
-from voicebridge_tpu.models.gmm import AmDiagGmm
-from voicebridge_tpu.models.transition import TransitionModel
+from ..config import DecodeOptions
+from ..fst.core import Fst
+from ..models.gmm import AmDiagGmm
+from ..models.transition import TransitionModel
 
 from .. import convert
 from ..device import free_bytes, resolve_device
@@ -31,6 +33,7 @@ from ..lat import lattice_best_path, lattice_best_path_grid, lattice_mbr
 from ..ops import decode_core as DC
 from ..ops import gmm_kernel
 from ..ops import lattice as LAT
+from ..ops import viterbi as V
 from ..ops.graph import DenseGraph, compile_dense_graph
 
 
@@ -44,13 +47,13 @@ class DecodeResult:
 
 class Decoder:
     def __init__(self, hclg: Fst, trans_model: TransitionModel, am: AmDiagGmm,
-                 opts: DecodeOptions = DecodeOptions(), *, device):
+                 opts: DecodeOptions = DecodeOptions(), *, device=None):
         graph = compile_dense_graph(hclg, trans_model.tid2pdf)
         self._setup(graph, DC.build_emit_plan(graph), am, opts, device)
 
     @classmethod
     def from_dense_graph(cls, graph: DenseGraph, am: AmDiagGmm,
-                         opts: DecodeOptions = DecodeOptions(), *, device,
+                         opts: DecodeOptions = DecodeOptions(), *, device=None,
                          row_width: int | None = None) -> "Decoder":
         """A decoder over an already epsilon-free graph (``row_width`` fixes
         the plan's row width D instead of deriving it from the graph)."""
@@ -67,6 +70,7 @@ class Decoder:
         self.opts = opts
         self.gmm_w = convert.kernel_params_from_am(am, self.device)  # [P, M, 2D+1]
         self._lat_plans = None  # (bwd_plan, bwd_dev, row_dst), built at first use
+        self._nbest_plan = None  # arcs grouped by destination, built at first use
 
     def _loglikes(self, feats: torch.Tensor) -> torch.Tensor:
         """[B, T, D] -> [B, T, P] acoustic log-likelihoods."""
@@ -158,6 +162,46 @@ class Decoder:
             for gp, p in zip(grid, lattice_best_path_grid(lats[u], points)):
                 sweep[gp].append(DecodeResult(u, p["words"], p["score"], p["tids"]))
         return sweep, lats
+
+    def _nbest_chunk(self, t: int, d: int, nbest: int) -> int:
+        """Utterances per N-best sub-batch so its features, its [B, T, P]
+        logliks and the [T, B, S, K] backpointer tables (5 bytes per entry)
+        take at most half of the free device memory."""
+        s = self.graph.num_states
+        per_utt = 4 * t * (self.gmm_w.shape[0] + d) + 5 * t * s * nbest + 16 * s * nbest
+        return max(1, free_bytes(self.device) // (2 * per_utt))
+
+    def decode_nbest(self, utts: list[str], feats, num_frames, nbest: int = 4,
+                     acoustic_scale: float | None = None,
+                     batch_chunk: int | None = None, keep_arcs: bool = False) -> dict:
+        """Exact N-best decoding (``lattice-nbest`` role): utt -> list of up
+        to ``nbest`` (words, score) hypotheses with distinct arc sequences,
+        best first ((words, score, arcs) with ``keep_arcs``).  Every state
+        keeps its ``nbest`` best partial paths
+        (``ops/viterbi.viterbi_nbest_forward``, K7) with full backpointers,
+        so the batch is split by the device's free memory (or into
+        sub-batches of ``batch_chunk``); the result does not depend on the
+        split."""
+        acwt = self.opts.acoustic_scale if acoustic_scale is None else acoustic_scale
+        feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
+        num_frames = np.asarray(torch.as_tensor(num_frames).cpu())
+        if self._nbest_plan is None:
+            self._nbest_plan = V.build_nbest_plan(self.graph, self.device)
+        b_chunk = batch_chunk or self._nbest_chunk(feats.shape[1], feats.shape[2], nbest)
+        out = {}
+        for lo in range(0, len(utts), b_chunk):
+            hi = min(len(utts), lo + b_chunk)
+            ll = self._loglikes(feats[lo:hi].contiguous())
+            alpha_end, bp_arc, bp_slot = V.viterbi_nbest_forward(
+                self._nbest_plan, self.graph.alpha0, ll, num_frames[lo:hi], acwt,
+                self.opts.beam, nbest)
+            hyps = V.backtrace_nbest_device(self.graph, alpha_end, bp_arc, bp_slot,
+                                            num_frames[lo:hi], nbest)
+            del bp_arc, bp_slot  # before the next sub-batch allocates its own
+            for u, hs in zip(utts[lo:hi], hyps):
+                out[u] = [(h["words"], h["score"]) + ((h["arcs"],) if keep_arcs else ())
+                          for h in hs]
+        return out
 
     def decode_mbr(self, utts: list[str], feats, num_frames, nbest: int = 8) -> list[DecodeResult]:
         """MBR consensus decoding over lattices (``lattice-mbr-decode`` role):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from voicebridge_tpu.config import DeltaOptions, MfccOptions
+from ..config import DeltaOptions, MfccOptions
 
 from ..device import resolve_device
 from ..ops.features import MfccExtractor, add_deltas_batch
@@ -39,7 +39,7 @@ def pad_features(feats: dict[str, torch.Tensor], utts: list[str]):
     return batch, nf
 
 
-def compute_mfcc(waves: dict[str, np.ndarray], opts: MfccOptions, *, device,
+def compute_mfcc(waves: dict[str, np.ndarray], opts: MfccOptions, *, device=None,
                  dither_seed: int | None = 0) -> dict[str, torch.Tensor]:
     """utt -> samples  =>  utt -> [T, num_ceps] MFCC on ``device``, batched
     by length bucket.  Dither noise of a bucket is drawn from a
@@ -95,7 +95,7 @@ def apply_feature_chain(feats: dict[str, torch.Tensor], utt2spk: dict[str, str],
 
 def make_features(waves: dict[str, np.ndarray], utt2spk: dict[str, str],
                   mfcc_opts: MfccOptions,
-                  deltas: DeltaOptions = DeltaOptions(), *, device,
+                  deltas: DeltaOptions = DeltaOptions(), *, device=None,
                   dither_seed: int | None = 0) -> dict[str, torch.Tensor]:
     """Full frontend on ``device``: MFCC -> per-speaker CMVN -> deltas."""
     mfcc = compute_mfcc(waves, mfcc_opts, device=device, dither_seed=dither_seed)

@@ -24,13 +24,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from voicebridge_tpu.config import MonoTrainOptions
-from voicebridge_tpu.data.lang import Lang
-from voicebridge_tpu.fst.hclg import TrainingGraphCompiler
-from voicebridge_tpu.models.gmm import AmDiagGmm
-from voicebridge_tpu.models.transition import TransitionModel
-from voicebridge_tpu.models.tree import MonophoneTree
-from voicebridge_tpu.utils.logging import get_logger
+from ..config import MonoTrainOptions
+from ..data.lang import Lang
+from ..fst.hclg import TrainingGraphCompiler
+from ..models.gmm import AmDiagGmm
+from ..models.transition import TransitionModel
+from ..models.tree import MonophoneTree
+from ..utils.logging import get_logger
 
 from ..device import resolve_device
 from ..ops import gmm_kernels as K
@@ -65,7 +65,7 @@ def _batchify(feats_list: list, device) -> tuple[torch.Tensor, np.ndarray]:
 def train_mono(feats_by_utt: dict, transcripts: dict[str, list[int]], lang: Lang,
                opts: MonoTrainOptions = MonoTrainOptions(),
                out_dir: str | Path | None = None, checkpoint_every: int = 0,
-               resume: bool = True, *, device) -> TrainedModel:
+               resume: bool = True, *, device=None) -> TrainedModel:
     """``feats_by_utt``: utt -> [T, D] final features (CMVN+deltas applied;
     tensors or arrays); ``transcripts``: utt -> word-id sequence.
 
@@ -137,7 +137,7 @@ def train_mono(feats_by_utt: dict, transcripts: dict[str, list[int]], lang: Lang
     ckpt = None
     start_it = 1
     if out_dir and checkpoint_every:
-        from voicebridge_tpu.utils.checkpoint import TrainCheckpoint
+        from ..utils.checkpoint import TrainCheckpoint
 
         ckpt = TrainCheckpoint(Path(out_dir) / "checkpoints")
         if resume:

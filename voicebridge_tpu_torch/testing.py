@@ -22,13 +22,13 @@ from pathlib import Path
 
 import numpy as np
 
-from voicebridge_tpu.fst.core import Fst
-from voicebridge_tpu.models.gmm import AmDiagGmm
-from voicebridge_tpu.models.topology import HmmTopology
-from voicebridge_tpu.models.transition import TransitionModel
-from voicebridge_tpu.models.tree import load_tree
-from voicebridge_tpu.steps.score import compute_wer_set
-from voicebridge_tpu.utils.text import SymbolTable
+from .fst.core import Fst
+from .models.gmm import AmDiagGmm
+from .models.topology import HmmTopology
+from .models.transition import TransitionModel
+from .models.tree import load_tree
+from .steps.score import compute_wer_set
+from .utils.text import SymbolTable
 
 from .ops.graph import NEG_INF, DenseGraph
 
@@ -107,11 +107,13 @@ def feature_scaled_am(mean: np.ndarray, var: np.ndarray, num_pdfs: int = 2000,
                      np.full((num_pdfs, max_mix), 1.0 / max_mix, np.float32))
 
 
-def synth_train_graph(num_states: int, num_pdfs: int, rng) -> DenseGraph:
+def synth_train_graph(num_states: int, num_pdfs: int, rng, back_arcs: int = 0) -> DenseGraph:
     """Synthetic training-alignment graph (``bench.py`` ``synth_train_graph``):
     a left-to-right chain with self-loops and 25 % optional skip arcs, all
     arcs entering a state sharing its pdf; start at state 0, final at the
-    last state."""
+    last state.  ``back_arcs`` adds that many arcs back over 49 to 149 states
+    (a repeated phrase), which a set of such graphs cannot hold in 48 band
+    offsets: ``build_band_plan`` refuses it and the generic aligner runs."""
     pdf_of = rng.integers(0, num_pdfs, size=num_states)
     src, dst, score = [], [], []
     for s in range(num_states):
@@ -122,6 +124,12 @@ def synth_train_graph(num_states: int, num_pdfs: int, rng) -> DenseGraph:
             src.append(s)
             dst.append(s + 2)
             score.append(float(-rng.exponential(0.5)))
+    for _ in range(back_arcs):
+        span = int(rng.integers(49, 150))
+        s = int(rng.integers(span, num_states))
+        src.append(s)
+        dst.append(s - span)
+        score.append(float(-rng.exponential(0.5)))
     pdf = [int(pdf_of[d]) for d in dst]
     alpha0 = np.full(num_states, NEG_INF, np.float32)
     alpha0[0] = 0.0
