@@ -13,9 +13,13 @@ Phases, each of which must pass (any failure exits nonzero):
    full-width shapes, and times both with CUDA events:
    K1 MFCC frames (128 x 10 s of 16 kHz audio), K2 GMM log-likelihoods
    (128k frames x 2000 pdfs x 5 Gaussians x 39 dims), K3 Viterbi frame steps
-   (60k-state / 480k-arc graph, B = 128), K5 lattice recompute-and-test
-   steps on the same graph and lanes (bit-equal alpha, identical survivor
-   bytes, and alpha equal to K3's), K4 banded alignment forward and
+   over the forward plan (60k-state / 480k-arc graph, B = 128; bit-equal
+   scores and backpointer codes) and over the lattice's backward plan
+   (bit-equal beta and beta_eff slab), K5 lattice recompute-and-test steps
+   on the same graph and lanes (bit-equal alpha, identical survivor bytes,
+   and alpha equal to K3's), each one frame a launch and as one window of
+   16 frames (its time per frame; the line also carries the one-frame
+   time), K4 banded alignment forward and
    backtrace (192 utterances x 400 frames, 384-state training graphs;
    bit-equal scores, equal band-slot codes and arcs), K6 aligned E-step
    statistics (77k aligned frames, 2000 x 5 x 39), K7 N-best frame steps
@@ -43,7 +47,8 @@ Phases, each of which must pass (any failure exits nonzero):
 7. The decoding path at full width: waves -> make_features ->
    Decoder.decode_batch (B = 128 utterances of T = 1000 frames, the
    2000 x 5 x 39 GMM, the 60k-state graph), with the launch counts of this
-   run; every utterance must get a T-arc path.  Prints the median audio
+   run (K3: one window for all T frames); every utterance must get a T-arc
+   path.  Prints the median audio
    seconds per second of this run and five more; one further run under
    torch.profiler gives the device busy share and time by kernel, one under
    cProfile the host time by function (both into the log).
@@ -57,7 +62,8 @@ Phases, each of which must pass (any failure exits nonzero):
 9. The lattice path at full width: waves -> make_features ->
    Decoder.decode_lattice at the decode shape of phase 7 (acoustic scale
    1/13, the default lattice beam, a GMM of phase 7's size drawn on the
-   features' scale), with the launch counts of this run.  Every lattice's
+   features' scale), with the launch counts of this run (one launch per
+   window of K3 forward, K3 backward and K5).  Every lattice's
    best path must score within 1e-2 or relative 1e-5 of the exact best
    path (``decode_batch``'s search), its arcs rescored in float64, and
    every frame must hold an arc.  Prints survivors per frame and arcs per
@@ -109,7 +115,7 @@ class Width:
     num_states: int
     num_pdfs: int
     max_mix: int
-    k3_frames: int  # frames of the K3 comparison
+    k3_frames: int  # frames of the K3 and K5 comparisons (one window)
     train_batch: int  # utterances of the training shape
     train_frames: int  # frames per training utterance
     train_states: int  # states per training graph
@@ -121,7 +127,7 @@ class Width:
 
 
 FULL = Width(batch=128, frames=1000, samp_freq=16000.0, num_states=60_000,
-             num_pdfs=2000, max_mix=5, k3_frames=4, train_batch=192, train_frames=400,
+             num_pdfs=2000, max_mix=5, k3_frames=16, train_batch=192, train_frames=400,
              train_states=384, back_arcs=2, nbest_batch=32, nbest=4, nbest_warm=60, sweep_batch=16)
 
 REPEATS = 5  # timed full-width runs after the counted one
@@ -129,7 +135,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
 # (rtol, atol); K6's atol is scaled by each accumulator's largest magnitude
 TOL = {"mfcc_frames": (2e-4, 2e-3), "gmm_loglikes": (2e-5, 2e-4),
-       "viterbi_step": (1e-6, 0.0), "align_forward": (0.0, 0.0),
+       "viterbi_step": (0.0, 0.0), "viterbi_step_backward": (0.0, 0.0),
+       "align_forward": (0.0, 0.0),
        "align_backtrace": (0.0, 0.0), "gmm_stats": (1e-5, 1e-5), "lattice_fb": (0.0, 0.0),
        "viterbi_nbest": (0.0, 0.0), "generic_forward": (0.0, 0.0),
        "generic_backtrace": (0.0, 0.0)}
@@ -139,6 +146,8 @@ SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
                             "voicebridge_tpu/ops/pallas_gmm.py:81"),
            "viterbi_step": ("voicebridge_tpu_torch/csrc/viterbi_step.cu",
                             "voicebridge_tpu/ops/decode_core.py:268"),
+           "viterbi_step_backward": ("voicebridge_tpu_torch/csrc/viterbi_step.cu",
+                                     "voicebridge_tpu/ops/lattice.py:386"),
            "align_forward": ("voicebridge_tpu_torch/csrc/align_band.cu",
                              "voicebridge_tpu/ops/align_band.py:186"),
            "align_backtrace": ("voicebridge_tpu_torch/csrc/align_band.cu",
@@ -155,7 +164,7 @@ SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
                                  "voicebridge_tpu/ops/viterbi.py:842")}
 DECODE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step")
 TRAIN_KERNELS = ("gmm_loglikes", "align_forward", "align_backtrace", "gmm_stats")
-LATTICE_KERNELS = DECODE_KERNELS + ("lattice_fb",)
+LATTICE_KERNELS = DECODE_KERNELS + ("viterbi_step_backward", "lattice_fb")
 NBEST_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_nbest")
 GENERIC_KERNELS = ("gmm_loglikes", "generic_forward", "generic_backtrace")
 
@@ -222,10 +231,14 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
     timed = device.type == "cuda"
     results = {}
 
-    def record(name, pairs, kernel_fn, plain_fn, work, equal=True):
+    def record(name, pairs, kernel_fn, plain_fn, work, equal=True, frames=1, frame_fn=None):
         """Hold each (kernel, plain) output pair within TOL[name], time both
         versions, and work out the kernel's bound from ``work``: the bytes
-        it must move (inputs once, outputs once) and its operations."""
+        it must move (inputs once, outputs once) and its operations.  A
+        ``kernel_fn`` that runs a window of ``frames`` frames in one launch
+        is timed per frame; ``frame_fn``, the same kernel one frame per
+        launch, is timed beside it; ``plain_fn`` and ``work`` are one
+        frame's."""
         rtol, atol = TOL[name]
         err, ok = 0.0, equal
         for got, ref in pairs:
@@ -236,13 +249,18 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
         byte_ms = 1e3 * work[0] / HBM_BYTES_PER_S
         op_ms = 1e3 * work[1] / FP32_OPS_PER_S
         results[name] = {"max_abs_err": err,
-                         "ms": cuda_ms(torch, kernel_fn) if timed else None,
+                         "ms": cuda_ms(torch, kernel_fn) / frames if timed else None,
                          "plain_ms": cuda_ms(torch, plain_fn) if timed else None,
                          "bound_ms": max(byte_ms, op_ms),
                          "bound_by": "bytes" if byte_ms >= op_ms else "operations",
                          "library_ms": None}  # no single PyTorch call computes it
+        if frame_fn is not None:
+            results[name]["window_frames"] = frames
+            results[name]["frame_launch_ms"] = cuda_ms(torch, frame_fn) if timed else None
         log(f"{name}: max_abs_err {err:.3g} (rtol {rtol}, atol {atol}) "
-            f"kernel {results[name]['ms']} ms, plain {results[name]['plain_ms']} ms; "
+            f"kernel {results[name]['ms']} ms (per frame, {frames} frames a launch), "
+            f"one frame a launch {results[name].get('frame_launch_ms')} ms, "
+            f"plain {results[name]['plain_ms']} ms; "
             f"{work[0]:.4g} bytes ({byte_ms:.4g} ms), {work[1]:.4g} operations "
             f"({op_ms:.4g} ms)")
         check(ok, f"{name} disagrees with its plain version (max abs err {err})")
@@ -283,48 +301,50 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
            (nbytes(x, w, ll), 2 * x.shape[0] * w.shape[0] * w.shape[1] * 2 * dim))
     del ref
 
-    # K3: a few frame steps from the start state, fed the K2 scores
+    # K3 over the forward plan: k3_frames frames from the start state, fed
+    # the K2 scores, once a frame a launch (W = 1) and once as one window,
+    # both against the plain version
     graph = synth_decode_graph(width.num_states, num_pdfs=width.num_pdfs)
     plan = DC.build_emit_plan(graph, d=8)
     dev = DC.plan_to_device(plan, device)
-    b = width.batch
-    ll_t = ll.view(b, width.frames, -1).permute(1, 2, 0)[: width.k3_frames].contiguous()
-    ll_k = ll.view(b, width.frames, -1)[:, : width.k3_frames].contiguous()
+    b, k = width.batch, width.k3_frames
+    ll_t = ll.view(b, width.frames, -1).permute(1, 2, 0)[:k].contiguous()
+    ll_k = ll.view(b, width.frames, -1)[:, :k].contiguous()
     del ll
     nf = torch.full((b,), width.frames, dtype=torch.int32, device=device)
     s1 = plan.num_states + 1
     alpha0 = np.concatenate([graph.alpha0[plan.sperm[:-1]], [DC.NEG_INF]]).astype(np.float32)
     alpha = torch.from_numpy(alpha0).to(device)[:, None].expand(s1, b).contiguous()
     acwt = float(np.float32(1.0 / 13.0))
+    scan = (dev, nf, 0, acwt, plan.rspec, plan.packed)
     bp_dtype = torch.uint8 if plan.packed else torch.int16
-    worst, codes_equal = None, True
+    bps = {m: torch.empty((k, s1, b), dtype=bp_dtype, device=device) for m in "1wp"}
+    ends = {m: torch.full_like(alpha, DC.NEG_INF) for m in "1wp"}
     k3_alphas = [alpha]
-    for t in range(width.k3_frames):
-        bp_k = torch.empty((s1, b), dtype=bp_dtype, device=device)
-        bp_p = torch.empty_like(bp_k)
-        a_k, _ = DC.viterbi_step(alpha, torch.full_like(alpha, DC.NEG_INF), ll_t[t], dev,
-                                 nf, t, acwt, plan.rspec, plan.packed, bp_k)
-        a_p, _ = DC.viterbi_step_plain(alpha, torch.full_like(alpha, DC.NEG_INF), ll_t[t],
-                                       dev, nf, t, acwt, plan.rspec, plan.packed, bp_p)
-        codes_equal = codes_equal and bool(torch.equal(bp_k, bp_p))
-        if worst is None or (a_k - a_p).abs().max() > (worst[0] - worst[1]).abs().max():
-            worst = (a_k, a_p)
-        alpha = a_k
-        k3_alphas.append(a_k)
-    scratch = torch.full_like(alpha, DC.NEG_INF)
-    bp = torch.empty((s1, b), dtype=bp_dtype, device=device)
-    record("viterbi_step", [worst],
-           lambda: DC.viterbi_step(alpha, scratch, ll_t[0], dev, nf, 0, acwt,
-                                   plan.rspec, plan.packed, bp),
-           lambda: DC.viterbi_step_plain(alpha, scratch, ll_t[0], dev, nf, 0, acwt,
-                                         plan.rspec, plan.packed, bp),
+    for t in range(k):
+        a1, _ = DC.viterbi_step(k3_alphas[-1], ends["1"], ll_t[t], dev, nf, t, acwt,
+                                plan.rspec, plan.packed, bps["1"][t])
+        k3_alphas.append(a1)
+    a_w, _ = DC.viterbi_window(alpha, ends["w"], ll_t, *scan, bps["w"])
+    a_p, _ = DC.viterbi_window_plain(alpha, ends["p"], ll_t, *scan, bps["p"])
+    same = all(bool(torch.equal(x, y)) for x, y in (
+        (a1, a_p), (a_w, a_p), (bps["1"], bps["p"]), (bps["w"], bps["p"]),
+        (ends["1"], ends["p"]), (ends["w"], ends["p"])))
+    log(f"viterbi_step: {k} frames x {b} lanes over the forward plan ({plan.num_rows} rows x "
+        f"D = {plan.d}, {int((plan.row_arc >= 0).sum())} real slots), one frame a launch and "
+        f"one window, bit-equal to the plain version: {same}")
+    record("viterbi_step", [(a1, a_p), (a_w, a_p)],
+           lambda: DC.viterbi_window(alpha, ends["w"], ll_t, *scan, bps["w"]),
+           lambda: DC.viterbi_step_plain(alpha, ends["p"], ll_t[0], dev, nf, 0, acwt,
+                                         plan.rspec, plan.packed, bps["p"][0]),
            # alpha in and out, the frame's logliks, the backpointers, the plan;
            # an add and a compare per (row slot, lane), an add and a compare per row
-           (2 * nbytes(alpha) + nbytes(ll_t[0], bp, *dev),
-            2 * dev.row_src.numel() * b + 2 * plan.num_rows * b),
-           equal=codes_equal)
-    check(codes_equal, "viterbi_step backpointer codes differ from the plain version")
-    del alpha, scratch, bp
+           (2 * nbytes(alpha) + nbytes(ll_t[0], bps["w"][0], *dev),
+            2 * dev.row_src.numel() * b + 2 * plan.num_rows * b), equal=same, frames=k,
+           frame_fn=lambda: DC.viterbi_step(alpha, ends["1"], ll_t[0], dev, nf, 0, acwt,
+                                            plan.rspec, plan.packed, bps["1"][0]))
+    check(same, "viterbi_step scores or backpointer codes differ from the plain version")
+    del alpha, bps, ends
     compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
                            record, log)
     del k3_alphas, dev
@@ -337,11 +357,13 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
 
 def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
                            record, log) -> None:
-    """Phase 3, K5: the recompute-and-test step over the K3 frames, as the
-    lattice FB runs it for utterances of that many frames: the threshold
-    from the FB itself, beta_eff from K3 over the backward plan.  The kernel
-    and its plain version get the same inputs each frame; the recomputed
-    alpha must also equal K3's forward alpha."""
+    """Phase 3, lattice phase 2 over the K3 frames, as the lattice FB runs it
+    for utterances of that many frames: K3 over the backward plan with the
+    beta_eff select and slab store fused (``bwd_window``), then K5, the
+    recompute-and-test step, with the threshold from the FB itself.  Each
+    runs one frame a launch and as one window, against its plain version on
+    the same inputs; K5's recomputed alpha must also equal K3's forward
+    alpha."""
     import numpy as np
 
     from voicebridge_tpu_torch import DecodeOptions
@@ -358,34 +380,62 @@ def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alpha
     thresh = (best - beam).contiguous()
     final_eff = torch.from_numpy(np.concatenate(
         [graph.final_score[bwd_plan.sperm[:-1]], [DC.NEG_INF]]).astype(np.float32)).to(device)
-    final_eff = final_eff[:, None].expand(-1, b)
+    final_eff = final_eff[:, None].expand(-1, b).contiguous()
     nf = torch.full((b,), k, dtype=torch.int32, device=device)
     row_dst = torch.from_numpy(row_dst).to(device)
-    slab = torch.empty((k,) + tuple(k3_alphas[0].shape), device=device)
-    beta, scratch = torch.full_like(slab[0], DC.NEG_INF), torch.empty_like(slab[0])
+    beta0 = torch.full_like(k3_alphas[0], DC.NEG_INF)
+    bwd = (bwd_dev, nf, 0, acwt, bwd_plan.rspec, bwd_plan.packed, final_eff)
+    slabs = {m: torch.empty((k,) + tuple(beta0.shape), device=device) for m in "1wp"}
+    beta1 = beta0
     for t in range(k - 1, -1, -1):
-        eff = torch.where((t + 1 == nf)[None, :], final_eff, beta, out=slab[t])
-        beta, _ = DC.viterbi_step(eff, scratch, ll_t[t], bwd_dev, nf, t, acwt, bwd_plan.rspec,
-                                  bwd_plan.packed)
-    words = torch.empty((plan.num_rows, b), dtype=torch.uint8, device=device)
-    same, worst = True, None
+        beta1 = LAT.bwd_window(beta1, ll_t[t:t + 1], bwd_dev, nf, t, acwt, bwd_plan.rspec,
+                               bwd_plan.packed, final_eff, slabs["1"][t:t + 1])
+    beta_w = LAT.bwd_window(beta0, ll_t, *bwd, slabs["w"])
+    beta_p = LAT.bwd_window_plain(beta0, ll_t, *bwd, slabs["p"])
+    same = all(bool(torch.equal(x, y)) for x, y in (
+        (beta1, beta_p), (beta_w, beta_p), (slabs["1"], slabs["p"]), (slabs["w"], slabs["p"])))
+    log(f"viterbi_step_backward: {k} frames x {b} lanes over the backward plan "
+        f"({bwd_plan.num_rows} rows x D = {bwd_plan.d}, {int((bwd_plan.row_arc >= 0).sum())} "
+        f"real slots), bit-equal to the plain version: {same}")
+    # beta in and out, the frame's slab slice out, its logliks, the plan; the
+    # final scores once a window (every lane ends at its last frame); an add
+    # and a compare per (row slot, lane), an add and a compare per row
+    slab = slabs["w"]
+    record("viterbi_step_backward", [(beta1, beta_p), (beta_w, beta_p)],
+           lambda: LAT.bwd_window(beta0, ll_t, *bwd, slab),
+           lambda: LAT.bwd_window_plain(beta0, ll_t[:1], *bwd, slabs["p"][:1]),
+           (3 * nbytes(beta0) + nbytes(ll_t[0], nf, *bwd_dev) + nbytes(final_eff) / k,
+            2 * bwd_dev.row_src.numel() * b + 2 * bwd_plan.num_rows * b), equal=same,
+           frames=k, frame_fn=lambda: LAT.bwd_window(beta0, ll_t[:1], *bwd, slab[:1]))
+    check(same, "viterbi_step_backward differs from the plain version")
+    words = {m: torch.empty((k, plan.num_rows, b), dtype=torch.uint8, device=device)
+             for m in "1wp"}
+    fb = (dev, row_dst, slab, nf, 0, acwt, thresh, plan.rspec)
+    a1 = k3_alphas[0]
+    same = True
     for t in range(k):
-        args = (k3_alphas[t], ll_t[t], dev, row_dst, slab[t], nf, t, acwt, thresh, plan.rspec)
-        a_k = LAT.fb_frame(*args, words)
-        a_p, w_p = LAT.fb_frame_plain(*args)
-        same = (same and torch.equal(words, w_p) and torch.equal(a_k, a_p)
-                and torch.equal(a_k, k3_alphas[t + 1]))
-        if worst is None or (a_k - a_p).abs().max() > (worst[0] - worst[1]).abs().max():
-            worst = (a_k, a_p)
+        a1 = LAT.fb_frame(a1, ll_t[t], dev, row_dst, slab[t], nf, t, acwt, thresh, plan.rspec,
+                          words["1"][t])
+        same = same and bool(torch.equal(a1, k3_alphas[t + 1]))
+    a_w = LAT.fb_frames(k3_alphas[0], ll_t, *fb, words["w"])
+    a_p = LAT.fb_frames_plain(k3_alphas[0], ll_t, *fb, words["p"])
+    same = same and all(bool(torch.equal(x, y)) for x, y in (
+        (a1, a_p), (a_w, a_p), (words["1"], words["p"]), (words["w"], words["p"])))
     log(f"lattice_fb: {k} frames x {b} lanes, survivor bytes nonzero "
-        f"{int((w_p != 0).sum())} of {w_p.numel()} in the last frame")
+        f"{int((words['p'][-1] != 0).sum())} of {words['p'][-1].numel()} in the last frame; "
+        f"bit-equal to the plain version and its alpha to K3's: {same}")
     # K3's reads without the backpointers, beta and the threshold in, the
     # survivor bytes out; per row slot the forward add and compare and the
     # survivor test's two adds and compare
-    record("lattice_fb", [worst], lambda: LAT.fb_frame(*args, words),
-           lambda: LAT.fb_frame_plain(*args),
-           (3 * nbytes(a_k) + nbytes(ll_t[0], words, row_dst, thresh, *dev),
-            5 * dev.row_src.numel() * b + 2 * plan.num_rows * b), equal=same)
+    record("lattice_fb", [(a1, a_p), (a_w, a_p)],
+           lambda: LAT.fb_frames(k3_alphas[0], ll_t, *fb, words["w"]),
+           lambda: LAT.fb_frame_plain(k3_alphas[0], ll_t[0], dev, row_dst, slab[0], nf, 0,
+                                      acwt, thresh, plan.rspec),
+           (3 * nbytes(a_w) + nbytes(ll_t[0], words["w"][0], row_dst, thresh, *dev),
+            5 * dev.row_src.numel() * b + 2 * plan.num_rows * b), equal=same, frames=k,
+           frame_fn=lambda: LAT.fb_frame(k3_alphas[0], ll_t[0], dev, row_dst, slab[0], nf, 0,
+                                         acwt, thresh, plan.rspec, words["1"][0]))
+    check(same, "lattice_fb differs from the plain version or its alpha from K3's")
 
 
 def compare_nbest_kernel(torch, device, width: Width, graph, ll_k, acwt, record, log) -> None:
@@ -1209,9 +1259,11 @@ def main() -> int:
                       ("generic", "generic alignment")):
         facts = report.pop(key)
         busy = facts["profile"]["device_busy_share"]
+        launched = {k: n for k, n in facts["launches"].items() if n}
         print(f"full-width {what} on {card}: {facts['median_audio_s_per_s']:.1f} audio-s/s "
               f"(median of {len(facts['runs_s'])} runs of {facts['audio_s']:.0f} audio s); "
-              f"device busy {100 * busy:.1f} % of one profiled run")
+              f"device busy {100 * busy:.1f} % of one profiled run; launches in one run "
+              f"{launched}")
         if key == "lattice":
             print(f"full-width lattices: {facts['survivors_per_frame_mean']:.2f} survivors per "
                   f"frame (max {facts['survivors_per_frame_max']}), arcs per lattice (min, mean, "

@@ -1,12 +1,16 @@
 """The port's CUDA kernels against their plain PyTorch versions on the same
 CUDA tensors, at small shapes and over the options ``chip_smoke.py`` does
 not reach (fbank rows, energy and window options, wide feature dims, ragged
-mixtures, int16 backpointers, the recompute decode; for the aligner K4
+mixtures; for the Viterbi step K3 row widths 1 to 8 and 12, 1 to 130
+lanes, uint8 and int16 backpointers, dead and bucket-padding rows, windows
+of 1, 3 and T frames, a one-block grid and the lattice's backward window,
+and the recompute decode; for the aligner K4
 ragged and empty utterances, a failed utterance and a band matrix W too
 large for shared memory; for the E-step K6 a pdf holding most frames,
 zero-weight frames and two different feature arrays; for the lattice step K5
-row widths 2 and 8, ragged and empty utterances, utterances that reach no
-final state and two window sizes, and the lattice decode against the CPU;
+row widths 1 to 8, 1 to 130 lanes, ragged and empty utterances, utterances
+that reach no final state, windows of 1, 3, 7, 16 and T frames and a
+one-block grid, and the lattice decode against the CPU;
 for the N-best step K7 list lengths 1 to 16, a finite beam, ragged and empty
 utterances, and ``decode_nbest`` against the CPU; for the generic aligner
 ragged and empty utterances, a finite beam, graphs whose arcs or whose alpha
@@ -117,33 +121,117 @@ def _hub_graph(seed):
                       arc_oseq=np.zeros_like(src))
 
 
-@pytest.mark.parametrize("which", ["packed", "int16"])
-def test_viterbi_step_matches_plain(cuda, which):
-    graph = synth_decode_graph(700, num_pdfs=40) if which == "packed" else _hub_graph(3)
-    plan = DC.build_emit_plan(graph, d=4)
-    assert plan.packed == (which == "packed")
+def _k3_graph(which):
+    """The packed graph (with 33, 41 and 50 more arcs into states 9, 19 and
+    29, so that every row width leaves bucket-padding rows) or the hub graph,
+    with every arc into states 5, 102, 199, ... and every arc out of states
+    11, 108, 205, ... removed: those states keep one dead row, all padding,
+    in the forward and the backward plan."""
+    if which == "packed":
+        g = synth_decode_graph(700, num_pdfs=40)
+        rng = np.random.default_rng(1)
+        dst = np.repeat(np.array([9, 19, 29], np.int32), [33, 41, 50])
+        src = rng.integers(0, 700, len(dst)).astype(np.int32)
+        pdf = np.array([g.arc_pdf[g.arc_dst == x][0] for x in dst], np.int32)
+        score = (-rng.exponential(1.0, len(dst))).astype(np.float32)
+        g = g._replace(arc_src=np.concatenate([g.arc_src, src]),
+                       arc_dst=np.concatenate([g.arc_dst, dst]),
+                       arc_pdf=np.concatenate([g.arc_pdf, pdf]),
+                       arc_tid=np.concatenate([g.arc_tid, pdf]),
+                       arc_score=np.concatenate([g.arc_score, score]),
+                       arc_oseq=np.zeros(len(g.arc_src) + len(dst), np.int32))
+    else:
+        g = _hub_graph(3)
+    keep = (g.arc_dst % 97 != 5) & (g.arc_src % 97 != 11)
+    return g._replace(**{f: getattr(g, f)[keep] for f in
+                         ("arc_src", "arc_dst", "arc_pdf", "arc_tid", "arc_score", "arc_oseq")})
+
+
+K3_FRAMES = 8  # not a multiple of the window 3
+# (graph, row width D, lanes B, window W, block cap, plan); D = 12 takes the
+# runtime-D kernel, a block cap of 1 makes one block's stride loop cover
+# every state, W = K3_FRAMES is one launch for the whole utterance
+K3_CASES = [
+    ("packed", 4, 40, 1, 0, "fwd"), ("int16", 4, 40, 1, 0, "fwd"),
+    ("packed", 1, 5, 3, 0, "fwd"), ("packed", 2, 128, K3_FRAMES, 0, "fwd"),
+    ("packed", 3, 130, 3, 0, "fwd"), ("int16", 5, 1, K3_FRAMES, 0, "fwd"),
+    ("packed", 6, 128, 3, 1, "fwd"), ("packed", 7, 130, 1, 1, "fwd"),
+    ("int16", 8, 128, 3, 0, "fwd"), ("int16", 12, 5, 3, 0, "fwd"),
+    ("packed", 12, 130, K3_FRAMES, 1, "fwd"), ("packed", 2, 128, 3, 0, "bwd"),
+    ("packed", 2, 130, K3_FRAMES, 1, "bwd"), ("packed", 8, 5, 1, 0, "bwd"),
+    ("int16", 4, 1, 3, 0, "bwd"), ("packed", 12, 128, 3, 0, "bwd"),
+]
+
+
+@pytest.mark.parametrize("which,d,b,window,blocks,plan_kind", K3_CASES)
+def test_viterbi_step_matches_plain(cuda, monkeypatch, which, d, b, window, blocks, plan_kind):
+    """K3 against its plain version on the same CUDA tensors, window by
+    window (W = 1 through ``viterbi_step``): bit-equal scores, alpha_end and
+    backpointer codes over the forward plan; bit-equal beta and beta_eff slab
+    over the lattice's backward plan.  Lanes end before, inside and after
+    the windows; the plans hold dead rows and bucket-padding rows."""
+    monkeypatch.setattr(DC, "_MAX_GRID_BLOCKS", blocks)
+    graph = _k3_graph(which)
+    if plan_kind == "fwd":
+        plan = DC.build_emit_plan(graph, d=d)
+        assert plan.packed == (which == "packed")
+    else:
+        plan = LAT.build_lattice_plans(graph, d=d, device="cpu")[2]
+    assert plan.d == d
+    real = DC.row_real_slots(plan)
+    s1 = plan.num_states + 1
+    dead = (np.diff(plan.row_start)[:-1] == 1) & (real[plan.row_start[:-2]] == 0)
+    assert dead.any() and (real == 0).sum() > dead.sum() + 1  # + bucket padding rows
     dev = DC.plan_to_device(plan, cuda)
-    b, frames = 40, 6
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(5 + d)
+    frames = K3_FRAMES
     ll = torch.from_numpy((rng.standard_normal((frames, 40, b)) * 5 - 30)
                           .astype(np.float32)).to(cuda)
-    nf = torch.from_numpy(rng.integers(0, frames + 1, b).astype(np.int32)).to(cuda)
-    s1 = plan.num_states + 1
+    nf_np = rng.integers(0, frames + 1, b).astype(np.int32)
+    nf_np[: min(b, 3)] = [frames, 4, 0][: min(b, 3)]
+    nf = torch.from_numpy(nf_np).to(cuda)
     alpha0 = np.concatenate([graph.alpha0[plan.sperm[:-1]], [DC.NEG_INF]]).astype(np.float32)
     a_k = a_p = torch.from_numpy(alpha0).to(cuda)[:, None].expand(s1, b).contiguous()
+    key = "viterbi_step" if plan_kind == "fwd" else "viterbi_step_backward"
+    before = _build.launches[key]
+    if plan_kind == "bwd":
+        beta = (rng.standard_normal((s1, b)) * 4 - 10).astype(np.float32)
+        beta[-1] = DC.NEG_INF
+        a_k = a_p = torch.from_numpy(beta).to(cuda)
+        final_eff = torch.from_numpy(np.where(rng.random((s1, b)) < 0.5, 0.0, DC.NEG_INF)
+                                     .astype(np.float32)).to(cuda)
+        slab_k = torch.empty((frames, s1, b), device=cuda)
+        slab_p = torch.full_like(slab_k, 7.0)
+        starts = list(range(0, frames, window))[::-1]
+        for lo in starts:
+            hi = min(lo + window, frames)
+            args = (ll[lo:hi], dev, nf, lo, 0.25, plan.rspec, plan.packed, final_eff)
+            a_k = LAT.bwd_window(a_k, *args, slab_k[lo:hi])
+            a_p = LAT.bwd_window_plain(a_p, *args, slab_p[lo:hi])
+            torch.cuda.synchronize()
+            assert torch.equal(a_k, a_p), f"window at {lo}"
+        assert torch.equal(slab_k, slab_p)
+        assert _build.launches[key] - before == len(starts)
+        return
     e_k = torch.full_like(a_k, DC.NEG_INF)
     e_p = e_k.clone()
     dtype = torch.uint8 if plan.packed else torch.int16
-    for t in range(frames):
-        bp_k = torch.empty((s1, b), dtype=dtype, device=cuda)
-        bp_p = torch.empty_like(bp_k)
-        a_k, e_k = DC.viterbi_step(a_k, e_k, ll[t], dev, nf, t, 0.25, plan.rspec,
-                                   plan.packed, bp_k)
-        a_p, e_p = DC.viterbi_step_plain(a_p, e_p, ll[t], dev, nf, t, 0.25, plan.rspec,
-                                         plan.packed, bp_p)
+    bp_k = torch.empty((frames, s1, b), dtype=dtype, device=cuda)
+    bp_p = torch.empty_like(bp_k)
+    for lo in range(0, frames, window):
+        hi = min(lo + window, frames)
+        if window == 1:
+            a_k, e_k = DC.viterbi_step(a_k, e_k, ll[lo], dev, nf, lo, 0.25, plan.rspec,
+                                       plan.packed, bp_k[lo])
+        else:
+            a_k, e_k = DC.viterbi_window(a_k, e_k, ll[lo:hi], dev, nf, lo, 0.25, plan.rspec,
+                                         plan.packed, bp_k[lo:hi])
+        a_p, e_p = DC.viterbi_window_plain(a_p, e_p, ll[lo:hi], dev, nf, lo, 0.25, plan.rspec,
+                                           plan.packed, bp_p[lo:hi])
         torch.cuda.synchronize()
-        assert torch.equal(a_k, a_p) and torch.equal(e_k, e_p), f"frame {t}"
-        assert torch.equal(bp_k, bp_p), f"frame {t}"
+        assert torch.equal(a_k, a_p) and torch.equal(e_k, e_p), f"window at {lo}"
+        assert torch.equal(bp_k[lo:hi], bp_p[lo:hi]), f"window at {lo}"
+    assert _build.launches[key] - before == -(-frames // window)
 
 
 @pytest.mark.parametrize("budget", [1 << 40, 1])  # keep, recompute
@@ -256,50 +344,61 @@ def test_gmm_stats_matches_plain(cuda, case):
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
 
 
-def _fb_frame_plain(alpha, ll_t, dev, row_dst, beta_next, nf, t, acwt, thresh, rspec,
-                    words_out):
-    na, words = LAT.fb_frame_plain(alpha, ll_t, dev, row_dst, beta_next, nf, t, acwt, thresh,
-                                   rspec)
-    words_out.copy_(words)
-    return na
+FB_FRAMES = 40
+FB_LANES = {"ten": np.array([0, 1, FB_FRAMES, 37, 3, 20, FB_FRAMES, 12, 29, 5], np.int32)}
+for _b in (1, 5, 128, 130):  # lane 0 empty, the others 1 .. T frames
+    FB_LANES[_b] = np.random.default_rng(_b).integers(1, FB_FRAMES + 1, _b).astype(np.int32)
+    FB_LANES[_b][0] = 0 if _b > 1 else FB_FRAMES
+# (row width D, lanes, window W, block cap): W = 1, a window that does not
+# divide T, W = T; a block cap of 1 makes one block's stride loop cover
+# every state
+FB_CASES = [(2, "ten", 3, 0), (8, "ten", 16, 0), (8, "ten", 1, 0), (2, "ten", FB_FRAMES, 0),
+            (4, 1, 3, 0), (1, 5, FB_FRAMES, 1), (3, 128, 3, 0), (5, 130, 7, 1),
+            (6, 128, 1, 1), (7, 5, 3, 0)]
 
 
-@pytest.mark.parametrize("window", [3, 16])
-@pytest.mark.parametrize("d", [2, 8])
-def test_lattice_fb_matches_plain(cuda, monkeypatch, d, window):
-    """The whole lattice forward-backward with K5 against the same run with
-    K5's plain version, on the same CUDA tensors: identical survivors and
-    bit-equal total_best and alpha_at_end.  Lanes of 0, 1 and T frames,
-    ragged ones, and lanes of 1 and 3 frames that reach no final state."""
+@pytest.mark.parametrize("d,lanes,window,blocks", FB_CASES)
+def test_lattice_fb_matches_plain(cuda, monkeypatch, d, lanes, window, blocks):
+    """The whole lattice forward-backward with K3 and K5 against the same run
+    with their plain versions, on the same CUDA tensors: identical
+    survivors and bit-equal total_best and alpha_at_end; one launch per
+    window and pass.  Lanes of 0, 1 and T frames, ragged ones, and lanes
+    that reach no final state."""
+    monkeypatch.setattr(DC, "_MAX_GRID_BLOCKS", blocks)
     graph = synth_decode_graph(700, num_pdfs=40, seed=2)
     final = np.full(700, DC.NEG_INF, np.float32)
     final[600:] = 0.0  # more than 3 frames of jumps of at most 63 from state 0
     graph = graph._replace(final_score=final)
     plans = LAT.build_lattice_plans(graph, d=d, device=cuda)
     assert plans[0].d == d
-    t = 40
-    nf = np.array([0, 1, t, 37, 3, 20, t, 12, 29, 5], np.int32)
+    t = FB_FRAMES
+    nf = FB_LANES[lanes]
     rng = np.random.default_rng(9)
     ll = torch.from_numpy((rng.standard_normal((len(nf), t, 40)) * 5 - 30)
                           .astype(np.float32)).to(cuda)
     args = (graph, *plans, ll, nf, 0.25, 6.0)
-    before = _build.launches["lattice_fb"]
+    keys = ("viterbi_step", "viterbi_step_backward", "lattice_fb")
+    before = {k: _build.launches[k] for k in keys}
     got = LAT.lattice_forward_backward_rows(*args, window=window)
     torch.cuda.synchronize()
-    assert _build.launches["lattice_fb"] - before == t
-    monkeypatch.setattr(LAT, "fb_frame", _fb_frame_plain)
+    windows = -(-int(nf.max()) // window)
+    assert all(_build.launches[k] - before[k] == windows for k in keys)
+    monkeypatch.setattr(LAT, "fb_frames", LAT.fb_frames_plain)
+    monkeypatch.setattr(LAT, "bwd_window", LAT.bwd_window_plain)
+    monkeypatch.setattr(DC, "viterbi_window", DC.viterbi_window_plain)
     ref = LAT.lattice_forward_backward_rows(*args, window=window)
     torch.cuda.synchronize()
-    assert _build.launches["lattice_fb"] - before == t
+    assert all(_build.launches[k] - before[k] == windows for k in keys)
     surv, surv_ref = got[0], ref[0]
     for x, y in zip(surv[:3], surv_ref[:3]):
         assert torch.equal(x, y)
     np.testing.assert_array_equal(surv.counts, surv_ref.counts)
-    assert surv.counts[0] == 0 and (surv.counts[1:] > 0).all()
+    assert (surv.counts[nf == 0] == 0).all() and (surv.counts[nf > 0] > 0).all()
     for x, y in zip(got[1:], ref[1:]):
         assert torch.equal(x, y)
-    assert got[3].cpu().tolist() == [False, False, True, True, False, True, True, True, True,
-                                     False]
+    if lanes == "ten":
+        assert got[3].cpu().tolist() == [False, False, True, True, False, True, True, True,
+                                         True, False]
 
 
 def test_decode_lattice_cuda_matches_cpu(cuda):

@@ -1,7 +1,9 @@
 """Parity of the port's decode core with the JAX package's: the host graph
-and plan builders array for array, the per-frame relaxation (the K3 plain
-version, which is also the wrapper's CPU path) against JAX ``_emit_step``,
-and the full best-path decode in keep and recompute modes."""
+and plan builders array for array (and the real-slot counts K3 and K5 read),
+the per-frame relaxation (the K3 plain version, which is also the wrapper's
+CPU path) against JAX ``_emit_step``, the window scan against JAX
+``viterbi_scan``, and the full best-path decode in keep and recompute
+modes."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -64,6 +66,38 @@ def test_graph_and_plan_match_jax(which, d):
     _assert_same_tuple(plan, convert.emit_plan_from_jax(jplan))
 
 
+@pytest.mark.parametrize("which", ["yesno", "bench"])
+def test_row_real_slots_match_row_arc(which):
+    """The derived count of real slots per row equals the count of
+    ``row_arc >= 0`` on the forward and the backward (transposed) plan, the
+    pads trail, and ``plan_to_device`` carries it."""
+    if which == "yesno":
+        m = load_yesno_mono()
+        graph = compile_dense_graph(m.hclg, m.trans_model.tid2pdf)
+    else:
+        graph = _bench_graph()
+    for g in (graph, graph._replace(arc_src=graph.arc_dst, arc_dst=graph.arc_src)):
+        for d in (None, 3, 8):
+            plan = DC.build_emit_plan(g, d=d)
+            real = DC.row_real_slots(plan)
+            assert real.dtype == np.uint8
+            np.testing.assert_array_equal(real, (plan.row_arc >= 0).sum(axis=1))
+            pos = np.arange(plan.d)[None, :]
+            np.testing.assert_array_equal(plan.row_arc >= 0, pos < real[:, None])
+            assert (real == 0).any()  # the pad state's dead row at least
+            np.testing.assert_array_equal(DC.plan_to_device(plan, "cpu").row_real.numpy(), real)
+
+
+def test_row_real_slots_rejects_interleaved_pads():
+    plan = DC.build_emit_plan(_bench_graph(num_states=100, num_pdfs=10), d=4)
+    r = int(np.flatnonzero((plan.row_arc >= 0).sum(axis=1) == 2)[0])
+    arc = plan.row_arc.copy()
+    arc[r, [0, 1]] = arc[r, [1, 0]]
+    arc[r, 0] = -1  # a pad before a real slot
+    with pytest.raises(ValueError, match="real slots first"):
+        DC.row_real_slots(plan._replace(row_arc=arc))
+
+
 def _step_inputs(seed, b=5):
     rng = np.random.default_rng(seed)
     graph = _bench_graph(num_states=300, num_pdfs=20, seed=seed)
@@ -107,6 +141,36 @@ def test_viterbi_step_masks_like_jax_scan():
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-6, atol=0)
     np.testing.assert_allclose(tae.numpy(), np.asarray(jae), rtol=1e-6, atol=0)
     np.testing.assert_array_equal(bp.numpy(), np.asarray(jbps)[0])
+
+
+@pytest.mark.parametrize("with_bp", [True, False])
+@pytest.mark.parametrize("t0", [0, 7])
+def test_viterbi_window_matches_jax_scan(t0, with_bp):
+    """``viterbi_scan`` without a beam (one ``viterbi_window``, its plain
+    version on the CPU) against JAX ``viterbi_scan`` over a window of 6
+    frames starting at ``t0``: lanes that end before, inside and after the
+    window; alpha and alpha_at_end within 1e-6, equal backpointers."""
+    plan, alpha, _ll = _step_inputs(3)
+    w, b = 6, alpha.shape[1]
+    ll = (np.random.default_rng(4).standard_normal((w, 20, b)) * 5 - 30).astype(np.float32)
+    nf = np.array([0, t0 + 1, t0 + 3, t0 + 6, t0 + 9], np.int32)
+    ae = np.where(np.random.default_rng(5).random(alpha.shape) < 0.5, alpha,
+                  DC.NEG_INF).astype(np.float32)
+    acwt = float(np.float32(1.0 / 13.0))
+    (ja, jae), jbps = JDC.viterbi_scan(
+        JDC.plan_to_device(plan), jnp.asarray(alpha), jnp.asarray(ae),
+        jnp.asarray(ll.transpose(2, 0, 1)), jnp.asarray(nf), jnp.int32(t0), jnp.float32(acwt),
+        jnp.float32(0.0), plan.rspec, plan.packed, with_bp=with_bp)
+    (ta, tae), tbps = DC.viterbi_scan(DC.plan_to_device(plan, "cpu"), torch.from_numpy(alpha),
+                                      torch.from_numpy(ae), torch.from_numpy(ll),
+                                      torch.from_numpy(nf), t0, acwt, plan.rspec, plan.packed,
+                                      with_bp=with_bp)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tae.numpy(), np.asarray(jae), rtol=1e-6, atol=0)
+    if with_bp:
+        np.testing.assert_array_equal(tbps.numpy(), np.asarray(jbps))
+    else:
+        assert tbps is None and jbps is None
 
 
 @pytest.mark.parametrize("mode", ["keep", "recompute"])

@@ -15,6 +15,7 @@ import torch
 
 from voicebridge_tpu import lat as JL
 from voicebridge_tpu.config import DecodeOptions, FrameOptions, MfccOptions
+from voicebridge_tpu.ops import decode_core as JDC
 from voicebridge_tpu.ops import lattice as JLAT
 from voicebridge_tpu.ops import viterbi as JV
 from voicebridge_tpu.steps.decode import Decoder as JaxDecoder
@@ -157,6 +158,45 @@ def test_k5_window_matches_jax_window(fb_inputs):
     got = np.packbits(keep.reshape(w, -1, b).astype(bool), axis=1)
     np.testing.assert_array_equal(got, np.asarray(bits))
     assert got.any()
+
+
+def test_bwd_window_matches_jax(fb_inputs):
+    """``bwd_window`` (its plain version on the CPU) against the JAX package
+    on the same numpy inputs: beta at the window start against
+    ``_fb_win_backward``'s within 1e-6, and the beta_eff slab against the
+    values ``bwd_frame`` scans out (the same select and
+    ``emit_value_step``), for lanes that end before, inside and after the
+    window."""
+    g, plans, ll = fb_inputs
+    fwd, _fd, bwd, bwd_dev, _row_dst = plans
+    rng = np.random.default_rng(11)
+    s1, b, w, t0 = fwd.num_states + 1, len(NF_FB), 6, 10
+    nf = np.array([0, 11, 16, 13, 21], np.int32)
+    snap = np.full((s1, b), NEG_INF, np.float32)
+    beta = (rng.standard_normal((s1, b)) * 4 - 10).astype(np.float32)
+    final_eff = np.where(rng.random((s1, b)) < 0.5, 0.0, NEG_INF).astype(np.float32)
+    ll_win = np.ascontiguousarray(ll[:, t0:t0 + w].transpose(1, 2, 0))  # [W, P, B]
+    acwt = float(np.float32(0.5))
+    slab = torch.full((w, s1, b), 7.0)
+    beta_lo = LAT.bwd_window(torch.from_numpy(beta), torch.from_numpy(ll_win), bwd_dev,
+                             torch.from_numpy(nf), t0, acwt, bwd.rspec, bwd.packed,
+                             torch.from_numpy(final_eff), slab)
+    jfwd, jfwd_dev, jbwd, jbwd_dev, jrow_dst = JLAT.build_lattice_plans(_jax_graph(g), d=4)
+    jbeta, _bits = JLAT._fb_win_backward(
+        jfwd_dev, jbwd_dev, jnp.asarray(jrow_dst), jnp.asarray(snap), jnp.asarray(beta),
+        jnp.asarray(ll_win), jnp.int32(t0), jnp.asarray(nf), jnp.asarray(final_eff),
+        jnp.full(b, -25.0, jnp.float32), jnp.float32(acwt), jfwd.rspec, jbwd.rspec)
+    np.testing.assert_allclose(beta_lo.numpy(), np.asarray(jbeta), rtol=1e-6, atol=0)
+    bt, want = jnp.asarray(beta), [None] * w
+    for i in range(w - 1, -1, -1):  # bwd_frame, frame by frame
+        t = t0 + i
+        eff = jnp.where(jnp.asarray(t + 1 == nf)[None, :], jnp.asarray(final_eff), bt)
+        want[i] = np.asarray(eff)
+        nb = JDC.emit_value_step(eff, jnp.asarray(ll_win[i]), jbwd_dev, jnp.float32(acwt),
+                                 jbwd.rspec)
+        bt = jnp.where(jnp.asarray(t < nf)[None, :], nb, bt)
+    np.testing.assert_allclose(np.asarray(bt), np.asarray(jbeta), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(slab.numpy(), np.stack(want), rtol=1e-6, atol=0)
 
 
 def test_tiny_graph_lattices_equal_brute_force():

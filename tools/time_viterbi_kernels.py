@@ -1,0 +1,151 @@
+"""Time the Viterbi relaxation (K3) and the lattice recompute-and-test step
+(K5) of voicebridge_tpu_torch at full width on one NVIDIA GPU, for the
+checkout's kernel sources and for other versions of them side by side.
+
+    python tools/time_viterbi_kernels.py [--lanes 128] [--frames 16]
+                                         [--variant NAME=DIR ...]
+
+The full-width decode graph (60k states, 480k arcs, forward plan D = 8, the
+backward plan's D derived, 2) and random inputs from numpy seeds.  Cases, in
+ms per frame (CUDA events, mean of 5 runs after a warm-up): K3 over the
+forward plan as one window of ``--frames`` frames with and without
+backpointers and one frame a launch; K3 over the backward plan (the lattice's
+``bwd_window``, beta_eff select fused) as a window and one frame a launch;
+K5 as a window and one frame a launch.  Each ``--variant`` names a directory
+holding other versions of ``viterbi_step.cu`` and/or ``lattice_fb.cu`` (same
+C interface); every version is built with the package's nvcc flags into its
+own library under ``_archive/kernel_variants/`` and timed in turns (all in
+order, then in reverse).  Prints one JSON object with the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from voicebridge_tpu_torch import _build  # noqa: E402
+from voicebridge_tpu_torch.ops import decode_core as DC  # noqa: E402
+from voicebridge_tpu_torch.ops import lattice as LAT  # noqa: E402
+from voicebridge_tpu_torch.testing import synth_decode_graph  # noqa: E402
+
+OUT = ROOT / "_archive" / "kernel_variants"
+KERNEL_SOURCES = ("viterbi_step.cu", "lattice_fb.cu")
+
+
+def build(name: str, src_dir: Path | None) -> tuple[ctypes.CDLL, str]:
+    """Build mfcc.cu (the error strings) with the two kernel sources from
+    ``src_dir`` (default: the package's) into one library; returns it and
+    the compiler's register report."""
+    out = OUT / name
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    objs, procs = [], []
+    for src in ("mfcc.cu",) + KERNEL_SOURCES:
+        path = src_dir / src if src_dir is not None and (src_dir / src).exists() else \
+            _build.CSRC / src
+        obj = out / f"{src}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(obj), str(path)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    report = "".join(p.communicate()[0] for p in procs)
+    if any(p.returncode for p in procs):
+        raise RuntimeError(f"{name}: nvcc failed\n{report}")
+    lib_path = out / "libvariant.so"
+    subprocess.run([nvcc, "-shared", "-o", str(lib_path), *map(str, objs)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for fn in ("vbt_viterbi_step", "vbt_lattice_fb"):
+        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.vbt_error_string.argtypes = (ctypes.c_int,)
+    lib.vbt_error_string.restype = ctypes.c_char_p
+    return lib, report
+
+
+def ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cases(lanes: int, frames: int) -> dict:
+    dev = torch.device("cuda", 0)
+    graph = synth_decode_graph(60_000, num_pdfs=2000)
+    fwd = DC.build_emit_plan(graph, d=8)
+    _f, fwd_dev, bwd, bwd_dev, row_dst = LAT.build_lattice_plans(graph, fwd_plan=fwd, device=dev)
+    row_dst = torch.from_numpy(row_dst).to(dev)
+    s1, b, k = fwd.num_states + 1, lanes, frames
+    rng = np.random.default_rng(0)
+    ll = torch.from_numpy((rng.standard_normal((k, 2000, b)) * 5 - 60).astype(np.float32)).to(dev)
+    nf = torch.full((b,), 1000, dtype=torch.int32, device=dev)
+    alpha = torch.from_numpy((rng.standard_normal((s1, b)) * 10 - 300).astype(np.float32)).to(dev)
+    end = torch.full_like(alpha, DC.NEG_INF)
+    bps = torch.empty((k, s1, b), dtype=torch.uint8, device=dev)
+    final_eff = torch.zeros((s1, b), device=dev)
+    slab = torch.empty((k, s1, b), device=dev)
+    thresh = torch.full((b,), -1e9, device=dev)
+    words = torch.empty((k, fwd.num_rows, b), dtype=torch.uint8, device=dev)
+    f = (fwd_dev, nf, 0, 0.077, fwd.rspec, fwd.packed)
+    bw = (bwd_dev, nf, 0, 0.077, bwd.rspec, bwd.packed, final_eff)
+    fb = (fwd_dev, row_dst, slab, nf, 0, 0.077, thresh, fwd.rspec)
+    return {
+        "k3_fwd_window_bp": (lambda: DC.viterbi_window(alpha, end, ll, *f, bps), k),
+        "k3_fwd_window": (lambda: DC.viterbi_window(alpha, end, ll, *f), k),
+        "k3_fwd_frame_bp": (lambda: DC.viterbi_window(alpha, end, ll[:1], *f, bps[:1]), 1),
+        "k3_bwd_window": (lambda: LAT.bwd_window(alpha, ll, *bw, slab), k),
+        "k3_bwd_frame": (lambda: LAT.bwd_window(alpha, ll[:1], *bw, slab[:1]), 1),
+        "k5_window": (lambda: LAT.fb_frames(alpha, ll, *fb, words), k),
+        "k5_frame": (lambda: LAT.fb_frames(alpha, ll[:1], *fb[:2], slab[:1], *fb[3:],
+                                           words[:1]), 1),
+    }
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lanes", type=int, default=128)
+    ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_viterbi_kernels: CUDA is not available", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    sources = {"checkout": None}
+    sources.update((n, Path(d)) for n, d in (v.split("=", 1) for v in args.variant))
+    libs = {name: build(name, d) for name, d in sources.items()}
+    todo = cases(args.lanes, args.frames)
+    res: dict = {"card": card, "lanes": args.lanes, "frames": args.frames, "ms_per_frame": {}}
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            _build._lib = libs[name][0]
+            for case, (fn, frames) in todo.items():
+                res["ms_per_frame"].setdefault(name, {}).setdefault(case, []).append(
+                    ms(fn) / frames)
+    res["spills"] = {name: sorted({ln.split(":")[-1].strip() for ln in rep.splitlines()
+                                   if "spill stores" in ln and "0 bytes spill stores" not in ln})
+                     for name, (_lib, rep) in libs.items()}
+    _build._lib = None
+    print(json.dumps(res, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

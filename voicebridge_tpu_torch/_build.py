@@ -8,7 +8,9 @@ load raises: there is no fallback.  ``nvcc`` is taken from
 ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``, else ``PATH``.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one only after its kernel launched (``launch`` below).
+adds one only after its kernel launched (``launch`` below).  K3 counts its
+launches over the lattice's backward plan apart, as
+``viterbi_step_backward``.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 launches = {"mfcc_frames": 0, "gmm_loglikes": 0, "viterbi_step": 0,
-            "align_forward": 0, "align_backtrace": 0, "gmm_stats": 0, "lattice_fb": 0,
-            "viterbi_nbest": 0, "generic_forward": 0, "generic_backtrace": 0}
+            "viterbi_step_backward": 0, "align_forward": 0, "align_backtrace": 0,
+            "gmm_stats": 0, "lattice_fb": 0, "viterbi_nbest": 0, "generic_forward": 0,
+            "generic_backtrace": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -40,10 +43,11 @@ _SIGNATURES = {
                         _I, _F, _I, _P, _P),
     # x, n, d, w, p, m, out, stream
     "vbt_gmm_loglikes": (_P, _I64, _I, _P, _I, _I, _P, _P),
-    # alpha, alpha_out, alpha_end, bp, bp_bytes, ll_t, row_start, row_src,
-    # row_w, row_pdf, num_frames, t, acwt, s1, b, d, stream
-    "vbt_viterbi_step": (_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _F,
-                         _I, _I, _I, _P),
+    # alpha, buf0, buf1, alpha_end, bp, bp_bytes, ll, row_start, row_src,
+    # row_w, row_pdf, row_real, num_frames, final_eff, slab, t0, w, acwt, s1,
+    # b, p, d, reverse, max_blocks, stream
+    "vbt_viterbi_step": (_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                         _F, _I, _I, _I, _I, _I, _I, _P),
     # W, pdf, alpha0, ll, num_frames, offsets, acwt, b, s, k, t, p,
     # alpha_end, bps, stream
     "vbt_align_forward": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _P, _P),
@@ -53,10 +57,11 @@ _SIGNATURES = {
     # x_post, x_acc, weights, d, w, m, order, blk_pdf, blk_lo, blk_hi, nblk,
     # pdf_blk_lo, pdf_blk_hi, num_pdfs, partial, out, stream
     "vbt_gmm_stats": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P),
-    # alpha, alpha_out, words, ll_t, beta_next, thresh, row_start, row_src,
-    # row_w, row_pdf, row_dst, num_frames, t, acwt, s1, b, d, stream
-    "vbt_lattice_fb": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _I, _I,
-                       _I, _P),
+    # alpha, buf0, buf1, words, ll, beta, thresh, row_start, row_src, row_w,
+    # row_pdf, row_real, row_dst, num_frames, t0, w, acwt, s1, b, p, r, d,
+    # max_blocks, stream
+    "vbt_lattice_fb": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                       _I, _I, _I, _I, _I, _I, _P),
     # alpha, alpha_out, alpha_end, bp_arc, bp_slot, best, ll_t, ll_stride,
     # in_start, src, pdf, score, arc, num_frames, t, acwt, beam, b, s, k, stream
     "vbt_viterbi_nbest": (_P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _F,
@@ -142,12 +147,12 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, *args) -> None:
+def launch(kernel: str, *args, count: str | None = None) -> None:
     """Call ``vbt_<kernel>`` and raise if it returned a CUDA error; count the
-    launch otherwise."""
+    launch otherwise, under ``count`` (default: the kernel's name)."""
     lib = library()
     err = getattr(lib, "vbt_" + kernel)(*args)
     if err != 0:
         msg = lib.vbt_error_string(err).decode()
         raise RuntimeError(f"{kernel}: CUDA error {err} ({msg})")
-    launches[kernel] += 1
+    launches[count or kernel] += 1

@@ -14,10 +14,12 @@ packages build identical plans array for array:
 * **Backpointers** are one integer per state per frame: the winner code
   ``local_row * D + slot`` (uint8 when ``max_bucket * D <= 256``, else int16).
 
-The device half runs one frame per launch of ``viterbi_step`` (K3,
-``csrc/viterbi_step.cu``); its plain version is ``_emit_step``, which keeps
-the TPU design's bucketed reshape-max (``reduce_rows``).  ``backtrace_scan``
-and ``select_end_state`` are plain torch on the device.  Scores are max-plus
+The device half is K3 (``csrc/viterbi_step.cu``): ``viterbi_window`` runs a
+window of frames in one cooperative launch (``viterbi_scan`` without a
+beam), ``viterbi_step`` one frame (the beam path, which prunes between
+frames).  Their plain versions loop over ``_emit_step``, which keeps the TPU
+design's bucketed reshape-max (``reduce_rows``).  ``backtrace_scan`` and
+``select_end_state`` are plain torch on the device.  Scores are max-plus
 (higher is better).
 """
 
@@ -33,9 +35,13 @@ from ..device import free_bytes, stream_handle
 from .graph import NEG_INF, DenseGraph
 
 __all__ = [
-    "EmitPlan", "build_emit_plan", "plan_to_device", "viterbi_step",
-    "viterbi_scan", "decode_best_path", "reduce_rows", "prune",
+    "EmitPlan", "build_emit_plan", "plan_to_device", "row_real_slots", "viterbi_step",
+    "viterbi_window", "viterbi_scan", "decode_best_path", "reduce_rows", "prune",
 ]
+
+# Test hook: when positive, caps the blocks of a K3 or K5 launch, so that one
+# block's stride loop covers every state.
+_MAX_GRID_BLOCKS = 0
 
 
 class EmitPlan(NamedTuple):
@@ -202,6 +208,23 @@ class EmitPlanDev(NamedTuple):
     row_w: torch.Tensor  # [R, D] f32
     row_pdf: torch.Tensor  # [R] int32
     row_start: torch.Tensor  # [S+2] int32
+    row_real: torch.Tensor  # [R] uint8 real slots per row (``row_real_slots``)
+
+
+def row_real_slots(plan: EmitPlan) -> np.ndarray:
+    """Per row, the count of real slots (``row_arc >= 0``), uint8.  K3 and K5
+    evaluate a row's pad slots once, as one value: that needs the pads to
+    trail the real slots (``_chunk_runs`` fills rows from the left) and to
+    read the pad state with weight NEG_INF, which this checks."""
+    real = plan.row_arc >= 0
+    n = real.sum(axis=1)
+    pad = ~real
+    if not (plan.d < 256 and np.array_equal(real, np.arange(plan.d)[None, :] < n[:, None])
+            and (plan.row_src[pad] == plan.num_states).all()
+            and (plan.row_w[pad] == np.float32(NEG_INF)).all()):
+        raise ValueError("plan rows must hold their real slots first and pad with the pad "
+                         "state at NEG_INF")
+    return n.astype(np.uint8)
 
 
 def plan_to_device(plan: EmitPlan, device) -> EmitPlanDev:
@@ -211,7 +234,8 @@ def plan_to_device(plan: EmitPlan, device) -> EmitPlanDev:
     return EmitPlanDev(row_src=dev(plan.row_src.reshape(-1), np.int32),
                        row_w=dev(plan.row_w, np.float32),
                        row_pdf=dev(plan.row_pdf, np.int32),
-                       row_start=dev(plan.row_start, np.int32))
+                       row_start=dev(plan.row_start, np.int32),
+                       row_real=dev(row_real_slots(plan), np.uint8))
 
 
 def _bp_dtype(plan_packed: bool) -> torch.dtype:
@@ -279,12 +303,104 @@ def viterbi_step_plain(alpha, alpha_end, ll_t, dev: EmitPlanDev, num_frames, t: 
     return a, torch.where((t + 1 == num_frames)[None, :], a, alpha_end)
 
 
+def viterbi_window_plain(alpha, alpha_end, ll, dev: EmitPlanDev, num_frames, t0: int,
+                         acwt: float, rspec: tuple, packed: bool, bps=None):
+    """Plain version of ``viterbi_window``: ``viterbi_step_plain`` frame by
+    frame."""
+    for i in range(ll.shape[0]):
+        alpha, alpha_end = viterbi_step_plain(alpha, alpha_end, ll[i], dev, num_frames, t0 + i,
+                                              acwt, rspec, packed,
+                                              None if bps is None else bps[i])
+    return alpha, alpha_end
+
+
+def require(device: torch.device, *checks) -> None:
+    """Raise unless every ``(name, tensor, dtype)`` is a contiguous tensor of
+    that dtype on ``device``."""
+    for name, x, dtype in checks:
+        if x.device != device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: need contiguous {dtype} on {device}, "
+                             f"got {x.dtype} on {x.device}")
+
+
+def launch_k3(alpha: torch.Tensor, ll: torch.Tensor, dev: EmitPlanDev,
+              num_frames: torch.Tensor, t0: int, acwt: float, *, alpha_end=None, bps=None,
+              final_eff=None, slab=None, count: str = "viterbi_step") -> torch.Tensor:
+    """K3 over the W = ``ll.shape[0]`` frames of ``ll`` [W, P, B] from
+    ``alpha`` [S+1, B] in one launch (cooperative when W > 1).  Returns
+    alpha after the window (a new tensor).  ``alpha_end`` [S+1, B] is
+    updated in place; ``bps`` [W, S+1, B] gets the frames' backpointers.
+    With ``final_eff`` [S+1, B] and ``slab`` [W, S+1, B] the window runs in
+    reverse as the lattice's backward pass: each frame relaxes beta_eff =
+    (t + 1 == nf ? final_eff : beta) and stores it in ``slab``."""
+    s1, b = alpha.shape
+    w = ll.shape[0]
+    r, d = dev.row_w.shape
+    f32, i32 = torch.float32, torch.int32
+    device = alpha.device
+    require(device, ("alpha", alpha, f32), ("ll", ll, f32), ("row_w", dev.row_w, f32),
+            ("row_src", dev.row_src, i32), ("row_pdf", dev.row_pdf, i32),
+            ("row_start", dev.row_start, i32), ("row_real", dev.row_real, torch.uint8),
+            ("num_frames", num_frames, i32))
+    if (ll.dim() != 3 or ll.shape[2] != b or num_frames.shape != (b,)
+            or dev.row_start.shape != (s1 + 1,) or dev.row_src.shape != (r * d,)
+            or dev.row_pdf.shape != (r,) or dev.row_real.shape != (r,)):
+        raise ValueError("viterbi_step: inconsistent shapes")
+    ptrs = []
+    for name, x, dtype, shape in (("alpha_end", alpha_end, f32, (s1, b)),
+                                  ("final_eff", final_eff, f32, (s1, b)),
+                                  ("slab", slab, f32, (w, s1, b))):
+        if x is not None:
+            require(device, (name, x, dtype))
+            if x.shape != shape:
+                raise ValueError(f"{name}: need shape {shape}, got {tuple(x.shape)}")
+        ptrs.append(None if x is None else x.data_ptr())
+    if alpha_end is not None and alpha_end.data_ptr() == alpha.data_ptr():
+        raise ValueError("alpha_end must not share memory with alpha")
+    bp_bytes, bp_ptr = 0, None
+    if bps is not None:
+        if (bps.shape != (w, s1, b) or bps.dtype not in (torch.uint8, torch.int16)
+                or bps.device != device or not bps.is_contiguous()):
+            raise ValueError(f"bps: need contiguous uint8 or int16 {(w, s1, b)} on {device}")
+        bp_bytes, bp_ptr = bps.element_size(), bps.data_ptr()
+    if w == 0:
+        return alpha
+    bufs = [torch.empty_like(alpha) for _ in range(min(w, 2))]
+    _build.launch("viterbi_step", alpha.data_ptr(), bufs[0].data_ptr(),
+                  bufs[-1].data_ptr() if w > 1 else None, ptrs[0], bp_ptr, bp_bytes,
+                  ll.data_ptr(), dev.row_start.data_ptr(), dev.row_src.data_ptr(),
+                  dev.row_w.data_ptr(), dev.row_pdf.data_ptr(), dev.row_real.data_ptr(),
+                  num_frames.data_ptr(), ptrs[1], ptrs[2], t0, w, acwt, s1, b, ll.shape[1], d,
+                  int(slab is not None), _MAX_GRID_BLOCKS, stream_handle(device), count=count)
+    return bufs[(w - 1) % 2]  # frame k of the launch writes bufs[k % 2]
+
+
+def viterbi_window(alpha: torch.Tensor, alpha_end: torch.Tensor, ll: torch.Tensor,
+                   dev: EmitPlanDev, num_frames: torch.Tensor, t0: int, acwt: float,
+                   rspec: tuple, packed: bool, bps: Optional[torch.Tensor] = None):
+    """K3 over a window: frames t0 .. t0+W-1 of ``ll`` [W, P, B] in ONE
+    launch.  alpha, alpha_end [S+1, B] f32; num_frames [B] int32; ``bps`` an
+    optional [W, S+1, B] backpointer table to fill.
+
+    Returns (alpha, alpha_end) after the window.  On CUDA ``alpha_end`` is
+    updated in place and returned; it must not share memory with ``alpha``."""
+    if alpha.device.type == "cpu":
+        return viterbi_window_plain(alpha, alpha_end, ll, dev, num_frames, t0, acwt, rspec,
+                                    packed, bps)
+    if alpha.device.type != "cuda":
+        raise ValueError(f"unsupported device {alpha.device}")
+    if bps is not None and bps.dtype != _bp_dtype(packed):
+        raise ValueError(f"bps: need {_bp_dtype(packed)} codes for this plan")
+    return launch_k3(alpha, ll, dev, num_frames, t0, acwt, alpha_end=alpha_end,
+                     bps=bps), alpha_end
+
+
 def viterbi_step(alpha: torch.Tensor, alpha_end: torch.Tensor, ll_t: torch.Tensor,
                  dev: EmitPlanDev, num_frames: torch.Tensor, t: int, acwt: float,
                  rspec: tuple, packed: bool, bp_out: Optional[torch.Tensor] = None):
-    """One frame of the Viterbi relaxation (K3).  alpha, alpha_end [S+1, B]
-    f32; ll_t [P, B] f32; num_frames [B] int32; ``bp_out`` an optional
-    [S+1, B] slice of the backpointer table to fill.
+    """One frame of the Viterbi relaxation (K3 with W = 1).  alpha,
+    alpha_end [S+1, B] f32; ll_t [P, B] f32; num_frames [B] int32; ``bp_out``
+    an optional [S+1, B] slice of the backpointer table to fill.
 
     Returns (alpha, alpha_end) after frame ``t``.  On CUDA ``alpha_end`` is
     updated in place and returned; it must not share memory with ``alpha``."""
@@ -293,36 +409,10 @@ def viterbi_step(alpha: torch.Tensor, alpha_end: torch.Tensor, ll_t: torch.Tenso
                                   rspec, packed, bp_out)
     if alpha.device.type != "cuda":
         raise ValueError(f"unsupported device {alpha.device}")
-    s1, b = alpha.shape
-    r, d = dev.row_w.shape
-    f32, i32 = torch.float32, torch.int32
-    for name, x, dtype in (("alpha", alpha, f32), ("alpha_end", alpha_end, f32),
-                           ("ll_t", ll_t, f32), ("row_w", dev.row_w, f32),
-                           ("row_src", dev.row_src, i32), ("row_pdf", dev.row_pdf, i32),
-                           ("row_start", dev.row_start, i32),
-                           ("num_frames", num_frames, i32)):
-        if x.device != alpha.device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{name}: need contiguous {dtype} on {alpha.device}, "
-                             f"got {x.dtype} on {x.device}")
-    if (alpha_end.shape != alpha.shape or ll_t.dim() != 2 or ll_t.shape[1] != b
-            or num_frames.shape != (b,) or dev.row_start.shape != (s1 + 1,)
-            or dev.row_src.shape != (r * d,) or dev.row_pdf.shape != (r,)):
+    if ll_t.dim() != 2:
         raise ValueError("viterbi_step: inconsistent shapes")
-    if alpha_end.data_ptr() == alpha.data_ptr():
-        raise ValueError("alpha_end must not share memory with alpha")
-    bp_bytes, bp_ptr = 0, None
-    if bp_out is not None:
-        if (bp_out.shape != alpha.shape or bp_out.dtype != _bp_dtype(packed)
-                or bp_out.device != alpha.device or not bp_out.is_contiguous()):
-            raise ValueError(f"bp_out: need contiguous {_bp_dtype(packed)} "
-                             f"{tuple(alpha.shape)} on {alpha.device}")
-        bp_bytes, bp_ptr = bp_out.element_size(), bp_out.data_ptr()
-    out = torch.empty_like(alpha)
-    _build.launch("viterbi_step", alpha.data_ptr(), out.data_ptr(), alpha_end.data_ptr(),
-                  bp_ptr, bp_bytes, ll_t.data_ptr(), dev.row_start.data_ptr(),
-                  dev.row_src.data_ptr(), dev.row_w.data_ptr(), dev.row_pdf.data_ptr(),
-                  num_frames.data_ptr(), t, acwt, s1, b, d, stream_handle(alpha.device))
-    return out, alpha_end
+    return viterbi_window(alpha, alpha_end, ll_t[None], dev, num_frames, t, acwt, rspec,
+                          packed, None if bp_out is None else bp_out[None])
 
 
 def prune(alpha: torch.Tensor, beam: float, max_active: int = 0, dim: int = 1) -> torch.Tensor:
@@ -343,14 +433,18 @@ def viterbi_scan(dev: EmitPlanDev, alpha, alpha_end, ll: torch.Tensor,
     """Forward Viterbi over a block of frames, resuming from
     (alpha, alpha_end) at absolute frame ``t0``.
 
-    ll [W, P, B] frame-major, batch-minor; num_frames [B] int32.  With a
-    ``beam`` every frame's scores are pruned (``prune``) after the
-    relaxation; without one the search is exact.  Returns
+    ll [W, P, B] frame-major, batch-minor; num_frames [B] int32.  Without a
+    ``beam`` the search is exact and the block is one ``viterbi_window``;
+    with one, every frame's scores are pruned (``prune``) after its
+    ``viterbi_step``.  Returns
     ((alpha, alpha_end), bps [W, S+1, B] or None when ``with_bp`` is
     False)."""
     w = ll.shape[0]
     bps = (torch.empty((w,) + tuple(alpha.shape), dtype=_bp_dtype(packed),
                        device=alpha.device) if with_bp else None)
+    if beam is None:
+        return viterbi_window(alpha, alpha_end, ll, dev, num_frames, t0, acwt, rspec, packed,
+                              bps), bps
     for i in range(w):
         alpha, alpha_end = viterbi_step(alpha, alpha_end, ll[i], dev, num_frames,
                                         t0 + i, acwt, rspec, packed,

@@ -17,16 +17,16 @@ plans number states independently, so alpha and alpha_at_end live in
 forward-plan space and beta and the backward pass's final scores in
 backward-plan space.
 
-The device half walks windows of frames.  Phase 1 runs the forward (K3,
-``decode_core.viterbi_step``, over the forward plan) and keeps one alpha
-snapshot per window.  Phase 2 walks the windows from last to first: K3 over
-the backward plan relaxes beta, run on ``beta_eff`` (beta above the frame,
-with the final scores where the utterance ends), which is stored per frame;
-then K5 (``fb_frame``, ``csrc/lattice_fb.cu``), one launch per frame,
-recomputes alpha from the snapshot and writes one survivor byte per (row,
-lane), bit k for slot k.  The survivors are compacted with torch ops on the
-device, and only they reach the host.  The forward is exact: no beam or
-max-active pruning.
+The device half walks windows of frames, one kernel launch per window and
+pass.  Phase 1 runs the forward (K3, ``decode_core.viterbi_scan``, over the
+forward plan) and keeps one alpha snapshot per window.  Phase 2 walks the
+windows from last to first: K3 over the backward plan (``bwd_window``) relaxes
+beta, run on ``beta_eff`` (beta above the frame, with the final scores where
+the utterance ends), which it stores per frame in a slab; then K5
+(``fb_frames``, ``csrc/lattice_fb.cu``) recomputes alpha from the snapshot and
+writes one survivor byte per (row, lane), bit k for slot k.  The survivors
+are compacted with torch ops on the device, and only they reach the host.
+The forward is exact: no beam or max-active pruning.
 """
 
 from __future__ import annotations
@@ -40,11 +40,13 @@ import torch
 from .. import _build
 from ..device import free_bytes, stream_handle
 from ..lat.lattice import Lattice
-from .decode_core import (EmitPlan, EmitPlanDev, build_emit_plan, plan_to_device,
-                          reduce_rows, viterbi_scan, viterbi_step)
+from . import decode_core
+from .decode_core import (EmitPlan, EmitPlanDev, build_emit_plan, launch_k3, plan_to_device,
+                          reduce_rows, require, viterbi_scan, viterbi_step_plain)
 from .graph import NEG_INF, DenseGraph
 
-__all__ = ["Survivors", "build_lattice_plans", "fb_frame", "fb_frame_plain", "fb_window",
+__all__ = ["Survivors", "build_lattice_plans", "bwd_window", "bwd_window_plain", "fb_frame",
+           "fb_frame_plain", "fb_frames", "fb_frames_plain", "fb_window",
            "lattice_forward_backward_rows", "lattice_window", "survivor_lattices"]
 
 WORD_SLOTS = 8  # row slots one survivor byte holds
@@ -88,46 +90,101 @@ def fb_frame_plain(alpha, ll_t, dev: EmitPlanDev, row_dst, beta_next, num_frames
     return na, (keep.to(torch.int32) << shift).sum(dim=1).to(torch.uint8)
 
 
-def fb_frame(alpha: torch.Tensor, ll_t: torch.Tensor, dev: EmitPlanDev,
-             row_dst: torch.Tensor, beta_next: torch.Tensor, num_frames: torch.Tensor,
-             t: int, acwt: float, thresh: torch.Tensor, rspec: tuple,
-             words_out: torch.Tensor) -> torch.Tensor:
-    """One frame of the recompute-and-test step (K5): fills ``words_out``
-    [R, B] uint8 with the survivor bytes and returns alpha after frame t."""
+def fb_frames_plain(alpha, ll_win, dev: EmitPlanDev, row_dst, beta_slab, num_frames, t0: int,
+                    acwt: float, thresh, rspec: tuple, words):
+    """Plain version of ``fb_frames``: ``fb_frame_plain`` frame by frame."""
+    for i in range(ll_win.shape[0]):
+        alpha, words_i = fb_frame_plain(alpha, ll_win[i], dev, row_dst, beta_slab[i],
+                                        num_frames, t0 + i, acwt, thresh, rspec)
+        words[i].copy_(words_i)
+    return alpha
+
+
+def fb_frames(alpha: torch.Tensor, ll_win: torch.Tensor, dev: EmitPlanDev,
+              row_dst: torch.Tensor, beta_slab: torch.Tensor, num_frames: torch.Tensor,
+              t0: int, acwt: float, thresh: torch.Tensor, rspec: tuple,
+              words: torch.Tensor) -> torch.Tensor:
+    """The recompute-and-test step (K5) over frames t0 .. t0+W-1 in ONE
+    launch: ll_win [W, P, B], beta_slab [W, S+1, B] (beta above each frame,
+    backward-plan space).  Fills ``words`` [W, R, B] uint8 with the survivor
+    bytes and returns alpha after the window."""
     if alpha.device.type == "cpu":
-        na, words = fb_frame_plain(alpha, ll_t, dev, row_dst, beta_next, num_frames, t,
-                                   acwt, thresh, rspec)
-        words_out.copy_(words)
-        return na
+        return fb_frames_plain(alpha, ll_win, dev, row_dst, beta_slab, num_frames, t0, acwt,
+                               thresh, rspec, words)
     if alpha.device.type != "cuda":
         raise ValueError(f"unsupported device {alpha.device}")
     s1, b = alpha.shape
+    w = ll_win.shape[0]
     r, d = dev.row_w.shape
     if d > WORD_SLOTS:
         raise ValueError(f"row width {d} exceeds the {WORD_SLOTS} slots of a survivor byte")
     f32, i32 = torch.float32, torch.int32
-    for name, x, dtype in (("alpha", alpha, f32), ("ll_t", ll_t, f32),
-                           ("beta_next", beta_next, f32), ("thresh", thresh, f32),
-                           ("row_w", dev.row_w, f32), ("row_src", dev.row_src, i32),
-                           ("row_pdf", dev.row_pdf, i32), ("row_start", dev.row_start, i32),
-                           ("row_dst", row_dst, i32), ("num_frames", num_frames, i32),
-                           ("words_out", words_out, torch.uint8)):
-        if x.device != alpha.device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{name}: need contiguous {dtype} on {alpha.device}, "
-                             f"got {x.dtype} on {x.device}")
-    if (beta_next.shape != alpha.shape or ll_t.dim() != 2 or ll_t.shape[1] != b
+    require(alpha.device, ("alpha", alpha, f32), ("ll_win", ll_win, f32),
+            ("beta_slab", beta_slab, f32), ("thresh", thresh, f32), ("row_w", dev.row_w, f32),
+            ("row_src", dev.row_src, i32), ("row_pdf", dev.row_pdf, i32),
+            ("row_start", dev.row_start, i32), ("row_real", dev.row_real, torch.uint8),
+            ("row_dst", row_dst, i32), ("num_frames", num_frames, i32),
+            ("words", words, torch.uint8))
+    if (beta_slab.shape != (w, s1, b) or ll_win.dim() != 3 or ll_win.shape[2] != b
             or thresh.shape != (b,) or num_frames.shape != (b,)
             or dev.row_start.shape != (s1 + 1,) or dev.row_src.shape != (r * d,)
-            or dev.row_pdf.shape != (r,) or row_dst.shape != (r,)
-            or words_out.shape != (r, b)):
+            or dev.row_pdf.shape != (r,) or dev.row_real.shape != (r,)
+            or row_dst.shape != (r,) or words.shape != (w, r, b)):
+        raise ValueError("fb_frames: inconsistent shapes")
+    if w == 0:
+        return alpha
+    bufs = [torch.empty_like(alpha) for _ in range(min(w, 2))]
+    _build.launch("lattice_fb", alpha.data_ptr(), bufs[0].data_ptr(),
+                  bufs[-1].data_ptr() if w > 1 else None, words.data_ptr(), ll_win.data_ptr(),
+                  beta_slab.data_ptr(), thresh.data_ptr(), dev.row_start.data_ptr(),
+                  dev.row_src.data_ptr(), dev.row_w.data_ptr(), dev.row_pdf.data_ptr(),
+                  dev.row_real.data_ptr(), row_dst.data_ptr(), num_frames.data_ptr(), t0, w,
+                  acwt, s1, b, ll_win.shape[1], r, d, decode_core._MAX_GRID_BLOCKS,
+                  stream_handle(alpha.device))
+    return bufs[(w - 1) % 2]  # frame k of the launch writes bufs[k % 2]
+
+
+def fb_frame(alpha: torch.Tensor, ll_t: torch.Tensor, dev: EmitPlanDev,
+             row_dst: torch.Tensor, beta_next: torch.Tensor, num_frames: torch.Tensor,
+             t: int, acwt: float, thresh: torch.Tensor, rspec: tuple,
+             words_out: torch.Tensor) -> torch.Tensor:
+    """One frame of the recompute-and-test step (K5 with W = 1): fills
+    ``words_out`` [R, B] uint8 with the survivor bytes and returns alpha after
+    frame t."""
+    if ll_t.dim() != 2 or beta_next.dim() != 2 or words_out.dim() != 2:
         raise ValueError("fb_frame: inconsistent shapes")
-    out = torch.empty_like(alpha)
-    _build.launch("lattice_fb", alpha.data_ptr(), out.data_ptr(), words_out.data_ptr(),
-                  ll_t.data_ptr(), beta_next.data_ptr(), thresh.data_ptr(),
-                  dev.row_start.data_ptr(), dev.row_src.data_ptr(), dev.row_w.data_ptr(),
-                  dev.row_pdf.data_ptr(), row_dst.data_ptr(), num_frames.data_ptr(), t,
-                  acwt, s1, b, d, stream_handle(alpha.device))
-    return out
+    return fb_frames(alpha, ll_t[None], dev, row_dst, beta_next[None], num_frames, t, acwt,
+                     thresh, rspec, words_out[None])
+
+
+def bwd_window_plain(beta, ll_win, dev: EmitPlanDev, num_frames, t0: int, acwt: float,
+                     rspec: tuple, packed: bool, final_eff, slab):
+    """Plain version of ``bwd_window`` (JAX ``bwd_frame``): per frame from
+    last to first, the ``beta_eff`` select, its store into ``slab``, and the
+    relaxation over the backward plan."""
+    for i in range(ll_win.shape[0] - 1, -1, -1):
+        t = t0 + i
+        # beta_eff == beta wherever t >= nf, so K3's t < nf mask applies as is
+        eff = torch.where((t + 1 == num_frames)[None, :], final_eff, beta, out=slab[i])
+        beta, _ = viterbi_step_plain(eff, eff, ll_win[i], dev, num_frames, t, acwt, rspec,
+                                     packed)
+    return beta
+
+
+def bwd_window(beta: torch.Tensor, ll_win: torch.Tensor, dev: EmitPlanDev,
+               num_frames: torch.Tensor, t0: int, acwt: float, rspec: tuple, packed: bool,
+               final_eff: torch.Tensor, slab: torch.Tensor) -> torch.Tensor:
+    """K3 over the backward plan for frames t0+W-1 down to t0 in ONE launch,
+    from ``beta`` (beta at t0 + W, backward-plan space), with the select
+    ``beta_eff = (t + 1 == nf ? final_eff : beta)`` and its store into
+    ``slab`` [W, S+1, B] fused in.  Returns beta at t0."""
+    if beta.device.type == "cpu":
+        return bwd_window_plain(beta, ll_win, dev, num_frames, t0, acwt, rspec, packed,
+                                final_eff, slab)
+    if beta.device.type != "cuda":
+        raise ValueError(f"unsupported device {beta.device}")
+    return launch_k3(beta, ll_win, dev, num_frames, t0, acwt, final_eff=final_eff, slab=slab,
+                     count="viterbi_step_backward")
 
 
 class Survivors(NamedTuple):
@@ -145,25 +202,19 @@ def fb_window(plans: tuple, snap: torch.Tensor, beta: torch.Tensor, ll_win: torc
               t0: int, num_frames: torch.Tensor, final_eff: torch.Tensor,
               thresh: torch.Tensor, acwt: float, words: torch.Tensor) -> torch.Tensor:
     """One window of phase 2 (JAX ``_fb_win_backward``), frames t0 .. t0+W-1
-    with ll_win [W, P, B].  K3 over the backward plan relaxes beta from
-    ``beta`` (beta at t0 + W) down to t0, storing beta_eff per frame; K5 then
-    recomputes alpha from ``snap`` (alpha at t0) and fills words[:W] with the
-    survivor bytes.  ``plans`` is ``build_lattice_plans``'s tuple with
-    row_dst on the device.  Returns beta at t0."""
+    with ll_win [W, P, B], in two launches.  K3 over the backward plan
+    (``bwd_window``) relaxes beta from ``beta`` (beta at t0 + W) down to t0,
+    storing beta_eff per frame; K5 (``fb_frames``) then recomputes alpha from
+    ``snap`` (alpha at t0) and fills words[:W] with the survivor bytes.
+    ``plans`` is ``build_lattice_plans``'s tuple with row_dst on the device.
+    Returns beta at t0."""
     fwd_plan, fwd_dev, bwd_plan, bwd_dev, row_dst = plans
     w = ll_win.shape[0]
     slab = torch.empty((w,) + tuple(beta.shape), device=beta.device)
-    scratch = torch.empty_like(beta)  # K3's alpha_at_end, unused here
-    for i in range(w - 1, -1, -1):
-        t = t0 + i
-        # beta_eff == beta wherever t >= nf, so K3's t < nf mask applies as is
-        eff = torch.where((t + 1 == num_frames)[None, :], final_eff, beta, out=slab[i])
-        beta, _ = viterbi_step(eff, scratch, ll_win[i], bwd_dev, num_frames, t, acwt,
-                               bwd_plan.rspec, bwd_plan.packed)
-    alpha = snap
-    for i in range(w):
-        alpha = fb_frame(alpha, ll_win[i], fwd_dev, row_dst, slab[i], num_frames, t0 + i, acwt,
-                         thresh, fwd_plan.rspec, words[i])
+    beta = bwd_window(beta, ll_win, bwd_dev, num_frames, t0, acwt, bwd_plan.rspec,
+                      bwd_plan.packed, final_eff, slab)
+    fb_frames(snap, ll_win, fwd_dev, row_dst, slab, num_frames, t0, acwt, thresh,
+              fwd_plan.rspec, words[:w])
     return beta
 
 
