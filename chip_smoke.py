@@ -11,8 +11,14 @@ Phases, each of which must pass (any failure exits nonzero):
    register/shared-memory report.
 3. Holds each kernel against its plain PyTorch version on the card at the
    full-width shapes, and times both with CUDA events:
-   K1 MFCC frames (128 x 10 s of 16 kHz audio), K2 GMM log-likelihoods
-   (128k frames x 2000 pdfs x 5 Gaussians x 39 dims), K3 Viterbi frame steps
+   K1 MFCC frames (128 x 10 s of audio, 128k frames) at 256, 400, 512, 1024
+   and 2048 points (8, 16, 16, 22.05 and 48 kHz; 400: 16 kHz without
+   rounding to a power of two; held to the plain version run in float64,
+   its gap to the fp32 plain version beside), K2 GMM log-likelihoods (128k frames x 2000
+   pdfs x 5 Gaussians x 39 dims, random features; held, like K1, to the
+   plain version in float64; its bound on the tensor cores' TF32 rate, which
+   its 3xTF32 product uses, beside the fp32 bound and the time of
+   ``torch.matmul`` of the product alone), K3 Viterbi frame steps
    over the forward plan (60k-state / 480k-arc graph, B = 128; bit-equal
    scores and backpointer codes) and over the lattice's backward plan
    (bit-equal beta and beta_eff slab), K5 lattice recompute-and-test steps
@@ -29,10 +35,12 @@ Phases, each of which must pass (any failure exits nonzero):
    graphs with back arcs, which the banded form refuses; bit-equal scores,
    equal backpointers and arcs).  Beside each time stands the kernel's
    bound: the larger of its bytes (inputs once, outputs once) over 3.35 TB/s
-   and its operations over 67 TFLOP/s (float32), from this run's shapes.
+   and its operations over 67 TFLOP/s (float32; 495 TFLOP/s TF32 for K2),
+   from this run's shapes (K1: the sparse mel's nonzeros).
 4. Decodes the committed Yes-No model on the card from waves to words: the
    JAX package's stored hypotheses for all 32 utterances, test WER <= 5%,
-   train WER <= 2%, and every decoding kernel launched.
+   train WER <= 2%, and every decoding kernel launched; K2 against its plain
+   version on the model and its features.
 5. Decodes the same model into lattices on the card and sweeps them over
    ``DecodeOptions``' 33-point (LMWT, WIP) grid (``decode_sweep_lattice``):
    every lattice's best path at the decode acoustic scale gives the stored
@@ -62,8 +70,9 @@ Phases, each of which must pass (any failure exits nonzero):
 9. The lattice path at full width: waves -> make_features ->
    Decoder.decode_lattice at the decode shape of phase 7 (acoustic scale
    1/13, the default lattice beam, a GMM of phase 7's size drawn on the
-   features' scale), with the launch counts of this run (one launch per
-   window of K3 forward, K3 backward and K5).  Every lattice's
+   features' scale; K2 against its plain version on these real features),
+   with the launch counts of this run (one launch per window of K3 forward,
+   K3 backward and K5).  Every lattice's
    best path must score within 1e-2 or relative 1e-5 of the exact best
    path (``decode_batch``'s search), its arcs rescored in float64, and
    every frame must hold an arc.  Prints survivors per frame and arcs per
@@ -89,6 +98,9 @@ Phases, each of which must pass (any failure exits nonzero):
    must align.  On the banded set of phase 8 the banded and the generic
    aligner must give equal scores, and equal transition ids unless two best
    paths tie in float32 (both then score the same, rescored in float64).
+13. Features at 22.05 kHz and 48 kHz: waves -> make_features on the card
+   (K1 at 1024 and 2048 points), 16 utterances each, equal to the plain
+   version on the CPU within the MFCC tolerance.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
@@ -96,6 +108,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -133,6 +146,11 @@ FULL = Width(batch=128, frames=1000, samp_freq=16000.0, num_states=60_000,
 REPEATS = 5  # timed full-width runs after the counted one
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
+TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense, published
+# K1's padded window sizes held at full width: (sample rate, round to a power of two)
+K1_SIZES = {256: (8000.0, True), 400: (16000.0, False), 512: (16000.0, True),
+            1024: (22050.0, True), 2048: (48000.0, True)}
+K1_RATES = (22050.0, 48000.0)  # make_features on the card at these rates (phase 13)
 # (rtol, atol); K6's atol is scaled by each accumulator's largest magnitude
 TOL = {"mfcc_frames": (2e-4, 2e-3), "gmm_loglikes": (2e-5, 2e-4),
        "viterbi_step": (0.0, 0.0), "viterbi_step_backward": (0.0, 0.0),
@@ -219,6 +237,47 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k1_ops(frames: int, ws: int, n_fft: int, tables) -> float:
+    """K1's operations, counted from the work the chain needs: per frame the
+    window chain, a real FFT (an N/2-point complex FFT and its split) and
+    the power spectrum, the mel's nonzeros, the DCT and the lifter."""
+    bins, ceps = tables.dct_t.shape
+    half = n_fft // 2
+    return frames * (5 * ws + 5 * half * math.log2(half) + 13 * half
+                     + 2 * int(tables.mel_len.sum()) + 2 * bins * ceps + ceps)
+
+
+def k2_plain64(x, w):
+    """K2's plain version in float64: the reference it is held to (on the
+    Yes-No model's training features the fp32 plain version is itself 1.2
+    times the tolerance away from it: the expanded form cancels terms of up
+    to 1e4)."""
+    from voicebridge_tpu_torch import convert
+    from voicebridge_tpu_torch.ops import gmm_kernels
+
+    return gmm_kernels.loglikes(convert.twin_params_from_kernel(w.double()), x.double())
+
+
+def k2_check(torch, x, w, what: str, log) -> float:
+    """K2 against its plain version in float64 on ``x``; returns the max abs
+    error (the gap to the fp32 plain version goes to the log)."""
+    from voicebridge_tpu_torch import convert
+    from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels
+
+    rtol, atol = TOL["gmm_loglikes"]
+    got = gmm_kernel.loglikes(x, w).double()
+    ref = k2_plain64(x, w)
+    err = float((got - ref).abs().max())
+    fp32 = gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x).double()
+    log(f"gmm_loglikes on {what}: max abs err {err:.3g} against the float64 plain version, "
+        f"{float((got - fp32).abs().max()):.3g} against the fp32 one (which is "
+        f"{float((fp32 - ref).abs().max()):.3g} from the float64 one)")
+    # on the CPU the wrapper is the fp32 plain version itself: no kernel to hold
+    check(x.device.type == "cpu" or bool(torch.allclose(got, ref, rtol=rtol, atol=atol)),
+          f"gmm_loglikes on {what} disagrees with its plain version (max abs err {err})")
+    return err
+
+
 def compare_kernels(torch, device, width: Width, log) -> dict:
     """Phase 3: every kernel against its plain version at full width."""
     import numpy as np
@@ -231,14 +290,16 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
     timed = device.type == "cuda"
     results = {}
 
-    def record(name, pairs, kernel_fn, plain_fn, work, equal=True, frames=1, frame_fn=None):
+    def record(name, pairs, kernel_fn, plain_fn, work, equal=True, frames=1, frame_fn=None,
+               ops_per_s=FP32_OPS_PER_S, what=""):
         """Hold each (kernel, plain) output pair within TOL[name], time both
         versions, and work out the kernel's bound from ``work``: the bytes
-        it must move (inputs once, outputs once) and its operations.  A
-        ``kernel_fn`` that runs a window of ``frames`` frames in one launch
-        is timed per frame; ``frame_fn``, the same kernel one frame per
-        launch, is timed beside it; ``plain_fn`` and ``work`` are one
-        frame's."""
+        it must move (inputs once, outputs once) and its operations, at
+        ``ops_per_s`` for their type.  A ``kernel_fn`` that runs a window of
+        ``frames`` frames in one launch is timed per frame; ``frame_fn``,
+        the same kernel one frame per launch, is timed beside it;
+        ``plain_fn`` and ``work`` are one frame's.  Returns the entry (and
+        keeps it as the kernel's unless ``what`` names a side case)."""
         rtol, atol = TOL[name]
         err, ok = 0.0, equal
         for got, ref in pairs:
@@ -247,46 +308,64 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
             err = max(err, float((got - ref).abs().max()))
             ok = ok and bool(torch.allclose(got, ref, rtol=rtol, atol=a))
         byte_ms = 1e3 * work[0] / HBM_BYTES_PER_S
-        op_ms = 1e3 * work[1] / FP32_OPS_PER_S
-        results[name] = {"max_abs_err": err,
-                         "ms": cuda_ms(torch, kernel_fn) / frames if timed else None,
-                         "plain_ms": cuda_ms(torch, plain_fn) if timed else None,
-                         "bound_ms": max(byte_ms, op_ms),
-                         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-                         "library_ms": None}  # no single PyTorch call computes it
+        op_ms = 1e3 * work[1] / ops_per_s
+        entry = {"max_abs_err": err,
+                 "ms": cuda_ms(torch, kernel_fn) / frames if timed else None,
+                 "plain_ms": cuda_ms(torch, plain_fn) if timed else None,
+                 "bound_ms": max(byte_ms, op_ms),
+                 "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+                 "library_ms": None}  # no single PyTorch call computes it
         if frame_fn is not None:
-            results[name]["window_frames"] = frames
-            results[name]["frame_launch_ms"] = cuda_ms(torch, frame_fn) if timed else None
-        log(f"{name}: max_abs_err {err:.3g} (rtol {rtol}, atol {atol}) "
-            f"kernel {results[name]['ms']} ms (per frame, {frames} frames a launch), "
-            f"one frame a launch {results[name].get('frame_launch_ms')} ms, "
-            f"plain {results[name]['plain_ms']} ms; "
+            entry["window_frames"] = frames
+            entry["frame_launch_ms"] = cuda_ms(torch, frame_fn) if timed else None
+        if not what:
+            results[name] = entry
+        log(f"{name}{what}: max_abs_err {err:.3g} (rtol {rtol}, atol {atol}) "
+            f"kernel {entry['ms']} ms (per frame, {frames} frames a launch), "
+            f"one frame a launch {entry.get('frame_launch_ms')} ms, "
+            f"plain {entry['plain_ms']} ms; "
             f"{work[0]:.4g} bytes ({byte_ms:.4g} ms), {work[1]:.4g} operations "
             f"({op_ms:.4g} ms)")
-        check(ok, f"{name} disagrees with its plain version (max abs err {err})")
+        check(ok, f"{name}{what} disagrees with its plain version (max abs err {err})")
+        return entry
 
-    # K1
-    opts = MfccOptions(frame_opts=FrameOptions(samp_freq=width.samp_freq, dither=0.0),
-                       mel_opts=MelOptions(num_bins=23))
-    waves = synth_waves(width)
-    wave_t = torch.from_numpy(np.stack(list(waves.values()))).to(device)
-    frames = features.extract_frames(wave_t, width.frames, opts.frame_opts)
-    frames = frames.reshape(-1, frames.shape[-1]).contiguous()
-    tables = features.MfccTables.build(opts, False, device)
-    got = mfcc_kernel.mfcc_frames(frames, tables)
-    ref = features.mfcc_from_frames(frames, tables)
-    n_fft, ws = opts.frame_opts.padded_window_size, frames.shape[1]
-    bins, ceps = tables.dct_t.shape
-    # per frame: DC removal, preemphasis and window; a radix-2 FFT; the power
-    # spectrum; the mel and DCT products
-    k1_ops = frames.shape[0] * (3 * ws + 5 * n_fft * math.log2(n_fft) + 3 * (n_fft // 2)
-                                + 2 * bins * (n_fft // 2) + 2 * bins * ceps)
-    record("mfcc_frames", [(got, ref)], lambda: mfcc_kernel.mfcc_frames(frames, tables),
-           lambda: features.mfcc_from_frames(frames, tables),
-           (nbytes(frames, got, tables.window, tables.mel_t, tables.dct_t), k1_ops))
-    del got, ref
+    # K1 at each size of K1_SIZES (the main path's is the kernel's entry)
+    main_fft = FrameOptions(samp_freq=width.samp_freq).padded_window_size
+    sizes = {}
+    for n_fft, (sr, pow2) in K1_SIZES.items():
+        opts = MfccOptions(frame_opts=FrameOptions(samp_freq=sr, dither=0.0,
+                                                   round_to_power_of_two=pow2),
+                           mel_opts=MelOptions(num_bins=23))
+        check(opts.frame_opts.padded_window_size == n_fft, f"K1 size {n_fft}")
+        waves = synth_waves(dataclasses.replace(width, samp_freq=sr))
+        wave_t = torch.from_numpy(np.stack(list(waves.values()))).to(device)
+        del waves
+        frames = features.extract_frames(wave_t, width.frames, opts.frame_opts)
+        frames = frames.reshape(-1, frames.shape[-1]).contiguous()
+        del wave_t
+        tables = features.MfccTables.build(opts, False, device)
+        got = mfcc_kernel.mfcc_frames(frames, tables)
+        ref = features.mfcc_from_frames(frames, tables)
+        # held to the plain version in float64: at 8 kHz the lowest mel bins
+        # lie so far below the frame's power (preemphasis) that the fp32
+        # plain version's own rounding is about the tolerance
+        t64 = dataclasses.replace(tables, **{f: getattr(tables, f).double()
+                                             for f in ("window", "mel_t", "dct_t", "lifter")})
+        ref64 = features.mfcc_from_frames(frames.double(), t64)
+        sizes[n_fft] = record(
+            "mfcc_frames", [(got, ref64)], lambda: mfcc_kernel.mfcc_frames(frames, tables),
+            lambda: features.mfcc_from_frames(frames, tables),
+            (nbytes(frames, got), k1_ops(frames.shape[0], frames.shape[1], n_fft, tables)),
+            what="" if n_fft == main_fft else f" at {n_fft} points")
+        sizes[n_fft]["max_abs_err_vs_fp32_plain"] = float((got.double() - ref.double())
+                                                          .abs().max())
+        log(f"mfcc_frames at {n_fft} points: max abs difference from the fp32 plain version "
+            f"{sizes[n_fft]['max_abs_err_vs_fp32_plain']:.3g}")
+        del got, ref, ref64, frames
+    results["mfcc_frames"]["sizes"] = {str(n): dict(e) for n, e in sizes.items()}
 
-    # K2
+    # K2 on random features; both bounds, and torch.matmul of the product
+    # alone as a yardstick (the port never calls it)
     dim = 39
     am = random_am(width.num_pdfs, width.max_mix, dim)
     w = convert.kernel_params_from_am(am, device)
@@ -295,11 +374,27 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
                                              dtype=np.float32)).to(device)
     ll = gmm_kernel.loglikes(x, w)
     ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
-    # one multiply-add per (frame, Gaussian, row of [x, x^2])
-    record("gmm_loglikes", [(ll, ref)], lambda: gmm_kernel.loglikes(x, w),
+    ref64 = k2_plain64(x, w)
+    n, p, m = x.shape[0], w.shape[0], w.shape[1]
+    kp = gmm_kernel.pack_weights(w)[0].shape[1]
+    # 3xTF32: three products a step (hi.hi, hi.lo, lo.hi) over K padded to 8
+    record("gmm_loglikes", [(ll, ref64)], lambda: gmm_kernel.loglikes(x, w),
            lambda: gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x),
-           (nbytes(x, w, ll), 2 * x.shape[0] * w.shape[0] * w.shape[1] * 2 * dim))
-    del ref
+           (nbytes(x, w, ll), 3 * 2 * n * p * m * kp), ops_per_s=TF32_OPS_PER_S)
+    results["gmm_loglikes"]["max_abs_err_vs_fp32_plain"] = float((ll.double() - ref.double())
+                                                                 .abs().max())
+    del ref, ref64
+    params = convert.twin_params_from_kernel(w)
+    xx = torch.cat([x, x * x, torch.ones_like(x[:, :1])], dim=1)
+    wm = torch.cat([params.w_matrix, params.gconsts.reshape(1, -1)]).contiguous()
+    # one multiply-add per (frame, Gaussian, row of [x, x^2])
+    fp32_ms = 1e3 * 2 * n * p * m * 2 * dim / FP32_OPS_PER_S
+    results["gmm_loglikes"].update(
+        fp32_bound_ms=fp32_ms, route_detail="3xTF32, mma.sync m16n8k8",
+        matmul_yardstick_ms=cuda_ms(torch, lambda: xx @ wm) if timed else None)
+    del xx, wm, params
+    log(f"gmm_loglikes: fp32 bound {fp32_ms:.4g} ms, torch.matmul of the product alone "
+        f"{results['gmm_loglikes']['matmul_yardstick_ms']} ms")
 
     # K3 over the forward plan: k3_frames frames from the start state, fed
     # the K2 scores, once a frame a launch (W = 1) and once as one window,
@@ -615,10 +710,11 @@ def compare_generic_kernels(torch, device, width: Width, w, record, log) -> None
     check(bool(got[1].all()), "generic_backtrace: an utterance has no path")
 
 
-def decode_yesno(torch, device, log) -> None:
-    """Phase 4: the JAX-trained Yes-No model decoded on the device."""
+def decode_yesno(torch, device, log) -> float:
+    """Phase 4: the JAX-trained Yes-No model decoded on the device.  Returns
+    K2's max abs error against its plain version on the model's features."""
     from synth import make_corpus
-    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions
+    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions, convert
     from voicebridge_tpu_torch.steps.decode import Decoder
     from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
     from voicebridge_tpu_torch.testing import compute_wer_set, load_yesno_mono
@@ -627,10 +723,14 @@ def decode_yesno(torch, device, log) -> None:
     train, test = make_corpus(**m.corpus)
     opts = MfccOptions(frame_opts=FrameOptions(samp_freq=m.samp_freq, dither=0.0))
     dec = Decoder(m.hclg, m.trans_model, m.am, DecodeOptions(beam=1e9), device=device)
+    gmm_w = convert.kernel_params_from_am(m.am, device)
+    k2_err = 0.0
     for name, corpus, bound in (("test", test, 5.0), ("train", train, 2.0)):
         feats = make_features({u: w for u, (w, _) in corpus.items()},
                               {u: u for u in corpus}, opts, device=device)
         utts = sorted(feats)
+        k2_err = max(k2_err, k2_check(torch, torch.cat([feats[u] for u in utts]), gmm_w,
+                                      f"the yes-no {name} features", log))
         batch, nf = pad_features(feats, utts)
         hyps = {r.utt: [m.words.sym(w) for w in r.words]
                 for r in dec.decode_batch(utts, batch, nf)}
@@ -639,6 +739,7 @@ def decode_yesno(torch, device, log) -> None:
         bad = [u for u in utts if hyps[u] != m.hyps[u]]
         check(not bad, f"yes-no {name}: words differ from the reference for {bad}")
         check(stats.wer <= bound, f"yes-no {name}: WER {stats.wer} > {bound}")
+    return k2_err
 
 
 def lattice_yesno(torch, device, log) -> None:
@@ -920,6 +1021,11 @@ def lattice_full_width(torch, device, width: Width, log) -> dict:
                            width.num_pdfs, width.max_mix)
     dec = Decoder.from_dense_graph(synth_decode_graph(width.num_states, num_pdfs=width.num_pdfs),
                                    am, dopts, device=device, row_width=8)
+    # K2 on these real MFCC + CMVN + delta features at full width (phase 3
+    # holds it on random ones)
+    k2_err = k2_check(torch, x.float().contiguous(), dec.gmm_w, "the lattice phase's features",
+                      log)
+    del x
     setup_s = time.perf_counter() - t0
 
     def run():
@@ -984,7 +1090,8 @@ def lattice_full_width(torch, device, width: Width, log) -> dict:
              "survivors_per_frame_max": int(depth.max()),
              "arcs_per_lattice": [int(arcs.min()), float(arcs.mean()), int(arcs.max())],
              "best_path_rel_err_max": worst, "decode_f32_rel_drift_max": drift,
-             "sweep_points": points, "sweep_utts": n_sweep, "sweep_s": sweep_s}
+             "sweep_points": points, "sweep_utts": n_sweep, "sweep_s": sweep_s,
+             "k2_max_abs_err": k2_err}
     if device.type == "cuda":
         facts["profile"] = profile_run(torch, run, log, "full-width lattice decode")
     log(f"full-width lattice decode: {json.dumps(facts)}")
@@ -1167,8 +1274,48 @@ def generic_full_width(torch, device, width: Width, log) -> dict:
     return facts
 
 
+def features_other_rates(torch, device, width: Width, log) -> dict:
+    """Phase 13: make_features on the device at 22.05 kHz and 48 kHz (K1 at
+    1024 and 2048 points), 16 utterances of ``width.frames`` frames at each,
+    against the same waves through the plain version on the CPU.  Returns,
+    per rate, the launch counts and the largest difference."""
+    from voicebridge_tpu_torch import FrameOptions, MelOptions, MfccOptions, _build
+    from voicebridge_tpu_torch.steps.make_feats import make_features
+
+    facts = {}
+    for sr in K1_RATES:
+        waves = synth_waves(dataclasses.replace(width, samp_freq=sr, batch=min(16, width.batch)),
+                            seed=5)
+        utt2spk = {u: f"spk{i % 4}" for i, u in enumerate(sorted(waves))}
+        opts = MfccOptions(frame_opts=FrameOptions(samp_freq=sr, dither=0.0),
+                           mel_opts=MelOptions(num_bins=23))
+        for k in _build.launches:
+            _build.launches[k] = 0
+        t0 = time.perf_counter()
+        feats = make_features(waves, utt2spk, opts, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        ref = make_features(waves, utt2spk, opts, device="cpu")
+        err = 0.0
+        for u, f in feats.items():
+            check(tuple(f.shape) == (width.frames, 39) and bool(torch.isfinite(f).all()),
+                  f"make_features at {sr} Hz: {u} has shape {tuple(f.shape)} or values that "
+                  f"are not finite")
+            got, want = f.double().cpu(), ref[u].double()
+            err = max(err, float((got - want).abs().max()))
+            check(bool(torch.allclose(got, want, rtol=2e-4, atol=2e-3)),
+                  f"make_features at {sr} Hz: {u} differs from the CPU by {err}")
+        facts[str(int(sr))] = {"n_fft": opts.frame_opts.padded_window_size, "utts": len(feats),
+                               "wall_s": wall, "max_abs_err_vs_cpu": err, "launches": launches}
+        log(f"make_features at {sr} Hz ({opts.frame_opts.padded_window_size} points) on "
+            f"{device}: {json.dumps(facts[str(int(sr))])}")
+    return facts
+
+
 def run(device, width: Width, log=print) -> dict:
-    """Phases 2-12 on ``device``; returns the kernels report.  On a CPU
+    """Phases 2-13 on ``device``; returns the kernels report.  On a CPU
     device the wrappers take their plain versions, so this rehearses the
     control flow without kernels."""
     import torch
@@ -1189,7 +1336,7 @@ def run(device, width: Width, log=print) -> dict:
     kernels = compare_kernels(torch, device, width, log)
     for k in _build.launches:
         _build.launches[k] = 0
-    decode_yesno(torch, device, log)
+    kernels["gmm_loglikes"]["max_abs_err_yesno"] = decode_yesno(torch, device, log)
     launched(_build.launches, DECODE_KERNELS, "yes-no decode")
     for k in _build.launches:
         _build.launches[k] = 0
@@ -1202,6 +1349,7 @@ def run(device, width: Width, log=print) -> dict:
     launched(train["launches"], TRAIN_KERNELS, "the full-width EM iteration")
     lattice = lattice_full_width(torch, device, width, log)
     launched(lattice["launches"], LATTICE_KERNELS, "the full-width lattice decode")
+    kernels["gmm_loglikes"]["max_abs_err_lattice_features"] = lattice["k2_max_abs_err"]
     for k in _build.launches:
         _build.launches[k] = 0
     nbest_yesno(torch, device, log)
@@ -1210,14 +1358,17 @@ def run(device, width: Width, log=print) -> dict:
     launched(nbest["launches"], NBEST_KERNELS, "the full-width N-best decode")
     generic = generic_full_width(torch, device, width, log)
     launched(generic["launches"], GENERIC_KERNELS, "the full-width generic alignment")
-    runs = (decode, train, lattice, nbest, generic)
+    rates = features_other_rates(torch, device, width, log)
+    for sr, facts in rates.items():
+        launched(facts["launches"], ("mfcc_frames",), f"make_features at {sr} Hz")
+    runs = (decode, train, lattice, nbest, generic, *rates.values())
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in runs),
          **kernels[name]} for name in SOURCES],
         "full_width": decode, "train": train, "lattice": lattice, "nbest": nbest,
-        "generic": generic}
+        "generic": generic, "rates": rates}
 
 
 def main() -> int:
@@ -1270,6 +1421,11 @@ def main() -> int:
                   f"max) {facts['arcs_per_lattice']}; one decode_sweep_lattice of "
                   f"{facts['sweep_utts']} utterances over {facts['sweep_points']} grid points "
                   f"{facts['sweep_s']:.2f} s")
+    for sr, facts in report.pop("rates").items():
+        print(f"make_features at {sr} Hz ({facts['n_fft']} points) on {card}: "
+              f"{facts['utts']} utterances in {facts['wall_s']:.3f} s, max abs difference "
+              f"from the CPU {facts['max_abs_err_vs_cpu']:.3g}, K1 launches "
+              f"{facts['launches']['mfcc_frames']}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the same
 CUDA tensors, at small shapes and over the options ``chip_smoke.py`` does
-not reach (fbank rows, energy and window options, wide feature dims, ragged
-mixtures; for the Viterbi step K3 row widths 1 to 8 and 12, 1 to 130
+not reach (for K1 every FFT size from 128 to 4096 points, power of two or
+not, with fbank rows, energy and window options, the sparse mel bit-equal
+to the dense one, and the refusal above 4096; for K2 ragged frame and pdf
+counts on every edge of its tiles, 1 to 8 components, feature dims 11 to
+80, and the features' own scale from the Yes-No corpus and model; CMVN and
+transition statistics bit-equal from run to run; for the Viterbi step K3 row widths 1 to 8 and 12, 1 to 130
 lanes, uint8 and int16 backpointers, dead and bucket-padding rows, windows
 of 1, 3 and T frames, a one-block grid and the lattice's backward window,
 and the recompute decode; for the aligner K4
@@ -14,11 +18,19 @@ one-block grid, and the lattice decode against the CPU;
 for the N-best step K7 list lengths 1 to 16, a finite beam, ragged and empty
 utterances, and ``decode_nbest`` against the CPU; for the generic aligner
 ragged and empty utterances, a finite beam, graphs whose arcs or whose alpha
-outgrow the default shared memory, and ``max_active``, which its kernel
-refuses).  They need an NVIDIA GPU and nvcc, and skip without one:
+outgrow the default shared memory, a best path through a back arc, and
+``max_active``, which its kernel refuses).  They need an NVIDIA GPU and
+nvcc, and skip without one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
+
+Each case has ``CASE_TIMEOUT_S`` seconds: past that, faulthandler prints
+every thread's stack and ends the run, so a stall on the card fails within
+minutes and shows where it hung.
 """
+
+import dataclasses
+import faulthandler
 
 import numpy as np
 import pytest
@@ -35,9 +47,22 @@ from voicebridge_tpu_torch.ops import lattice as LAT
 from voicebridge_tpu_torch.ops import viterbi as V
 from voicebridge_tpu_torch.ops.graph import DenseGraph
 from voicebridge_tpu_torch.steps.decode import Decoder
-from voicebridge_tpu_torch.testing import random_am, synth_decode_graph, synth_train_graph
+from voicebridge_tpu_torch.steps.make_feats import make_features
+from voicebridge_tpu_torch.testing import (feature_scaled_am, load_yesno_mono, random_am,
+                                           synth_decode_graph, synth_train_graph)
+from voicebridge_tpu_torch.transforms import cmvn as TC
+
+from synth import make_corpus
 
 pytestmark = pytest.mark.cuda
+CASE_TIMEOUT_S = 300
+
+
+@pytest.fixture(autouse=True)
+def stall_guard():
+    faulthandler.dump_traceback_later(CASE_TIMEOUT_S, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
 
 
 @pytest.fixture
@@ -48,19 +73,28 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _frames(sr, n_frames, seed):
+def _frames(sr, ws, n_frames, seed):
     rng = np.random.default_rng(seed)
-    ws = int(sr * 0.025)
     t = np.arange(ws) / sr
     base = 3000 * np.sin(2 * np.pi * rng.uniform(100, 1500, (n_frames, 1)) * t)
     return (base + 80 * rng.standard_normal((n_frames, ws))).astype(np.float32)
 
 
-@pytest.mark.parametrize("sr", [8000.0, 16000.0])
-@pytest.mark.parametrize("variant", ["default", "fbank", "no_dc_no_preemph",
-                                     "windowed_energy", "htk_mode", "hamming"])
-def test_mfcc_kernel_matches_plain(cuda, sr, variant):
-    fo = dict(samp_freq=sr, dither=0.0)
+# K1 sizes: (sample rate, frame length in ms, round to a power of two) ->
+# padded window of 128, 200, 256, 400, 512, 551, 1024, 1103, 1200, 2048,
+# 2646 (the DFT kernel's 8-frame blocks) and 4096
+MFCC_SIZES = {128: (8000.0, 10.0, True), 200: (8000.0, 25.0, False), 256: (8000.0, 25.0, True),
+              400: (16000.0, 25.0, False), 512: (16000.0, 25.0, True),
+              551: (22050.0, 25.0, False), 1024: (22050.0, 25.0, True),
+              1103: (44100.0, 25.02, False), 1200: (48000.0, 25.0, False),
+              2048: (48000.0, 25.0, True), 2646: (44100.0, 60.0, False),
+              4096: (48000.0, 60.0, True)}
+
+
+def _mfcc_opts(n_fft, variant="default", **override):
+    sr, ms, pow2 = MFCC_SIZES[n_fft]
+    fo = dict(samp_freq=sr, frame_length_ms=ms, round_to_power_of_two=pow2, dither=0.0)
+    fo.update(override)
     mo = dict(num_bins=23)
     kw = {}
     if variant == "no_dc_no_preemph":
@@ -71,14 +105,70 @@ def test_mfcc_kernel_matches_plain(cuda, sr, variant):
         mo["htk_mode"] = True
     elif variant == "hamming":
         fo["window_type"] = "hamming"
+    elif variant == "wide_bank":  # 80 bins, 40 cepstra
+        mo["num_bins"], kw["num_ceps"] = 80, 40
     opts = MfccOptions(frame_opts=FrameOptions(**fo), mel_opts=MelOptions(**mo), **kw)
+    assert override or opts.frame_opts.padded_window_size == n_fft
+    return opts
+
+
+@pytest.mark.parametrize("n_fft", sorted(MFCC_SIZES))
+@pytest.mark.parametrize("variant", ["default", "fbank", "no_dc_no_preemph",
+                                     "windowed_energy", "htk_mode", "hamming", "wide_bank"])
+def test_mfcc_kernel_matches_plain(cuda, n_fft, variant):
+    opts = _mfcc_opts(n_fft, variant)
+    fo = opts.frame_opts
     tables = TF.MfccTables.build(opts, variant == "fbank", cuda)
-    frames = torch.from_numpy(_frames(sr, 333, seed=1)).to(cuda)
+    frames = torch.from_numpy(_frames(fo.samp_freq, fo.window_size, 333, seed=1)).to(cuda)
+    if opts.mel_opts.num_bins > n_fft // 2:  # 80 bins on a 64-bin spectrum
+        with pytest.raises(ValueError, match="do not fit"):
+            mfcc_kernel.mfcc_frames(frames, tables)
+        return
+    before = _build.launches["mfcc_frames"]
     got = mfcc_kernel.mfcc_frames(frames, tables)
     ref = TF.mfcc_from_frames(frames, tables)
     torch.cuda.synchronize()
+    assert _build.launches["mfcc_frames"] == before + 1
     assert got.shape == ref.shape == (333, tables.out_cols)
+    if variant == "wide_bank":
+        # 80 bins: the lowest hold one or two FFT bins, which preemphasis
+        # leaves about 1e-3 below the frame's power, and fp32 rounding alone
+        # moves their logs past atol (the plain version misses the float64
+        # chain by up to 2.7 times the tolerance): both are held to the
+        # float64 chain instead
+        t64 = dataclasses.replace(tables, **{f: getattr(tables, f).double()
+                                             for f in ("window", "mel_t", "dct_t", "lifter")})
+        ref = TF.mfcc_from_frames(frames.double(), t64).float()
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("n_fft", [256, 400, 512, 1024, 2048])
+def test_mfcc_sparse_mel_equals_dense(cuda, n_fft):
+    """Each mel bin summed over its own triangle gives the same bits as the
+    dense loop over every FFT bin (tables with lo 0 and every bin)."""
+    opts = _mfcc_opts(n_fft)
+    fo = opts.frame_opts
+    frames = torch.from_numpy(_frames(fo.samp_freq, fo.window_size, 517, seed=2)).to(cuda)
+    for fbank in (True, False):
+        tables = TF.MfccTables.build(opts, fbank, cuda)
+        nb, half = tables.mel_t.shape[1], n_fft // 2
+        dense = dataclasses.replace(
+            tables, mel_lo=torch.zeros(nb, dtype=torch.int32, device=cuda),
+            mel_len=torch.full((nb,), half, dtype=torch.int32, device=cuda),
+            mel_band=tables.mel_t)
+        assert int(tables.mel_len.sum()) < nb * half // 4
+        got = mfcc_kernel.mfcc_frames(frames, tables)
+        want = mfcc_kernel.mfcc_frames(frames, dense)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_mfcc_kernel_refuses_above_4096(cuda):
+    opts = _mfcc_opts(4096, frame_length_ms=100.0)  # 4800 samples -> 8192 points
+    tables = TF.MfccTables.build(opts, False, cuda)
+    frames = torch.zeros((4, opts.frame_opts.window_size), device=cuda)
+    with pytest.raises(ValueError, match="at most 4096"):
+        mfcc_kernel.mfcc_frames(frames, tables)
 
 
 def _am(num_pdfs, max_mix, dim, seed, ragged):
@@ -93,18 +183,78 @@ def _am(num_pdfs, max_mix, dim, seed, ragged):
     return AmDiagGmm(means * inv_vars, inv_vars, weights)
 
 
-@pytest.mark.parametrize("num_pdfs,max_mix,dim,n,ragged", [
+def _feature_scale_case(which, device):
+    """Features on their own scale: the Yes-No test (or train) corpus
+    through the port's front end (MFCC, CMVN, deltas), with the committed
+    Yes-No model or a 200 x 5 GMM drawn on the features' scale (variances /
+    30, as chip_smoke.py's lattice phase)."""
+    train, test = make_corpus(num_train=24, num_test=8, seed=7)
+    corpus = train if which == "yesno_train" else test
+    feats = make_features({u: w for u, (w, _) in corpus.items()}, {u: u for u in corpus},
+                          MfccOptions(frame_opts=FrameOptions(samp_freq=8000.0, dither=0.0)),
+                          device=device)
+    x = torch.cat([feats[u] for u in sorted(feats)]).contiguous()
+    if which.startswith("yesno"):
+        am = load_yesno_mono().am
+    else:
+        xd = x.double().cpu().numpy()
+        am = feature_scaled_am(xd.mean(0), xd.var(0) / 30.0, 200, 5)
+    return x, convert.kernel_params_from_am(am, device)
+
+
+# (pdfs, components, dim, frames, ragged mixtures): ragged frames and pdfs
+# on every edge of the 128-frame x 16-pdf tile and of the 64-pdf padding
+GMM_CASES = [
     (37, 5, 13, 300, False), (21, 7, 11, 64, True), (130, 3, 39, 1000, False),
-    (65, 2, 80, 129, False)])  # dim 80: 83 KB of shared memory
-def test_gmm_kernel_matches_plain(cuda, num_pdfs, max_mix, dim, n, ragged):
-    am = _am(num_pdfs, max_mix, dim, seed=dim, ragged=ragged)
-    w = convert.kernel_params_from_am(am, cuda)
-    x = torch.from_numpy(np.random.default_rng(1).standard_normal((n, dim))
-                         .astype(np.float32)).to(cuda)
+    (65, 2, 80, 129, False), (1, 1, 13, 1, False), (15, 4, 39, 127, False),
+    (16, 5, 39, 128, False), (17, 6, 40, 129, True), (63, 8, 39, 255, False),
+    (64, 1, 80, 257, False), (65, 5, 39, 384, True), (200, 5, 39, 2000, False),
+    (33, 8, 13, 100, True), (129, 2, 40, 3, False), "feature_scaled", "yesno", "yesno_train"]
+
+
+@pytest.mark.parametrize("case", GMM_CASES, ids=str)
+def test_gmm_kernel_matches_plain(cuda, case):
+    """K2 against its plain version run in float64: on the Yes-No model's
+    training features the expanded form cancels terms of up to 1e4, and the
+    fp32 plain version is itself 1.2 times the tolerance away from it on the card."""
+    if isinstance(case, str):
+        x, w = _feature_scale_case(case, cuda)
+    else:
+        num_pdfs, max_mix, dim, n, ragged = case
+        am = _am(num_pdfs, max_mix, dim, seed=dim + max_mix, ragged=ragged)
+        w = convert.kernel_params_from_am(am, cuda)
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal((n, dim))
+                             .astype(np.float32)).to(cuda)
+    before = _build.launches["gmm_loglikes"]
     got = gmm_kernel.loglikes(x, w)
-    ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
+    ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w.double()), x.double())
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-4)
+    assert _build.launches["gmm_loglikes"] == before + 1
+    torch.testing.assert_close(got.double(), ref, rtol=2e-5, atol=2e-4)
+
+
+def test_cmvn_and_transition_stats_bit_equal_between_runs(cuda):
+    """No float atomics: CMVN statistics of 128 utterances of 8 speakers and
+    transition statistics of 77k frames with fractional weights are the
+    same bits in two runs, and agree with the CPU."""
+    rng = np.random.default_rng(12)
+    feats = torch.from_numpy((rng.standard_normal((128, 1000, 13)) * 5 + 3)
+                             .astype(np.float32)).to(cuda)
+    nf = torch.from_numpy(rng.integers(500, 1001, 128).astype(np.int32)).to(cuda)
+    spk = torch.from_numpy(rng.permutation(np.arange(128) % 8).astype(np.int32)).to(cuda)
+    tids = torch.from_numpy(rng.integers(1, 1500, 76800).astype(np.int32)).to(cuda)
+    tids[::3] = 17  # a long run
+    w = torch.from_numpy(rng.random(76800).astype(np.float32)).to(cuda)
+    runs = [(TC.acc_cmvn_stats_batch(feats, nf, spk, 8),
+             gmm_kernels.acc_transition_stats(tids, 1600, w)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    cpu = (TC.acc_cmvn_stats_batch(feats.cpu(), nf.cpu(), spk.cpu(), 8),
+           gmm_kernels.acc_transition_stats(tids.cpu(), 1600, w.cpu()))
+    for a, b in zip(runs[0], cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=1e-3)
+    assert runs[0][1][0] == 0 and runs[0][1][1599] == 0
 
 
 def _hub_graph(seed):
@@ -477,9 +627,33 @@ def test_decode_nbest_cuda_matches_cpu(cuda):
         np.testing.assert_allclose([h[1] for h in got], [h[1] for h in want], rtol=1e-5)
 
 
+def _loop_graph():
+    """A 40-state chain (self-loops, forward arcs, each arc's pdf its
+    destination state) with one arc back from state 30 to state 10, and the
+    81 frames' pdfs of a path that takes the back arc twice."""
+    s = 40
+    src = [x for st in range(s) for x in ([st, st] if st + 1 < s else [st])] + [30]
+    dst = [x for st in range(s) for x in ([st, st + 1] if st + 1 < s else [st])] + [10]
+    src, dst = np.asarray(src, np.int32), np.asarray(dst, np.int32)
+    alpha0 = np.full(s, DC.NEG_INF, np.float32)
+    alpha0[0] = 0.0
+    final = np.full(s, DC.NEG_INF, np.float32)
+    final[-1] = 0.0
+    graph = DenseGraph(num_states=s, arc_src=src, arc_dst=dst, arc_tid=dst, arc_pdf=dst,
+                       arc_score=np.full(len(src), -0.1, np.float32),
+                       arc_oseq=np.zeros(len(src), np.int32), alpha0=alpha0,
+                       start_oseq=np.zeros(s, np.int32), final_score=final,
+                       final_oseq=np.zeros(s, np.int32), oseqs=[()])
+    path = list(range(31)) + list(range(10, 31)) + list(range(10, 40))
+    return graph, np.asarray(path[1:])
+
+
 def _generic_case(case):
     rng = np.random.default_rng(5)
-    if case == "global_arcs":  # 12 bytes an arc beyond 96 KB: arcs read through L2
+    if case == "back_arc":  # a best path through the back arc, beside a ragged graph
+        graphs = [_loop_graph()[0], synth_train_graph(160, 50, rng, back_arcs=2)]
+        t_total, nf = 81, [81, 0]
+    elif case == "global_arcs":  # 12 bytes an arc beyond 96 KB: arcs read through L2
         graphs = [synth_train_graph(2400, 50, rng, back_arcs=1500) for _ in range(3)]
         t_total, nf = 40, [40, 33, 0]
     elif case == "big_alpha":  # alpha beyond 48 KB: the shared-memory opt-in
@@ -491,16 +665,22 @@ def _generic_case(case):
     return graphs, t_total, np.asarray(nf, np.int32)
 
 
-@pytest.mark.parametrize("case", ["ragged", "pruned", "global_arcs", "big_alpha"])
+@pytest.mark.parametrize("case", ["ragged", "pruned", "global_arcs", "big_alpha", "back_arc"])
 def test_generic_aligner_matches_plain(cuda, case):
     """The generic aligner's kernels against their plain versions on the
-    same CUDA tensors: bit-equal scores, equal backpointers and arcs."""
+    same CUDA tensors: bit-equal scores, equal backpointers and arcs.  In
+    the ``back_arc`` case the loop graph's pdfs win their frames by 8, so
+    its best path takes the back arc twice."""
     graphs, t_total, nf_np = _generic_case(case)
     beam = 6.0 if case == "pruned" else 1e9
     p = V.pad_graphs(graphs)
     b = len(graphs)
     rng = np.random.default_rng(6)
-    ll = torch.from_numpy(rng.standard_normal((b, t_total, 50)).astype(np.float32)).to(cuda)
+    ll_np = rng.standard_normal((b, t_total, 50)).astype(np.float32)
+    if case == "back_arc":
+        ll_np[0] = -8.0
+        ll_np[0, np.arange(t_total), _loop_graph()[1]] = 0.0
+    ll = torch.from_numpy(ll_np).to(cuda)
     nf = torch.from_numpy(nf_np).to(cuda)
 
     def tensor(name, dtype):
@@ -527,6 +707,11 @@ def test_generic_aligner_matches_plain(cuda, case):
     assert _build.launches["generic_backtrace"] == before["generic_backtrace"] + 1
     if case == "ragged":
         assert bool(got[1][0]) and not bool(got[1][2])  # a full path; no frames, no path
+    if case == "back_arc":
+        g, arcs = graphs[0], got[0][:, 0].cpu().numpy()
+        assert bool(got[1][0]) and (arcs >= 0).all()
+        np.testing.assert_array_equal(g.arc_dst[arcs], _loop_graph()[1])
+        assert int((g.arc_dst[arcs] < g.arc_src[arcs]).sum()) == 2
 
 
 def test_generic_aligner_kernel_refuses_max_active(cuda):

@@ -60,6 +60,43 @@ def test_mfcc_matches_jax(sr, use_energy, htk_compat):
     np.testing.assert_allclose(_port_single(opts, wave), ref, **MFCC_TOL)
 
 
+@pytest.mark.parametrize("sr,pow2", [(22050.0, True), (48000.0, True), (16000.0, False)])
+def test_mfcc_matches_jax_any_rate(sr, pow2):
+    """The port's MfccExtractor against the JAX package's at 22.05 kHz
+    (1024 points), 48 kHz (2048) and 16 kHz without rounding to a power of
+    two (400): the sizes the K1 kernel took up besides 256 and 512."""
+    fo = dict(samp_freq=sr, dither=0.0, round_to_power_of_two=pow2)
+    opts = MfccOptions(frame_opts=FrameOptions(**fo), mel_opts=MelOptions(num_bins=23))
+    wave = _wave(int(sr) // 2, sr, seed=4)
+    ref = JF.MfccExtractor(opts)(wave)
+    np.testing.assert_allclose(_port_single(opts, wave), ref, **MFCC_TOL)
+
+
+@pytest.mark.parametrize("sr,ms,pow2,bins", [
+    (8000.0, 25.0, False, 23), (8000.0, 25.0, True, 23), (16000.0, 25.0, False, 23),
+    (16000.0, 25.0, True, 40), (22050.0, 25.0, False, 23), (22050.0, 25.0, True, 80),
+    (44100.0, 25.02, False, 23), (44100.0, 25.0, True, 23), (48000.0, 25.0, False, 40),
+    (48000.0, 60.0, True, 80)])
+def test_mel_bands_reproduce_bank(sr, ms, pow2, bins):
+    """K1's sparse mel: each bin's [lo, lo + len) range and band weights,
+    scattered back, give ``mel_bank_matrix`` exactly, and every weight
+    outside the ranges is zero."""
+    fo = FrameOptions(samp_freq=sr, frame_length_ms=ms, round_to_power_of_two=pow2)
+    mel = TF.mel_bank_matrix(bins, fo)
+    lo, length, band = TF.mel_bands(mel)
+    assert lo.dtype == length.dtype == np.int32 and band.shape == (length.max(), bins)
+    dense = np.zeros_like(mel)
+    for b in range(bins):
+        dense[b, lo[b]: lo[b] + length[b]] = band[: length[b], b]
+        assert (band[length[b]:, b] == 0).all()
+    np.testing.assert_array_equal(dense, mel)
+    assert (length > 0).all() and int(length.sum()) < mel.size // 4
+    tables = TF.MfccTables.build(MfccOptions(frame_opts=fo, mel_opts=MelOptions(num_bins=bins)),
+                                 False, "cpu")
+    assert tables.twiddle.shape == (fo.padded_window_size, 2)
+    np.testing.assert_array_equal(tables.mel_band.numpy(), band)
+
+
 @pytest.mark.parametrize("sr,ws_pad", [(8000.0, 256), (16000.0, 512)])
 def test_mfcc_matches_pallas_interpret(sr, ws_pad):
     """The K1 plain version's raw rows (cepstra, then energy) against the
@@ -137,6 +174,22 @@ def test_cmvn_matches_jax(norm_vars):
     got = TC.apply_cmvn_batch(torch.from_numpy(feats), torch.from_numpy(ref_stats),
                               torch.from_numpy(spk), norm_vars=norm_vars)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_cmvn_eight_speakers_unsorted():
+    """Eight speakers in no order, some with one utterance, one with none:
+    the float64 one-hot product gives the JAX package's segment sums."""
+    rng = np.random.default_rng(8)
+    feats = (rng.standard_normal((20, 30, 13)) * 4 + 2).astype(np.float32)
+    nf = rng.integers(1, 31, 20).astype(np.int32)
+    spk = np.array([5, 2, 7, 0, 2, 5, 1, 3, 7, 0, 6, 2, 5, 3, 0, 1, 7, 2, 6, 5], np.int32)
+    want = np.array(JC.acc_cmvn_stats_batch(jnp.asarray(feats), jnp.asarray(nf),
+                                             jnp.asarray(spk), 9))
+    got = TC.acc_cmvn_stats_batch(torch.from_numpy(feats), torch.from_numpy(nf),
+                                  torch.from_numpy(spk), 9)
+    assert got.dtype == torch.float32 and got.shape == (9, 2, 14)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-5)
+    assert (got[4] == 0).all() and (got[8] == 0).all()
 
 
 @pytest.mark.parametrize("order,window", [(2, 2), (1, 3)])

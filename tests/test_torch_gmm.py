@@ -11,9 +11,13 @@ import torch
 from voicebridge_tpu.models.gmm import AmDiagGmm
 from voicebridge_tpu.ops import gmm_kernels as K
 from voicebridge_tpu.ops.pallas_gmm import loglikes_pallas, pack_gmm_pallas
-from voicebridge_tpu_torch import convert
+from voicebridge_tpu_torch import FrameOptions, MfccOptions, convert
 from voicebridge_tpu_torch.ops import gmm_kernel
 from voicebridge_tpu_torch.ops import gmm_kernels as TK
+from voicebridge_tpu_torch.steps.make_feats import make_features
+from voicebridge_tpu_torch.testing import load_yesno_mono
+
+from synth import make_corpus
 
 torch.set_num_threads(2)
 GMM_TOL = dict(rtol=2e-5, atol=2e-4)
@@ -104,3 +108,66 @@ def test_wrapper_rejects_other_devices():
     w = convert.kernel_params_from_am(_port(am), "cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         gmm_kernel.loglikes(torch.empty((5, 4), device="meta"), w)
+
+
+@pytest.mark.parametrize("max_mix", [1, 2, 5, 6, 7, 8, 11, 20])
+def test_pack_weights_layout(max_mix):
+    """The K2 wrapper's packing: ``wt[c, k, p] = w[p, c, k]``; K padded to a
+    multiple of 8 and P to 64 with zeros; the components padded to equal
+    passes of at most 5 are inactive."""
+    am = _random_am(num_pdfs=37, max_mix=max_mix, dim=13, seed=max_mix)
+    w = convert.kernel_params_from_am(_port(am), "cpu")
+    wt, mc = gmm_kernel.pack_weights(w)
+    m_pad = wt.shape[0]
+    assert 1 <= mc <= gmm_kernel.MAX_CHUNK and m_pad % mc == 0 and m_pad - max_mix < m_pad // mc
+    assert wt.shape[1:] == (32, 64)
+    torch.testing.assert_close(wt[:max_mix, :27, :37], w.permute(1, 2, 0), rtol=0, atol=0)
+    assert (wt[:max_mix, 27:] == 0).all() and (wt[:max_mix, :, 37:] == 0).all()
+    assert (wt[max_mix:, 26] == gmm_kernel.NEG).all()
+    assert (wt[max_mix:, :26] == 0).all() and (wt[max_mix:, 27:] == 0).all()
+
+
+def _tf32_split(a):
+    """The K2 kernel's operand split (``split`` in ``csrc/gmm_loglik.cu``):
+    hi = a rounded to nearest TF32 (add 0x1000 to the bits, clear the low
+    13), lo = the rest rounded the same way."""
+    def rn(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32).astype(np.uint64)
+        return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+    hi = rn(a)
+    return hi, rn(a - hi)
+
+
+def test_tf32x3_halves_of_packed_weights():
+    """The halves the 3xTF32 kernel makes of the packed Yes-No weights sum
+    back to them within 2^-22 (hi keeps 10 mantissa bits), and the three
+    products of the halves score the model's training features within the
+    kernel's tolerance of float64, closer than fp32 does (the expanded form
+    cancels terms of up to 1e4 there)."""
+    m = load_yesno_mono()
+    wt = gmm_kernel.pack_weights(convert.kernel_params_from_am(m.am, "cpu"))[0].numpy()
+    hi, lo = _tf32_split(wt)
+    assert (hi.view(np.uint32) & 0x1FFF == 0).all() and (lo.view(np.uint32) & 0x1FFF == 0).all()
+    np.testing.assert_array_less(np.abs(hi.astype(np.float64) + lo - wt), 2.0 ** -22 * np.abs(wt) + 1e-45)
+    train, _test = make_corpus(**m.corpus)
+    feats = make_features({u: w for u, (w, _) in train.items()}, {u: u for u in train},
+                          MfccOptions(frame_opts=FrameOptions(samp_freq=m.samp_freq, dither=0.0)),
+                          device="cpu")
+    x = torch.cat([feats[u] for u in sorted(feats)]).numpy()
+    xx = np.concatenate([x, x * x, np.ones((len(x), 1), np.float32)], 1)
+    p, mix, k = m.am.num_pdfs, m.am.max_mix, xx.shape[1]
+    w = wt[:mix, :k, :p].transpose(1, 0, 2).reshape(k, mix * p)  # [K, M*P]
+    active = (w[-1] > -1e29).reshape(mix, p)
+    xh, xl = _tf32_split(xx)
+    wh, wl = _tf32_split(w)
+
+    def ll(scores):
+        s = np.where(active.reshape(-1)[None], scores, -1e30).reshape(len(x), mix, p)
+        return torch.logsumexp(torch.from_numpy(s.astype(np.float64)), 1).numpy()
+
+    exact = ll(xx.astype(np.float64) @ w.astype(np.float64))
+    tol = GMM_TOL["atol"] + GMM_TOL["rtol"] * np.abs(exact)
+    x64 = xh.astype(np.float64)
+    three = ll(x64 @ wh + x64 @ wl + xl.astype(np.float64) @ wh)
+    fp32 = ll((torch.from_numpy(xx) @ torch.from_numpy(w)).numpy())
+    assert (np.abs(three - exact) / tol).max() < 1.0 < (np.abs(fp32 - exact) / tol).max()

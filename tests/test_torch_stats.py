@@ -117,6 +117,20 @@ def test_transition_stats_equal():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_transition_stats_fractional_weights():
+    """Fractional weights, ids in no order and ids no frame takes: the
+    sort-and-segment float64 sum against the JAX package's segment_sum."""
+    rng = np.random.default_rng(4)
+    tids = rng.integers(1, 300, 5000).astype(np.int32)
+    tids[tids % 7 == 0] = 3  # a long run, and ids that no frame takes
+    w = rng.random(5000).astype(np.float32) * rng.choice([1e-3, 1.0, 30.0], 5000)
+    want = np.asarray(JK.acc_transition_stats(jnp.asarray(tids), 300, jnp.asarray(w)))
+    got = K.acc_transition_stats(torch.from_numpy(tids), 300, torch.from_numpy(w))
+    assert got.dtype == torch.float32 and got.shape == (301,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert got[0] == 0 and got[7] == 0
+
+
 @pytest.mark.parametrize("skew", [False, True])
 def test_block_table_covers_each_pdf_run(skew):
     """The K6 work list: every pdf's run of sorted frames is cut into blocks

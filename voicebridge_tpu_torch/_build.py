@@ -36,13 +36,13 @@ launches = {"mfcc_frames": 0, "gmm_loglikes": 0, "viterbi_step": 0,
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # frames, num_frames, ws, n_fft, window, twiddle, mel_t, num_bins, dct_t,
-    # lifter, num_ceps, remove_dc, preemph, raw_energy, mel_floor,
-    # fbank_only, out, stream
-    "vbt_mfcc_frames": (_P, _I64, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I, _F,
+    # frames, num_frames, ws, n_fft, window, twiddle, mel_lo, mel_len,
+    # mel_band, num_bins, dct_t, lifter, num_ceps, remove_dc, preemph,
+    # raw_energy, mel_floor, fbank_only, out, stream
+    "vbt_mfcc_frames": (_P, _I64, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F,
                         _I, _F, _I, _P, _P),
-    # x, n, d, w, p, m, out, stream
-    "vbt_gmm_loglikes": (_P, _I64, _I, _P, _I, _I, _P, _P),
+    # x, n, d, wt, p, m_pad, mc, out, stream
+    "vbt_gmm_loglikes": (_P, _I64, _I, _P, _I, _I, _I, _P, _P),
     # alpha, buf0, buf1, alpha_end, bp, bp_bytes, ll, row_start, row_src,
     # row_w, row_pdf, row_real, num_frames, final_eff, slab, t0, w, acwt, s1,
     # b, p, d, reverse, max_blocks, stream

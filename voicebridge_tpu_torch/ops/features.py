@@ -128,6 +128,25 @@ def delta_scales(order: int, window: int) -> list[np.ndarray]:
     return [s.astype(np.float32) for s in scales]
 
 
+def mel_bands(mel: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A ``[num_bins, K]`` filterbank -> each bin's triangle: ``lo [num_bins]``,
+    ``length [num_bins]`` (int32; from the first to the last nonzero weight)
+    and ``band [max length, num_bins]`` with ``band[i, b] = mel[b, lo[b] +
+    i]`` (zero past a bin's length).  Only zeros outside the triangles are
+    left out, so a sum over ``band`` in order equals the dense one."""
+    nb = mel.shape[0]
+    lo = np.zeros(nb, np.int32)
+    length = np.zeros(nb, np.int32)
+    for b in range(nb):
+        nz = np.flatnonzero(mel[b])
+        if len(nz):
+            lo[b], length[b] = nz[0], nz[-1] + 1 - nz[0]
+    band = np.zeros((max(int(length.max()), 1), nb), np.float32)
+    for b in range(nb):
+        band[: length[b], b] = mel[b, lo[b]: lo[b] + length[b]]
+    return lo, length, band
+
+
 @dataclass(frozen=True)
 class MfccTables:
     """Per-option constants on one device, shared by the kernel and its
@@ -136,18 +155,22 @@ class MfccTables:
     opts: MfccOptions
     fbank: bool
     window: torch.Tensor  # [ws]
-    mel_t: torch.Tensor  # [N/2, num_bins]
+    mel_t: torch.Tensor  # [N/2, num_bins] (plain version)
     dct_t: torch.Tensor  # [num_bins, num_ceps]
     lifter: torch.Tensor  # [num_ceps]
-    twiddle: torch.Tensor  # [N/2, 2]: cos, sin of -2*pi*k/N (kernel only)
+    twiddle: torch.Tensor  # [N, 2]: cos, sin of -2*pi*k/N (kernel only)
+    mel_lo: torch.Tensor  # [num_bins] int32: first FFT bin of each triangle (kernel only)
+    mel_len: torch.Tensor  # [num_bins] int32: its width (kernel only)
+    mel_band: torch.Tensor  # [max width, num_bins]: its weights (kernel only)
 
     @classmethod
     def build(cls, opts: MfccOptions, fbank: bool, device) -> "MfccTables":
         fo, mo = opts.frame_opts, opts.mel_opts
         n = fo.padded_window_size
-        ang = -2.0 * math.pi * np.arange(n // 2) / n
+        ang = -2.0 * math.pi * np.arange(n) / n
         twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
         mel = mel_bank_matrix(mo.num_bins, fo, mo.low_freq, mo.high_freq)
+        lo, length, band = mel_bands(mel)
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
@@ -155,7 +178,8 @@ class MfccTables:
         return cls(opts=opts, fbank=fbank, window=dev(feature_window(fo)),
                    mel_t=dev(mel.T), dct_t=dev(dct_matrix(opts.num_ceps, mo.num_bins).T),
                    lifter=dev(lifter_coeffs(opts.num_ceps, opts.cepstral_lifter)),
-                   twiddle=dev(twiddle))
+                   twiddle=dev(twiddle), mel_lo=dev(lo), mel_len=dev(length),
+                   mel_band=dev(band))
 
     @property
     def mel_floor(self) -> float:

@@ -1,8 +1,10 @@
 """K2 wrapper: fused diagonal-GMM log-likelihoods (``csrc/gmm_loglik.cu``).
 
 Replaces the Pallas kernel ``voicebridge_tpu/ops/pallas_gmm.py``
-(``_gmm_kernel``).  The kernel takes the weights packed as ``w [P, M, 2D+1]``
-float32, rows ``[miv, -0.5*iv, gconst]`` (``convert.kernel_params_from_am``).
+(``_gmm_kernel``).  Callers pass the weights as ``w [P, M, 2D+1]`` float32,
+rows ``[miv, -0.5*iv, gconst]`` (``convert.kernel_params_from_am``); the
+wrapper repacks them for the kernel (``pack_weights``: component-major,
+k-major, pdfs contiguous and padded) on every call, a copy of a few MB.
 A CPU tensor goes to the plain version ``ops.gmm_kernels.loglikes``; a CUDA
 tensor goes to the kernel or raises.
 """
@@ -14,6 +16,31 @@ import torch
 from .. import _build, convert
 from ..device import stream_handle
 from . import gmm_kernels
+
+MAX_CHUNK = 5  # components per pass of the kernel (kMaxChunk in the source)
+NEG = -1e30
+
+
+def chunking(m: int) -> tuple[int, int]:
+    """Components per pass and the padded component count for ``m``
+    components: as few passes of at most ``MAX_CHUNK`` as will do, equal in
+    size."""
+    passes = -(-m // MAX_CHUNK)
+    mc = -(-m // passes)
+    return mc, mc * passes
+
+
+def pack_weights(w: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``w [P, M, K]`` -> (``wt [M_pad, K_pad, P_pad]``, components per
+    pass): ``wt[c, k, p] = w[p, c, k]``, K padded with zeros to a multiple of
+    8, P to a multiple of 64, the padded components inactive (gconst row
+    ``NEG``)."""
+    p, m, k = w.shape
+    mc, m_pad = chunking(m)
+    wt = w.new_zeros((m_pad, -(-k // 8) * 8, -(-p // 64) * 64))
+    wt[:m, :k, :p] = w.permute(1, 2, 0)
+    wt[m:, k - 1] = NEG
+    return wt, mc
 
 
 def loglikes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -29,14 +56,15 @@ def loglikes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
     if w.device != x.device:
         raise ValueError("x and w lie on different devices")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x and w must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
     n, d = x.shape
     p, m, _ = w.shape
     out = torch.empty((n, p), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    _build.launch("gmm_loglikes", x.data_ptr(), n, d, w.data_ptr(), p, m,
+    wt, mc = pack_weights(w)
+    _build.launch("gmm_loglikes", x.data_ptr(), n, d, wt.data_ptr(), p, wt.shape[0], mc,
                   out.data_ptr(), stream_handle(x.device))
     return out
 

@@ -184,10 +184,15 @@ def acc_gmm_stats_chunked(params: GmmParams, x, pdf_ids, num_pdfs: int,
 def acc_transition_stats(tids: torch.Tensor, num_tids: int,
                          frame_weights: torch.Tensor | None = None) -> torch.Tensor:
     """Transition-id occupancies from an alignment (``[N]`` ->
-    ``[num_tids+1]``)."""
-    w = (torch.ones(tids.shape, dtype=torch.float32, device=tids.device)
-         if frame_weights is None else frame_weights)
-    return torch.bincount(tids.long(), weights=w, minlength=num_tids + 1)
+    ``[num_tids+1]`` float32).  A stable sort by transition id, then one
+    float64 sum per id over its run of frames (``segment_reduce``, in frame
+    order): no float atomics, so the same bits in every run on the card."""
+    tids = tids.long()
+    w = (torch.ones(tids.shape, dtype=torch.float64, device=tids.device)
+         if frame_weights is None else frame_weights.to(torch.float64))
+    order = torch.sort(tids, stable=True).indices
+    counts = torch.bincount(tids, minlength=num_tids + 1)
+    return torch.segment_reduce(w[order], "sum", lengths=counts).float()
 
 
 def aligned_loglike(params: GmmParams, x: torch.Tensor, pdf_ids: torch.Tensor,

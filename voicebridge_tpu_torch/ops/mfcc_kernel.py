@@ -1,7 +1,9 @@
 """K1 wrapper: the fused MFCC frame chain (``csrc/mfcc.cu``).
 
 Replaces the Pallas kernel ``voicebridge_tpu/ops/pallas_mfcc.py``
-(``_mfcc_kernel``).  A CPU tensor goes to the plain version
+(``_mfcc_kernel``).  The kernel takes every padded window size up to
+``MAX_FFT`` points: a power of two from 64 through its FFT, any other size
+through its DFT product.  A CPU tensor goes to the plain version
 ``ops.features.mfcc_from_frames``; a CUDA tensor goes to the kernel or
 raises.
 """
@@ -14,7 +16,7 @@ from .. import _build
 from ..device import stream_handle
 from . import features
 
-FFT_SIZES = (256, 512)  # 8 kHz and 16 kHz with 25 ms windows
+MAX_FFT = 4096  # 85 ms frames at 48 kHz
 
 
 def mfcc_frames(frames: torch.Tensor, tables: "features.MfccTables") -> torch.Tensor:
@@ -26,6 +28,7 @@ def mfcc_frames(frames: torch.Tensor, tables: "features.MfccTables") -> torch.Te
     fo = opts.frame_opts
     n_fft = fo.padded_window_size
     ws = fo.window_size
+    nb = opts.mel_opts.num_bins
     if frames.device.type != "cuda":
         raise ValueError(f"unsupported device {frames.device}")
     if frames.dtype != torch.float32 or frames.dim() != 2 or frames.shape[1] != ws:
@@ -33,9 +36,14 @@ def mfcc_frames(frames: torch.Tensor, tables: "features.MfccTables") -> torch.Te
                          f"{frames.dtype} {tuple(frames.shape)}")
     if not frames.is_contiguous():
         raise ValueError("frames must be contiguous")
-    if n_fft not in FFT_SIZES:
-        raise ValueError(f"padded window {n_fft} not in {FFT_SIZES}")
-    tabs = (tables.window, tables.twiddle, tables.mel_t, tables.dct_t, tables.lifter)
+    if n_fft > MAX_FFT:
+        raise ValueError(f"padded window of {n_fft} points: the MFCC kernel takes at most "
+                         f"{MAX_FFT} ({fo.frame_length_ms} ms at {fo.samp_freq} Hz is too long)")
+    if nb > n_fft // 2 or (not tables.fbank and opts.num_ceps > nb):
+        raise ValueError(f"{nb} mel bins and {opts.num_ceps} cepstra do not fit a "
+                         f"{n_fft}-point FFT")
+    tabs = (tables.window, tables.twiddle, tables.mel_lo, tables.mel_len, tables.mel_band,
+            tables.dct_t, tables.lifter)
     if any(t.device != frames.device for t in tabs):
         raise ValueError("tables and frames lie on different devices")
     out = torch.empty((frames.shape[0], tables.out_cols), dtype=torch.float32,
@@ -44,9 +52,9 @@ def mfcc_frames(frames: torch.Tensor, tables: "features.MfccTables") -> torch.Te
         return out
     _build.launch(
         "mfcc_frames", frames.data_ptr(), frames.shape[0], ws, n_fft,
-        tables.window.data_ptr(), tables.twiddle.data_ptr(), tables.mel_t.data_ptr(),
-        opts.mel_opts.num_bins, tables.dct_t.data_ptr(), tables.lifter.data_ptr(),
-        opts.num_ceps, int(fo.remove_dc_offset), fo.preemph_coeff,
+        tables.window.data_ptr(), tables.twiddle.data_ptr(), tables.mel_lo.data_ptr(),
+        tables.mel_len.data_ptr(), tables.mel_band.data_ptr(), nb, tables.dct_t.data_ptr(),
+        tables.lifter.data_ptr(), opts.num_ceps, int(fo.remove_dc_offset), fo.preemph_coeff,
         int(opts.raw_energy), tables.mel_floor, int(tables.fbank), out.data_ptr(),
         stream_handle(frames.device))
     return out

@@ -2,8 +2,10 @@
 
 Port of ``voicebridge_tpu/transforms/cmvn.py``: per-speaker stats of shape
 ``[2, D+1]`` (row 0 = [sum x, count], row 1 = [sum x^2, 0]) for all speakers
-in one ``index_add_`` over a speaker-id vector, and application as a gather
-plus an elementwise op.
+at once, and application as a gather plus an elementwise op.  The JAX
+package's ``segment_sum`` over the speaker ids becomes a float64 one-hot
+product ``[S, B] @ [B, 2D+1]`` of the per-utterance sums: no float atomics,
+so the statistics are the same bits in every run on the card.
 """
 
 from __future__ import annotations
@@ -21,10 +23,13 @@ def acc_cmvn_stats_batch(feats: torch.Tensor, num_frames: torch.Tensor,
     spk_ids = spk_ids.to(dev, torch.int64)
     mask = (torch.arange(t, device=dev)[None, :] < num_frames[:, None]).to(feats.dtype)
     x = feats * mask[:, :, None]
+    per_utt = torch.cat([x.sum(dim=1), num_frames.to(feats.dtype)[:, None],
+                         (x * x).sum(dim=1)], dim=1).double()  # [B, 2D+1]
+    onehot = (spk_ids[None, :] == torch.arange(num_speakers, device=dev)[:, None]).double()
+    sums = (onehot @ per_utt).to(feats.dtype)  # [S, 2D+1]
     stats = torch.zeros((num_speakers, 2, d + 1), dtype=feats.dtype, device=dev)
-    stats[:, 0, :d].index_add_(0, spk_ids, x.sum(dim=1))
-    stats[:, 0, d].index_add_(0, spk_ids, num_frames.to(feats.dtype))
-    stats[:, 1, :d].index_add_(0, spk_ids, (x * x).sum(dim=1))
+    stats[:, 0] = sums[:, : d + 1]
+    stats[:, 1, :d] = sums[:, d + 1:]
     return stats
 
 
