@@ -6,7 +6,7 @@ Phases, each of which must pass (any failure exits nonzero):
 
 1. Requires CUDA; turns TF32 off for matmul and cuDNN; prints the card's
    name and power limit (nvidia-smi).
-2. Builds the eight CUDA sources from ``voicebridge_tpu_torch/csrc`` with
+2. Builds the nine CUDA sources from ``voicebridge_tpu_torch/csrc`` with
    nvcc (one process per source, in parallel) and prints the compiler's
    register/shared-memory report.
 3. Holds each kernel against its plain PyTorch version on the card at the
@@ -28,19 +28,26 @@ Phases, each of which must pass (any failure exits nonzero):
    time), K4 banded alignment forward and
    backtrace (192 utterances x 400 frames, 384-state training graphs;
    bit-equal scores, equal band-slot codes and arcs), K6 aligned E-step
-   statistics (77k aligned frames, 2000 x 5 x 39), K7 N-best frame steps
-   (the 60k-state graph, 32 lanes x 4 hypotheses per state, beam 13, at the
-   start and after 60 frames; bit-equal scores, equal arcs and slots), the
-   generic aligner's forward and backtrace (192 x 400 frames over 384-state
-   graphs with back arcs, which the banded form refuses; bit-equal scores,
-   equal backpointers and arcs).  Beside each time stands the kernel's
+   statistics (77k aligned frames, 2000 x 5 x 39), K7 N-best steps (the
+   60k-state graph, 32 lanes x 4 hypotheses per state, beam 13, lanes that
+   end inside the windows; one frame a launch and as one window of 16
+   frames, at the start and after a 60-frame window of the kernel alone;
+   bit-equal scores and alpha_end, equal arcs and slots), the generic
+   aligner's forward and backtrace (192 x 400 frames over 384-state graphs
+   with back arcs, which the banded form refuses; bit-equal scores, equal
+   backpointers and arcs), and the best-path backtrace ``backtrace_best``
+   over the K3 backpointer table of a whole full-width decode block (1000
+   frames x 60k states x 128 lanes, keep mode; equal codes, arcs and
+   carried state, and its time for one lane, the latency of its chain of
+   dependent loads).  Beside each time stands the kernel's
    bound: the larger of its bytes (inputs once, outputs once) over 3.35 TB/s
    and its operations over 67 TFLOP/s (float32; 495 TFLOP/s TF32 for K2),
    from this run's shapes (K1: the sparse mel's nonzeros).
 4. Decodes the committed Yes-No model on the card from waves to words: the
    JAX package's stored hypotheses for all 32 utterances, test WER <= 5%,
-   train WER <= 2%, and every decoding kernel launched; K2 against its plain
-   version on the model and its features.
+   train WER <= 2%, and every decoding kernel launched (K1, K2, K3 and
+   ``backtrace_best``); K2 against its plain version on the model and its
+   features.
 5. Decodes the same model into lattices on the card and sweeps them over
    ``DecodeOptions``' 33-point (LMWT, WIP) grid (``decode_sweep_lattice``):
    every lattice's best path at the decode acoustic scale gives the stored
@@ -55,8 +62,8 @@ Phases, each of which must pass (any failure exits nonzero):
 7. The decoding path at full width: waves -> make_features ->
    Decoder.decode_batch (B = 128 utterances of T = 1000 frames, the
    2000 x 5 x 39 GMM, the 60k-state graph), with the launch counts of this
-   run (K3: one window for all T frames); every utterance must get a T-arc
-   path.  Prints the median audio
+   run (K3: one window for all T frames, ``backtrace_best`` one launch per
+   K3 block); every utterance must get a T-arc path.  Prints the median audio
    seconds per second of this run and five more; one further run under
    torch.profiler gives the device busy share and time by kernel, one under
    cProfile the host time by function (both into the log).
@@ -83,14 +90,17 @@ Phases, each of which must pass (any failure exits nonzero):
 
 10. N-best decoding of the Yes-No model on the card (``decode_nbest``,
    nbest 3 and 8): the first hypothesis gives the stored words for all 32
-   utterances, scores fall, no two hypotheses share an arc sequence; K1, K2
-   and K7 launched.
+   utterances, scores fall, no two hypotheses share an arc sequence; K1, K2,
+   K7 and ``backtrace_nbest`` launched.
 11. N-best at full width: waves -> make_features -> Decoder.decode_nbest
    (32 utterances of T = 1000 frames, nbest 4, the 60k-state graph and the
    GMM of phase 9, exact search) in sub-batches sized from the card's free
    memory, with the launch counts of this run.  Every utterance's first
    hypothesis must score within 1e-2 or relative 1e-5 of ``decode_batch``'s
-   best path, and scores must fall.
+   best path, and scores must fall; K7 and ``backtrace_nbest`` launch once
+   per sub-batch.  ``backtrace_nbest`` is then held to its plain version on
+   the tables of the first sub-batch (equal arcs, start states and ok
+   flags), with its time and its time for one walk.
 12. Generic alignment at full width: the training shape of phase 8 over
    graphs with back arcs, which ``build_band_plan`` refuses (the reason goes
    to the log), aligned by ``AlignmentSet.align_feats`` through the generic
@@ -157,7 +167,8 @@ TOL = {"mfcc_frames": (2e-4, 2e-3), "gmm_loglikes": (2e-5, 2e-4),
        "align_forward": (0.0, 0.0),
        "align_backtrace": (0.0, 0.0), "gmm_stats": (1e-5, 1e-5), "lattice_fb": (0.0, 0.0),
        "viterbi_nbest": (0.0, 0.0), "generic_forward": (0.0, 0.0),
-       "generic_backtrace": (0.0, 0.0)}
+       "generic_backtrace": (0.0, 0.0), "backtrace_best": (0.0, 0.0),
+       "backtrace_nbest": (0.0, 0.0)}
 SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
                            "voicebridge_tpu/ops/pallas_mfcc.py:57"),
            "gmm_loglikes": ("voicebridge_tpu_torch/csrc/gmm_loglik.cu",
@@ -179,11 +190,17 @@ SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
            "generic_forward": ("voicebridge_tpu_torch/csrc/viterbi_generic.cu",
                                "voicebridge_tpu/ops/viterbi.py:452"),
            "generic_backtrace": ("voicebridge_tpu_torch/csrc/viterbi_generic.cu",
-                                 "voicebridge_tpu/ops/viterbi.py:842")}
-DECODE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step")
+                                 "voicebridge_tpu/ops/viterbi.py:842"),
+           "backtrace_best": ("voicebridge_tpu_torch/csrc/backtrace.cu",
+                              "voicebridge_tpu/ops/decode_core.py:351"),
+           # no TPU kernel: the JAX package walks the N-best tables on the host
+           "backtrace_nbest": ("voicebridge_tpu_torch/csrc/backtrace.cu",
+                               "voicebridge_tpu/ops/viterbi.py:561")}
+DECODE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step", "backtrace_best")
 TRAIN_KERNELS = ("gmm_loglikes", "align_forward", "align_backtrace", "gmm_stats")
-LATTICE_KERNELS = DECODE_KERNELS + ("viterbi_step_backward", "lattice_fb")
-NBEST_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_nbest")
+LATTICE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step", "viterbi_step_backward",
+                   "lattice_fb")
+NBEST_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_nbest", "backtrace_nbest")
 GENERIC_KERNELS = ("gmm_loglikes", "generic_forward", "generic_backtrace")
 
 
@@ -278,17 +295,9 @@ def k2_check(torch, x, w, what: str, log) -> float:
     return err
 
 
-def compare_kernels(torch, device, width: Width, log) -> dict:
-    """Phase 3: every kernel against its plain version at full width."""
-    import numpy as np
-
-    from voicebridge_tpu_torch import FrameOptions, MelOptions, MfccOptions, convert
-    from voicebridge_tpu_torch.ops import decode_core as DC
-    from voicebridge_tpu_torch.ops import features, gmm_kernel, gmm_kernels, mfcc_kernel
-    from voicebridge_tpu_torch.testing import random_am, synth_decode_graph
-
-    timed = device.type == "cuda"
-    results = {}
+def make_record(torch, results: dict, log, timed: bool):
+    """The comparison of phase 3 and 11: returns ``record``, which keeps each
+    kernel's entry in ``results``."""
 
     def record(name, pairs, kernel_fn, plain_fn, work, equal=True, frames=1, frame_fn=None,
                ops_per_s=FP32_OPS_PER_S, what=""):
@@ -328,6 +337,26 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
             f"({op_ms:.4g} ms)")
         check(ok, f"{name}{what} disagrees with its plain version (max abs err {err})")
         return entry
+
+    return record
+
+
+def k3_plan_bytes(dev) -> int:
+    """The bytes of the emit plan that K3 and K5 read (not ``row_arc``,
+    which only the backtrace reads)."""
+    return nbytes(dev.row_src, dev.row_w, dev.row_pdf, dev.row_start, dev.row_real)
+
+
+def compare_kernels(torch, device, width: Width, results: dict, record, log) -> dict:
+    """Phase 3: every kernel against its plain version at full width."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import FrameOptions, MelOptions, MfccOptions, convert
+    from voicebridge_tpu_torch.ops import decode_core as DC
+    from voicebridge_tpu_torch.ops import features, gmm_kernel, gmm_kernels, mfcc_kernel
+    from voicebridge_tpu_torch.testing import random_am, synth_decode_graph
+
+    timed = device.type == "cuda"
 
     # K1 at each size of K1_SIZES (the main path's is the kernel's entry)
     main_fft = FrameOptions(samp_freq=width.samp_freq).padded_window_size
@@ -403,7 +432,8 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
     plan = DC.build_emit_plan(graph, d=8)
     dev = DC.plan_to_device(plan, device)
     b, k = width.batch, width.k3_frames
-    ll_t = ll.view(b, width.frames, -1).permute(1, 2, 0)[:k].contiguous()
+    ll_all = ll.view(b, width.frames, -1).permute(1, 2, 0).contiguous()  # [T, P, B]
+    ll_t = ll_all[:k]
     ll_k = ll.view(b, width.frames, -1)[:, :k].contiguous()
     del ll
     nf = torch.full((b,), width.frames, dtype=torch.int32, device=device)
@@ -434,12 +464,13 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
                                          plan.rspec, plan.packed, bps["p"][0]),
            # alpha in and out, the frame's logliks, the backpointers, the plan;
            # an add and a compare per (row slot, lane), an add and a compare per row
-           (2 * nbytes(alpha) + nbytes(ll_t[0], bps["w"][0], *dev),
+           (2 * nbytes(alpha) + nbytes(ll_t[0], bps["w"][0]) + k3_plan_bytes(dev),
             2 * dev.row_src.numel() * b + 2 * plan.num_rows * b), equal=same, frames=k,
            frame_fn=lambda: DC.viterbi_step(alpha, ends["1"], ll_t[0], dev, nf, 0, acwt,
                                             plan.rspec, plan.packed, bps["1"][0]))
     check(same, "viterbi_step scores or backpointer codes differ from the plain version")
-    del alpha, bps, ends
+    compare_backtrace_best(torch, graph, plan, dev, alpha, ll_all, acwt, record, log)
+    del alpha, bps, ends, ll_all
     compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
                            record, log)
     del k3_alphas, dev
@@ -448,6 +479,50 @@ def compare_kernels(torch, device, width: Width, log) -> dict:
     compare_training_kernels(torch, device, width, w, record)
     compare_generic_kernels(torch, device, width, w, record, log)
     return results
+
+
+def compare_backtrace_best(torch, graph, plan, dev, alpha, ll, acwt, record, log) -> None:
+    """Phase 3, the best-path backtrace over a whole full-width decode block
+    as ``decode_best_path`` runs it in keep mode: K3's backpointer table of
+    all T frames (one window), the end states ``select_end_state`` picks,
+    then ``backtrace_best`` against its plain version.  Its time for one
+    lane, a single chain of dependent loads, goes beside the bound."""
+    from voicebridge_tpu_torch.ops import decode_core as DC
+
+    device = alpha.device
+    t, _p, b = ll.shape
+    s1 = alpha.shape[0]
+    nf = torch.full((b,), t, dtype=torch.int32, device=device)
+    nf[: b // 4] = torch.arange(t - b // 4, t, dtype=torch.int32, device=device)  # ragged ends
+    bps = torch.empty((t, s1, b), dtype=torch.uint8 if plan.packed else torch.int16,
+                      device=device)
+    ae = torch.full_like(alpha, DC.NEG_INF)
+    DC.viterbi_window(alpha, ae, ll, dev, nf, 0, acwt, plan.rspec, plan.packed, bps)
+    final = torch.from_numpy(graph.final_score[plan.sperm[:-1]]).to(device)
+    end = DC.select_end_state(ae, final)[0].to(torch.int32)
+    walk = (bps, end, nf, 0)
+    plain = (dev.row_start, dev.row_src, dev.row_arc, plan.d, *walk)
+    got = DC.backtrace_scan(dev, *walk)
+    ref = DC.backtrace_scan_plain(*plain)
+    same = all(bool(torch.equal(x, y)) for x, y in zip(got, ref))
+    check(bool((got[1] >= 0).sum(dim=0).eq(nf).all()), "backtrace_best: a lane has no path")
+    one = (bps[:, :, :1].contiguous(), end[:1].contiguous(), nf[:1].contiguous(), 0)
+    log(f"backtrace_best: {t} frames x {b} lanes over the K3 table of one decode block "
+        f"({bps.element_size()} byte codes), equal to the plain version: {same}")
+    # per (frame, lane): the code read, row_start, row_src and row_arc
+    # looked up, the code and the arc written; the end states in, the start
+    # states out; a multiply-add and a compare each
+    entry = record("backtrace_best", [(got[1], ref[1])], lambda: DC.backtrace_scan(dev, *walk),
+                   lambda: DC.backtrace_scan_plain(*plain),
+                   (t * b * (bps.element_size() + 20) + nbytes(end, nf, end),
+                    3 * t * b), equal=same)
+    check(all(bool(torch.equal(x, y)) for x, y in zip(DC.backtrace_scan(dev, *one),
+                                                      (got[0][:, :1], got[1][:, :1], got[2][:1]))),
+          "backtrace_best: one lane alone differs from the same lane among all")
+    entry["one_lane_ms"] = cuda_ms(torch, lambda: DC.backtrace_scan(dev, *one)) \
+        if device.type == "cuda" else None
+    log(f"backtrace_best for one lane (the chain of {t} dependent frames): "
+        f"{entry['one_lane_ms']} ms")
 
 
 def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
@@ -499,7 +574,8 @@ def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alpha
     record("viterbi_step_backward", [(beta1, beta_p), (beta_w, beta_p)],
            lambda: LAT.bwd_window(beta0, ll_t, *bwd, slab),
            lambda: LAT.bwd_window_plain(beta0, ll_t[:1], *bwd, slabs["p"][:1]),
-           (3 * nbytes(beta0) + nbytes(ll_t[0], nf, *bwd_dev) + nbytes(final_eff) / k,
+           (3 * nbytes(beta0) + nbytes(ll_t[0], nf) + k3_plan_bytes(bwd_dev)
+            + nbytes(final_eff) / k,
             2 * bwd_dev.row_src.numel() * b + 2 * bwd_plan.num_rows * b), equal=same,
            frames=k, frame_fn=lambda: LAT.bwd_window(beta0, ll_t[:1], *bwd, slab[:1]))
     check(same, "viterbi_step_backward differs from the plain version")
@@ -526,7 +602,7 @@ def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alpha
            lambda: LAT.fb_frames(k3_alphas[0], ll_t, *fb, words["w"]),
            lambda: LAT.fb_frame_plain(k3_alphas[0], ll_t[0], dev, row_dst, slab[0], nf, 0,
                                       acwt, thresh, plan.rspec),
-           (3 * nbytes(a_w) + nbytes(ll_t[0], words["w"][0], row_dst, thresh, *dev),
+           (3 * nbytes(a_w) + nbytes(ll_t[0], words["w"][0], row_dst, thresh) + k3_plan_bytes(dev),
             5 * dev.row_src.numel() * b + 2 * plan.num_rows * b), equal=same, frames=k,
            frame_fn=lambda: LAT.fb_frame(k3_alphas[0], ll_t[0], dev, row_dst, slab[0], nf, 0,
                                          acwt, thresh, plan.rspec, words["1"][0]))
@@ -534,11 +610,12 @@ def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alpha
 
 
 def compare_nbest_kernel(torch, device, width: Width, graph, ll_k, acwt, record, log) -> None:
-    """Phase 3, K7: N-best frame steps on the full-width graph at the
-    sub-batch and list length of phase 11, with the decoder's default beam:
-    the first frames from the start state, then, after ``nbest_warm`` frames
-    of the kernel alone have spread the hypotheses, as many again.  Kernel
-    and plain version get the same inputs each frame."""
+    """Phase 3, K7: N-best steps on the full-width graph at the sub-batch and
+    list length of phase 11, with the decoder's default beam, one frame a
+    launch and as one window of the K3 frames, each against its plain
+    version: from the start state, then again after a window of
+    ``nbest_warm`` frames of the kernel alone has spread the hypotheses.
+    Two lanes end inside the compared windows and one has no frames."""
     import numpy as np
 
     from voicebridge_tpu_torch import DecodeOptions
@@ -546,41 +623,62 @@ def compare_nbest_kernel(torch, device, width: Width, graph, ll_k, acwt, record,
 
     b, k = min(width.nbest_batch, ll_k.shape[0]), width.nbest
     frames = ll_k.shape[1]
-    ll = ll_k[:b]
+    ll = ll_k[:b].permute(1, 2, 0).contiguous()  # [W, P, B], as K7 reads it
     plan = V.build_nbest_plan(graph, device)
     s = plan.num_states
     beam = float(np.float32(DecodeOptions().beam))
-    total = frames + width.nbest_warm + frames
+    warm = width.nbest_warm
+    total = frames + warm + frames
     nf = torch.full((b,), total, dtype=torch.int32, device=device)
-    alpha = torch.full((b, s, k), V.NEG_INF, dtype=torch.float32, device=device)
-    alpha[:, :, 0] = torch.from_numpy(graph.alpha0).to(device)[None, :]
-    scratch = torch.full_like(alpha, V.NEG_INF)
-    arc_k = torch.empty((b, s, k), dtype=torch.int32, device=device)
-    slot_k = torch.empty((b, s, k), dtype=torch.int8, device=device)
-    arc_p, slot_p = torch.empty_like(arc_k), torch.empty_like(slot_k)
-    same, worst, live = True, None, 0
-    for t in range(total):
-        args = (plan, alpha, scratch, ll[:, t % frames], nf, t, acwt, beam)
-        a_k, _ = V.nbest_step(*args, arc_k, slot_k)
-        if t < frames or t >= frames + width.nbest_warm:
-            a_p, _ = V.nbest_step_plain(*args, arc_p, slot_p)
-            same = (same and torch.equal(a_k, a_p) and torch.equal(arc_k, arc_p)
-                    and torch.equal(slot_k, slot_p))
-            if worst is None or (a_k - a_p).abs().max() > (worst[0] - worst[1]).abs().max():
-                worst = (a_k, a_p)
-            live = int((arc_k >= 0).sum())
-        if t + 1 < total:
-            alpha = a_k
+    for i, n in enumerate([frames // 2, frames + warm + frames // 2, 0][: b - 1]):
+        nf[i + 1] = n
+    alpha = torch.full((s, b, k), V.NEG_INF, dtype=torch.float32, device=device)
+    alpha[:, :, 0] = torch.from_numpy(graph.alpha0).to(device)[:, None]
+    end0 = torch.where((nf == 0)[None, :, None], alpha, torch.full_like(alpha, V.NEG_INF))
+
+    def tables(w):
+        return (torch.empty((w, s, b, k), dtype=torch.int32, device=device),
+                torch.empty((w, s, b, k), dtype=torch.int8, device=device))
+
+    def compare(alpha, end, t0):
+        """Frames t0 .. t0+frames-1 from ``alpha``: per-frame launches and
+        one window against the plain window; returns (alpha, alpha_end,
+        equal, the window's arguments)."""
+        bp = {m: tables(frames) for m in "1wp"}
+        a1, e1 = alpha, end.clone()
+        for i in range(frames):
+            a1, e1 = V.nbest_step(plan, a1, e1, ll[i], nf, t0 + i, acwt, beam, bp["1"][0][i],
+                                  bp["1"][1][i])
+        args = (nf, t0, acwt, beam)
+        a_w, e_w = V.nbest_window(plan, alpha, end.clone(), ll, *args, *bp["w"])
+        a_p, e_p = V.nbest_window_plain(plan, alpha, end.clone(), ll, *args, *bp["p"])
+        same = all(bool(torch.equal(x, y)) for x, y in (
+            (a1, a_p), (a_w, a_p), (e1, e_p), (e_w, e_p), (bp["1"][0], bp["p"][0]),
+            (bp["w"][0], bp["p"][0]), (bp["1"][1], bp["p"][1]), (bp["w"][1], bp["p"][1])))
+        return a_w, e_w, same, (alpha, bp, args, a_p, a_w)
+
+    a, e, same0, _ = compare(alpha, end0, 0)
+    ll_warm = ll[torch.arange(warm, device=device) % frames].contiguous()
+    a, e = V.nbest_window(plan, a, e, ll_warm, nf, frames, acwt, beam, *tables(warm))
+    a, e, same1, (alpha_t, bp, args, a_p, a_w) = compare(a, e, frames + warm)
+    same = same0 and same1
+    live = int((bp["w"][0][-1] >= 0).sum())
     # candidates this frame's data needs: one per live slot of every arc's
     # source, an add and a compare each, and an add and a multiply per arc
-    cands = int((alpha > V.NEG_INF).sum(dim=2)[:, plan.src.long()].sum())
-    log(f"viterbi_nbest: {b} lanes x {k} slots, {live} live slots of {arc_k.numel()} after "
-        f"{total} frames at beam {beam}, {cands} candidates in the timed frame")
-    record("viterbi_nbest", [worst], lambda: V.nbest_step(*args, arc_k, slot_k),
-           lambda: V.nbest_step_plain(*args, arc_p, slot_p),
-           (2 * nbytes(alpha) + nbytes(arc_k, slot_k, args[3], nf, plan.in_start, plan.src,
-                                       plan.pdf, plan.score, plan.arc),
-            2 * cands + 2 * plan.src.numel() * b), equal=same)
+    cands = int((alpha_t > V.NEG_INF).sum(dim=2)[plan.src.long()].sum())
+    log(f"viterbi_nbest: {b} lanes x {k} slots, {live} live slots of {bp['w'][0][-1].numel()} "
+        f"after {total} frames at beam {beam}, {cands} candidates in the timed frame; one "
+        f"frame a launch and one window of {frames}, bit-equal to the plain version: {same}")
+    e_t = e.clone()
+    record("viterbi_nbest", [(a_w, a_p)],
+           lambda: V.nbest_window(plan, alpha_t, e_t, ll, *args, *bp["w"]),
+           lambda: V.nbest_step_plain(plan, alpha_t, e_t, ll[0], nf, args[1], acwt, beam,
+                                      bp["p"][0][0], bp["p"][1][0]),
+           (2 * nbytes(alpha_t) + nbytes(bp["w"][0][0], bp["w"][1][0], ll[0], nf, plan.in_start,
+                                         plan.src, plan.pdf, plan.score, plan.arc),
+            2 * cands + 2 * plan.src.numel() * b), equal=same, frames=frames,
+           frame_fn=lambda: V.nbest_step(plan, alpha_t, e_t, ll[0], nf, args[1], acwt, beam,
+                                         bp["1"][0][0], bp["1"][1][0]))
 
 
 def train_shape(width: Width, device, back_arcs: int = 0):
@@ -1137,12 +1235,13 @@ def check_nbest(hyps: dict, utts: list, what: str) -> None:
         check(len(set(arcs)) == len(arcs), f"{what}: two hypotheses of {u} share an arc sequence")
 
 
-def nbest_full_width(torch, device, width: Width, log) -> dict:
+def nbest_full_width(torch, device, width: Width, record, log) -> dict:
     """Phase 11: the N-best path at full width.  Returns timing facts."""
     import numpy as np
 
     from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MelOptions, MfccOptions
     from voicebridge_tpu_torch import _build
+    from voicebridge_tpu_torch.ops import viterbi as V
     from voicebridge_tpu_torch.steps.decode import Decoder
     from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
     from voicebridge_tpu_torch.testing import feature_scaled_am, synth_decode_graph
@@ -1179,6 +1278,10 @@ def nbest_full_width(torch, device, width: Width, log) -> dict:
         _build.launches[k] = 0
     hyps, utts, batch, nf, feat_s, nbest_s = run()
     launches = dict(_build.launches)
+    sub_batches = launches["backtrace_nbest"]
+    if device.type == "cuda":
+        check(sub_batches > 0 and launches["viterbi_nbest"] == sub_batches,
+              f"K7 launched {launches['viterbi_nbest']} times for {sub_batches} sub-batches")
     check(len(hyps) == len(waves), f"{len(hyps)} N-best lists for {len(waves)} utterances")
     check_nbest(hyps, utts, "full-width N-best")
     check(all(len(h[2]) == width.frames for u in utts for h in hyps[u]),
@@ -1197,14 +1300,62 @@ def nbest_full_width(torch, device, width: Width, log) -> dict:
     audio_s = len(waves) * width.frames * 0.01
     facts = {"setup_s": setup_s, "first_run_features_s": feat_s, "first_run_nbest_s": nbest_s,
              "audio_s": audio_s, "runs_s": walls,
-             "sub_batches": launches["viterbi_nbest"] // width.frames or None,
+             "sub_batches": sub_batches or None,
              "median_audio_s_per_s": audio_s / float(np.median(walls)), "launches": launches,
              "hypotheses_per_utt": float(np.mean([len(hyps[u]) for u in utts])),
              "first_hyp_rel_err_max": worst}
     if device.type == "cuda":
         facts["profile"] = profile_run(torch, run, log, "full-width N-best decode")
     log(f"full-width N-best decode: {json.dumps(facts)}")
+    compare_backtrace_nbest(torch, dec, batch, nf, width, record, log)
     return facts
+
+
+def compare_backtrace_nbest(torch, dec, batch, nf, width: Width, record, log) -> None:
+    """Phase 11: ``backtrace_nbest`` against its plain version on the N-best
+    tables of the first sub-batch of the full-width decode, walked from the
+    end entries ``backtrace_nbest_device`` takes.  Its time for one walk, a
+    single chain of dependent loads, goes beside the bound."""
+    from voicebridge_tpu_torch.ops import viterbi as V
+
+    device = batch.device
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    b = min(batch.shape[0], dec._nbest_chunk(batch.shape[1], batch.shape[2], width.nbest))
+    nf = torch.as_tensor(nf[:b]).to(device, torch.int32)
+    ae, bp_arc, bp_slot = V.viterbi_nbest_forward(
+        dec._nbest_plan, dec.graph.alpha0, dec._loglikes(batch[:b].contiguous()), nf.cpu().numpy(),
+        dec.opts.acoustic_scale, dec.opts.beam, width.nbest)
+    s, k = ae.shape[1:]
+    final = torch.from_numpy(dec.graph.final_score).to(device)
+    c = min(4 * width.nbest, s * k)
+    fidx = (ae + final[None, :, None]).reshape(b, s * k).sort(dim=1, descending=True,
+                                                             stable=True)[1][:, :c]
+    walk = (bp_arc, bp_slot, torch.from_numpy(dec.graph.arc_src).to(device), nf,
+            (fidx // k).to(torch.int32), (fidx % k).to(torch.int32))
+    got, ref = V.nbest_walk(*walk), V.nbest_walk_plain(*walk)
+    same = all(bool(torch.equal(x, y)) for x, y in zip(got, ref))
+    check(bool(got[2].any()), "backtrace_nbest: no walk reaches the start")
+    one = (bp_arc[:, :1], bp_slot[:, :1], walk[2], nf[:1].contiguous(),
+           walk[4][:1, :1].contiguous(), walk[5][:1, :1].contiguous())
+    t = bp_arc.shape[0]
+    log(f"backtrace_nbest: {b} lanes x {c} walks x {t} frames over the phase's K7 tables, "
+        f"{int(got[2].sum())} walks reach the start; equal to the plain version: {same}")
+    # per (frame, walk): the arc and the slot read, the arc's source looked
+    # up, the arc written; the start entries in, the start states and flags
+    # out; an index computation (three multiply-adds) and a compare each
+    entry = record("backtrace_nbest", [(got[0], ref[0])], lambda: V.nbest_walk(*walk),
+                   lambda: V.nbest_walk_plain(*walk),
+                   (13 * t * b * c + nbytes(nf, walk[4], walk[5], got[1], got[2]),
+                    7 * t * b * c), equal=same)
+    check(all(bool(torch.equal(x, y)) for x, y in zip(V.nbest_walk(*one),
+                                                      (got[0][:, :1, :1], got[1][:1, :1],
+                                                       got[2][:1, :1]))),
+          "backtrace_nbest: one walk alone differs from the same walk among all")
+    entry["one_walk_ms"] = cuda_ms(torch, lambda: V.nbest_walk(*one)) \
+        if device.type == "cuda" else None
+    log(f"backtrace_nbest for one walk (the chain of {t} dependent frames): "
+        f"{entry['one_walk_ms']} ms")
 
 
 def generic_full_width(torch, device, width: Width, log) -> dict:
@@ -1333,7 +1484,9 @@ def run(device, width: Width, log=print) -> dict:
             f"in {time.perf_counter() - t0:.1f} s")
         log(lib.with_suffix(".log").read_text())
         _build.library()
-    kernels = compare_kernels(torch, device, width, log)
+    kernels: dict = {}
+    record = make_record(torch, kernels, log, device.type == "cuda")
+    compare_kernels(torch, device, width, kernels, record, log)
     for k in _build.launches:
         _build.launches[k] = 0
     kernels["gmm_loglikes"]["max_abs_err_yesno"] = decode_yesno(torch, device, log)
@@ -1345,6 +1498,11 @@ def run(device, width: Width, log=print) -> dict:
     launched(train_yesno(torch, device, log), TRAIN_KERNELS, "yes-no training")
     decode = decode_full_width(torch, device, width, log)
     launched(decode["launches"], DECODE_KERNELS, "the full-width decode")
+    if device.type == "cuda":  # keep mode: one K3 window and one backtrace per sub-batch
+        check(decode["launches"]["backtrace_best"] == decode["launches"]["viterbi_step"],
+              f"the full-width decode launched backtrace_best "
+              f"{decode['launches']['backtrace_best']} times for "
+              f"{decode['launches']['viterbi_step']} K3 blocks")
     train = train_full_width(torch, device, width, log)
     launched(train["launches"], TRAIN_KERNELS, "the full-width EM iteration")
     lattice = lattice_full_width(torch, device, width, log)
@@ -1354,7 +1512,7 @@ def run(device, width: Width, log=print) -> dict:
         _build.launches[k] = 0
     nbest_yesno(torch, device, log)
     launched(_build.launches, NBEST_KERNELS, "yes-no N-best decode")
-    nbest = nbest_full_width(torch, device, width, log)
+    nbest = nbest_full_width(torch, device, width, record, log)
     launched(nbest["launches"], NBEST_KERNELS, "the full-width N-best decode")
     generic = generic_full_width(torch, device, width, log)
     launched(generic["launches"], GENERIC_KERNELS, "the full-width generic alignment")

@@ -15,8 +15,11 @@ zero-weight frames and two different feature arrays; for the lattice step K5
 row widths 1 to 8, 1 to 130 lanes, ragged and empty utterances, utterances
 that reach no final state, windows of 1, 3, 7, 16 and T frames and a
 one-block grid, and the lattice decode against the CPU;
-for the N-best step K7 list lengths 1 to 16, a finite beam, ragged and empty
-utterances, and ``decode_nbest`` against the CPU; for the generic aligner
+for the N-best step K7 list lengths 1 to 16, 1 to 33 lanes, windows of 1, 3
+and T frames, a one-block grid, a finite beam, ragged and empty utterances,
+and ``decode_nbest`` against the CPU; for the two backtraces 1 to 130 lanes,
+1 to 1000 frames, uint8 and int16 codes, a state carried across blocks,
+failed N-best walks and strided tables; for the generic aligner
 ragged and empty utterances, a finite beam, graphs whose arcs or whose alpha
 outgrow the default shared memory, a best path through a back arc, and
 ``max_active``, which its kernel refuses).  They need an NVIDIA GPU and
@@ -403,11 +406,14 @@ def test_decode_best_path_cuda_matches_cpu(cuda, budget):
     plan = DC.build_emit_plan(graph, d=4)
     ll = rng.standard_normal((6, 50, p)).astype(np.float32)
     nf = np.array([50, 49, 17, 1, 0, 33], np.int32)
+    before = _build.launches["backtrace_best"]
     got = DC.decode_best_path(graph, plan, DC.plan_to_device(plan, cuda),
                               torch.from_numpy(ll).to(cuda), nf, 0.5, bp_bytes_budget=budget)
+    blocks = _build.launches["backtrace_best"] - before
     ref = DC.decode_best_path(graph, plan, DC.plan_to_device(plan, "cpu"),
                               torch.from_numpy(ll), nf, 0.5, bp_bytes_budget=budget)
     assert got == ref
+    assert blocks == (1 if budget > 1 else -(-50 // 16))  # recompute: 16-frame blocks
 
 
 def _wide_band(rng, b, s, offsets, num_pdfs):
@@ -577,36 +583,135 @@ def test_decode_lattice_cuda_matches_cpu(cuda):
         assert a.num_arcs >= n
 
 
-@pytest.mark.parametrize("beam", [1e9, 5.0])
-@pytest.mark.parametrize("nbest", [1, 3, 4, 8, 16])
-def test_nbest_step_matches_plain(cuda, nbest, beam):
-    """K7 frame by frame against its plain version on the same CUDA tensors:
-    bit-equal scores, equal arcs and slots; lanes of 0, 1 and T frames."""
+NB_FRAMES = 14  # not a multiple of the window 3
+# (list length K, lanes B, window W, block cap, beam): W = NB_FRAMES is one
+# launch for the whole utterance; a block cap of 1 makes one block's stride
+# loop cover every (state, lane group); K of 4, 8 and 16 take the vector
+# loads, 1, 3 and 5 the scalar ones; 33 lanes leave a group of one
+NBEST_CASES = [
+    (1, 5, 1, 0, 1e9), (1, 33, NB_FRAMES, 1, 5.0), (3, 33, 3, 0, 5.0), (3, 1, NB_FRAMES, 0, 5.0),
+    (4, 32, NB_FRAMES, 0, 5.0), (4, 1, 3, 1, 1e9), (4, 5, 3, 0, 5.0), (4, 33, 1, 0, 1e9),
+    (5, 32, 3, 0, 5.0), (8, 5, NB_FRAMES, 1, 5.0), (8, 32, 1, 1, 1e9), (16, 33, 1, 0, 5.0),
+    (16, 32, 3, 0, 1e9), (16, 1, NB_FRAMES, 1, 5.0),
+]
+
+
+@pytest.mark.parametrize("nbest,b,window,blocks,beam", NBEST_CASES)
+def test_nbest_step_matches_plain(cuda, monkeypatch, nbest, b, window, blocks, beam):
+    """K7 window by window (W = 1 through ``nbest_step``) against its plain
+    version on the same CUDA tensors: bit-equal scores and alpha_end, equal
+    arcs and slots, frame by frame; lanes that end before, inside and after
+    the windows, and an empty one; one launch per window."""
+    monkeypatch.setattr(DC, "_MAX_GRID_BLOCKS", blocks)
     g = synth_decode_graph(700, arcs_per_state=5, num_pdfs=40, seed=nbest)
     plan = V.build_nbest_plan(g, cuda)
-    rng = np.random.default_rng(nbest)
-    b, t_total, s = 5, 14, g.num_states
-    ll = torch.from_numpy(rng.standard_normal((b, t_total, 40)).astype(np.float32) * 3).to(cuda)
-    nf = torch.tensor([t_total, 9, 0, 1, t_total], dtype=torch.int32, device=cuda)
-    alpha = torch.full((b, s, nbest), V.NEG_INF, device=cuda)
-    alpha[:, :, 0] = torch.from_numpy(g.alpha0).to(cuda)[None, :]
-    end_k = torch.where((nf == 0)[:, None, None], alpha, torch.full_like(alpha, V.NEG_INF))
-    end_p = end_k.clone()
-    arc_k = torch.empty((b, s, nbest), dtype=torch.int32, device=cuda)
-    slot_k = torch.empty((b, s, nbest), dtype=torch.int8, device=cuda)
-    arc_p, slot_p = torch.empty_like(arc_k), torch.empty_like(slot_k)
+    rng = np.random.default_rng(nbest + b)
+    t_total, s = NB_FRAMES, g.num_states
+    ll = torch.from_numpy((rng.standard_normal((t_total, 40, b)) * 3).astype(np.float32)).to(cuda)
+    nf_np = rng.integers(0, t_total + 1, b).astype(np.int32)
+    nf_np[: min(b, 4)] = [t_total, 4, 0, 1][: min(b, 4)]
+    nf = torch.from_numpy(nf_np).to(cuda)
+    a_k = torch.full((s, b, nbest), V.NEG_INF, device=cuda)
+    a_k[:, :, 0] = torch.from_numpy(g.alpha0).to(cuda)[:, None]
+    a_p = a_k
+    e_k = torch.where((nf == 0)[None, :, None], a_k, torch.full_like(a_k, V.NEG_INF))
+    e_p = e_k.clone()
+    arc_k = torch.empty((t_total, s, b, nbest), dtype=torch.int32, device=cuda)
+    slot_k = torch.empty((t_total, s, b, nbest), dtype=torch.int8, device=cuda)
+    arc_p, slot_p = torch.full_like(arc_k, 7), torch.full_like(slot_k, 7)
     before = _build.launches["viterbi_nbest"]
-    for t in range(t_total):
-        args = (plan, alpha, None, ll[:, t], nf, t, 0.7, beam)
-        a_k, end_k = V.nbest_step(*args[:2], end_k, *args[3:], arc_k, slot_k)
-        a_p, end_p = V.nbest_step_plain(*args[:2], end_p, *args[3:], arc_p, slot_p)
+    for lo in range(0, t_total, window):
+        hi = min(lo + window, t_total)
+        if window == 1:
+            a_k, e_k = V.nbest_step(plan, a_k, e_k, ll[lo], nf, lo, 0.7, beam, arc_k[lo],
+                                    slot_k[lo])
+        else:
+            a_k, e_k = V.nbest_window(plan, a_k, e_k, ll[lo:hi], nf, lo, 0.7, beam, arc_k[lo:hi],
+                                      slot_k[lo:hi])
+        a_p, e_p = V.nbest_window_plain(plan, a_p, e_p, ll[lo:hi], nf, lo, 0.7, beam,
+                                        arc_p[lo:hi], slot_p[lo:hi])
         torch.cuda.synchronize()
-        assert torch.equal(a_k, a_p), t
-        assert torch.equal(arc_k, arc_p) and torch.equal(slot_k, slot_p), t
-        assert torch.equal(end_k, end_p), t
-        alpha = a_k
-    assert _build.launches["viterbi_nbest"] == before + t_total
+        assert torch.equal(a_k, a_p) and torch.equal(e_k, e_p), f"window at {lo}"
+        for t in range(lo, hi):
+            assert torch.equal(arc_k[t], arc_p[t]) and torch.equal(slot_k[t], slot_p[t]), t
+        a_p = a_k.clone()  # the next window starts from the kernel's scores
+    assert _build.launches["viterbi_nbest"] - before == -(-t_total // window)
     assert int((arc_k >= 0).sum()) > 0
+    if beam < 1e8:
+        assert int(((arc_k < 0) & (slot_k == 0)).sum()) > 0
+
+
+def _random_codes(rng, plan, w, b):
+    """bps [W, S+1, B]: for every state a code of one of its row slots,
+    pads and dead rows included."""
+    rows = np.diff(plan.row_start).astype(np.int64)
+    codes = rng.integers(0, 1 << 40, (w, len(rows), b)) % (rows * plan.d)[None, :, None]
+    return codes.astype(np.uint8 if plan.packed else np.int16)
+
+
+@pytest.mark.parametrize("b", [1, 5, 128, 130])
+@pytest.mark.parametrize("t", [1, 3, 1000])
+def test_backtrace_best_matches_plain(cuda, b, t):
+    """``backtrace_best`` against its plain version on random codes of the
+    K3 test graphs (uint8 codes for even B, int16 for odd): equal codes,
+    arcs and states, over two blocks walked in reverse with the state
+    carried; lanes that end before, inside and after each block."""
+    graph = _k3_graph("packed" if b % 2 == 0 else "int16")
+    plan = DC.build_emit_plan(graph, d=4)
+    dev = DC.plan_to_device(plan, cuda)
+    rng = np.random.default_rng(b + t)
+    bps = torch.from_numpy(_random_codes(rng, plan, t, b)).to(cuda)
+    nf = torch.from_numpy(rng.integers(0, t + 1, b).astype(np.int32)).to(cuda)
+    nf[0] = t
+    state_k = state_p = torch.from_numpy(rng.integers(0, plan.num_states, b)
+                                         .astype(np.int32)).to(cuda)
+    cut = t // 2
+    before = _build.launches["backtrace_best"]
+    for lo, hi in ((cut, t), (0, cut)):
+        codes_k, arcs_k, state_k = DC.backtrace_scan(dev, bps[lo:hi], state_k, nf, lo)
+        codes_p, arcs_p, state_p = DC.backtrace_scan_plain(
+            dev.row_start, dev.row_src, dev.row_arc, plan.d, bps[lo:hi], state_p, nf, lo)
+        torch.cuda.synchronize()
+        assert torch.equal(codes_k, codes_p) and torch.equal(arcs_k, arcs_p), (lo, hi)
+        assert torch.equal(state_k, state_p), (lo, hi)
+    assert _build.launches["backtrace_best"] - before == 2
+    assert int((codes_k >= 0).sum()) > 0 or cut == 0
+
+
+@pytest.mark.parametrize("b", [1, 5, 128, 130])
+@pytest.mark.parametrize("t", [1, 3, 1000])
+def test_backtrace_nbest_matches_plain(cuda, b, t):
+    """``backtrace_nbest`` against its plain version on random provenance
+    in K7's lane-minor tables, read through [T, B, S, K] views: equal arcs,
+    start states and ok flags; some walks fail (arc -1), lanes end before
+    T and one has no frames."""
+    rng = np.random.default_rng(b * t)
+    g = synth_decode_graph(60, arcs_per_state=4, num_pdfs=10, seed=b)
+    s, k = g.num_states, 4
+    by_dst = [np.flatnonzero(g.arc_dst == x) for x in range(s)]
+    arc = np.stack([rng.choice(by_dst[x], size=(t, b, k)) for x in range(s)], axis=1)
+    arc[rng.random(arc.shape) < 0.5 / t] = -1  # about 40 % of the lanes' walks fail
+    slot = rng.integers(0, k, arc.shape).astype(np.int8)
+    bp_arc = torch.from_numpy(arc.astype(np.int32)).to(cuda).permute(0, 2, 1, 3)
+    bp_slot = torch.from_numpy(slot).to(cuda).permute(0, 2, 1, 3)
+    nf_np = rng.integers(0, t + 1, b).astype(np.int32)
+    nf_np[0] = t
+    if b > 1:
+        nf_np[1] = 0
+    nf = torch.from_numpy(nf_np).to(cuda)
+    c = 16
+    state = torch.from_numpy(rng.integers(0, s, (b, c)).astype(np.int32)).to(cuda)
+    start = torch.from_numpy(rng.integers(0, k, (b, c)).astype(np.int32)).to(cuda)
+    arc_src = torch.from_numpy(g.arc_src).to(cuda)
+    before = _build.launches["backtrace_nbest"]
+    got = V.nbest_walk(bp_arc, bp_slot, arc_src, nf, state, start)
+    ref = V.nbest_walk_plain(bp_arc, bp_slot, arc_src, nf, state, start)
+    torch.cuda.synchronize()
+    assert _build.launches["backtrace_nbest"] - before == 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    if t > 1 and b > 1:  # a lane's walks soon merge, so they fail or pass together
+        assert not bool(got[2].all()) and bool(got[2].any())
 
 
 def test_decode_nbest_cuda_matches_cpu(cuda):

@@ -2,8 +2,11 @@
 and plan builders array for array (and the real-slot counts K3 and K5 read),
 the per-frame relaxation (the K3 plain version, which is also the wrapper's
 CPU path) against JAX ``_emit_step``, the window scan against JAX
-``viterbi_scan``, and the full best-path decode in keep and recompute
-modes."""
+``viterbi_scan``, the block backtrace (the ``backtrace_best`` plain version)
+against JAX ``backtrace_scan``, and the full best-path decode in keep and
+recompute modes, against JAX ``decode_best_path`` and against the JAX
+package's arc-parallel searches ``viterbi_forward_shared`` and
+``viterbi_forward_shared_fused``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -227,3 +230,114 @@ def test_decode_rejects_loglikes_narrower_than_graph_pdfs():
     with pytest.raises(ValueError, match="graph uses pdf 6"):
         DC.decode_best_path(graph, plan, DC.plan_to_device(plan, "cpu"),
                             torch.zeros((1, 3, 6)), np.array([3], np.int32), 0.5)
+
+
+def _hub_graph(seed):
+    """A graph whose hub state has hundreds of in-degree rows, so the
+    backpointer codes need int16."""
+    g = _bench_graph(num_states=300, num_pdfs=20, seed=seed)
+    rng = np.random.default_rng(seed)
+    extra = 400
+    src = np.concatenate([g.arc_src, rng.integers(0, 300, extra).astype(np.int32)])
+    dst = np.concatenate([g.arc_dst, np.full(extra, 7, np.int32)])
+    pdf = np.concatenate([g.arc_pdf, rng.integers(0, 20, extra).astype(np.int32)])
+    score = np.concatenate([g.arc_score, (-rng.exponential(1.0, extra)).astype(np.float32)])
+    return g._replace(arc_src=src, arc_dst=dst, arc_pdf=pdf, arc_tid=pdf, arc_score=score,
+                      arc_oseq=np.zeros_like(src))
+
+
+def _random_codes(rng, plan, w, b):
+    """bps [W, S+1, B]: for every state a code of one of its row slots,
+    pads and dead rows included."""
+    rows = np.diff(plan.row_start).astype(np.int64)  # [S+1]
+    codes = rng.integers(0, 1 << 40, (w, len(rows), b)) % (rows * plan.d)[None, :, None]
+    return codes.astype(np.uint8 if plan.packed else np.int16)
+
+
+@pytest.mark.parametrize("which", ["packed", "int16"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backtrace_scan_matches_jax(which, seed):
+    """The backtrace's plain version (the ``backtrace_scan`` wrapper's CPU
+    path) against JAX ``backtrace_scan`` on random backpointer codes, over
+    two blocks walked in reverse with the state carried from one to the
+    other: lanes that end before, inside and after each block.  Equal codes
+    and states; the arcs are ``row_arc`` of the codes (-1 at pads and
+    inactive frames)."""
+    rng = np.random.default_rng(seed)
+    graph = _bench_graph(num_states=300, num_pdfs=20, seed=seed) if which == "packed" \
+        else _hub_graph(seed)
+    plan = DC.build_emit_plan(graph, d=4)
+    assert plan.packed == (which == "packed")
+    b, w1, w2 = 7, 6, 5
+    bps = _random_codes(rng, plan, w1 + w2, b)
+    nf = np.array([0, 1, 3, w1, w1 + 2, w1 + w2, w1 + w2 - 1], np.int32)
+    end = rng.integers(0, plan.num_states, b).astype(np.int32)
+    dev = DC.plan_to_device(plan, "cpu")
+    jrow_start = jnp.asarray(plan.row_start)
+    jrow_src = jnp.asarray(plan.row_src.reshape(-1))
+    state_j, state_t = jnp.asarray(end), torch.from_numpy(end)
+    row_arc = plan.row_arc.reshape(-1)
+    for lo, hi in ((w1, w1 + w2), (0, w1)):
+        codes_j, state_j = JDC.backtrace_scan(jrow_start, jrow_src, plan.d, jnp.asarray(bps[lo:hi]),
+                                              state_j, jnp.asarray(nf), lo)
+        codes_t, arcs_t, state_t = DC.backtrace_scan(dev, torch.from_numpy(bps[lo:hi]), state_t,
+                                                     torch.from_numpy(nf), lo)
+        assert codes_t.dtype == arcs_t.dtype == state_t.dtype == torch.int32
+        np.testing.assert_array_equal(codes_t.numpy(), np.asarray(codes_j))
+        np.testing.assert_array_equal(state_t.numpy(), np.asarray(state_j))
+        codes = codes_t.numpy()
+        np.testing.assert_array_equal(arcs_t.numpy(),
+                                      np.where(codes >= 0, row_arc[np.maximum(codes, 0)], -1))
+        active = (lo + np.arange(hi - lo))[:, None] < nf[None, :]
+        assert ((codes >= 0) == active).all()
+
+
+@pytest.mark.parametrize("variant", ["tree", "fused"])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_decode_best_path_matches_jax_forward_shared(variant, seed):
+    """The port's exact search (``viterbi_scan`` over the emit plan, the
+    device backtrace) against the JAX package's arc-parallel searches over
+    the same graph, ``viterbi_forward_shared`` (reduction tree) and
+    ``viterbi_forward_shared_fused``, with ``backtrace_shared``: the same
+    words, tids and arcs (distinct random weights: no ties), scores within
+    rtol 1e-5, and alpha at each utterance's end within rtol 1e-6 (the same
+    float32 sums, in another grouping)."""
+    rng = np.random.default_rng(seed)
+    graph = _random_graph(rng)
+    jg = JV.DenseGraph(**graph._asdict())
+    b, t, p = 4, 29, 7
+    ll = rng.standard_normal((b, t, p)).astype(np.float32)
+    nf = np.array([29, 13, 1, 0], np.int32)
+    acwt = float(np.float32(0.5))
+    if variant == "tree":
+        levels = tuple(jnp.asarray(x) for x in
+                       JV.build_reduction_plan(graph.arc_dst, graph.num_states, k=4).levels)
+        alpha_end, bps = JV.viterbi_forward_shared(
+            jnp.asarray(graph.arc_src), levels, jnp.asarray(graph.arc_pdf),
+            jnp.asarray(graph.arc_score), jnp.asarray(graph.alpha0), jnp.asarray(ll),
+            jnp.asarray(nf), np.float32(acwt), np.float32(1e9), graph.num_states)
+    else:
+        alpha_end, bps = JV.viterbi_forward_shared_fused(
+            JV.build_fused_plan(jg, k=4), jnp.asarray(graph.alpha0), jnp.asarray(ll),
+            jnp.asarray(nf), np.float32(acwt), np.float32(1e9), graph.num_states)
+    ref = JV.backtrace_shared(jg, np.asarray(alpha_end), np.asarray(bps), nf)
+    plan = DC.build_emit_plan(graph, d=4)
+    dev = DC.plan_to_device(plan, "cpu")
+    got = DC.decode_best_path(graph, plan, dev, torch.from_numpy(ll), nf, acoustic_scale=acwt)
+    for r, rr in zip(got, ref):
+        assert r["words"] == rr["words"] and r["tids"] == rr["tids"]
+        assert r["arcs"] == rr["arcs"]
+        if np.isfinite(rr["score"]):
+            assert np.isclose(r["score"], rr["score"], rtol=1e-5, atol=0)
+        else:
+            assert r["score"] == rr["score"]
+    s1 = plan.num_states + 1
+    alpha0 = np.concatenate([graph.alpha0[plan.sperm[:-1]], [DC.NEG_INF]]).astype(np.float32)
+    alpha = torch.from_numpy(alpha0)[:, None].expand(s1, b).contiguous()
+    nf_t = torch.from_numpy(nf)
+    (_, ae), _ = DC.viterbi_scan(dev, alpha, torch.where((nf_t == 0)[None, :], alpha, DC.NEG_INF),
+                                 torch.from_numpy(ll.transpose(1, 2, 0).copy()), nf_t, 0, acwt,
+                                 plan.rspec, plan.packed, with_bp=False)
+    ae_graph = np.empty((b, graph.num_states), np.float32)
+    ae_graph[:, plan.sperm[:-1]] = ae.numpy()[:-1].T
+    np.testing.assert_allclose(ae_graph, np.asarray(alpha_end), rtol=1e-6, atol=0)

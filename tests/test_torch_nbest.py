@@ -1,7 +1,10 @@
 """N-best decoding and the windowed decode of the port against the JAX
 package on the CPU: the plain version of K7 (``viterbi_nbest_forward``) on
-random graphs and against a brute-force enumeration, ``decode_nbest`` on the
-Yes-No fixture, and ``viterbi_decode_windowed`` against ``decode_batch``.
+random graphs and against a brute-force enumeration, the N-best walk (the
+``backtrace_nbest`` plain version, through ``backtrace_nbest_device``)
+against JAX ``backtrace_nbest`` on random backpointer tables, ``decode_nbest``
+on the Yes-No fixture, and ``viterbi_decode_windowed`` against
+``decode_batch``.
 
 Tolerances: alpha_end rtol 1e-6 plus atol 4e-6, a few ulps of the partial
 sums (about 10 here) that cancel in a small score (the same float32 additions
@@ -63,17 +66,17 @@ def _distinct_slots(g, ll, nf, acwt, beam, nbest):
     plan = V.build_nbest_plan(_port_graph(g), "cpu")
     b, t_total, _ = ll.shape
     s = g.num_states
-    alpha = torch.full((b, s, k), V.NEG_INF)
-    alpha[:, :, 0] = torch.from_numpy(g.alpha0)
+    alpha = torch.full((s, b, k), V.NEG_INF)  # K7's lane-minor layout
+    alpha[:, :, 0] = torch.from_numpy(g.alpha0)[:, None]
     alpha_end = torch.full_like(alpha, V.NEG_INF)
     nf_t = torch.from_numpy(nf)
-    arc, slot = torch.empty((b, s, k), dtype=torch.int32), torch.empty((b, s, k), dtype=torch.int8)
+    arc, slot = torch.empty((s, b, k), dtype=torch.int32), torch.empty((s, b, k), dtype=torch.int8)
     out = []
     for t in range(t_total):
-        alpha, alpha_end = V.nbest_step(plan, alpha, alpha_end, torch.from_numpy(ll[:, t]),
+        alpha, alpha_end = V.nbest_step(plan, alpha, alpha_end, torch.from_numpy(ll[:, t].T),
                                         nf_t, t, float(np.float32(acwt)),
                                         float(np.float32(beam)), arc, slot)
-        a = alpha.numpy().astype(np.float64)
+        a = alpha.permute(1, 0, 2).numpy().astype(np.float64)
         gap = np.abs(np.diff(a, axis=2)) > 1e-4 * (1.0 + np.abs(a[:, :, 1:]))  # [B, S, k-1]
         above = np.concatenate([np.ones((b, s, 1), bool), gap[:, :, :-1]], axis=2)
         out.append(above & gap)
@@ -114,6 +117,78 @@ def test_nbest_forward_matches_jax(nbest, beam, seed):
         assert [h["tids"] for h in d_i] == [h["tids"] for h in w_i]
         np.testing.assert_allclose([h["score"] for h in d_i], [h["score"] for h in w_i],
                                    rtol=1e-5)
+
+
+def _random_nbest_tables(g, rng, t, b, k):
+    """Backpointer tables as K7 lays them out ([T, S, B, K]) with random
+    provenance: each slot an arc entering its state (or -1, one in ten) and
+    a random source slot; end scores with dead slots and ties."""
+    s = g.num_states
+    by_dst = [np.flatnonzero(g.arc_dst == x) for x in range(s)]
+    arc = np.full((t, s, b, k), -1, np.int32)
+    for x in range(s):
+        if len(by_dst[x]):
+            arc[:, x] = rng.choice(by_dst[x], size=(t, b, k))
+    arc[rng.random(arc.shape) < 0.1] = -1
+    slot = rng.integers(0, k, arc.shape).astype(np.int8)
+    alpha_end = np.round(rng.standard_normal((s, b, k)) * 4, 1).astype(np.float32)
+    alpha_end[rng.random(alpha_end.shape) < 0.3] = V.NEG_INF
+    return alpha_end, arc, slot
+
+
+@pytest.mark.parametrize("nbest,seed", [(2, 1), (4, 2), (5, 3)])
+def test_nbest_walk_matches_jax_backtrace(nbest, seed):
+    """``backtrace_nbest_device`` (its walk's plain version on the CPU) on
+    views of K7's lane-minor tables against JAX ``backtrace_nbest`` on
+    contiguous [T, B, S, K] copies: the same hypotheses (arcs, words, tids,
+    scores), failed walks (arc -1) and duplicate arc sequences dropped
+    alike; lanes of T, fewer and no frames."""
+    rng = np.random.default_rng(seed)
+    g = random_graph(num_states=12, arcs_per_state=3, num_pdfs=4, seed=seed)
+    g = g._replace(arc_oseq=rng.integers(0, 3, g.num_arcs).astype(np.int32),
+                   oseqs=[(), (5,), (6, 7)], start_oseq=np.full(g.num_states, 1, np.int32),
+                   final_oseq=rng.integers(0, 3, g.num_states).astype(np.int32))
+    t, b = 6, 4
+    nf = np.array([t, 3, 0, t - 1], np.int32)
+    ae, arc, slot = _random_nbest_tables(g, rng, t, b, nbest)
+    want = JV.backtrace_nbest(g, ae.transpose(1, 0, 2), arc.transpose(0, 2, 1, 3),
+                              slot.transpose(0, 2, 1, 3), nf, nbest)
+    got = V.backtrace_nbest_device(
+        _port_graph(g), torch.from_numpy(ae).permute(1, 0, 2),
+        torch.from_numpy(arc).permute(0, 2, 1, 3), torch.from_numpy(slot).permute(0, 2, 1, 3),
+        nf, nbest)
+    assert sum(len(h) for h in want) > b
+    for w_i, g_i in zip(want, got):
+        assert [h["arcs"] for h in g_i] == [h["arcs"] for h in w_i]
+        assert [h["words"] for h in g_i] == [h["words"] for h in w_i]
+        assert [h["tids"] for h in g_i] == [h["tids"] for h in w_i]
+        assert [h["score"] for h in g_i] == [h["score"] for h in w_i]
+
+
+def test_nbest_forward_layout():
+    """``viterbi_nbest_forward`` returns its documented shapes, the
+    backpointers as views of K7's lane-minor [T, S, B, K] tables, and the
+    window's plain version gives what its frames give one at a time."""
+    g = random_graph(num_states=20, arcs_per_state=3, num_pdfs=5, seed=4)
+    ll = np.random.default_rng(5).standard_normal((3, 7, 5)).astype(np.float32)
+    nf = np.array([7, 4, 0], np.int32)
+    ae, arc, slot = _port_nbest(g, ll, nf, 0.6, 1e9, 3)
+    assert ae.shape == (3, 20, 3) and arc.shape == slot.shape == (7, 3, 20, 3)
+    assert arc.permute(0, 2, 1, 3).is_contiguous() and slot.permute(0, 2, 1, 3).is_contiguous()
+    plan = V.build_nbest_plan(_port_graph(g), "cpu")
+    alpha = torch.full((20, 3, 3), V.NEG_INF)
+    alpha[:, :, 0] = torch.from_numpy(g.alpha0)[:, None]
+    end = torch.where(torch.from_numpy(nf == 0)[None, :, None], alpha, V.NEG_INF)
+    ll_w = torch.from_numpy(ll.transpose(1, 2, 0).copy())
+    step_arc = torch.empty((7, 20, 3, 3), dtype=torch.int32)
+    step_slot = torch.empty((7, 20, 3, 3), dtype=torch.int8)
+    a_s, e_s = alpha, end
+    for i in range(7):
+        a_s, e_s = V.nbest_step(plan, a_s, e_s, ll_w[i], torch.from_numpy(nf), i,
+                                float(np.float32(0.6)), 1e9, step_arc[i], step_slot[i])
+    assert torch.equal(e_s, ae.permute(1, 0, 2))
+    assert torch.equal(step_arc, arc.permute(0, 2, 1, 3))
+    assert torch.equal(step_slot, slot.permute(0, 2, 1, 3))
 
 
 def _brute_force_paths(g, ll, acwt, t_end, topn):

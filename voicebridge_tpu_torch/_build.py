@@ -25,14 +25,15 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("mfcc.cu", "gmm_loglik.cu", "viterbi_step.cu", "align_band.cu",
-           "gmm_stats.cu", "lattice_fb.cu", "viterbi_nbest.cu", "viterbi_generic.cu")
+           "gmm_stats.cu", "lattice_fb.cu", "viterbi_nbest.cu", "viterbi_generic.cu",
+           "backtrace.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 launches = {"mfcc_frames": 0, "gmm_loglikes": 0, "viterbi_step": 0,
             "viterbi_step_backward": 0, "align_forward": 0, "align_backtrace": 0,
             "gmm_stats": 0, "lattice_fb": 0, "viterbi_nbest": 0, "generic_forward": 0,
-            "generic_backtrace": 0}
+            "generic_backtrace": 0, "backtrace_best": 0, "backtrace_nbest": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -62,10 +63,11 @@ _SIGNATURES = {
     # max_blocks, stream
     "vbt_lattice_fb": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                        _I, _I, _I, _I, _I, _I, _P),
-    # alpha, alpha_out, alpha_end, bp_arc, bp_slot, best, ll_t, ll_stride,
-    # in_start, src, pdf, score, arc, num_frames, t, acwt, beam, b, s, k, stream
-    "vbt_viterbi_nbest": (_P, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _I, _F,
-                          _F, _I, _I, _I, _P),
+    # alpha, buf0, buf1, alpha_end, bp_arc, bp_slot, best, ll, in_start, src,
+    # pdf, score, arc, num_frames, t0, w, acwt, beam, b, s, k, p, max_blocks,
+    # stream
+    "vbt_viterbi_nbest": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
+                          _F, _I, _I, _I, _I, _I, _P),
     # arc_src, arc_pdf, arc_score, in_start, in_arc, alpha0, ll, num_frames,
     # acwt, beam, b, s, a, t, p, alpha_end, bps, stream
     "vbt_generic_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P,
@@ -73,6 +75,13 @@ _SIGNATURES = {
     # arc_src, alpha_end, final_score, bps, num_frames, b, s, a, t, arcs, ok,
     # end_state, score, stream
     "vbt_generic_backtrace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # bps, bp_bytes, row_start, row_src, row_arc, end_state, num_frames, t0, w,
+    # s1, b, d, codes, arcs, state, stream
+    "vbt_backtrace_best": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # bp_arc, bp_slot, stride t, b, s, k, arc_src, num_frames, state, slot, b,
+    # c, t, arcs, state_out, ok, stream
+    "vbt_backtrace_nbest": (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+                            _P, _P),
 }
 
 _lib = None

@@ -18,9 +18,11 @@ The device half is K3 (``csrc/viterbi_step.cu``): ``viterbi_window`` runs a
 window of frames in one cooperative launch (``viterbi_scan`` without a
 beam), ``viterbi_step`` one frame (the beam path, which prunes between
 frames).  Their plain versions loop over ``_emit_step``, which keeps the TPU
-design's bucketed reshape-max (``reduce_rows``).  ``backtrace_scan`` and
-``select_end_state`` are plain torch on the device.  Scores are max-plus
-(higher is better).
+design's bucketed reshape-max (``reduce_rows``).  ``backtrace_scan`` walks a
+block's backpointers in one launch of ``backtrace_best``
+(``csrc/backtrace.cu``) and maps the codes to arc ids on the device, so only
+arc ids reach the host; ``select_end_state`` is plain torch on the device.
+Scores are max-plus (higher is better).
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ from .graph import NEG_INF, DenseGraph
 
 __all__ = [
     "EmitPlan", "build_emit_plan", "plan_to_device", "row_real_slots", "viterbi_step",
-    "viterbi_window", "viterbi_scan", "decode_best_path", "reduce_rows", "prune",
+    "viterbi_window", "viterbi_scan", "backtrace_scan", "decode_best_path", "reduce_rows",
+    "prune",
 ]
 
-# Test hook: when positive, caps the blocks of a K3 or K5 launch, so that one
-# block's stride loop covers every state.
+# Test hook: when positive, caps the blocks of a K3, K5 or K7 launch, so that
+# one block's stride loop covers every state.
 _MAX_GRID_BLOCKS = 0
 
 
@@ -209,6 +212,7 @@ class EmitPlanDev(NamedTuple):
     row_pdf: torch.Tensor  # [R] int32
     row_start: torch.Tensor  # [S+2] int32
     row_real: torch.Tensor  # [R] uint8 real slots per row (``row_real_slots``)
+    row_arc: torch.Tensor  # [R*D] int32 original arc id (pad: -1), for the backtrace
 
 
 def row_real_slots(plan: EmitPlan) -> np.ndarray:
@@ -235,7 +239,8 @@ def plan_to_device(plan: EmitPlan, device) -> EmitPlanDev:
                        row_w=dev(plan.row_w, np.float32),
                        row_pdf=dev(plan.row_pdf, np.int32),
                        row_start=dev(plan.row_start, np.int32),
-                       row_real=dev(row_real_slots(plan), np.uint8))
+                       row_real=dev(row_real_slots(plan), np.uint8),
+                       row_arc=dev(plan.row_arc.reshape(-1), np.int32))
 
 
 def _bp_dtype(plan_packed: bool) -> torch.dtype:
@@ -457,23 +462,77 @@ def viterbi_scan(dev: EmitPlanDev, alpha, alpha_end, ll: torch.Tensor,
     return (alpha, alpha_end), bps
 
 
-def backtrace_scan(row_start, row_src_flat, d: int, bps: torch.Tensor,
-                   end_state: torch.Tensor, num_frames: torch.Tensor, t0: int):
-    """Backtrace over one block's backpointers (frames [t0, t0+W)).
+def backtrace_scan_plain(row_start, row_src_flat, row_arc_flat, d: int, bps: torch.Tensor,
+                         end_state: torch.Tensor, num_frames: torch.Tensor, t0: int):
+    """Plain version of ``backtrace_scan``: the JAX package's scan as a loop
+    over the block's frames, last first.
 
-    bps [W, S+1, B] winner codes.  Returns global codes ``row * D + slot``
-    [W, B] int64 in forward frame order (-1 where inactive) and the state
-    [B] at the block start."""
+    bps [W, S+1, B] winner codes.  Returns the global codes ``row * D +
+    slot`` [W, B] int32 in forward frame order (-1 where inactive), their arc
+    ids ``row_arc[code]`` [W, B] int32 (-1 where inactive, and at a pad slot)
+    and the state [B] int32 at the block start."""
     w, _, b = bps.shape
     bidx = torch.arange(b, device=bps.device)
     active = (t0 + torch.arange(w, device=bps.device))[:, None] < num_frames[None, :]
-    codes = torch.empty((w, b), dtype=torch.int64, device=bps.device)
-    s = end_state
+    codes = torch.empty((w, b), dtype=torch.int32, device=bps.device)
+    arcs = torch.empty_like(codes)
+    s = end_state.long()
     for i in range(w - 1, -1, -1):
         gcode = row_start[s].long() * d + bps[i, s, bidx].long()
         codes[i] = torch.where(active[i], gcode, -1)
+        arcs[i] = torch.where(active[i], row_arc_flat[gcode].long(), -1)
         s = torch.where(active[i], row_src_flat[gcode].long(), s)
-    return codes, s
+    return codes, arcs, s.to(torch.int32)
+
+
+def backtrace_scan(dev: EmitPlanDev, bps: torch.Tensor, end_state: torch.Tensor,
+                   num_frames: torch.Tensor, t0: int):
+    """Backtrace over one block's backpointers (frames [t0, t0+W)), from
+    ``end_state`` [B] (plan space) at frame t0+W-1.  bps [W, S+1, B] uint8
+    or int16 codes; num_frames [B] int32.  Returns (codes [W, B] int32,
+    arcs [W, B] int32, state [B] int32 at the block start), as
+    ``backtrace_scan_plain``.
+
+    On CUDA it is one launch of ``backtrace_best`` (``csrc/backtrace.cu``), a
+    thread per lane."""
+    d = dev.row_w.shape[1]
+    if bps.device.type == "cpu":
+        return backtrace_scan_plain(dev.row_start, dev.row_src, dev.row_arc, d, bps, end_state,
+                                    num_frames, t0)
+    if bps.device.type != "cuda":
+        raise ValueError(f"unsupported device {bps.device}")
+    w, s1, b = bps.shape
+    i32 = torch.int32
+    require(bps.device, ("end_state", end_state, i32), ("num_frames", num_frames, i32),
+            ("row_start", dev.row_start, i32), ("row_src", dev.row_src, i32),
+            ("row_arc", dev.row_arc, i32))
+    if (bps.dtype not in (torch.uint8, torch.int16) or not bps.is_contiguous()
+            or end_state.shape != (b,) or num_frames.shape != (b,)
+            or dev.row_start.shape != (s1 + 1,) or dev.row_arc.shape != dev.row_src.shape):
+        raise ValueError("backtrace_scan: inconsistent shapes or dtypes")
+    codes = torch.empty((w, b), dtype=i32, device=bps.device)
+    arcs = torch.empty_like(codes)
+    state = torch.empty(b, dtype=i32, device=bps.device)
+    _build.launch("backtrace_best", bps.data_ptr(), bps.element_size(), dev.row_start.data_ptr(),
+                  dev.row_src.data_ptr(), dev.row_arc.data_ptr(), end_state.data_ptr(),
+                  num_frames.data_ptr(), t0, w, s1, b, d, codes.data_ptr(), arcs.data_ptr(),
+                  state.data_ptr(), stream_handle(bps.device))
+    return codes, arcs, state
+
+
+def oseq_nonempty(graph: DenseGraph) -> np.ndarray:
+    """[len(oseqs)] bool: the output sequence holds a word."""
+    return np.fromiter((len(o) > 0 for o in graph.oseqs), dtype=bool, count=len(graph.oseqs))
+
+
+def arc_words(graph: DenseGraph, arcs: np.ndarray, nonempty: np.ndarray) -> list:
+    """The words along ``arcs``, looked up only for arcs whose output
+    sequence holds one (``nonempty``: ``oseq_nonempty(graph)``)."""
+    words: list = []
+    oseq = graph.arc_oseq[arcs]
+    for o in oseq[nonempty[oseq]]:
+        words.extend(graph.oseqs[o])
+    return words
 
 
 def select_end_state(alpha_end: torch.Tensor, final_score: torch.Tensor):
@@ -562,8 +621,8 @@ def decode_best_path(graph: DenseGraph, plan: EmitPlan, dev: EmitPlanDev,
     has_path = has_path_dev.cpu().numpy()
     end_orig = plan.sperm[end_state]  # graph space, for oseq lookups
 
-    state = end_dev
-    code_parts = []
+    state = end_dev.to(torch.int32)
+    arc_parts = []
     for lo, item in reversed(chunks):
         if recompute:
             _, bps = viterbi_scan(dev, item, torch.full_like(item, NEG_INF),
@@ -571,36 +630,29 @@ def decode_best_path(graph: DenseGraph, plan: EmitPlan, dev: EmitPlanDev,
                                   beam=beam, max_active=max_active)
         else:
             bps = item
-        codes_c, state = backtrace_scan(dev.row_start, dev.row_src, plan.d, bps,
-                                        state, nf, lo)
+        _codes, arcs_c, state = backtrace_scan(dev, bps, state, nf, lo)
         del bps  # recompute mode: at most one block's table resident
-        code_parts.append(codes_c.cpu().numpy())
-    codes_all = (np.concatenate(code_parts[::-1], axis=0) if code_parts
-                 else np.zeros((0, b), np.int64))
+        arc_parts.append(arcs_c.cpu().numpy())
+    arcs_all = (np.concatenate(arc_parts[::-1], axis=0) if arc_parts
+                else np.zeros((0, b), np.int32))
 
+    nonempty = oseq_nonempty(graph)
     out = []
     for i in range(b):
         n = int(nf_np[i])
-        if not has_path[i]:
-            out.append({"tids": [], "words": [], "score": -np.inf, "arcs": []})
-            continue
-        codes_i = codes_all[:n, i]
-        rows_i = codes_i // plan.d
-        slots_i = codes_i % plan.d
-        arcs = plan.row_arc[rows_i, slots_i] if n else np.zeros(0, np.int64)
-        if n and (arcs < 0).any():
+        arcs = arcs_all[:n, i]
+        if not has_path[i] or (arcs < 0).any():
             out.append({"tids": [], "words": [], "score": -np.inf, "arcs": []})
             continue
         start_s = int(graph.arc_src[arcs[0]]) if n else int(end_orig[i])
         words = list(graph.oseqs[graph.start_oseq[start_s]])
-        for a in arcs:
-            words.extend(graph.oseqs[graph.arc_oseq[a]])
+        words.extend(arc_words(graph, arcs, nonempty))
         if use_final[i]:
             words.extend(graph.oseqs[graph.final_oseq[end_orig[i]]])
         out.append({
-            "tids": [int(t) for t in graph.arc_tid[arcs]],
+            "tids": graph.arc_tid[arcs].tolist(),
             "words": words,
             "score": float(scores[i]),
-            "arcs": [int(a) for a in arcs],
+            "arcs": arcs.tolist(),
         })
     return out

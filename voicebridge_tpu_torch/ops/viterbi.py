@@ -16,9 +16,12 @@ list, which is the lowest arc id among equals.
   frames with alpha in shared memory; the backtrace is one launch.
 * **N-best** (``viterbi_nbest_forward``, K7, ``csrc/viterbi_nbest.cu``): every
   state of a shared graph carries its K best partial-path scores with (arc,
-  slot) provenance; one launch per frame.  ``backtrace_nbest`` is the JAX
-  package's numpy code, ``backtrace_nbest_device`` walks the same
-  backpointers where they lie.
+  slot) provenance, in a lane-minor layout ``[S, B, K]``; one cooperative
+  launch runs a window of frames (``nbest_window``; ``nbest_step`` is W = 1).
+  ``backtrace_nbest`` is the JAX package's numpy code;
+  ``backtrace_nbest_device`` walks the same backpointers where they lie, in
+  one launch of ``backtrace_nbest`` (``csrc/backtrace.cu``) through
+  ``nbest_walk``.
 * **Windowed decode** (``viterbi_decode_windowed``): alpha snapshots per
   window, then each window re-run with backpointers in reverse, over the emit
   plan and K3 (``ops/decode_core.py``).
@@ -42,10 +45,11 @@ from .graph import NEG_INF, DenseGraph, compile_dense_graph
 __all__ = ["NEG_INF", "DenseGraph", "compile_dense_graph", "pad_graphs",
            "viterbi_forward_batched", "backtrace_batched_device",
            "assemble_batched_results", "NbestPlan", "build_nbest_plan", "nbest_step",
-           "viterbi_nbest_forward", "backtrace_nbest", "backtrace_nbest_device",
-           "viterbi_decode_windowed", "NBEST_MAX"]
+           "nbest_window", "viterbi_nbest_forward", "nbest_walk", "backtrace_nbest",
+           "backtrace_nbest_device", "viterbi_decode_windowed", "NBEST_MAX"]
 
 NBEST_MAX = 16  # K7 keeps a state's list in registers
+ARC_ID_LIMIT = 1 << 27  # K7 packs (arc id, slot) into one int: arc << 4 | slot
 
 
 def pad_graphs(graphs: list[DenseGraph], pad_states: Optional[int] = None,
@@ -306,13 +310,16 @@ def build_nbest_plan(graph: DenseGraph, device) -> NbestPlan:
 
 def nbest_step_plain(plan: NbestPlan, alpha, alpha_end, ll_t, num_frames, t: int,
                      acwt: float, beam: float, bp_arc, bp_slot):
-    """Plain version of K7's frame.  The per-destination top K comes from two
-    stable sorts of the ``[B, A * K]`` candidates: by value, descending, then
-    by destination, so that a state's candidates stand together, best first,
-    equals in (arc position, source slot) order."""
-    b, s, k = alpha.shape
+    """Plain version of K7's frame, in K7's layout (see ``nbest_step``).
+    The per-destination top K comes from two stable sorts of the
+    ``[B, A * K]`` candidates: by value, descending, then by destination, so
+    that a state's candidates stand together, best first, equals in (arc
+    position, source slot) order.  Returns (alpha, alpha_end) [S, B, K]
+    (views of new lane-major tensors)."""
+    s, b, k = alpha.shape
+    alpha = alpha.permute(1, 0, 2)  # [B, S, K] views
     a = plan.src.shape[0]
-    w = plan.score[None, :] + ll_t[:, plan.pdf.long()] * acwt  # [B, A]
+    w = plan.score[None, :] + ll_t.t()[:, plan.pdf.long()] * acwt  # [B, A]
     cand = alpha[:, plan.src.long(), :] + w[:, :, None]  # [B, A, K]
     vals, i1 = cand.reshape(b, a * k).sort(dim=1, descending=True, stable=True)
     group = plan.dst.repeat_interleave(k)[i1]
@@ -338,20 +345,83 @@ def nbest_step_plain(plan: NbestPlan, alpha, alpha_end, ll_t, num_frames, t: int
         slot = (flat_top % k).view(b, s, k)
     else:
         arc = slot = flat_top.view(b, s, k)
-    bp_arc.copy_(torch.where(live, arc, -1))
-    bp_slot.copy_(torch.where(live, slot, 0))
+    bp_arc.permute(1, 0, 2).copy_(torch.where(live, arc, -1))
+    bp_slot.permute(1, 0, 2).copy_(torch.where(live, slot, 0))
     alpha = torch.where(active, scores, alpha)
-    return alpha, torch.where((t + 1 == num_frames)[:, None, None], alpha, alpha_end)
+    alpha_end = torch.where((t + 1 == num_frames)[:, None, None], alpha,
+                            alpha_end.permute(1, 0, 2))
+    return alpha.permute(1, 0, 2), alpha_end.permute(1, 0, 2)
+
+
+def nbest_window_plain(plan: NbestPlan, alpha, alpha_end, ll, num_frames, t0: int, acwt: float,
+                       beam: float, bp_arc, bp_slot):
+    """Plain version of ``nbest_window``: ``nbest_step_plain`` frame by
+    frame."""
+    for i in range(ll.shape[0]):
+        alpha, alpha_end = nbest_step_plain(plan, alpha, alpha_end, ll[i], num_frames, t0 + i,
+                                            acwt, beam, bp_arc[i], bp_slot[i])
+    return alpha, alpha_end
+
+
+def nbest_window(plan: NbestPlan, alpha: torch.Tensor, alpha_end: torch.Tensor,
+                 ll: torch.Tensor, num_frames: torch.Tensor, t0: int, acwt: float, beam: float,
+                 bp_arc: torch.Tensor, bp_slot: torch.Tensor):
+    """K7 over the frames t0 .. t0+W-1 of ``ll`` [W, P, B] f32 in ONE
+    cooperative launch.  Lane-minor layout: alpha, alpha_end [S, B, K] f32;
+    num_frames [B] int32; bp_arc [W, S, B, K] int32 and bp_slot [W, S, B, K]
+    int8 are filled: the arc and the source slot each hypothesis came from,
+    -1 and 0 where the slot holds NEG_INF (none, or pruned by the beam) or
+    the utterance has ended.
+
+    Returns (alpha, alpha_end) after the window.  On CUDA ``alpha_end`` is
+    updated in place and returned; it must not share memory with
+    ``alpha``.  A refused cooperative launch raises."""
+    dev = alpha.device
+    if dev.type == "cpu":
+        return nbest_window_plain(plan, alpha, alpha_end, ll, num_frames, t0, acwt, beam,
+                                  bp_arc, bp_slot)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    s, b, k = alpha.shape
+    if not 1 <= k <= NBEST_MAX:
+        raise ValueError(f"nbest must be in 1..{NBEST_MAX}, got {k}")
+    if ll.dim() != 3 or ll.shape[2] != b:
+        raise ValueError(f"ll: need [W, P, {b}], got {tuple(ll.shape)}")
+    w, p = ll.shape[0], ll.shape[1]
+    a = plan.src.shape[0]
+    _check("alpha", alpha, torch.float32, dev)
+    _check("alpha_end", alpha_end, torch.float32, dev, alpha.shape)
+    _check("ll", ll, torch.float32, dev)
+    _check("bp_arc", bp_arc, torch.int32, dev, (w, s, b, k))
+    _check("bp_slot", bp_slot, torch.int8, dev, (w, s, b, k))
+    _check("num_frames", num_frames, torch.int32, dev, (b,))
+    _check("in_start", plan.in_start, torch.int32, dev, (s + 1,))
+    for name, x, dtype in (("src", plan.src, torch.int32), ("pdf", plan.pdf, torch.int32),
+                           ("score", plan.score, torch.float32), ("arc", plan.arc, torch.int32)):
+        _check(name, x, dtype, dev, (a,))
+    if alpha_end.data_ptr() == alpha.data_ptr():
+        raise ValueError("alpha_end must not share memory with alpha")
+    if a > ARC_ID_LIMIT:
+        raise ValueError(f"K7 packs arc ids in 27 bits: {a} arcs")
+    if w == 0:
+        return alpha, alpha_end
+    bufs = [torch.empty_like(alpha) for _ in range(min(w, 2))]
+    best = torch.full((3, b), NEG_INF, dtype=torch.float32, device=dev)  # lane best, 3 frames
+    _build.launch("viterbi_nbest", alpha.data_ptr(), bufs[0].data_ptr(),
+                  bufs[-1].data_ptr() if w > 1 else None, alpha_end.data_ptr(),
+                  bp_arc.data_ptr(), bp_slot.data_ptr(), best.data_ptr(), ll.data_ptr(),
+                  plan.in_start.data_ptr(), plan.src.data_ptr(), plan.pdf.data_ptr(),
+                  plan.score.data_ptr(), plan.arc.data_ptr(), num_frames.data_ptr(), t0, w, acwt,
+                  beam, b, s, k, p, DC._MAX_GRID_BLOCKS, stream_handle(dev))
+    return bufs[(w - 1) % 2], alpha_end  # frame i of the launch writes bufs[i % 2]
 
 
 def nbest_step(plan: NbestPlan, alpha: torch.Tensor, alpha_end: torch.Tensor,
                ll_t: torch.Tensor, num_frames: torch.Tensor, t: int, acwt: float,
                beam: float, bp_arc: torch.Tensor, bp_slot: torch.Tensor):
-    """One frame of the N-best relaxation (K7).  alpha, alpha_end [B, S, K]
-    f32; ll_t [B, P] f32 (a view with unit stride along P will do);
-    num_frames [B] int32; bp_arc [B, S, K] int32 and bp_slot [B, S, K] int8
-    are filled: the arc and the source slot each hypothesis came from, -1 and
-    0 where the slot holds NEG_INF or the utterance has ended.
+    """One frame of the N-best relaxation (K7 with W = 1).  alpha, alpha_end
+    [S, B, K] f32; ll_t [P, B] f32; num_frames [B] int32; bp_arc [S, B, K]
+    int32 and bp_slot [S, B, K] int8 are filled as in ``nbest_window``.
 
     Returns (alpha, alpha_end) after frame ``t``.  On CUDA ``alpha_end`` is
     updated in place and returned."""
@@ -361,32 +431,10 @@ def nbest_step(plan: NbestPlan, alpha: torch.Tensor, alpha_end: torch.Tensor,
                                 bp_arc, bp_slot)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    b, s, k = alpha.shape
-    if not 1 <= k <= NBEST_MAX:
-        raise ValueError(f"nbest must be in 1..{NBEST_MAX}, got {k}")
-    a = plan.src.shape[0]
-    _check("alpha", alpha, torch.float32, dev)
-    _check("alpha_end", alpha_end, torch.float32, dev, alpha.shape)
-    _check("bp_arc", bp_arc, torch.int32, dev, alpha.shape)
-    _check("bp_slot", bp_slot, torch.int8, dev, alpha.shape)
-    _check("num_frames", num_frames, torch.int32, dev, (b,))
-    _check("in_start", plan.in_start, torch.int32, dev, (s + 1,))
-    for name, x, dtype in (("src", plan.src, torch.int32), ("pdf", plan.pdf, torch.int32),
-                           ("score", plan.score, torch.float32), ("arc", plan.arc, torch.int32)):
-        _check(name, x, dtype, dev, (a,))
-    if (ll_t.device != dev or ll_t.dtype != torch.float32 or ll_t.dim() != 2
-            or ll_t.shape[0] != b or (ll_t.shape[1] > 1 and ll_t.stride(1) != 1)):
-        raise ValueError("ll_t: need [B, P] float32 with unit stride along P on " + str(dev))
-    if alpha_end.data_ptr() == alpha.data_ptr():
-        raise ValueError("alpha_end must not share memory with alpha")
-    out = torch.empty_like(alpha)
-    best = torch.empty(b, dtype=torch.float32, device=dev)
-    _build.launch("viterbi_nbest", alpha.data_ptr(), out.data_ptr(), alpha_end.data_ptr(),
-                  bp_arc.data_ptr(), bp_slot.data_ptr(), best.data_ptr(), ll_t.data_ptr(),
-                  ll_t.stride(0), plan.in_start.data_ptr(), plan.src.data_ptr(),
-                  plan.pdf.data_ptr(), plan.score.data_ptr(), plan.arc.data_ptr(),
-                  num_frames.data_ptr(), t, acwt, beam, b, s, k, stream_handle(dev))
-    return out, alpha_end
+    if ll_t.dim() != 2:
+        raise ValueError("ll_t: need [P, B]")
+    return nbest_window(plan, alpha, alpha_end, ll_t[None], num_frames, t, acwt, beam,
+                        bp_arc[None], bp_slot[None])
 
 
 def viterbi_nbest_forward(plan: NbestPlan, alpha0, loglikes: torch.Tensor, num_frames,
@@ -398,7 +446,9 @@ def viterbi_nbest_forward(plan: NbestPlan, alpha0, loglikes: torch.Tensor, num_f
     loglikes [B, T, P] on the plan's device; alpha0 [S].  Returns
     (alpha_end [B, S, K] f32, bp_arc [T, B, S, K] int32, bp_slot [T, B, S, K]
     int8): full backpointer storage, 5 bytes per (frame, state, slot), so a
-    caller splits its batch by the memory it has."""
+    caller splits its batch by the memory it has.  The three are views of
+    K7's lane-minor tables (``[S, B, K]`` and ``[T, S, B, K]``), which all T
+    frames fill in one ``nbest_window``."""
     dev = loglikes.device
     b, t_total, p = loglikes.shape
     s = plan.num_states
@@ -407,25 +457,23 @@ def viterbi_nbest_forward(plan: NbestPlan, alpha0, loglikes: torch.Tensor, num_f
     nf = torch.as_tensor(np.asarray(num_frames), dtype=torch.int32).to(dev)
     acwt = float(np.float32(acoustic_scale))
     beam = float(np.float32(beam))
-    alpha = torch.full((b, s, nbest), NEG_INF, dtype=torch.float32, device=dev)
-    alpha[:, :, 0] = torch.as_tensor(alpha0, dtype=torch.float32).to(dev)[None, :]
-    alpha_end = torch.where((nf == 0)[:, None, None], alpha, torch.full_like(alpha, NEG_INF))
-    bp_arc = torch.empty((t_total, b, s, nbest), dtype=torch.int32, device=dev)
-    bp_slot = torch.empty((t_total, b, s, nbest), dtype=torch.int8, device=dev)
-    for t in range(t_total):
-        alpha, alpha_end = nbest_step(plan, alpha, alpha_end, loglikes[:, t], nf, t, acwt,
-                                      beam, bp_arc[t], bp_slot[t])
-    return alpha_end, bp_arc, bp_slot
+    alpha = torch.full((s, b, nbest), NEG_INF, dtype=torch.float32, device=dev)
+    alpha[:, :, 0] = torch.as_tensor(alpha0, dtype=torch.float32).to(dev)[:, None]
+    alpha_end = torch.where((nf == 0)[None, :, None], alpha, torch.full_like(alpha, NEG_INF))
+    bp_arc = torch.empty((t_total, s, b, nbest), dtype=torch.int32, device=dev)
+    bp_slot = torch.empty((t_total, s, b, nbest), dtype=torch.int8, device=dev)
+    ll = loglikes.permute(1, 2, 0).contiguous()  # [T, P, B]: lanes fastest, as K7 reads them
+    _, alpha_end = nbest_window(plan, alpha, alpha_end, ll, nf, 0, acwt, beam, bp_arc, bp_slot)
+    return alpha_end.permute(1, 0, 2), bp_arc.permute(0, 2, 1, 3), bp_slot.permute(0, 2, 1, 3)
 
 
-def _assemble_hyp(graph: DenseGraph, arcs: list, start_state: int, end_state: int,
-                  score: float) -> dict:
+def _assemble_hyp(graph: DenseGraph, arcs: np.ndarray, start_state: int, end_state: int,
+                  score: float, nonempty: np.ndarray) -> dict:
     words = list(graph.oseqs[graph.start_oseq[start_state]])
-    for a in arcs:
-        words.extend(graph.oseqs[graph.arc_oseq[a]])
+    words.extend(DC.arc_words(graph, arcs, nonempty))
     words.extend(graph.oseqs[graph.final_oseq[end_state]])
-    return {"words": words, "score": score,
-            "tids": [int(graph.arc_tid[a]) for a in arcs], "arcs": arcs}
+    return {"words": words, "score": score, "tids": graph.arc_tid[arcs].tolist(),
+            "arcs": arcs.tolist()}
 
 
 def backtrace_nbest(graph: DenseGraph, alpha_end, bp_arc, bp_slot, num_frames,
@@ -436,6 +484,7 @@ def backtrace_nbest(graph: DenseGraph, alpha_end, bp_arc, bp_slot, num_frames,
     bp_arc = np.asarray(bp_arc)
     bp_slot = np.asarray(bp_slot)
     b = alpha_end.shape[0]
+    nonempty = DC.oseq_nonempty(graph)
     out = []
     for i in range(b):
         t_end = int(num_frames[i])
@@ -467,35 +516,24 @@ def backtrace_nbest(graph: DenseGraph, alpha_end, bp_arc, bp_slot, num_frames,
             if key in seen:
                 continue
             seen.add(key)
-            hyps.append(_assemble_hyp(graph, arcs, si, s, score))
+            hyps.append(_assemble_hyp(graph, np.asarray(arcs, np.int64), si, s, score, nonempty))
         out.append(hyps)
     return out
 
 
-def backtrace_nbest_device(graph: DenseGraph, alpha_end: torch.Tensor, bp_arc: torch.Tensor,
-                           bp_slot: torch.Tensor, num_frames, nbest: int):
-    """``backtrace_nbest`` without a host copy of the tables: the ``4 * nbest``
-    best end entries of every utterance are walked back together on the
-    tables' device (one gather per frame), and only their arcs ``[T, B, C]``
-    come to the host, where hypotheses are assembled and duplicate arc
-    sequences dropped as ``backtrace_nbest`` does."""
-    dev = alpha_end.device
-    b, s, k = alpha_end.shape
-    t_total = bp_arc.shape[0]
-    nf_np = np.asarray(num_frames).astype(np.int64)
-    nf = torch.from_numpy(nf_np).to(dev)
-    final = torch.from_numpy(np.asarray(graph.final_score, np.float32)).to(dev)
-    arc_src = torch.from_numpy(np.asarray(graph.arc_src, np.int64)).to(dev)
-    total = (alpha_end + final[None, :, None]).reshape(b, s * k)
-    c = min(nbest * 4, s * k)
-    score, fidx = total.sort(dim=1, descending=True, stable=True)
-    score, fidx = score[:, :c], fidx[:, :c]
-    si, ki = fidx // k, fidx % k
-    end_state = si.cpu().numpy()
+def nbest_walk_plain(bp_arc, bp_slot, arc_src, num_frames, state, slot):
+    """Plain version of ``nbest_walk``: every (lane, candidate) walked back
+    together, one gather per frame."""
+    t_total, b = bp_arc.shape[:2]
+    c = state.shape[1]
+    dev = bp_arc.device
+    si, ki = state.long(), slot.long()
+    nf = num_frames.long()
     ok = torch.ones((b, c), dtype=torch.bool, device=dev)
-    arcs = torch.full((t_total, b, c), -1, dtype=torch.int64, device=dev)
+    arcs = torch.full((t_total, b, c), -1, dtype=torch.int32, device=dev)
     bidx = torch.arange(b, device=dev)[:, None]
-    for t in range(min(t_total, int(nf_np.max(initial=0))) - 1, -1, -1):
+    arc_src = arc_src.long()
+    for t in range(min(t_total, int(nf.max()) if b else 0) - 1, -1, -1):
         active = (t < nf)[:, None] & ok
         a = bp_arc[t][bidx, si, ki].long()
         ok = ok & ((a >= 0) | ~active)
@@ -503,10 +541,73 @@ def backtrace_nbest_device(graph: DenseGraph, alpha_end: torch.Tensor, bp_arc: t
         ki = torch.where(step, bp_slot[t][bidx, si, ki].long(), ki)
         si = torch.where(step, arc_src[a.clamp(min=0)], si)
         arcs[t] = torch.where(step, a, -1)
+    return arcs, si.to(torch.int32), ok
+
+
+def nbest_walk(bp_arc: torch.Tensor, bp_slot: torch.Tensor, arc_src: torch.Tensor,
+               num_frames: torch.Tensor, state: torch.Tensor, slot: torch.Tensor):
+    """Walk every (lane, candidate) back from its end entry (``state``,
+    ``slot``) [B, C] int32 through the N-best backpointers bp_arc [T, B, S,
+    K] int32 / bp_slot [T, B, S, K] int8 (any strides, the same for both),
+    from frame ``num_frames[b] - 1`` down to 0.  arc_src [A] int32, by
+    original arc id; num_frames [B] int32.
+
+    Returns (arcs [T, B, C] int32 in forward frame order, -1 at frames past
+    the lane's end and below a failure; the start state [B, C] int32; ok [B,
+    C] bool, False where a walk met arc -1).  On CUDA it is one launch of
+    ``backtrace_nbest`` (``csrc/backtrace.cu``), a thread per (lane,
+    candidate)."""
+    dev = bp_arc.device
+    if dev.type == "cpu":
+        return nbest_walk_plain(bp_arc, bp_slot, arc_src, num_frames, state, slot)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    t_total, b, s, k = bp_arc.shape
+    c = state.shape[1] if state.dim() == 2 else -1
+    if (bp_arc.dtype != torch.int32 or bp_slot.dtype != torch.int8 or bp_slot.device != dev
+            or bp_slot.shape != bp_arc.shape or bp_slot.stride() != bp_arc.stride()):
+        raise ValueError("nbest_walk: need int32 bp_arc and int8 bp_slot of one shape and "
+                         "one layout on " + str(dev))
+    _check("num_frames", num_frames, torch.int32, dev, (b,))
+    _check("state", state, torch.int32, dev, (b, c))
+    _check("slot", slot, torch.int32, dev, (b, c))
+    _check("arc_src", arc_src, torch.int32, dev)
+    arcs = torch.empty((t_total, b, c), dtype=torch.int32, device=dev)
+    start = torch.empty((b, c), dtype=torch.int32, device=dev)
+    ok = torch.empty((b, c), dtype=torch.uint8, device=dev)
+    _build.launch("backtrace_nbest", bp_arc.data_ptr(), bp_slot.data_ptr(), *bp_arc.stride(),
+                  arc_src.data_ptr(), num_frames.data_ptr(), state.data_ptr(), slot.data_ptr(),
+                  b, c, t_total, arcs.data_ptr(), start.data_ptr(), ok.data_ptr(),
+                  stream_handle(dev))
+    return arcs, start, ok.bool()
+
+
+def backtrace_nbest_device(graph: DenseGraph, alpha_end: torch.Tensor, bp_arc: torch.Tensor,
+                           bp_slot: torch.Tensor, num_frames, nbest: int):
+    """``backtrace_nbest`` without a host copy of the tables: the ``4 * nbest``
+    best end entries of every utterance are walked back together on the
+    tables' device (``nbest_walk``), and only their arcs ``[T, B, C]`` come
+    to the host, where hypotheses are assembled and duplicate arc sequences
+    dropped as ``backtrace_nbest`` does."""
+    dev = alpha_end.device
+    b, s, k = alpha_end.shape
+    nf_np = np.asarray(num_frames).astype(np.int32)
+    nf = torch.from_numpy(nf_np).to(dev)
+    final = torch.from_numpy(np.asarray(graph.final_score, np.float32)).to(dev)
+    arc_src = torch.from_numpy(np.asarray(graph.arc_src, np.int32)).to(dev)
+    total = (alpha_end + final[None, :, None]).reshape(b, s * k)
+    c = min(nbest * 4, s * k)
+    score, fidx = total.sort(dim=1, descending=True, stable=True)
+    score, fidx = score[:, :c], fidx[:, :c]
+    end_state = (fidx // k).to(torch.int32)
+    arcs, start, ok = nbest_walk(bp_arc, bp_slot, arc_src, nf, end_state,
+                                 (fidx % k).to(torch.int32))
     arcs_np = arcs.cpu().numpy()
     score_np = score.cpu().numpy()
     ok_np = ok.cpu().numpy()
-    start_np = si.cpu().numpy()
+    start_np = start.cpu().numpy()
+    end_np = end_state.cpu().numpy()
+    nonempty = DC.oseq_nonempty(graph)
     out = []
     for i in range(b):
         hyps, seen = [], set()
@@ -515,13 +616,13 @@ def backtrace_nbest_device(graph: DenseGraph, alpha_end: torch.Tensor, bp_arc: t
                 break
             if not ok_np[i, j]:
                 continue
-            path = arcs_np[: int(nf_np[i]), i, j].tolist()
-            key = tuple(path)
+            path = arcs_np[: int(nf_np[i]), i, j]
+            key = path.tobytes()
             if key in seen:
                 continue
             seen.add(key)
-            hyps.append(_assemble_hyp(graph, path, int(start_np[i, j]),
-                                      int(end_state[i, j]), float(score_np[i, j])))
+            hyps.append(_assemble_hyp(graph, path, int(start_np[i, j]), int(end_np[i, j]),
+                                      float(score_np[i, j]), nonempty))
         out.append(hyps)
     return out
 

@@ -5,8 +5,9 @@ Port of ``voicebridge_tpu/steps/decode.py`` (``DecodeResult``, and from
 ``Decoder``: ``_loglikes``, ``decode_batch``, ``decode_sweep``,
 ``decode_lattice``, ``decode_sweep_lattice``, ``decode_nbest``,
 ``decode_mbr``).  GMM log-likelihoods come from the K2 wrapper, the forward
-relaxation from the K3 wrapper, the lattice survivor test from the K5 wrapper
-and the N-best relaxation from the K7 wrapper; the tensor's device decides
+relaxation from the K3 wrapper, the lattice survivor test from the K5 wrapper,
+the N-best relaxation from the K7 wrapper and both backtraces from the
+``backtrace_best`` / ``backtrace_nbest`` wrappers; the tensor's device decides
 between kernel and plain version.  ``decode_sweep`` re-runs
 the exact search per acoustic scale; ``decode_sweep_lattice`` decodes once
 into lattices and rescales them on the host per (LMWT, WIP) grid point, as
@@ -164,11 +165,14 @@ class Decoder:
         return sweep, lats
 
     def _nbest_chunk(self, t: int, d: int, nbest: int) -> int:
-        """Utterances per N-best sub-batch so its features, its [B, T, P]
-        logliks and the [T, B, S, K] backpointer tables (5 bytes per entry)
-        take at most half of the free device memory."""
+        """Utterances per N-best sub-batch so its features, its logliks in
+        both layouts ([B, T, P] and K7's [T, P, B]), the [T, S, B, K]
+        backpointer tables (5 bytes per entry), four [S, B, K] score tables
+        and the walk's [T, B, 4K] arcs take at most half of the free device
+        memory."""
         s = self.graph.num_states
-        per_utt = 4 * t * (self.gmm_w.shape[0] + d) + 5 * t * s * nbest + 16 * s * nbest
+        per_utt = (4 * t * (2 * self.gmm_w.shape[0] + d) + 5 * t * s * nbest + 16 * s * nbest
+                   + 16 * t * nbest)
         return max(1, free_bytes(self.device) // (2 * per_utt))
 
     def decode_nbest(self, utts: list[str], feats, num_frames, nbest: int = 4,
