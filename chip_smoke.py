@@ -29,9 +29,11 @@ Phases, each of which must pass (any failure exits nonzero):
    backtrace (192 utterances x 400 frames, 384-state training graphs;
    bit-equal scores, equal band-slot codes and arcs), K6 aligned E-step
    statistics (77k aligned frames, 2000 x 5 x 39), K7 N-best steps (the
-   60k-state graph, 32 lanes x 4 hypotheses per state, beam 13, lanes that
-   end inside the windows; one frame a launch and as one window of 16
-   frames, at the start and after a 60-frame window of the kernel alone;
+   60k-state graph, 32 lanes x 4 hypotheses per state: as phase 11 runs
+   it, all 1000 frames in one launch at exact search, held to the plain
+   version frame by frame; and one frame a launch and as one window of 16
+   frames, at the start and after a 60-frame window of the kernel alone,
+   at exact search and at beam 13, with lanes that end inside the windows;
    bit-equal scores and alpha_end, equal arcs and slots), the generic
    aligner's forward and backtrace (192 x 400 frames over 384-state graphs
    with back arcs, which the banded form refuses; bit-equal scores, equal
@@ -42,7 +44,10 @@ Phases, each of which must pass (any failure exits nonzero):
    dependent loads).  Beside each time stands the kernel's
    bound: the larger of its bytes (inputs once, outputs once) over 3.35 TB/s
    and its operations over 67 TFLOP/s (float32; 495 TFLOP/s TF32 for K2),
-   from this run's shapes (K1: the sparse mel's nonzeros).
+   from this run's shapes (K1: the sparse mel's nonzeros).  A window's
+   bound per frame counts the bytes its launch moves once (the scores in
+   and out, the plan) over its frames; the one-frame launch's bound
+   stands beside its time.
 4. Decodes the committed Yes-No model on the card from waves to words: the
    JAX package's stored hypotheses for all 32 utterances, test WER <= 5%,
    train WER <= 2%, and every decoding kernel launched (K1, K2, K3 and
@@ -98,7 +103,8 @@ Phases, each of which must pass (any failure exits nonzero):
    memory, with the launch counts of this run.  Every utterance's first
    hypothesis must score within 1e-2 or relative 1e-5 of ``decode_batch``'s
    best path, and scores must fall; K7 and ``backtrace_nbest`` launch once
-   per sub-batch.  ``backtrace_nbest`` is then held to its plain version on
+   per sub-batch, as many as ``decode_nbest``'s sizing rule gives on the
+   same free memory.  ``backtrace_nbest`` is then held to its plain version on
    the tables of the first sub-batch (equal arcs, start states and ok
    flags), with its time and its time for one walk.
 12. Generic alignment at full width: the training shape of phase 8 over
@@ -154,6 +160,7 @@ FULL = Width(batch=128, frames=1000, samp_freq=16000.0, num_states=60_000,
              train_states=384, back_arcs=2, nbest_batch=32, nbest=4, nbest_warm=60, sweep_batch=16)
 
 REPEATS = 5  # timed full-width runs after the counted one
+EXACT_BEAM = 1e9  # the full-width N-best path's beam: exact search
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
 TF32_OPS_PER_S = 495e12  # H100 SXM, TF32 on the tensor cores, dense, published
@@ -300,15 +307,20 @@ def make_record(torch, results: dict, log, timed: bool):
     kernel's entry in ``results``."""
 
     def record(name, pairs, kernel_fn, plain_fn, work, equal=True, frames=1, frame_fn=None,
-               ops_per_s=FP32_OPS_PER_S, what=""):
+               launch_bytes=0, frame_launch_bytes=None, ops_per_s=FP32_OPS_PER_S, what=""):
         """Hold each (kernel, plain) output pair within TOL[name], time both
         versions, and work out the kernel's bound from ``work``: the bytes
         it must move (inputs once, outputs once) and its operations, at
         ``ops_per_s`` for their type.  A ``kernel_fn`` that runs a window of
         ``frames`` frames in one launch is timed per frame; ``frame_fn``,
         the same kernel one frame per launch, is timed beside it;
-        ``plain_fn`` and ``work`` are one frame's.  Returns the entry (and
-        keeps it as the kernel's unless ``what`` names a side case)."""
+        ``plain_fn`` and ``work`` are one frame's, and ``launch_bytes`` are
+        the bytes a launch moves once whatever its frames (the scores in
+        and out, the plan), so the window's bound per frame counts them
+        over its frames and the one-frame launch's in full
+        (``frame_launch_bytes`` where the one-frame launch moves other such
+        bytes than the window).  Returns the entry (and keeps it as the
+        kernel's unless ``what`` names a side case)."""
         rtol, atol = TOL[name]
         err, ok = 0.0, equal
         for got, ref in pairs:
@@ -316,7 +328,7 @@ def make_record(torch, results: dict, log, timed: bool):
             a = atol * max(1.0, float(ref.abs().max())) if name == "gmm_stats" else atol
             err = max(err, float((got - ref).abs().max()))
             ok = ok and bool(torch.allclose(got, ref, rtol=rtol, atol=a))
-        byte_ms = 1e3 * work[0] / HBM_BYTES_PER_S
+        byte_ms = 1e3 * (work[0] + launch_bytes / frames) / HBM_BYTES_PER_S
         op_ms = 1e3 * work[1] / ops_per_s
         entry = {"max_abs_err": err,
                  "ms": cuda_ms(torch, kernel_fn) / frames if timed else None,
@@ -327,14 +339,17 @@ def make_record(torch, results: dict, log, timed: bool):
         if frame_fn is not None:
             entry["window_frames"] = frames
             entry["frame_launch_ms"] = cuda_ms(torch, frame_fn) if timed else None
+            once = launch_bytes if frame_launch_bytes is None else frame_launch_bytes
+            entry["frame_launch_bound_ms"] = max(1e3 * (work[0] + once) / HBM_BYTES_PER_S,
+                                                 op_ms)
         if not what:
             results[name] = entry
         log(f"{name}{what}: max_abs_err {err:.3g} (rtol {rtol}, atol {atol}) "
             f"kernel {entry['ms']} ms (per frame, {frames} frames a launch), "
-            f"one frame a launch {entry.get('frame_launch_ms')} ms, "
-            f"plain {entry['plain_ms']} ms; "
-            f"{work[0]:.4g} bytes ({byte_ms:.4g} ms), {work[1]:.4g} operations "
-            f"({op_ms:.4g} ms)")
+            f"one frame a launch {entry.get('frame_launch_ms')} ms "
+            f"(bound {entry.get('frame_launch_bound_ms')} ms), plain {entry['plain_ms']} ms; "
+            f"{work[0]:.4g} bytes a frame and {launch_bytes:.4g} a launch ({byte_ms:.4g} ms a "
+            f"frame), {work[1]:.4g} operations ({op_ms:.4g} ms)")
         check(ok, f"{name}{what} disagrees with its plain version (max abs err {err})")
         return entry
 
@@ -462,20 +477,24 @@ def compare_kernels(torch, device, width: Width, results: dict, record, log) -> 
            lambda: DC.viterbi_window(alpha, ends["w"], ll_t, *scan, bps["w"]),
            lambda: DC.viterbi_step_plain(alpha, ends["p"], ll_t[0], dev, nf, 0, acwt,
                                          plan.rspec, plan.packed, bps["p"][0]),
-           # alpha in and out, the frame's logliks, the backpointers, the plan;
-           # an add and a compare per (row slot, lane), an add and a compare per row
-           (2 * nbytes(alpha) + nbytes(ll_t[0], bps["w"][0]) + k3_plan_bytes(dev),
+           # a frame's logliks and backpointers; alpha in and out and the plan
+           # once a launch; an add and a compare per (row slot, lane), an add
+           # and a compare per row
+           (nbytes(ll_t[0], bps["w"][0]),
             2 * dev.row_src.numel() * b + 2 * plan.num_rows * b), equal=same, frames=k,
            frame_fn=lambda: DC.viterbi_step(alpha, ends["1"], ll_t[0], dev, nf, 0, acwt,
-                                            plan.rspec, plan.packed, bps["1"][0]))
+                                            plan.rspec, plan.packed, bps["1"][0]),
+           launch_bytes=2 * nbytes(alpha) + nbytes(nf) + k3_plan_bytes(dev))
     check(same, "viterbi_step scores or backpointer codes differ from the plain version")
     compare_backtrace_best(torch, graph, plan, dev, alpha, ll_all, acwt, record, log)
+    ll_nbest = ll_all[:, :, :width.nbest_batch].contiguous()  # [T, P, B] of phase 11's lanes
     del alpha, bps, ends, ll_all
     compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
                            record, log)
     del k3_alphas, dev
-    compare_nbest_kernel(torch, device, width, graph, ll_k, acwt, record, log)
-    del ll_t, ll_k
+    del ll_k
+    compare_nbest_kernel(torch, device, width, graph, ll_nbest, acwt, record, log)
+    del ll_t, ll_nbest
     compare_training_kernels(torch, device, width, w, record)
     compare_generic_kernels(torch, device, width, w, record, log)
     return results
@@ -567,17 +586,20 @@ def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alpha
     log(f"viterbi_step_backward: {k} frames x {b} lanes over the backward plan "
         f"({bwd_plan.num_rows} rows x D = {bwd_plan.d}, {int((bwd_plan.row_arc >= 0).sum())} "
         f"real slots), bit-equal to the plain version: {same}")
-    # beta in and out, the frame's slab slice out, its logliks, the plan; the
-    # final scores once a window (every lane ends at its last frame); an add
-    # and a compare per (row slot, lane), an add and a compare per row
+    # a frame's slab slice out and its logliks; beta out, the plan and the
+    # final scores once a launch (every lane ends at the window's last frame,
+    # so the window reads final_eff and not beta0, and the one-frame launch
+    # at frame 0 reads beta0 and not final_eff); an add and a compare per
+    # (row slot, lane), an add and a compare per row
     slab = slabs["w"]
     record("viterbi_step_backward", [(beta1, beta_p), (beta_w, beta_p)],
            lambda: LAT.bwd_window(beta0, ll_t, *bwd, slab),
            lambda: LAT.bwd_window_plain(beta0, ll_t[:1], *bwd, slabs["p"][:1]),
-           (3 * nbytes(beta0) + nbytes(ll_t[0], nf) + k3_plan_bytes(bwd_dev)
-            + nbytes(final_eff) / k,
+           (nbytes(slab[0], ll_t[0]),
             2 * bwd_dev.row_src.numel() * b + 2 * bwd_plan.num_rows * b), equal=same,
-           frames=k, frame_fn=lambda: LAT.bwd_window(beta0, ll_t[:1], *bwd, slab[:1]))
+           frames=k, frame_fn=lambda: LAT.bwd_window(beta0, ll_t[:1], *bwd, slab[:1]),
+           launch_bytes=nbytes(beta0, nf, final_eff) + k3_plan_bytes(bwd_dev),
+           frame_launch_bytes=2 * nbytes(beta0) + nbytes(nf) + k3_plan_bytes(bwd_dev))
     check(same, "viterbi_step_backward differs from the plain version")
     words = {m: torch.empty((k, plan.num_rows, b), dtype=torch.uint8, device=device)
              for m in "1wp"}
@@ -595,52 +617,108 @@ def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alpha
     log(f"lattice_fb: {k} frames x {b} lanes, survivor bytes nonzero "
         f"{int((words['p'][-1] != 0).sum())} of {words['p'][-1].numel()} in the last frame; "
         f"bit-equal to the plain version and its alpha to K3's: {same}")
-    # K3's reads without the backpointers, beta and the threshold in, the
-    # survivor bytes out; per row slot the forward add and compare and the
-    # survivor test's two adds and compare
+    # a frame's beta slab slice and logliks in and survivor bytes out;
+    # alpha in and out, the plan, row_dst and the threshold once a launch;
+    # per row slot the forward add and compare and the survivor test's two
+    # adds and compare
     record("lattice_fb", [(a1, a_p), (a_w, a_p)],
            lambda: LAT.fb_frames(k3_alphas[0], ll_t, *fb, words["w"]),
            lambda: LAT.fb_frame_plain(k3_alphas[0], ll_t[0], dev, row_dst, slab[0], nf, 0,
                                       acwt, thresh, plan.rspec),
-           (3 * nbytes(a_w) + nbytes(ll_t[0], words["w"][0], row_dst, thresh) + k3_plan_bytes(dev),
+           (nbytes(slab[0], ll_t[0], words["w"][0]),
             5 * dev.row_src.numel() * b + 2 * plan.num_rows * b), equal=same, frames=k,
            frame_fn=lambda: LAT.fb_frame(k3_alphas[0], ll_t[0], dev, row_dst, slab[0], nf, 0,
-                                         acwt, thresh, plan.rspec, words["1"][0]))
+                                         acwt, thresh, plan.rspec, words["1"][0]),
+           launch_bytes=2 * nbytes(a_w) + nbytes(nf, row_dst, thresh) + k3_plan_bytes(dev))
     check(same, "lattice_fb differs from the plain version or its alpha from K3's")
 
 
-def compare_nbest_kernel(torch, device, width: Width, graph, ll_k, acwt, record, log) -> None:
-    """Phase 3, K7: N-best steps on the full-width graph at the sub-batch and
-    list length of phase 11, with the decoder's default beam, one frame a
-    launch and as one window of the K3 frames, each against its plain
-    version: from the start state, then again after a window of
-    ``nbest_warm`` frames of the kernel alone has spread the hypotheses.
-    Two lanes end inside the compared windows and one has no frames."""
+def compare_nbest_kernel(torch, device, width: Width, graph, ll_all, acwt, record, log) -> None:
+    """Phase 3, K7 on the full-width graph at the sub-batch and list length
+    of phase 11, fed ``ll_all`` [T, P, B] (K7's layout).  The kernel's entry
+    is the main path's launch: all T frames in one window at exact search,
+    held to the plain version frame by frame (one lane ends half way).  Side
+    cases, each one frame a launch and as one window of the K3 frames
+    against the plain window, from the start state and again after a window
+    of ``nbest_warm`` frames of the kernel alone has spread the hypotheses
+    (two lanes end inside the compared windows and one has no frames): at
+    exact search and at the decoder's default beam, so that both branches
+    of the prune on read are compared."""
     import numpy as np
 
     from voicebridge_tpu_torch import DecodeOptions
     from voicebridge_tpu_torch.ops import viterbi as V
 
-    b, k = min(width.nbest_batch, ll_k.shape[0]), width.nbest
-    frames = ll_k.shape[1]
-    ll = ll_k[:b].permute(1, 2, 0).contiguous()  # [W, P, B], as K7 reads it
+    t_all, _p, b = ll_all.shape
+    k, frames = width.nbest, width.k3_frames
     plan = V.build_nbest_plan(graph, device)
     s = plan.num_states
-    beam = float(np.float32(DecodeOptions().beam))
-    warm = width.nbest_warm
-    total = frames + warm + frames
-    nf = torch.full((b,), total, dtype=torch.int32, device=device)
-    for i, n in enumerate([frames // 2, frames + warm + frames // 2, 0][: b - 1]):
-        nf[i + 1] = n
-    alpha = torch.full((s, b, k), V.NEG_INF, dtype=torch.float32, device=device)
-    alpha[:, :, 0] = torch.from_numpy(graph.alpha0).to(device)[:, None]
-    end0 = torch.where((nf == 0)[None, :, None], alpha, torch.full_like(alpha, V.NEG_INF))
+    src = plan.src.long()
+    plan_bytes = nbytes(plan.in_start, plan.src, plan.pdf, plan.score, plan.arc)
+    exact = float(np.float32(EXACT_BEAM))
+    alpha0 = torch.full((s, b, k), V.NEG_INF, dtype=torch.float32, device=device)
+    alpha0[:, :, 0] = torch.from_numpy(graph.alpha0).to(device)[:, None]
 
     def tables(w):
         return (torch.empty((w, s, b, k), dtype=torch.int32, device=device),
                 torch.empty((w, s, b, k), dtype=torch.int8, device=device))
 
-    def compare(alpha, end, t0):
+    def end_rows(nf, t0, w):
+        """The alpha_end bytes written by a launch over frames t0 .. t0+w-1."""
+        return int(((nf > t0) & (nf <= t0 + w)).sum()) * s * k * 4
+
+    # the main path's launch, held frame by frame to the plain version
+    nf = torch.full((b,), t_all, dtype=torch.int32, device=device)
+    nf[b // 2] = t_all // 2
+    bp_k = tables(t_all)
+    a_k, e_k = V.nbest_window(plan, alpha0, torch.full_like(alpha0, V.NEG_INF), ll_all, nf, 0,
+                              acwt, exact, *bp_k)
+    one = tables(1)
+    a_p, e_p = alpha0, torch.full_like(alpha0, V.NEG_INF)
+    same, cands = True, 0
+    for t in range(t_all):
+        a_last, e_last = a_p, e_p.clone()
+        # candidates this frame's data needs: one per live slot of every
+        # arc's source in every lane still running
+        cands += int(((a_p > V.NEG_INF).sum(dim=2)[src] * (t < nf)).sum())
+        a_p, e_p = V.nbest_step_plain(plan, a_p, e_p, ll_all[t], nf, t, acwt, exact,
+                                      one[0][0], one[1][0])
+        same = same and torch.equal(one[0][0], bp_k[0][t]) and torch.equal(one[1][0], bp_k[1][t])
+    same = same and torch.equal(a_k, a_p) and torch.equal(e_k, e_p)
+    a_last = a_last.contiguous()  # the plain version returns [S, B, K] views
+    live = int((bp_k[0][-1] >= 0).sum())
+    log(f"viterbi_nbest: {b} lanes x {k} slots x {t_all} frames in one launch at exact search "
+        f"(the main path's), {live} live slots of {bp_k[0][-1].numel()} in the last frame, "
+        f"{cands / t_all:.6g} candidates a frame; bit-equal to the plain version frame by "
+        f"frame: {same}")
+    e_t = e_k.clone()
+    # a frame's backpointers and logliks; alpha in and out, the plan and the
+    # alpha_end rows of the lanes that end in the launch once a launch; an
+    # add and a compare per candidate, an add and a multiply per (arc, lane)
+    record("viterbi_nbest", [(a_k, a_p), (e_k, e_p)],
+           lambda: V.nbest_window(plan, alpha0, e_t, ll_all, nf, 0, acwt, exact, *bp_k),
+           lambda: V.nbest_step_plain(plan, a_last, e_last, ll_all[-1], nf, t_all - 1, acwt,
+                                      exact, one[0][0], one[1][0]),
+           (nbytes(bp_k[0][0], bp_k[1][0], ll_all[0]),
+            2 * cands / t_all + 2 * plan.src.numel() * b), equal=same, frames=t_all,
+           frame_fn=lambda: V.nbest_step(plan, a_last, e_t, ll_all[-1], nf, t_all - 1, acwt,
+                                         exact, bp_k[0][-1], bp_k[1][-1]),
+           launch_bytes=2 * nbytes(alpha0) + nbytes(nf) + plan_bytes + end_rows(nf, 0, t_all),
+           frame_launch_bytes=(2 * nbytes(alpha0) + nbytes(nf) + plan_bytes
+                               + end_rows(nf, t_all - 1, 1)))
+    del bp_k, a_k, e_k, a_p, e_p, a_last, e_last, e_t
+
+    # the side cases: windows of the K3 frames
+    ll = ll_all[:frames]
+    warm = width.nbest_warm
+    total = frames + warm + frames
+    nf = torch.full((b,), total, dtype=torch.int32, device=device)
+    for i, n in enumerate([frames // 2, frames + warm + frames // 2, 0][: b - 1]):
+        nf[i + 1] = n
+    end0 = torch.where((nf == 0)[None, :, None], alpha0, torch.full_like(alpha0, V.NEG_INF))
+    ll_warm = ll_all[torch.arange(warm, device=device) % frames].contiguous()
+
+    def compare(alpha, end, t0, beam):
         """Frames t0 .. t0+frames-1 from ``alpha``: per-frame launches and
         one window against the plain window; returns (alpha, alpha_end,
         equal, the window's arguments)."""
@@ -657,28 +735,34 @@ def compare_nbest_kernel(torch, device, width: Width, graph, ll_k, acwt, record,
             (bp["w"][0], bp["p"][0]), (bp["1"][1], bp["p"][1]), (bp["w"][1], bp["p"][1])))
         return a_w, e_w, same, (alpha, bp, args, a_p, a_w)
 
-    a, e, same0, _ = compare(alpha, end0, 0)
-    ll_warm = ll[torch.arange(warm, device=device) % frames].contiguous()
-    a, e = V.nbest_window(plan, a, e, ll_warm, nf, frames, acwt, beam, *tables(warm))
-    a, e, same1, (alpha_t, bp, args, a_p, a_w) = compare(a, e, frames + warm)
-    same = same0 and same1
-    live = int((bp["w"][0][-1] >= 0).sum())
-    # candidates this frame's data needs: one per live slot of every arc's
-    # source, an add and a compare each, and an add and a multiply per arc
-    cands = int((alpha_t > V.NEG_INF).sum(dim=2)[plan.src.long()].sum())
-    log(f"viterbi_nbest: {b} lanes x {k} slots, {live} live slots of {bp['w'][0][-1].numel()} "
-        f"after {total} frames at beam {beam}, {cands} candidates in the timed frame; one "
-        f"frame a launch and one window of {frames}, bit-equal to the plain version: {same}")
-    e_t = e.clone()
-    record("viterbi_nbest", [(a_w, a_p)],
-           lambda: V.nbest_window(plan, alpha_t, e_t, ll, *args, *bp["w"]),
-           lambda: V.nbest_step_plain(plan, alpha_t, e_t, ll[0], nf, args[1], acwt, beam,
-                                      bp["p"][0][0], bp["p"][1][0]),
-           (2 * nbytes(alpha_t) + nbytes(bp["w"][0][0], bp["w"][1][0], ll[0], nf, plan.in_start,
-                                         plan.src, plan.pdf, plan.score, plan.arc),
-            2 * cands + 2 * plan.src.numel() * b), equal=same, frames=frames,
-           frame_fn=lambda: V.nbest_step(plan, alpha_t, e_t, ll[0], nf, args[1], acwt, beam,
-                                         bp["1"][0][0], bp["1"][1][0]))
+    default = DecodeOptions().beam
+    side = f" in a {frames}-frame window"
+    for beam, what in ((exact, side), (float(np.float32(default)), f"{side} at beam {default}")):
+        a, e, same0, _ = compare(alpha0, end0, 0, beam)
+        a, e = V.nbest_window(plan, a, e, ll_warm, nf, frames, acwt, beam, *tables(warm))
+        a, e, same1, (alpha_t, bp, args, a_p, a_w) = compare(a, e, frames + warm, beam)
+        same = same0 and same1
+        live = int((bp["w"][0][-1] >= 0).sum())
+        cands = int((alpha_t > V.NEG_INF).sum(dim=2)[src].sum())
+        log(f"viterbi_nbest{what}: {b} lanes x {k} slots, {live} live slots of "
+            f"{bp['w'][0][-1].numel()} after {total} frames at beam {beam}, {cands} candidates "
+            f"in the timed frame; one frame a launch and one window of {frames}, bit-equal to "
+            f"the plain version: {same}")
+        t0 = args[1]
+        e_t = e.clone()
+        once = 2 * nbytes(alpha_t) + nbytes(nf) + plan_bytes
+        record("viterbi_nbest", [(a_w, a_p)],
+               lambda: V.nbest_window(plan, alpha_t, e_t, ll, *args, *bp["w"]),
+               lambda: V.nbest_step_plain(plan, alpha_t, e_t, ll[0], nf, t0, acwt, beam,
+                                          bp["p"][0][0], bp["p"][1][0]),
+               (nbytes(bp["w"][0][0], bp["w"][1][0], ll[0]),
+                2 * cands + 2 * plan.src.numel() * b), equal=same, frames=frames,
+               frame_fn=lambda: V.nbest_step(plan, alpha_t, e_t, ll[0], nf, t0, acwt, beam,
+                                             bp["1"][0][0], bp["1"][1][0]),
+               launch_bytes=once + end_rows(nf, t0, frames),
+               frame_launch_bytes=once + end_rows(nf, t0, 1), what=what)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the main path's table, before the phases that size by memory
 
 
 def train_shape(width: Width, device, back_arcs: int = 0):
@@ -1235,8 +1319,10 @@ def check_nbest(hyps: dict, utts: list, what: str) -> None:
         check(len(set(arcs)) == len(arcs), f"{what}: two hypotheses of {u} share an arc sequence")
 
 
-def nbest_full_width(torch, device, width: Width, record, log) -> dict:
-    """Phase 11: the N-best path at full width.  Returns timing facts."""
+def nbest_full_width(torch, device, width: Width, log) -> dict:
+    """Phase 11: the N-best path at full width.  Returns timing facts, and
+    under ``walk`` the decoder, features and frame counts that
+    ``compare_backtrace_nbest`` takes."""
     import numpy as np
 
     from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MelOptions, MfccOptions
@@ -1252,13 +1338,16 @@ def nbest_full_width(torch, device, width: Width, record, log) -> dict:
                        mel_opts=MelOptions(num_bins=23))
     # exact search, as the Yes-No phases: with a beam the best path may be
     # pruned, and decode_batch, which it is held against, never prunes
-    dopts = DecodeOptions(acoustic_scale=1.0 / 13.0, beam=1e9)
+    dopts = DecodeOptions(acoustic_scale=1.0 / 13.0, beam=EXACT_BEAM)
     t0 = time.perf_counter()
     x = torch.cat(list(make_features(waves, utt2spk, opts, device=device).values())).double()
     am = feature_scaled_am(x.mean(0).cpu().numpy(), x.var(0).cpu().numpy() / 30.0,
                            width.num_pdfs, width.max_mix)  # as phase 9
     dec = Decoder.from_dense_graph(synth_decode_graph(width.num_states, num_pdfs=width.num_pdfs),
                                    am, dopts, device=device, row_width=8)
+    # built here, not in the first decode, so that the memory free before
+    # each decode_nbest is the memory free when it sizes its sub-batches
+    dec._nbest_plan = V.build_nbest_plan(dec.graph, device)
     del x
     setup_s = time.perf_counter() - t0
 
@@ -1270,18 +1359,21 @@ def nbest_full_width(torch, device, width: Width, record, log) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.empty_cache()  # the sub-batch is sized from the free memory
+        # the sub-batch decode_nbest picks, by its own rule on the same free memory
+        chunk = dec._nbest_chunk(batch.shape[1], batch.shape[2], width.nbest)
         t_feats = time.perf_counter()
         hyps = dec.decode_nbest(utts, batch, nf, nbest=width.nbest, keep_arcs=True)
-        return hyps, utts, batch, nf, t_feats - t_start, time.perf_counter() - t_feats
+        return hyps, utts, batch, nf, chunk, t_feats - t_start, time.perf_counter() - t_feats
 
     for k in _build.launches:
         _build.launches[k] = 0
-    hyps, utts, batch, nf, feat_s, nbest_s = run()
+    hyps, utts, batch, nf, chunk, feat_s, nbest_s = run()
     launches = dict(_build.launches)
-    sub_batches = launches["backtrace_nbest"]
+    sub_batches = math.ceil(len(utts) / chunk)
     if device.type == "cuda":
-        check(sub_batches > 0 and launches["viterbi_nbest"] == sub_batches,
-              f"K7 launched {launches['viterbi_nbest']} times for {sub_batches} sub-batches")
+        check(launches["viterbi_nbest"] == launches["backtrace_nbest"] == sub_batches,
+              f"K7 launched {launches['viterbi_nbest']} and backtrace_nbest "
+              f"{launches['backtrace_nbest']} times for {sub_batches} sub-batches of {chunk}")
     check(len(hyps) == len(waves), f"{len(hyps)} N-best lists for {len(waves)} utterances")
     check_nbest(hyps, utts, "full-width N-best")
     check(all(len(h[2]) == width.frames for u in utts for h in hyps[u]),
@@ -1300,14 +1392,14 @@ def nbest_full_width(torch, device, width: Width, record, log) -> dict:
     audio_s = len(waves) * width.frames * 0.01
     facts = {"setup_s": setup_s, "first_run_features_s": feat_s, "first_run_nbest_s": nbest_s,
              "audio_s": audio_s, "runs_s": walls,
-             "sub_batches": sub_batches or None,
+             "sub_batches": sub_batches,
              "median_audio_s_per_s": audio_s / float(np.median(walls)), "launches": launches,
              "hypotheses_per_utt": float(np.mean([len(hyps[u]) for u in utts])),
              "first_hyp_rel_err_max": worst}
     if device.type == "cuda":
         facts["profile"] = profile_run(torch, run, log, "full-width N-best decode")
     log(f"full-width N-best decode: {json.dumps(facts)}")
-    compare_backtrace_nbest(torch, dec, batch, nf, width, record, log)
+    facts["walk"] = (dec, batch, nf)
     return facts
 
 
@@ -1512,8 +1604,9 @@ def run(device, width: Width, log=print) -> dict:
         _build.launches[k] = 0
     nbest_yesno(torch, device, log)
     launched(_build.launches, NBEST_KERNELS, "yes-no N-best decode")
-    nbest = nbest_full_width(torch, device, width, record, log)
+    nbest = nbest_full_width(torch, device, width, log)
     launched(nbest["launches"], NBEST_KERNELS, "the full-width N-best decode")
+    compare_backtrace_nbest(torch, *nbest.pop("walk"), width, record, log)
     generic = generic_full_width(torch, device, width, log)
     launched(generic["launches"], GENERIC_KERNELS, "the full-width generic alignment")
     rates = features_other_rates(torch, device, width, log)

@@ -52,7 +52,7 @@ from voicebridge_tpu_torch.ops.graph import DenseGraph
 from voicebridge_tpu_torch.steps.decode import Decoder
 from voicebridge_tpu_torch.steps.make_feats import make_features
 from voicebridge_tpu_torch.testing import (feature_scaled_am, load_yesno_mono, random_am,
-                                           synth_decode_graph, synth_train_graph)
+                                           random_codes, synth_decode_graph, synth_train_graph)
 from voicebridge_tpu_torch.transforms import cmvn as TC
 
 from synth import make_corpus
@@ -641,14 +641,6 @@ def test_nbest_step_matches_plain(cuda, monkeypatch, nbest, b, window, blocks, b
         assert int(((arc_k < 0) & (slot_k == 0)).sum()) > 0
 
 
-def _random_codes(rng, plan, w, b):
-    """bps [W, S+1, B]: for every state a code of one of its row slots,
-    pads and dead rows included."""
-    rows = np.diff(plan.row_start).astype(np.int64)
-    codes = rng.integers(0, 1 << 40, (w, len(rows), b)) % (rows * plan.d)[None, :, None]
-    return codes.astype(np.uint8 if plan.packed else np.int16)
-
-
 @pytest.mark.parametrize("b", [1, 5, 128, 130])
 @pytest.mark.parametrize("t", [1, 3, 1000])
 def test_backtrace_best_matches_plain(cuda, b, t):
@@ -660,7 +652,7 @@ def test_backtrace_best_matches_plain(cuda, b, t):
     plan = DC.build_emit_plan(graph, d=4)
     dev = DC.plan_to_device(plan, cuda)
     rng = np.random.default_rng(b + t)
-    bps = torch.from_numpy(_random_codes(rng, plan, t, b)).to(cuda)
+    bps = torch.from_numpy(random_codes(rng, plan, t, b)).to(cuda)
     nf = torch.from_numpy(rng.integers(0, t + 1, b).astype(np.int32)).to(cuda)
     nf[0] = t
     state_k = state_p = torch.from_numpy(rng.integers(0, plan.num_states, b)

@@ -18,7 +18,7 @@ from voicebridge_tpu.ops import viterbi as JV
 from voicebridge_tpu_torch import convert
 from voicebridge_tpu_torch.ops import decode_core as DC
 from voicebridge_tpu_torch.ops.graph import DenseGraph, compile_dense_graph
-from voicebridge_tpu_torch.testing import load_yesno_mono, synth_decode_graph
+from voicebridge_tpu_torch.testing import load_yesno_mono, random_codes, synth_decode_graph
 
 torch.set_num_threads(2)
 
@@ -246,14 +246,6 @@ def _hub_graph(seed):
                       arc_oseq=np.zeros_like(src))
 
 
-def _random_codes(rng, plan, w, b):
-    """bps [W, S+1, B]: for every state a code of one of its row slots,
-    pads and dead rows included."""
-    rows = np.diff(plan.row_start).astype(np.int64)  # [S+1]
-    codes = rng.integers(0, 1 << 40, (w, len(rows), b)) % (rows * plan.d)[None, :, None]
-    return codes.astype(np.uint8 if plan.packed else np.int16)
-
-
 @pytest.mark.parametrize("which", ["packed", "int16"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_backtrace_scan_matches_jax(which, seed):
@@ -269,7 +261,7 @@ def test_backtrace_scan_matches_jax(which, seed):
     plan = DC.build_emit_plan(graph, d=4)
     assert plan.packed == (which == "packed")
     b, w1, w2 = 7, 6, 5
-    bps = _random_codes(rng, plan, w1 + w2, b)
+    bps = random_codes(rng, plan, w1 + w2, b)
     nf = np.array([0, 1, 3, w1, w1 + 2, w1 + w2, w1 + w2 - 1], np.int32)
     end = rng.integers(0, plan.num_states, b).astype(np.int32)
     dev = DC.plan_to_device(plan, "cpu")

@@ -19,7 +19,6 @@ the phases (with the cProfile of one run of each) goes to
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import subprocess
 import sys
@@ -54,11 +53,7 @@ def main() -> int:
             print(msg, file=logf, flush=True)
 
         decode = C.decode_full_width(torch, device, C.FULL, log)
-        if "record" in inspect.signature(C.nbest_full_width).parameters:
-            record = C.make_record(torch, {}, log, True)
-            nbest = C.nbest_full_width(torch, device, C.FULL, record, log)
-        else:
-            nbest = C.nbest_full_width(torch, device, C.FULL, log)
+        nbest = C.nbest_full_width(torch, device, C.FULL, log)
     report = {"card": card, "tree": str(tree), "label": args.label}
     for key, facts in (("decode", decode), ("nbest", nbest)):
         report[key] = {"median_audio_s_per_s": facts["median_audio_s_per_s"],

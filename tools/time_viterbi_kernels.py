@@ -1,6 +1,7 @@
-"""Time the Viterbi relaxation (K3) and the lattice recompute-and-test step
-(K5) of voicebridge_tpu_torch at full width on one NVIDIA GPU, for the
-checkout's kernel sources and for other versions of them side by side.
+"""Time the Viterbi relaxation (K3), the lattice recompute-and-test step (K5)
+and the N-best relaxation (K7) of voicebridge_tpu_torch at full width on one
+NVIDIA GPU, for the checkout's kernel sources and for other versions of them
+side by side.
 
     python tools/time_viterbi_kernels.py [--lanes 128] [--frames 16]
                                          [--variant NAME=DIR ...]
@@ -11,9 +12,11 @@ ms per frame (CUDA events, mean of 5 runs after a warm-up): K3 over the
 forward plan as one window of ``--frames`` frames with and without
 backpointers and one frame a launch; K3 over the backward plan (the lattice's
 ``bwd_window``, beta_eff select fused) as a window and one frame a launch;
-K5 as a window and one frame a launch.  Each ``--variant`` names a directory
-holding other versions of ``viterbi_step.cu`` and/or ``lattice_fb.cu`` (same
-C interface); every version is built with the package's nvcc flags into its
+K5 as a window and one frame a launch; K7 at the full-width N-best shape (32
+lanes x 4 slots, exact search, every slot live as late in an utterance) as a
+window and one frame a launch.  Each ``--variant`` names a directory holding
+other versions of ``viterbi_step.cu``, ``lattice_fb.cu`` and/or
+``viterbi_nbest.cu`` (same C interface); every version is built with the package's nvcc flags into its
 own library under ``_archive/kernel_variants/`` and timed in turns (all in
 order, then in reverse).  Prints one JSON object with the card's name and
 power limit.
@@ -37,14 +40,15 @@ import torch  # noqa: E402
 from voicebridge_tpu_torch import _build  # noqa: E402
 from voicebridge_tpu_torch.ops import decode_core as DC  # noqa: E402
 from voicebridge_tpu_torch.ops import lattice as LAT  # noqa: E402
+from voicebridge_tpu_torch.ops import viterbi as V  # noqa: E402
 from voicebridge_tpu_torch.testing import synth_decode_graph  # noqa: E402
 
 OUT = ROOT / "_archive" / "kernel_variants"
-KERNEL_SOURCES = ("viterbi_step.cu", "lattice_fb.cu")
+KERNEL_SOURCES = ("viterbi_step.cu", "lattice_fb.cu", "viterbi_nbest.cu")
 
 
 def build(name: str, src_dir: Path | None) -> tuple[ctypes.CDLL, str]:
-    """Build mfcc.cu (the error strings) with the two kernel sources from
+    """Build mfcc.cu (the error strings) with the kernel sources from
     ``src_dir`` (default: the package's) into one library; returns it and
     the compiler's register report."""
     out = OUT / name
@@ -65,7 +69,7 @@ def build(name: str, src_dir: Path | None) -> tuple[ctypes.CDLL, str]:
     lib_path = out / "libvariant.so"
     subprocess.run([nvcc, "-shared", "-o", str(lib_path), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    for fn in ("vbt_viterbi_step", "vbt_lattice_fb"):
+    for fn in ("vbt_viterbi_step", "vbt_lattice_fb", "vbt_viterbi_nbest"):
         getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     lib.vbt_error_string.argtypes = (ctypes.c_int,)
@@ -102,6 +106,16 @@ def cases(lanes: int, frames: int) -> dict:
     slab = torch.empty((k, s1, b), device=dev)
     thresh = torch.full((b,), -1e9, device=dev)
     words = torch.empty((k, fwd.num_rows, b), dtype=torch.uint8, device=dev)
+    # K7: 32 lanes x 4 slots, every slot live, lists sorted best first
+    nb, nk = 32, 4
+    nplan = V.build_nbest_plan(graph, dev)
+    lists = -np.sort(-(rng.standard_normal((graph.num_states, nb, nk)) * 10 - 300), axis=2)
+    nalpha = torch.from_numpy(lists.astype(np.float32)).to(dev)
+    nend = torch.full_like(nalpha, V.NEG_INF)
+    nll = ll[:, :, :nb].contiguous()
+    nbp = (torch.empty((k, graph.num_states, nb, nk), dtype=torch.int32, device=dev),
+           torch.empty((k, graph.num_states, nb, nk), dtype=torch.int8, device=dev))
+    n7 = (nf[:nb].contiguous(), 0, 0.077, 1e9)
     f = (fwd_dev, nf, 0, 0.077, fwd.rspec, fwd.packed)
     bw = (bwd_dev, nf, 0, 0.077, bwd.rspec, bwd.packed, final_eff)
     fb = (fwd_dev, row_dst, slab, nf, 0, 0.077, thresh, fwd.rspec)
@@ -114,6 +128,9 @@ def cases(lanes: int, frames: int) -> dict:
         "k5_window": (lambda: LAT.fb_frames(alpha, ll, *fb, words), k),
         "k5_frame": (lambda: LAT.fb_frames(alpha, ll[:1], *fb[:2], slab[:1], *fb[3:],
                                            words[:1]), 1),
+        "k7_window": (lambda: V.nbest_window(nplan, nalpha, nend, nll, *n7, *nbp), k),
+        "k7_frame": (lambda: V.nbest_window(nplan, nalpha, nend, nll[:1], *n7, nbp[0][:1],
+                                            nbp[1][:1]), 1),
     }
 
 

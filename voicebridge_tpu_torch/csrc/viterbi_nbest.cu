@@ -23,12 +23,15 @@
 // multiply are __fadd_rn / __fmul_rn in the JAX order, so equal inputs give
 // bit-equal scores and equal provenance as the plain version.
 //
-// What bounds it on the H100: bytes, and behind them the latency of the
-// gathers.  A frame reads every source's K-list for every arc and lane
-// (246 MB of gathers at 32 lanes x 4 slots on the 60k-state / 480k-arc
-// graph, from a 31 MB alpha table that mostly stays in the 50 MB L2) and
-// writes 9 bytes per (state, lane, slot): score, arc and slot.  Counted once,
-// that is 108 MB a frame, 0.032 ms at 3.35 TB/s.
+// What bounds it on the H100: not bytes.  A window reads and writes the
+// [S, B, K] scores once and each frame writes 5 bytes of backpointers per
+// (state, lane, slot): 38.7 MB a frame over 1000 frames at 32 lanes x 4
+// slots on the 60k-state / 480k-arc graph, 0.0116 ms at 3.35 TB/s.  Its
+// gathers (every source's K-list for every arc and lane, 246 MB a frame)
+// come from the 50 MB L2, which holds the ping-pong score buffers.  The same
+// bytes take longer when more candidates enter the lists, so the per-arc
+// work (prune on read, merge) holds it; more gathers in flight per warp did
+// not help.
 //
 // Design:
 // * Lane-minor layout [S, B, K]: a warp takes one state and 32 lanes, a
@@ -40,10 +43,12 @@
 //   __shfl_sync; the next arc's lists are loaded before the current ones are
 //   inserted (K <= 8).  A batch of fewer than 32 lanes leaves lanes idle.
 // * The list lives in registers (KM = 1, 2, 4, 8 or 16 slots; the first K
-//   are written), sorted by an unrolled insertion, with the arc id and the
-//   slot packed in one int (arc << 4 | slot: arc ids below 2^27).  Source
-//   lists are sorted, so a source's remaining slots are skipped once one
-//   fails to enter.
+//   are written), with the arc id and the slot packed in one int (arc << 4
+//   | slot: arc ids below 2^27).  Source lists are sorted, so a source is
+//   skipped when its best candidate does not enter; else its candidates are
+//   merged in by a bitonic network, branch-free across the warp's lanes,
+//   ordered by score and then (arc, slot), the order the candidates are met
+//   in, which keeps the ties of the insertion that defines the result.
 // * One cooperative launch runs W frames, sized to the blocks that fit on
 //   the card at once; blocks stride over (lane group, 8 states) units in the
 //   same order every frame, so a thread meets the same (state, lane) each
@@ -172,6 +177,57 @@ __device__ __forceinline__ void flush_best(float (&red)[kWarps][32], float m, fl
   __syncthreads();
 }
 
+// One source's candidates into the thread's top-K list (v, prov): its
+// sorted slots x, pruned first against thr when ``prune``, plus the arc's
+// weight (arc score wj, acoustic score llv); aj is the arc id.
+template <int KM>
+__device__ __forceinline__ void consider(float (&x)[KM], float llv, float wj, int aj, float acwt,
+                                         int k, bool prune, float thr, float (&v)[KM],
+                                         int (&prov)[KM]) {
+  if (prune) {
+#pragma unroll
+    for (int q = 0; q < KM; ++q) x[q] = x[q] >= thr ? x[q] : kNeg;
+  }
+  if (!(x[0] > kNeg)) return;  // the source holds no hypothesis
+  const float w = __fadd_rn(wj, __fmul_rn(llv, acwt));
+  if (!(__fadd_rn(x[0], w) > v[KM - 1])) return;  // nor will its later slots
+  // merge the source's sorted candidates into the sorted list: keep the
+  // better of v[i] and c[KM-1-i] (a bitonic sequence holding the top KM of
+  // both), then sort it; better = larger score, then smaller (arc, slot),
+  // which is the order the candidates are met in
+  float c[KM];
+  int cp[KM];
+#pragma unroll
+  for (int q = 0; q < KM; ++q) {
+    const bool live = q < k && x[q] > kNeg;
+    c[q] = live ? __fadd_rn(x[q], w) : kNeg;
+    cp[q] = live ? ((aj << 4) | q) : kNone;
+  }
+#pragma unroll
+  for (int i = 0; i < KM; ++i) {
+    const int j = KM - 1 - i;
+    if (c[j] > v[i] || (c[j] == v[i] && cp[j] < prov[i])) {
+      v[i] = c[j];
+      prov[i] = cp[j];
+    }
+  }
+#pragma unroll
+  for (int st = KM / 2; st > 0; st >>= 1) {
+#pragma unroll
+    for (int i = 0; i < KM; ++i) {
+      if (i & st) continue;
+      if (v[i + st] > v[i] || (v[i + st] == v[i] && prov[i + st] < prov[i])) {
+        const float tv = v[i];
+        v[i] = v[i + st];
+        v[i + st] = tv;
+        const int tp = prov[i];
+        prov[i] = prov[i + st];
+        prov[i + st] = tp;
+      }
+    }
+  }
+}
+
 // One state's top-K for the thread's lane at frame i, from the lists in
 // ``in`` (pruned on read against thr when ``prune``).  Called by all 32
 // threads of a warp: the arc loops are warp-uniform, ``act`` is not.
@@ -236,32 +292,7 @@ __device__ __forceinline__ void relax(const K7Args& a, const float* in, int i, i
           llv = __ldg(ll_b + pj * b);
         }
       }
-      if (!act) continue;
-      if (prune) {
-#pragma unroll
-        for (int q = 0; q < KM; ++q) x[q] = x[q] >= thr ? x[q] : kNeg;
-      }
-      if (!(x[0] > kNeg)) continue;  // the source holds no hypothesis
-      const float w = __fadd_rn(wj, __fmul_rn(llv, a.acwt));
-#pragma unroll
-      for (int q = 0; q < KM; ++q) {
-        if (q >= k) break;
-        const float c = __fadd_rn(x[q], w);
-        if (!(c > v[KM - 1])) break;  // nor will the source's later slots
-        v[KM - 1] = c;
-        prov[KM - 1] = (aj << 4) | q;
-#pragma unroll
-        for (int r = KM - 1; r > 0; --r) {
-          if (v[r] > v[r - 1]) {
-            const float tv = v[r];
-            v[r] = v[r - 1];
-            v[r - 1] = tv;
-            const int tp = prov[r];
-            prov[r] = prov[r - 1];
-            prov[r - 1] = tp;
-          }
-        }
-      }
+      if (act) consider<KM>(x, llv, wj, aj, a.acwt, k, prune, thr, v, prov);
     }
   }
 }

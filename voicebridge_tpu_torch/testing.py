@@ -84,6 +84,15 @@ def synth_decode_graph(num_states: int = 60_000, arcs_per_state: int = 8,
         final_oseq=np.zeros(num_states, np.int32), oseqs=[()])
 
 
+def random_codes(rng, plan, w: int, b: int) -> np.ndarray:
+    """Random K3 backpointer codes [W, S+1, B] over the emit plan ``plan``:
+    for every state a code of one of its row slots, pads and dead rows
+    included (uint8 for a packed plan, else int16)."""
+    rows = np.diff(plan.row_start).astype(np.int64)  # [S+1]
+    codes = rng.integers(0, 1 << 40, (w, len(rows), b)) % (rows * plan.d)[None, :, None]
+    return codes.astype(np.uint8 if plan.packed else np.int16)
+
+
 def random_am(num_pdfs: int = 2000, max_mix: int = 5, dim: int = 39,
               seed: int = 1) -> AmDiagGmm:
     """Random diagonal GMM of the given size (``bench.py``'s decode AM)."""
