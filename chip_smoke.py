@@ -117,6 +117,33 @@ Phases, each of which must pass (any failure exits nonzero):
 13. Features at 22.05 kHz and 48 kHz: waves -> make_features on the card
    (K1 at 1024 and 2048 points), 16 utterances each, equal to the plain
    version on the CPU within the MFCC tolerance.
+14. The triphone stages on the card.  The committed JAX-trained tri2b model
+   (``testing.load_synth_tri2b``) decodes its test utterances from waves
+   (``make_features(deltas=None)`` -> ``lda_decode_feats`` ->
+   ``decode_batch``, exact search) to the JAX package's stored words for
+   every utterance.  The port trains mono -> tri1 (``tests/test_tri.py``'s
+   corpus and options; test WER <= 5 %) and mono -> tri2b
+   (``tests/test_sat_lda.py``'s; test WER <= 10 %, a 40-row final_mat) on
+   the card and decodes with them; which aligner each stage's triphone
+   graphs took, and why, goes to the log, and K2, K6 and that aligner's
+   kernels must have launched.
+15. tri2b at full width (splice +-3 of 13-dim features, LDA to 40, 2000 x 5
+   Gaussians).  Training half, at phase 8's shape: a K4 alignment with
+   phase 8's model on the features' deltas, then the step's own functions
+   (``steps/train_lda_mllt.py``): the LDA estimate, one MLLT update and one
+   EM iteration (realignment by K2 and K4, E-step by K6, host M-step),
+   timed as phase 8.  Splice, ``acc_lda_stats``, ``apply_affine_transform``
+   and ``acc_mllt_stats`` are held to float64 plain versions on the card
+   (the CPU tests' tolerances; the LDA second moment's atol scaled by its
+   largest entry) with their wall and device times and bounds; K6 at D = 40
+   is held to its plain version on the EM iteration's model of uneven
+   mixture counts.  Decode half, at phase 7's shape: waves ->
+   ``make_features(deltas=None)`` -> ``lda_decode_feats`` -> ``decode_batch``
+   over the 60k-state graph with a 2000 x 5 x 40 GMM drawn on the features'
+   scale; every utterance must get a T-arc path with a finite score, with
+   one K3 window and one ``backtrace_best`` per block; K2 at D = 40 is held
+   to its float64 plain version on these features and timed against its
+   TF32 bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
@@ -1557,8 +1584,434 @@ def features_other_rates(torch, device, width: Width, log) -> dict:
     return facts
 
 
+def aligner_kernels(aligner: str) -> tuple:
+    """The kernels of the aligner ``AlignmentSet.aligner`` names."""
+    if aligner.startswith("banded"):
+        return ("align_forward", "align_backtrace")
+    return ("generic_forward", "generic_backtrace")
+
+
+def tri_yesno(torch, device, log) -> dict:
+    """Phase 14: the triphone stages on the device.  Returns, per part, its
+    facts and the launch counts of its run."""
+    from synth import LEXICON, SR, make_corpus, make_speaker_corpus
+    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions, _build
+    from voicebridge_tpu_torch.config import LangOptions, MonoTrainOptions, TriTrainOptions
+    from voicebridge_tpu_torch.data.lang import prepare_lang
+    from voicebridge_tpu_torch.fst.hclg import mkgraph
+    from voicebridge_tpu_torch.lm.arpa import arpa_to_fst
+    from voicebridge_tpu_torch.lm.ngram import estimate_ngram
+    from voicebridge_tpu_torch.steps.align import align_utterances
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
+    from voicebridge_tpu_torch.steps.train_lda_mllt import lda_decode_feats, train_lda_mllt
+    from voicebridge_tpu_torch.steps.train_mono import train_mono
+    from voicebridge_tpu_torch.steps.train_tri import train_tri
+    from voicebridge_tpu_torch.testing import compute_wer_set, load_synth_tri2b
+
+    def reset():
+        for k in _build.launches:
+            _build.launches[k] = 0
+
+    def decode(dec, feats, corpus, words):
+        utts = sorted(feats)
+        res = dec.decode_batch(utts, *pad_features(feats, utts))
+        hyps = {r.utt: [words.sym(w) for w in r.words] for r in res}
+        return res, hyps, compute_wer_set({u: list(corpus[u][1]) for u in utts}, hyps)
+
+    facts: dict = {}
+    # the JAX-trained tri2b model: base features (CMVN per speaker over train
+    # and test, as its recipe) -> splice + final_mat on the card -> K2, K3
+    m = load_synth_tri2b()
+    train, test, utt2spk = make_speaker_corpus(**m.corpus)
+    opts = MfccOptions(frame_opts=FrameOptions(samp_freq=m.samp_freq, dither=0.0))
+    waves = {u: w for u, (w, _) in {**train, **test}.items()}
+    reset()
+    base = make_features(waves, utt2spk, opts, deltas=None, device=device)
+    feats = lda_decode_feats({u: base[u] for u in test}, m.final_mat, device=device)
+    check(all(tuple(f.shape[1:]) == (40,) for f in feats.values()), "LDA features not 40-dim")
+    dec = Decoder(m.hclg, m.trans_model, m.am, DecodeOptions(beam=1e9), device=device)
+    res, hyps, stats = decode(dec, feats, test, m.words)
+    launches = dict(_build.launches)
+    bad = [u for u in hyps if hyps[u] != m.hyps[u]]
+    check(not bad, f"tri2b fixture: words differ from the JAX package's for {bad}")
+    rel = max(abs(r.score - m.scores[r.utt]) / abs(m.scores[r.utt]) for r in res)
+    facts["fixture"] = {"utts": len(hyps), "wer": stats.wer, "score_rel_diff_max": rel,
+                        "launches": launches}
+    log(f"tri2b fixture decoded on {device}: {stats}; the JAX package's words for all "
+        f"{len(hyps)} test utterances, scores within {rel:.3g} relative")
+
+    lang = prepare_lang(LEXICON, ["SIL"], "SIL", LangOptions())
+    mono_opts = MonoTrainOptions(num_iters=10, totgauss=150, max_iter_inc=8,
+                                 realign_iters=tuple(range(1, 10)))
+
+    def lm_graph(model, corpus):
+        g = arpa_to_fst(estimate_ngram([ws for (_w, ws) in corpus.values()], order=2),
+                        lang.words.id, lang.word_disambig_id)
+        return Decoder(mkgraph(lang, model.tree, model.trans_model, g), model.trans_model,
+                       model.am, DecodeOptions(beam=1e9), device=device)
+
+    def mono_and_alignments(delta, transcripts):
+        mono = train_mono(delta, transcripts, lang, mono_opts, device=device)
+        return mono, align_utterances(mono.am, mono.trans_model, lang, delta, transcripts,
+                                      acoustic_scale=0.1, device=device)
+
+    # mono -> tri1 (tests/test_tri.py's corpus and options)
+    tr1, te1 = make_corpus(num_train=20, num_test=8, seed=11)
+    feats1 = {name: make_features({u: w for u, (w, _) in c.items()}, {u: u for u in c},
+                                  MfccOptions(frame_opts=FrameOptions(samp_freq=SR,
+                                                                      dither=0.0)),
+                                  device=device)
+              for name, c in (("train", tr1), ("test", te1))}
+    transcripts1 = {u: [lang.words.id(w) for w in ws] for u, (_, ws) in tr1.items()}
+    t0 = time.perf_counter()
+    mono, ali = mono_and_alignments(feats1["train"], transcripts1)
+    reset()
+    opts1 = TriTrainOptions(num_iters=10, num_leaves=120, totgauss=300, max_iter_inc=8,
+                            realign_iters=(2, 4, 6, 8))
+    tri1 = train_tri(feats1["train"], transcripts1, ali, lang, opts1,
+                     prev_trans_model=mono.trans_model, device=device)
+    launches = dict(_build.launches)
+    wall = time.perf_counter() - t0
+    _, _, stats = decode(lm_graph(tri1, tr1), feats1["test"], te1, lang.words)
+    facts["tri1"] = {"wer": stats.wer, "pdfs": tri1.tree.num_pdfs,
+                     "gaussians": tri1.am.num_gauss,
+                     "aligner": tri1.aligner, "train_s": wall,
+                     "launches": launches}
+    log(f"tri1 trained on {device}: {json.dumps(facts['tri1'])}; test {stats}")
+    check(stats.wer <= 5.0, f"tri1 (port-trained): test WER {stats.wer} > 5")
+
+    # mono -> tri2b (tests/test_sat_lda.py's corpus and options)
+    delta = make_features(waves, utt2spk, opts, device=device)
+    transcripts = {u: [lang.words.id(w) for w in ws] for u, (_, ws) in train.items()}
+    t0 = time.perf_counter()
+    mono, ali = mono_and_alignments({u: delta[u] for u in train}, transcripts)
+    reset()
+    opts2 = TriTrainOptions(num_iters=8, num_leaves=100, totgauss=300, max_iter_inc=6,
+                            realign_iters=(2, 4, 6), mllt_iters=(2, 4))
+    tri2b, final_mat = train_lda_mllt({u: base[u] for u in train}, transcripts, ali, lang,
+                                      opts2, prev_trans_model=mono.trans_model, device=device)
+    launches = dict(_build.launches)
+    wall = time.perf_counter() - t0
+    check(final_mat.shape == (40, 92), f"tri2b final_mat has shape {final_mat.shape}")
+    lda_test = lda_decode_feats({u: base[u] for u in test}, final_mat, device=device)
+    _, _, stats = decode(lm_graph(tri2b, train), lda_test, test, lang.words)
+    facts["tri2b"] = {"wer": stats.wer, "pdfs": tri2b.tree.num_pdfs,
+                      "gaussians": tri2b.am.num_gauss,
+                      "aligner": tri2b.aligner, "train_s": wall,
+                      "launches": launches}
+    log(f"tri2b trained on {device}: {json.dumps(facts['tri2b'])}; test {stats}")
+    check(stats.wer <= 10.0, f"tri2b (port-trained): test WER {stats.wer} > 10")
+    return facts
+
+
+class IdentityTransitions:
+    """The transition model of the synthetic training graphs, whose
+    transition ids are their pdfs (``testing.synth_train_graph``): what
+    ``train_tri.e_step`` and ``m_step`` read of a transition model."""
+
+    def __init__(self, num_pdfs: int):
+        import numpy as np
+        from types import SimpleNamespace
+
+        self.tid2pdf = np.arange(num_pdfs, dtype=np.int32)
+        self.num_transition_ids = num_pdfs - 1
+        self.tree = SimpleNamespace(num_pdfs=num_pdfs)
+
+    def mle_update(self, stats):
+        """The synthetic graphs' arc scores stay as drawn."""
+
+
+def device_function(torch, name: str, pairs, fn, work, log) -> dict:
+    """One device function of the LDA path held to its float64 plain version:
+    each (got, ref, rtol, atol) of ``pairs`` within its tolerance (0, 0:
+    bit-equal), with its wall time of one call, its device time (CUDA
+    events) and its bound from ``work`` = (bytes, operations at the float32
+    rate)."""
+    err, ok = 0.0, True
+    for g, r, rtol, atol in pairs:
+        g = torch.as_tensor(g).double()
+        r = torch.as_tensor(r).double().to(g.device)
+        err = max(err, float((g - r).abs().max()))
+        ok = ok and (bool(torch.equal(g, r)) if rtol == atol == 0 else
+                     bool(torch.allclose(g, r, rtol=rtol, atol=atol)))
+    timed = torch.as_tensor(pairs[0][0]).device.type == "cuda"
+    wall_ms = None
+    if timed:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    byte_ms, op_ms = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / FP32_OPS_PER_S
+    entry = {"max_abs_err": err, "tolerances": [[p[2], p[3]] for p in pairs],
+             "wall_ms": wall_ms, "ms": cuda_ms(torch, fn) if timed else None,
+             "bound_ms": max(byte_ms, op_ms),
+             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+             "bytes": work[0], "operations": work[1]}
+    log(f"{name}: {json.dumps(entry)}")
+    check(ok, f"{name} disagrees with its float64 plain version (max abs err {err})")
+    return entry
+
+
+def scaled_atol(atol: float, ref) -> float:
+    """The CPU tests' atol for sums of their size (largest entry about 1e3),
+    scaled with the largest entry of ``ref``: entries near zero are
+    differences of products as large as the largest."""
+    return atol * max(1.0, float(ref.abs().max()) / 1e3)
+
+
+def splice64(feats, nf, ctx: int):
+    """Splice's plain version: each offset's frames gathered one utterance
+    at a time in float64, then side by side."""
+    import torch
+
+    out = []
+    for i in range(feats.shape[0]):
+        t = torch.arange(feats.shape[1], device=feats.device)
+        last = max(int(nf[i]) - 1, 0)
+        out.append(torch.cat([feats[i].double()[(t + o).clamp(0, last)]
+                              for o in range(-ctx, ctx + 1)], dim=1))
+    return torch.stack(out)
+
+
+def lda_mllt_full_width(torch, device, width: Width, record, results: dict, log) -> dict:
+    """Phase 15: tri2b at full width (splice +-3 of 13-dim features, LDA to
+    40, the 2000 x 5 GMM).  Training half at phase 8's shape through the
+    functions of ``steps/train_lda_mllt.py``; decode half at phase 7's.
+    Returns timing facts."""
+    import copy
+
+    import numpy as np
+
+    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MelOptions, MfccOptions
+    from voicebridge_tpu_torch import _build, convert
+    from voicebridge_tpu_torch.config import TriTrainOptions
+    from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel
+    from voicebridge_tpu_torch.ops.features import add_deltas_batch, splice_frames_batch
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
+    from voicebridge_tpu_torch.steps.train_lda_mllt import (estimate_lda_from_alignment,
+                                                            lda_decode_feats, mllt_update)
+    from voicebridge_tpu_torch.steps.train_tri import e_step, m_step, realign
+    from voicebridge_tpu_torch.testing import feature_scaled_am, random_am, synth_decode_graph
+    from voicebridge_tpu_torch.transforms import lda as L
+    from voicebridge_tpu_torch.transforms import mllt as M
+
+    gmm_tol = TOL["gmm_loglikes"]
+    fns: dict = {}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # earlier phases' large tables, before the float64 references
+    # ---- training half ----
+    graphs, aset, _, nf = train_shape(width, device)
+    b, t = width.train_batch, width.train_frames
+    rng = np.random.default_rng(8)
+    base = torch.from_numpy(rng.standard_normal((b, t, 13), dtype=np.float32)).to(device)
+    nf_t = torch.from_numpy(nf)
+    # the prior alignment: K2 and K4 with the 39-dim model of phase 8 on
+    # the base features' deltas
+    prior_am = random_am(width.num_pdfs, width.max_mix, 39, seed=4)
+    prior = aset.align_feats(gmm_kernels.pack_gmm(prior_am, device), add_deltas_batch(base, nf_t),
+                             nf, acoustic_scale=0.1)
+    check(all(len(r["arcs"]) == n for r, n in zip(prior, nf)), "the prior alignment failed")
+    tids = np.stack([g.arc_tid[r["arcs"]] for g, r in zip(graphs, prior)]).astype(np.int32)
+    weights = np.ones((b, t), np.float32)
+    pdf = tids.reshape(-1)  # the synthetic graphs' transition ids are their pdfs
+    spliced = splice_frames_batch(base, nf_t)
+    sdim = spliced.shape[2]
+    n = b * t
+    fns["splice_train"] = device_function(
+        torch, "splice (training shape)", [(spliced, splice64(base, nf, 3), 0.0, 0.0)],
+        lambda: splice_frames_batch(base, nf_t), (4 * n * (13 + sdim), 0), log)
+    x = spliced.reshape(n, sdim)
+    c = width.num_pdfs
+    stats = L.acc_lda_stats(x, pdf, weights.reshape(-1), c)
+    ids = torch.from_numpy(pdf).to(device, torch.int64)
+    x64, w64 = x.double(), torch.ones(n, dtype=torch.float64, device=device)
+    ref = (torch.zeros(c, dtype=torch.float64, device=device).index_add_(0, ids, w64),
+           torch.zeros((c, sdim), dtype=torch.float64, device=device).index_add_(
+               0, ids, x64 * w64[:, None]), (x64 * w64[:, None]).T @ x64)
+    # counts and class means rtol 1e-5, the second moment rtol 1e-5 / atol 1e-3
+    # (tests/test_torch_lda_mllt.py), scaled with its largest entry
+    fns["acc_lda_stats"] = device_function(
+        torch, "acc_lda_stats",
+        [(stats[0], ref[0], 1e-5, 1e-5), (stats[1], ref[1], 1e-5, scaled_atol(1e-5, ref[1])),
+         (stats[2], ref[2], 1e-5, scaled_atol(1e-3, ref[2]))],
+        lambda: L.acc_lda_stats(x, pdf, weights.reshape(-1), c),
+        (4 * n * (sdim + 1) + 8 * n + 4 * c * (sdim + 1) + 4 * sdim * sdim,
+         2 * n * sdim * sdim + 2 * n * sdim), log)
+    del x64, ref
+    cur_mat = estimate_lda_from_alignment(x, pdf, weights.reshape(-1), c)
+    feats = L.apply_affine_transform(spliced, cur_mat)
+    e = feats.shape[2]
+    mat64 = torch.from_numpy(cur_mat).to(device).double()
+    fns["apply_affine_transform_train"] = device_function(
+        torch, "apply_affine_transform (training shape)",
+        [(feats, spliced.double() @ mat64[:, :-1].T + mat64[:, -1], *gmm_tol)],
+        lambda: L.apply_affine_transform(spliced, cur_mat),
+        (4 * n * (sdim + e) + 4 * cur_mat.size, 2 * n * sdim * e), log)
+    x40 = feats.reshape(n, e).double()
+    am = feature_scaled_am(x40.mean(0).cpu().numpy(), x40.var(0).cpu().numpy(),
+                           width.num_pdfs, width.max_mix, seed=9)
+    del x40
+    # acc_mllt_stats against its plain version in float64 (all-float64
+    # inputs through the same chunk function, one chunk)
+    params = gmm_kernels.pack_gmm(am, device)
+    mllt_args = (am.means(), am.inv_vars, feats.reshape(n, e), pdf, weights.reshape(-1))
+    g, beta = M.acc_mllt_stats(params, *mllt_args)
+    params64 = gmm_kernels.GmmParams(params.w_matrix.double(), params.gconsts.double())
+    g64, b64 = M._mllt_chunk(params64, *(torch.as_tensor(a).to(device, torch.float64)
+                                         for a in mllt_args[:3]), ids,
+                             torch.as_tensor(mllt_args[4]).to(device, torch.float64))
+    # the least work for G: the posteriors of the k weighted (frame, live
+    # Gaussian) pairs, S_g = sum over g's pairs of gamma diff diff^T (k e^2
+    # multiply-adds), then G[d] = sum_g iv[g, d] S_g, one [e, G] x [G, e^2]
+    # product over the live Gaussians
+    live = (am.weights > 0).sum(axis=1)
+    k = int(live[pdf][weights.reshape(-1) != 0].sum())
+    log(f"acc_mllt_stats: largest |G| {float(g64.abs().max()):.6g}, beta {beta:.6g}")
+    # G rtol 1e-4 / atol 1e-3 scaled with its largest entry, beta rtol 1e-6
+    fns["acc_mllt_stats"] = device_function(
+        torch, "acc_mllt_stats",
+        [(g, g64, 1e-4, scaled_atol(1e-3, g64)), (torch.tensor(beta), b64.cpu(), 1e-6, 0.0)],
+        lambda: M.acc_mllt_stats(params, *mllt_args),
+        (4 * n * (e + 2) + 4 * am.num_pdfs * width.max_mix * (4 * e + 1) + 4 * e ** 3,
+         4 * k * e + 2 * k * e * e + 2 * e * am.num_gauss * e * e), log)
+    del g64, params, params64
+    cur_mat, feats, impr = mllt_update(am, feats, spliced, cur_mat, pdf, weights.reshape(-1))
+    log(f"MLLT at full width: objf improvement {impr:.5f} per frame")
+    x = feats.reshape(n, e)
+    tm = IdentityTransitions(width.num_pdfs)
+    opts = TriTrainOptions()
+    am0 = am
+
+    def em_iter():
+        """Realignment (K2, K4) -> E-step (K6) -> host M-step, on copies."""
+        t_start = time.perf_counter()
+        am = copy.deepcopy(am0)
+        tids_i, w_i = tids.copy(), weights.copy()
+        realign(aset, am, feats, nf, tids_i, w_i, [], opts, "full-width tri2b realign",
+                [f"utt{i}" for i in range(b)])
+        stats = e_step(am, tm, x, tids_i, w_i)
+        m_step(am, tm, stats, am0.num_gauss, opts, seed=2001)
+        check(np.isfinite(stats[4]) and np.isfinite(am.means_invvars).all(),
+              "full-width tri2b: statistics are not finite")
+        return time.perf_counter() - t_start, am
+
+    for key in _build.launches:
+        _build.launches[key] = 0
+    wall, trained = em_iter()
+    train_launches = dict(_build.launches)
+    walls = [wall] + [em_iter()[0] for _ in range(REPEATS)]
+    mix = (trained.weights > 0).sum(axis=1)
+    log(f"full-width tri2b EM: Gaussians per pdf after the M-step {int(mix.min())}-"
+        f"{int(mix.max())}")
+    # K6 at D = 40 on the trained model's uneven mixture counts
+    w_k = convert.kernel_params_from_am(trained, device)
+    twin = convert.twin_params_from_kernel(w_k)
+    args = (x, x, ids.to(torch.int32), torch.ones(n, dtype=torch.float32, device=device))
+    got = gmm_stats_kernel.acc_stats(w_k, *args, width.num_pdfs)
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3], width.num_pdfs, args[3])
+    d40 = record("gmm_stats", list(zip(got, ref)),
+                 lambda: gmm_stats_kernel.acc_stats(w_k, *args, width.num_pdfs),
+                 lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3],
+                                                                    width.num_pdfs, args[3]),
+                 (nbytes(w_k, *args, *got), 8 * n * w_k.shape[1] * e),
+                 what=" at D = 40, uneven mixtures")
+    results["gmm_stats"]["lda_features"] = {**d40, "max_mix": int(w_k.shape[1])}
+    results["gmm_loglikes"]["max_abs_err_lda_uneven"] = k2_check(
+        torch, x.contiguous(), w_k, "the tri2b training features (uneven mixtures)", log)
+    del got, ref, w_k, twin
+    audio_s = n * 0.01
+    train = {"audio_s": audio_s, "runs_s": walls,
+             "median_audio_s_per_s": audio_s / float(np.median(walls)),
+             "launches": train_launches, "mllt_impr": impr,
+             "mixtures": [int(mix.min()), int(mix.max())]}
+    if device.type == "cuda":
+        train["profile"] = profile_run(torch, lambda: em_iter()[0], log, "full-width tri2b EM")
+    log(f"full-width tri2b EM iteration: {json.dumps(train)}")
+    del graphs, aset, base, spliced, feats, x, args
+
+    # ---- decode half: phase 7's waves through the serving path ----
+    waves = synth_waves(width, seed=3)
+    utt2spk = {u: f"spk{i % 8}" for i, u in enumerate(sorted(waves))}
+    mopts = MfccOptions(frame_opts=FrameOptions(samp_freq=width.samp_freq, dither=1.0),
+                        mel_opts=MelOptions(num_bins=23))
+    t0 = time.perf_counter()
+    base = make_features(waves, utt2spk, mopts, deltas=None, device=device)
+    utts = sorted(base)
+    bb, nfb = pad_features(base, utts)
+    spliced = splice_frames_batch(bb, nfb)
+    nd = spliced.shape[0] * spliced.shape[1]
+    fns["splice_decode"] = device_function(
+        torch, "splice (decode shape)", [(spliced, splice64(bb, nfb.cpu().numpy(), 3), 0.0, 0.0)],
+        lambda: splice_frames_batch(bb, nfb), (4 * nd * (13 + sdim), 0), log)
+    lda = L.apply_affine_transform(spliced, cur_mat)
+    mat64 = torch.from_numpy(cur_mat).to(device).double()
+    fns["apply_affine_transform_decode"] = device_function(
+        torch, "apply_affine_transform (decode shape)",
+        [(lda, spliced.double() @ mat64[:, :-1].T + mat64[:, -1], *gmm_tol)],
+        lambda: L.apply_affine_transform(spliced, cur_mat),
+        (4 * nd * (sdim + e) + 4 * cur_mat.size, 2 * nd * sdim * e), log)
+    del spliced, bb
+    x = lda.reshape(nd, e).contiguous()
+    xd = x.double()
+    am = feature_scaled_am(xd.mean(0).cpu().numpy(), xd.var(0).cpu().numpy(),
+                           width.num_pdfs, width.max_mix)
+    del xd
+    dopts = DecodeOptions(acoustic_scale=1.0 / 13.0)
+    dec = Decoder.from_dense_graph(synth_decode_graph(width.num_states, num_pdfs=width.num_pdfs),
+                                   am, dopts, device=device, row_width=8)
+    setup_s = time.perf_counter() - t0
+    # K2 at D = 40 on these features against its float64 plain version,
+    # timed with its TF32 bound as in phase 3
+    w = dec.gmm_w
+    ll = gmm_kernel.loglikes(x, w)
+    kp = gmm_kernel.pack_weights(w)[0].shape[1]
+    d40 = record("gmm_loglikes", [(ll, k2_plain64(x, w))], lambda: gmm_kernel.loglikes(x, w),
+                 lambda: gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x),
+                 (nbytes(x, w, ll), 3 * 2 * nd * w.shape[0] * w.shape[1] * kp),
+                 ops_per_s=TF32_OPS_PER_S, what=" on the LDA features (D = 40)")
+    results["gmm_loglikes"]["max_abs_err_lda_features"] = d40["max_abs_err"]
+    results["gmm_loglikes"]["lda_features"] = {**d40, "k_pad": kp}
+    del ll, x, lda
+
+    def run():
+        t_start = time.perf_counter()
+        base = make_features(waves, utt2spk, mopts, deltas=None, device=device)
+        feats = lda_decode_feats(base, cur_mat, device=device)
+        utts = sorted(feats)
+        batch, nf = pad_features(feats, utts)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t_feats = time.perf_counter()
+        res = dec.decode_batch(utts, batch, nf, keep_tids=True)
+        return res, batch.shape, t_feats - t_start, time.perf_counter() - t_feats
+
+    for key in _build.launches:
+        _build.launches[key] = 0
+    res, shape, feat_s, dec_s = run()
+    launches = dict(_build.launches)
+    check(tuple(shape) == (width.batch, width.frames, 40), f"LDA feature batch shape {shape}")
+    check(all(len(r.tids) == width.frames for r in res), "an utterance has no path of T arcs")
+    check(all(np.isfinite(r.score) for r in res), "a path score is not finite")
+    walls = [feat_s + dec_s]
+    for _ in range(REPEATS):
+        _, _, f_s, d_s = run()
+        walls.append(f_s + d_s)
+    audio_s = width.batch * width.frames * 0.01
+    decode = {"setup_s": setup_s, "first_run_features_s": feat_s, "first_run_decode_s": dec_s,
+              "audio_s": audio_s, "runs_s": walls,
+              "median_audio_s_per_s": audio_s / float(np.median(walls)), "launches": launches}
+    if device.type == "cuda":
+        decode["profile"] = profile_run(torch, lambda: run(), log, "full-width LDA decode")
+    log(f"full-width LDA decode: {json.dumps(decode)}")
+    return {"train": train, "decode": decode, "device_functions": fns}
+
+
 def run(device, width: Width, log=print) -> dict:
-    """Phases 2-13 on ``device``; returns the kernels report.  On a CPU
+    """Phases 2-15 on ``device``; returns the kernels report.  On a CPU
     device the wrappers take their plain versions, so this rehearses the
     control flow without kernels."""
     import torch
@@ -1612,14 +2065,31 @@ def run(device, width: Width, log=print) -> dict:
     rates = features_other_rates(torch, device, width, log)
     for sr, facts in rates.items():
         launched(facts["launches"], ("mfcc_frames",), f"make_features at {sr} Hz")
-    runs = (decode, train, lattice, nbest, generic, *rates.values())
+    tri = tri_yesno(torch, device, log)
+    launched(tri["fixture"]["launches"], DECODE_KERNELS, "the tri2b fixture decode")
+    for part in ("tri1", "tri2b"):
+        launched(tri[part]["launches"],
+                 ("gmm_loglikes", "gmm_stats", *aligner_kernels(tri[part]["aligner"])),
+                 f"{part} training")
+    lda = lda_mllt_full_width(torch, device, width, record, kernels, log)
+    launched(lda["train"]["launches"], TRAIN_KERNELS, "the full-width tri2b EM iteration")
+    launched(lda["decode"]["launches"], DECODE_KERNELS, "the full-width LDA decode")
+    if device.type == "cuda":  # keep mode, as phase 7
+        check(lda["decode"]["launches"]["backtrace_best"]
+              == lda["decode"]["launches"]["viterbi_step"],
+              f"the full-width LDA decode launched backtrace_best "
+              f"{lda['decode']['launches']['backtrace_best']} times for "
+              f"{lda['decode']['launches']['viterbi_step']} K3 blocks")
+    runs = (decode, train, lattice, nbest, generic, *rates.values(), tri["fixture"],
+            tri["tri1"], tri["tri2b"], lda["train"], lda["decode"])
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": sum(r["launches"][name] for r in runs),
          **kernels[name]} for name in SOURCES],
         "full_width": decode, "train": train, "lattice": lattice, "nbest": nbest,
-        "generic": generic, "rates": rates}
+        "generic": generic, "rates": rates, "tri": tri, "lda_train": lda["train"],
+        "lda_decode": lda["decode"], "device_functions": lda["device_functions"]}
 
 
 def main() -> int:
@@ -1658,7 +2128,8 @@ def main() -> int:
             return 1
     for key, what in (("full_width", "decode"), ("train", "EM training"),
                       ("lattice", "lattice decode"), ("nbest", "N-best decode"),
-                      ("generic", "generic alignment")):
+                      ("generic", "generic alignment"), ("lda_train", "tri2b EM training"),
+                      ("lda_decode", "LDA decode")):
         facts = report.pop(key)
         busy = facts["profile"]["device_busy_share"]
         launched = {k: n for k, n in facts["launches"].items() if n}
@@ -1677,6 +2148,14 @@ def main() -> int:
               f"{facts['utts']} utterances in {facts['wall_s']:.3f} s, max abs difference "
               f"from the CPU {facts['max_abs_err_vs_cpu']:.3g}, K1 launches "
               f"{facts['launches']['mfcc_frames']}")
+    tri = report.pop("tri")
+    print(f"triphone stages on {card}: tri2b fixture words = the JAX package's for "
+          f"{tri['fixture']['utts']} test utterances; tri1 test WER {tri['tri1']['wer']:.2f} % "
+          f"({tri['tri1']['aligner']}); tri2b test WER {tri['tri2b']['wer']:.2f} % "
+          f"({tri['tri2b']['aligner']})")
+    for name, f in report.pop("device_functions").items():
+        print(f"{name} on {card}: {f['ms']:.4f} ms device, {f['wall_ms']:.3f} ms wall, "
+              f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}), max abs err {f['max_abs_err']:.3g}")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -51,9 +51,12 @@ from voicebridge_tpu_torch.ops import viterbi as V
 from voicebridge_tpu_torch.ops.graph import DenseGraph
 from voicebridge_tpu_torch.steps.decode import Decoder
 from voicebridge_tpu_torch.steps.make_feats import make_features
-from voicebridge_tpu_torch.testing import (feature_scaled_am, load_yesno_mono, random_am,
+from voicebridge_tpu_torch.testing import (assert_models_close, feature_scaled_am,
+                                           load_yesno_mono, random_am,
                                            random_codes, synth_decode_graph, synth_train_graph)
 from voicebridge_tpu_torch.transforms import cmvn as TC
+from voicebridge_tpu_torch.transforms import lda as TL
+from voicebridge_tpu_torch.transforms import mllt as TM
 
 from synth import make_corpus
 
@@ -212,7 +215,8 @@ GMM_CASES = [
     (65, 2, 80, 129, False), (1, 1, 13, 1, False), (15, 4, 39, 127, False),
     (16, 5, 39, 128, False), (17, 6, 40, 129, True), (63, 8, 39, 255, False),
     (64, 1, 80, 257, False), (65, 5, 39, 384, True), (200, 5, 39, 2000, False),
-    (33, 8, 13, 100, True), (129, 2, 40, 3, False), "feature_scaled", "yesno", "yesno_train"]
+    (33, 8, 13, 100, True), (129, 2, 40, 3, False), (34, 9, 40, 700, True),
+    (100, 11, 40, 513, True), "feature_scaled", "yesno", "yesno_train"]
 
 
 @pytest.mark.parametrize("case", GMM_CASES, ids=str)
@@ -468,21 +472,24 @@ def test_align_band_matches_plain(cuda, case):
         assert not bool(bt[2][-1]) and bool(bt[2][:-1].all())
 
 
-@pytest.mark.parametrize("case", ["skew", "zero_weights", "twofeats"])
+@pytest.mark.parametrize("case", ["skew", "zero_weights", "twofeats", "d40_uneven"])
 def test_gmm_stats_matches_plain(cuda, case):
     """K6 against the plain version: rtol 1e-5, atol 1e-5 x the largest
     magnitude of each accumulator (float32 scores and posteriors in another
-    order; the kernel sums in float64)."""
+    order; the kernel sums in float64).  ``d40_uneven``: the LDA features'
+    40 dimensions and a triphone model's uneven mixture counts (1-9)."""
     rng = np.random.default_rng(11)
-    am = _am(40, 4, 13, seed=3, ragged=case == "twofeats")
+    ragged = case in ("twofeats", "d40_uneven")
+    d = 40 if case == "d40_uneven" else 13
+    am = _am(40, 9 if case == "d40_uneven" else 4, d, seed=3, ragged=ragged)
     w = convert.kernel_params_from_am(am, cuda)
     n = 5000
-    x_post = rng.standard_normal((n, 13)).astype(np.float32)
-    x_acc = rng.standard_normal((n, 13)).astype(np.float32) if case == "twofeats" else x_post
+    x_post = rng.standard_normal((n, d)).astype(np.float32)
+    x_acc = rng.standard_normal((n, d)).astype(np.float32) if case == "twofeats" else x_post
     pdf = rng.integers(0, 40, n).astype(np.int32)
     if case == "skew":
         pdf[rng.random(n) < 0.8] = 5  # 4000 frames: 16 blocks of one pdf
-    if case == "twofeats":  # aligned pdfs keep at least one active component
+    if ragged:  # aligned pdfs keep at least one active component
         pdf = np.where(am.weights[pdf].max(axis=1) > 0, pdf, int(np.argmax(am.weights[:, 0])))
     weights = rng.random(n).astype(np.float32)
     if case == "zero_weights":
@@ -820,3 +827,217 @@ def test_generic_aligner_kernel_refuses_max_active(cuda):
                                   p["alpha0"], ll, nf_np, 0.5, 8.0, p["num_states"],
                                   max_active=10)
 
+
+
+def test_lda_mllt_device_functions_cuda_match_cpu(cuda):
+    """Splice, the LDA statistics, the affine projection and the MLLT
+    statistics on the card against the same functions on the CPU: splice
+    bit-equal; LDA counts and class means (float64 segment sums) rtol 1e-6
+    and bit-equal between two card runs, the second moment (fp32 product)
+    rtol 1e-5 / atol 1e-3; the projection at the GMM tolerance; G rtol 1e-4
+    / atol 1e-3 and beta rtol 1e-6 on a GMM of uneven mixture counts (1-9)
+    at 40 dimensions, in one chunk and in chunks."""
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((3, 200, 13)).astype(np.float32)
+    nf = torch.tensor([200, 57, 1], dtype=torch.int32)
+    on = {dev: TF.splice_frames_batch(torch.from_numpy(base).to(dev), nf)
+          for dev in (cuda, "cpu")}
+    assert torch.equal(on[cuda].cpu(), on["cpu"])
+    x = {dev: t.reshape(-1, 91) for dev, t in on.items()}
+    ids = rng.integers(0, 50, 600)
+    w = rng.choice([0.0, 0.3, 1.0], size=600).astype(np.float32)
+    got, ref = TL.acc_lda_stats(x[cuda], ids, w, 50), TL.acc_lda_stats(x["cpu"], ids, w, 50)
+    again = TL.acc_lda_stats(x[cuda], ids, w, 50)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        tol = dict(rtol=1e-5, atol=1e-3) if i == 2 else dict(rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(g.cpu(), r, **tol)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    mat = rng.standard_normal((40, 92)).astype(np.float32)
+    feats = {dev: TL.apply_affine_transform(on[dev], mat) for dev in (cuda, "cpu")}
+    torch.testing.assert_close(feats[cuda].cpu(), feats["cpu"], rtol=2e-5, atol=2e-4)
+    am = _am(30, 9, 40, seed=8, ragged=True)
+    pdf = rng.integers(0, 30, 600)
+    pdf = np.where(am.weights[pdf].max(axis=1) > 0, pdf, int(np.argmax(am.weights[:, 0])))
+    # frames near their pdf's first mean, on the scale of tests/test_torch_lda_mllt.py
+    x40 = (am.means()[pdf, 0] + rng.standard_normal((600, 40))).astype(np.float32)
+    fw = rng.choice([0.0, 1.0], size=x40.shape[0]).astype(np.float32)
+    g_ref, b_ref = TM.acc_mllt_stats(gmm_kernels.pack_gmm(am, "cpu"), am.means(), am.inv_vars,
+                                     x40, pdf, fw)
+    for chunk in (None, 128):
+        g, beta = TM.acc_mllt_stats(gmm_kernels.pack_gmm(am, cuda), am.means(), am.inv_vars,
+                                    x40, pdf, fw, chunk=chunk)
+        torch.testing.assert_close(g.cpu(), g_ref, rtol=1e-4, atol=1e-3)
+        assert beta == pytest.approx(b_ref, rel=1e-6)
+
+
+def _segment_stats_float64(gamma, x_acc, pdf, num_pdfs, _plain=gmm_kernels._segment_stats):
+    """The plain E-step's per-pdf sums in float64, as K6 sums (the CPU's
+    reference run of a stage, in place of its float32 sums)."""
+    return _plain(gamma.double(), x_acc.double(), pdf, num_pdfs)
+
+
+def _keep_card_e_steps(monkeypatch, module) -> list:
+    """Wrap ``module.e_step`` to keep each card call's inputs (the model as it
+    was then) and the statistics it returned."""
+    import copy
+
+    kept, e_step = [], module.e_step
+
+    def keep(am, trans_model, x, tids, weights):
+        out = e_step(am, trans_model, x, tids, weights)
+        if x.is_cuda:
+            kept.append((copy.deepcopy(am), trans_model.tid2pdf, trans_model.tree.num_pdfs,
+                         x.cpu(), tids.copy(), weights.copy(), out))
+        return out
+
+    monkeypatch.setattr(module, "e_step", keep)
+    return kept
+
+
+def _hold_card_e_steps(kept) -> None:
+    """K6's occupancies, first and second moments in each kept card E-step
+    against the plain E-step in float64 on the same inputs, at K6's
+    tolerance (rtol 1e-5, atol 1e-5 x each accumulator's largest
+    magnitude)."""
+    assert kept
+    for am, tid2pdf, num_pdfs, x, tids, weights, (occ, macc, vacc, _t, _ll) in kept:
+        p = gmm_kernels.pack_gmm(am, "cpu")
+        ref = gmm_kernels.acc_gmm_stats_aligned(
+            gmm_kernels.GmmParams(p.w_matrix.double(), p.gconsts.double()), x.double(),
+            torch.from_numpy(tid2pdf[tids.reshape(-1)]), num_pdfs,
+            torch.from_numpy(weights.reshape(-1)).double())
+        for got, want in zip((occ, macc, vacc), ref[:3]):
+            want = want.numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+def _tri_inputs(corpus_kind):
+    """A monophone model trained by the port on the CPU and its alignments:
+    the corpora of ``tests/test_torch_tri.py`` (``mono``) and
+    ``tests/test_torch_lda_mllt.py`` (``speakers``)."""
+    from voicebridge_tpu_torch.config import LangOptions, MonoTrainOptions
+    from voicebridge_tpu_torch.data.lang import prepare_lang
+    from voicebridge_tpu_torch.steps.align import align_utterances
+    from voicebridge_tpu_torch.steps.train_mono import train_mono
+
+    from synth import LEXICON, SR, make_speaker_corpus
+
+    if corpus_kind == "mono":
+        train, _ = make_corpus(num_train=20, num_test=8, seed=11)
+        utt2spk = {u: u for u in train}
+    else:
+        train, _, utt2spk = make_speaker_corpus(num_speakers=4, utts_per_speaker=6,
+                                                num_test_per=2, seed=3)
+    opts = MfccOptions(frame_opts=FrameOptions(samp_freq=SR, dither=0.0))
+    waves = {u: w for u, (w, _) in train.items()}
+    delta = make_features(waves, utt2spk, opts, device="cpu")
+    base = make_features(waves, utt2spk, opts, deltas=None, device="cpu")
+    lang = prepare_lang(LEXICON, ["SIL"], "SIL", LangOptions())
+    transcripts = {u: [lang.words.id(w) for w in ws] for u, (_, ws) in train.items()}
+    mono = train_mono(delta, transcripts, lang,
+                      MonoTrainOptions(num_iters=10, totgauss=150, max_iter_inc=8,
+                                       realign_iters=tuple(range(1, 10))), device="cpu")
+    ali = align_utterances(mono.am, mono.trans_model, lang, delta, transcripts,
+                           acoustic_scale=0.1, device="cpu")
+    return dict(delta=delta, base=base, lang=lang, transcripts=transcripts, mono=mono, ali=ali)
+
+
+def test_train_tri_cuda_matches_cpu(cuda, monkeypatch):
+    """The triphone stage on the card (K2 and the aligner over triphone
+    training graphs, K6 at the triphone model's uneven mixture counts)
+    against the CPU: the same tree, and models that agree after two EM
+    iterations realigned at 2 (as ``tests/test_torch_tri.py`` holds the
+    stage to the JAX package; past the second mixup a just-split Gaussian's
+    mean moves by float32 differences of its posteriors).  The CPU's run
+    sums its E-step in float64, as K6 does, and each of the card's E-steps
+    is held to a float64 plain E-step on its own inputs."""
+    from voicebridge_tpu_torch.config import TriTrainOptions
+    from voicebridge_tpu_torch.steps import train_tri as TT
+
+    s = _tri_inputs("mono")
+    opts = TriTrainOptions(num_iters=2, num_leaves=100, totgauss=300, max_iter_inc=8,
+                           realign_iters=(2,))
+    args = (s["delta"], s["transcripts"], s["ali"], s["lang"], opts)
+    with monkeypatch.context() as m:
+        m.setattr(gmm_kernels, "_segment_stats", _segment_stats_float64)
+        want = TT.train_tri(*args, prev_trans_model=s["mono"].trans_model, device="cpu")
+    kept = _keep_card_e_steps(monkeypatch, TT)
+    before = dict(_build.launches)
+    got = TT.train_tri(*args, prev_trans_model=s["mono"].trans_model, device=cuda)
+    launched = {k: n - before[k] for k, n in _build.launches.items()}
+    assert launched["gmm_loglikes"] > 0 and launched["gmm_stats"] > 0
+    assert launched["align_forward"] + launched["generic_forward"] > 0
+    assert got.tree.nodes == want.tree.nodes
+    _hold_card_e_steps(kept)
+    assert_models_close(got, want)
+
+
+def test_train_lda_mllt_cuda_matches_cpu(cuda, monkeypatch):
+    """The LDA+MLLT stage on the card against the CPU, on equal inputs where
+    the stage solves a host problem from the device's statistics.  The
+    corpus has fewer live classes than 40, so LDA rows past the
+    between-class rank are any whitened null directions: the card's LDA
+    estimate is held to the CPU's on the rows the statistics define (up to
+    sign) and the stage goes on with the CPU's matrix.  The card's MLLT
+    statistics (D = 40) are held to the CPU's (G rtol 1e-4, atol 1e-3 scaled
+    with its largest entry over 1e3; beta rtol 1e-6) and the stage goes on
+    with the CPU's MLLT matrix: est_mllt stops at a relative objective change
+    of 1e-7, so nearly equal statistics give matrices whose difference the
+    model's variances amplify.  Then the tree, the projection, one EM
+    iteration (K6, held to a float64 plain E-step on its own inputs) and the
+    M-step are held as the monophone models are; the CPU's run sums its
+    E-step in float64, as K6 does.  ``test_train_tri_cuda_matches_cpu``
+    holds realignment on the card."""
+    from voicebridge_tpu_torch.config import TriTrainOptions
+    from voicebridge_tpu_torch.steps import train_lda_mllt as TLM
+
+    s = _tri_inputs("speakers")
+    opts = TriTrainOptions(num_iters=1, num_leaves=100, totgauss=300, max_iter_inc=6,
+                           realign_iters=(), mllt_iters=(1,))
+    args = (s["base"], s["transcripts"], s["ali"], s["lang"], opts)
+    captured = {"lda": [], "mllt": []}
+    estimate, solve = TLM.estimate_lda, TLM.est_mllt
+
+    def keep_lda(*a):
+        captured["lda"].append((a, estimate(*a)))
+        return captured["lda"][-1][1]
+
+    def keep_mllt(g, beta):
+        captured["mllt"].append(((g, beta), solve(g, beta)))
+        return captured["mllt"][-1][1]
+
+    with monkeypatch.context() as m:
+        m.setattr(TLM, "estimate_lda", keep_lda)
+        m.setattr(TLM, "est_mllt", keep_mllt)
+        m.setattr(gmm_kernels, "_segment_stats", _segment_stats_float64)
+        want, want_mat = TLM.train_lda_mllt(*args, prev_trans_model=s["mono"].trans_model,
+                                            device="cpu")
+    (stats_cpu, lda_cpu), = captured["lda"]
+    ((g_cpu, beta_cpu), m_cpu), = captured["mllt"]
+
+    def hold_lda(counts, mean_acc, scatter, dim, wcf):
+        mat = estimate(counts, mean_acc, scatter, dim, wcf)
+        r = min(int((counts > 0).sum()) - 1, dim)
+        sign = np.sign(np.sum(mat[:, :-1] * lda_cpu[:, :-1], axis=1))
+        np.testing.assert_allclose((mat * sign[:, None])[:r], lda_cpu[:r], rtol=1e-4,
+                                   atol=1e-4 * np.abs(lda_cpu).max())
+        np.testing.assert_allclose(counts, stats_cpu[0], rtol=1e-6)
+        return lda_cpu
+
+    def hold_mllt(g, beta):
+        np.testing.assert_allclose(g, g_cpu, rtol=1e-4,
+                                   atol=1e-3 * max(1.0, float(np.abs(g_cpu).max()) / 1e3))
+        assert beta == pytest.approx(beta_cpu, rel=1e-6)
+        return m_cpu
+
+    monkeypatch.setattr(TLM, "estimate_lda", hold_lda)
+    monkeypatch.setattr(TLM, "est_mllt", hold_mllt)
+    kept = _keep_card_e_steps(monkeypatch, TLM)
+    before = dict(_build.launches)
+    got, mat = TLM.train_lda_mllt(*args, prev_trans_model=s["mono"].trans_model, device=cuda)
+    launched = {k: n - before[k] for k, n in _build.launches.items()}
+    assert launched["gmm_stats"] > 0  # no realignment in one iteration: no K2 launch
+    np.testing.assert_array_equal(mat, want_mat)
+    assert got.tree.nodes == want.tree.nodes
+    _hold_card_e_steps(kept)
+    assert_models_close(got, want)

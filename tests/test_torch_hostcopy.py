@@ -20,6 +20,7 @@ HOST_MODULES = [
     "fst.compose", "fst.context", "fst.determinize", "fst.epsilon", "fst.hmm_graph",
     "fst.lexicon", "fst.minimize", "fst.push", "fst.shortest", "fst.misc", "fst.hclg",
     "fst.native_bridge", "data.lang", "lm.arpa", "lm.ngram", "steps.score", "steps.mbr",
+    "models.treebuild",
 ]
 
 SENTENCES = [["YES", "NO", "YES"], ["NO", "NO"], ["YES"], ["NO", "YES", "YES", "NO"]]
@@ -142,6 +143,40 @@ def test_mle_update_is_identical():
         am.split_to_target(p * m + 4, occ)
         ams.append(am)
     for name in ("means_invvars", "inv_vars", "weights", "gconsts"):
+        np.testing.assert_array_equal(getattr(ams[0], name), getattr(ams[1], name))
+
+
+def test_mllt_host_steps_are_identical():
+    """``est_mllt``, ``compose_transforms`` and ``transform_model_means``:
+    numpy copies, identical arrays from the same inputs."""
+    import voicebridge_tpu.transforms.mllt as jax_mllt
+    import voicebridge_tpu_torch.transforms.mllt as port_mllt
+
+    port_gmm, jax_gmm = _both("models.gmm")
+    rng = np.random.default_rng(3)
+    d, n = 6, 400
+    x = rng.standard_normal((n, d)) @ rng.standard_normal((d, d))
+    g = np.stack([(x * rng.uniform(0.5, 2.0, n)[:, None]).T @ x for _ in range(d)])
+    g = g.astype(np.float32)
+    m_port, impr_port = port_mllt.est_mllt(g, float(n))
+    m_jax, impr_jax = jax_mllt.est_mllt(g, float(n))
+    np.testing.assert_array_equal(m_port, m_jax)
+    assert impr_port == impr_jax > 0
+    lda = rng.standard_normal((d, 3 * d + 1)).astype(np.float32)
+    for a, b in ((m_port, lda), (lda[:, :-1], np.eye(3 * d, dtype=np.float32)),
+                 (lda, rng.standard_normal((3 * d, 2 * d)).astype(np.float32)),
+                 (lda, rng.standard_normal((3 * d, 3 * d + 1)).astype(np.float32))):
+        np.testing.assert_array_equal(port_mllt.compose_transforms(a, b),
+                                      jax_mllt.compose_transforms(a, b))
+    with pytest.raises(ValueError, match="incompatible"):
+        port_mllt.compose_transforms(lda, lda)
+    args = (rng.standard_normal((4, 3, d)).astype(np.float32),
+            rng.uniform(0.5, 2.0, (4, 3, d)).astype(np.float32),
+            np.full((4, 3), 1.0 / 3, np.float32))
+    ams = [mod.AmDiagGmm(*[a.copy() for a in args]) for mod in (port_gmm, jax_gmm)]
+    port_mllt.transform_model_means(ams[0], m_port)
+    jax_mllt.transform_model_means(ams[1], m_jax)
+    for name in ("means_invvars", "inv_vars", "gconsts"):
         np.testing.assert_array_equal(getattr(ams[0], name), getattr(ams[1], name))
 
 

@@ -29,11 +29,11 @@ from voicebridge_tpu_torch.steps.train_mono import train_mono
 from voicebridge_tpu_torch import config as port_config
 from voicebridge_tpu_torch import convert
 from voicebridge_tpu_torch.data.lang import prepare_lang as port_prepare_lang
+from voicebridge_tpu_torch.testing import assert_models_close
 
 from synth import LEXICON, SR, make_corpus
 
 torch.set_num_threads(2)
-MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture(scope="module")
@@ -54,18 +54,6 @@ def _port_opts(opts):
     return port_config.MonoTrainOptions(**vars(opts))
 
 
-def _assert_models_close(got, want):
-    np.testing.assert_array_equal(got.am.weights > 0, want.am.weights > 0)
-    mask = want.am.weights > 0
-    means = want.am.means()[mask]
-    np.testing.assert_allclose(got.am.means()[mask], means, rtol=0,
-                               atol=2e-5 * np.abs(means).max())
-    np.testing.assert_allclose(got.am.variances()[mask], want.am.variances()[mask], rtol=1e-3)
-    np.testing.assert_allclose(got.am.weights, want.am.weights, **MODEL_TOL)
-    np.testing.assert_allclose(got.trans_model.log_probs, want.trans_model.log_probs,
-                               **MODEL_TOL)
-
-
 @pytest.mark.parametrize("iters", [0, 2])
 def test_train_mono_matches_jax(corpus, iters, tmp_path):
     feats, transcripts, lang, port_lang = corpus
@@ -77,7 +65,7 @@ def test_train_mono_matches_jax(corpus, iters, tmp_path):
                      checkpoint_every=1, device="cpu")
     np.testing.assert_array_equal((got.am.weights > 0).sum(axis=1),
                                   (want.am.weights > 0).sum(axis=1))
-    _assert_models_close(got, want)
+    assert_models_close(got, want)
     if iters:
         ours = TrainCheckpoint(tmp_path / "port" / "checkpoints").latest()
         theirs = TrainCheckpoint(tmp_path / "jax" / "checkpoints").latest()

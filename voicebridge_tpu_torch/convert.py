@@ -11,6 +11,8 @@ this module imports nothing of the JAX package:
 * flat arc arrays -> the port's ``Fst`` (``fst_from_arrays``);
 * the json objects of a topology, a tree and a transition model -> the
   port's ``HmmTopology``, tree and ``TransitionModel`` (``*_from_json``);
+* a splice+LDA(+MLLT) matrix (``final.mat.npy``) -> a checked float32
+  affine array (``final_mat_from_array``);
 * the JAX ``GmmParams`` (``w_matrix [2D, P*M]``, ``gconsts [P, M]``) and the
   Pallas ``w3 [128, M, P_pad]`` -> the same two;
 * a JAX ``EmitPlan`` -> the port's ``EmitPlan`` (then
@@ -88,6 +90,16 @@ def transition_model_from_json(topo: dict, tree: dict, trans: dict) -> Transitio
         raise ValueError("transition tuples do not match the topology and tree")
     tm.log_probs = np.asarray(trans["log_probs"], dtype=np.float32)
     return tm
+
+
+def final_mat_from_array(mat) -> np.ndarray:
+    """The feature transform an LDA stage saves (``final.mat.npy``; affine
+    ``[E, D+1]``) -> float32 ``[E, D+1]`` array, checked finite and
+    affine."""
+    mat = np.array(mat, np.float32)
+    if mat.ndim != 2 or mat.shape[1] < 2 or not np.isfinite(mat).all():
+        raise ValueError(f"need a finite affine matrix [E, D+1], got shape {mat.shape}")
+    return mat
 
 
 def kernel_params_from_twin(params: GmmParams) -> torch.Tensor:

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import DeltaOptions, FrameOptions, MfccOptions
+from ..config import DeltaOptions, FrameOptions, MfccOptions, SpliceOptions
 
 from ..device import resolve_device
 from . import mfcc_kernel
@@ -299,7 +299,7 @@ class MfccExtractor:
 
 
 # ---------------------------------------------------------------------------
-# Deltas (batched, length-aware edge clamping)
+# Deltas and splicing (batched, length-aware edge clamping)
 # ---------------------------------------------------------------------------
 
 
@@ -321,3 +321,26 @@ def add_deltas_batch(feats: torch.Tensor, num_frames: torch.Tensor,
         taps = torch.from_numpy(s).to(feats.device)
         outs.append(torch.einsum("k,bktd->btd", taps, shifted))
     return torch.cat(outs, dim=-1)
+
+
+def splice_frames_batch(feats: torch.Tensor, num_frames: torch.Tensor,
+                        opts: SpliceOptions = SpliceOptions()) -> torch.Tensor:
+    """``[B, T, D] -> [B, T, D*(left+right+1)]`` (reference: splice-feats):
+    output frame t is frames ``t-left .. t+right`` side by side, each index
+    clamped to ``[0, num_frames-1]`` of its utterance.  One index gather on
+    the features' device."""
+    b, t, d = feats.shape
+    dev = feats.device
+    k = opts.left_context + opts.right_context + 1
+    last = torch.clamp_min(torch.as_tensor(num_frames).to(dev, torch.int64) - 1, 0)
+    offsets = torch.arange(-opts.left_context, opts.right_context + 1, device=dev)
+    idx = torch.arange(t, device=dev)[:, None] + offsets[None, :]  # [T, K]
+    idx = torch.minimum(idx.clamp_min(0)[None], last[:, None, None])  # [B, T, K]
+    out = torch.gather(feats, 1, idx.reshape(b, t * k, 1).expand(b, t * k, d))
+    return out.reshape(b, t, k * d)
+
+
+def splice_frames(feats: torch.Tensor, num_frames,
+                  opts: SpliceOptions = SpliceOptions()) -> torch.Tensor:
+    """``[T, D] -> [T, D*(left+right+1)]``."""
+    return splice_frames_batch(feats[None], torch.tensor([int(num_frames)]), opts)[0]

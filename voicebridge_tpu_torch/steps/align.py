@@ -80,6 +80,7 @@ class AlignmentSet:
         self._padded = None
         self._band = _UNSET
         self._band_dev = None
+        self.band_refusal: str | None = None  # why build_band_plan refused the set
 
     @property
     def band(self) -> AB.BandPlan | None:
@@ -90,10 +91,17 @@ class AlignmentSet:
             self._band = (AB.build_band_plan(self.graphs, reason=why)
                           if self.graphs else None)
             if self._band is None and self.graphs:
+                self.band_refusal = why[0] if why else "unknown"
                 log.info("alignment: graphs not banded-friendly (%s), using "
-                         "the generic aligner for the whole batch",
-                         why[0] if why else "unknown")
+                         "the generic aligner for the whole batch", self.band_refusal)
         return self._band
+
+    @property
+    def aligner(self) -> str:
+        """Which aligner exact alignment of this set takes, and why."""
+        if self.band is not None:
+            return "banded (K4)"
+        return f"generic (build_band_plan refused the set: {self.band_refusal})"
 
     @property
     def band_dev(self) -> AB.BandPlanDev | None:

@@ -1,7 +1,7 @@
-"""Feature pipeline step: batched MFCC + per-speaker CMVN + deltas.
+"""Feature pipeline step: batched MFCC + per-speaker CMVN (+ deltas/splice).
 
 Port of ``voicebridge_tpu/steps/make_feats.py`` (the reference's MakeMfcc +
-ComputeCmvnStats + apply-cmvn | add-deltas chain).  Utterances are padded
+ComputeCmvnStats + apply-cmvn | add-deltas | splice-feats chain).  Utterances are padded
 into length buckets and framed, transformed and filterbanked together on the
 given device; on CUDA every bucket goes through the fused MFCC kernel, on the
 CPU through its plain version.  Features stay on the device as tensors.
@@ -12,10 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import DeltaOptions, MfccOptions
+from ..config import DeltaOptions, MfccOptions, SpliceOptions
 
 from ..device import resolve_device
-from ..ops.features import MfccExtractor, add_deltas_batch
+from ..ops.features import MfccExtractor, add_deltas_batch, splice_frames_batch
 from ..transforms.cmvn import acc_cmvn_stats_batch, apply_cmvn_batch
 
 
@@ -81,23 +81,31 @@ def compute_cmvn(feats: dict[str, torch.Tensor],
 
 def apply_feature_chain(feats: dict[str, torch.Tensor], utt2spk: dict[str, str],
                         cmvn_stats: dict[str, torch.Tensor],
-                        deltas: DeltaOptions = DeltaOptions()) -> dict[str, torch.Tensor]:
-    """apply-cmvn -> add-deltas for every utterance, batched."""
+                        deltas: DeltaOptions | None = DeltaOptions(),
+                        splice: SpliceOptions | None = None) -> dict[str, torch.Tensor]:
+    """apply-cmvn [-> add-deltas | splice-feats] for every utterance, batched.
+    With ``deltas=None`` and ``splice=None`` the CMVN'd base features."""
     utts = sorted(feats)
     batch, nf = pad_features(feats, utts)
     speakers = sorted({utt2spk[u] for u in utts})
     spk_idx = {s: i for i, s in enumerate(speakers)}
     stats = torch.stack([cmvn_stats[s] for s in speakers])
     sid = torch.tensor([spk_idx[utt2spk[u]] for u in utts], device=batch.device)
-    out = add_deltas_batch(apply_cmvn_batch(batch, stats, sid), nf, deltas)
+    out = apply_cmvn_batch(batch, stats, sid)
+    if deltas is not None:
+        out = add_deltas_batch(out, nf, deltas)
+    elif splice is not None:
+        out = splice_frames_batch(out, nf, splice)
     return {u: out[i, : feats[u].shape[0]] for i, u in enumerate(utts)}
 
 
 def make_features(waves: dict[str, np.ndarray], utt2spk: dict[str, str],
                   mfcc_opts: MfccOptions,
-                  deltas: DeltaOptions = DeltaOptions(), *, device=None,
+                  deltas: DeltaOptions | None = DeltaOptions(),
+                  splice: SpliceOptions | None = None, *, device=None,
                   dither_seed: int | None = 0) -> dict[str, torch.Tensor]:
-    """Full frontend on ``device``: MFCC -> per-speaker CMVN -> deltas."""
+    """Full frontend on ``device``: MFCC -> per-speaker CMVN -> deltas or
+    splice (neither: the CMVN'd MFCC that the LDA path takes)."""
     mfcc = compute_mfcc(waves, mfcc_opts, device=device, dither_seed=dither_seed)
     cmvn = compute_cmvn(mfcc, utt2spk)
-    return apply_feature_chain(mfcc, utt2spk, cmvn, deltas)
+    return apply_feature_chain(mfcc, utt2spk, cmvn, deltas, splice)

@@ -45,6 +45,7 @@ class TrainedModel:
     trans_model: TransitionModel
     tree: object
     lang: Lang
+    aligner: str  # the aligner the stage's training graphs took (AlignmentSet.aligner)
 
 
 def make_mono_tree(lang: Lang, shared_phones: list[list[int]] | None = None) -> MonophoneTree:
@@ -177,7 +178,7 @@ def train_mono(feats_by_utt: dict, transcripts: dict[str, list[int]], lang: Lang
             ckpt.save(it, am, trans_model.log_probs, tids, weights,
                       {"num_gauss_target": num_gauss})
 
-    model = TrainedModel(am, trans_model, tree, lang)
+    model = TrainedModel(am, trans_model, tree, lang, aset.aligner)
     if out_dir:
         save_model(Path(out_dir), am, trans_model, tree)
     return model

@@ -4,6 +4,11 @@
   trained (``tools/make_torch_fixture.py``), with the JAX package's decoding
   hypotheses, committed under ``assets/yesno_mono``.  The waves are not
   stored: ``tests/synth.py`` makes the corpus again from its seed.
+* ``load_synth_tri2b``: the LDA+MLLT triphone model (tri2b) that the JAX
+  package trained on ``tests/synth.py``'s speaker corpus
+  (``tools/make_torch_tri_fixture.py``), with its ``final_mat`` and the JAX
+  package's exact-search hypotheses and scores for the test utterances,
+  committed under ``assets/synth_tri2b``.
 * ``synth_decode_graph`` / ``random_am``: the repo's full-width decode shape
   (``bench.py``): an HCLG-shaped 60k-state / 480k-arc graph and a
   2000-pdf x 5-Gaussian x 39-dim diagonal GMM, from numpy seeds.
@@ -12,6 +17,8 @@
 * ``synth_train_graph``: the repo's full-width training-alignment graph
   (``bench.py``): a left-to-right chain of HMM states with self-loops and
   optional skips, banded and dst-pure like a compiled training graph.
+* ``assert_models_close``: two trainings of one model (the port against the
+  JAX package, or the card against the CPU) held to each other.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
+from . import convert
 from .fst.core import Fst
 from .models.gmm import AmDiagGmm
 from .models.topology import HmmTopology
@@ -33,9 +41,12 @@ from .utils.text import SymbolTable
 from .ops.graph import NEG_INF, DenseGraph
 
 ASSET_DIR = Path(__file__).parent / "assets" / "yesno_mono"
+TRI2B_DIR = Path(__file__).parent / "assets" / "synth_tri2b"
 
-__all__ = ["ASSET_DIR", "YesNoModel", "compute_wer_set", "feature_scaled_am",
-           "load_yesno_mono", "random_am", "synth_decode_graph", "synth_train_graph"]
+__all__ = ["ASSET_DIR", "TRI2B_DIR", "YesNoModel", "assert_models_close", "compute_wer_set",
+           "feature_scaled_am",
+           "load_synth_tri2b", "load_yesno_mono", "random_am", "synth_decode_graph",
+           "synth_train_graph"]
 
 
 @dataclass
@@ -44,20 +55,37 @@ class YesNoModel:
     hclg: Fst
     trans_model: TransitionModel
     words: SymbolTable
-    corpus: dict  # make_corpus arguments the model was trained with
+    corpus: dict  # arguments of the tests/synth.py corpus the model was trained on
     samp_freq: float
     hyps: dict  # utt -> hypothesis words of the JAX package's decode
+    scores: dict | None = None  # utt -> the JAX package's best-path score
+    final_mat: np.ndarray | None = None  # splice+LDA+MLLT [E, D+1] of an LDA model
 
 
-def load_yesno_mono(path: Path = ASSET_DIR) -> YesNoModel:
+def _load_model(path: Path) -> YesNoModel:
     path = Path(path)
     tm = TransitionModel(HmmTopology.load(path / "topo.json"), load_tree(path / "tree.json"))
     tm.load_probs(path / "trans.json")
     meta = json.loads((path / "hyps.json").read_text())
+    mat = path / "final_mat.npy"
     return YesNoModel(am=AmDiagGmm.load(path / "am.npz"), hclg=Fst.load(path / "hclg.npz"),
                       trans_model=tm, words=SymbolTable.read(path / "words.txt"),
                       corpus=meta["corpus"], samp_freq=meta["samp_freq"],
-                      hyps=meta["hyps"])
+                      hyps=meta["hyps"], scores=meta.get("scores"),
+                      final_mat=convert.final_mat_from_array(np.load(mat))
+                      if mat.exists() else None)
+
+
+def load_yesno_mono(path: Path = ASSET_DIR) -> YesNoModel:
+    return _load_model(path)
+
+
+def load_synth_tri2b(path: Path = TRI2B_DIR) -> YesNoModel:
+    """The JAX-trained tri2b model; ``corpus`` holds the arguments of
+    ``tests/synth.py``'s ``make_speaker_corpus``, whose test utterances
+    ``hyps`` and ``scores`` cover (features: MFCC without dither, CMVN per
+    speaker over train and test, splice +-3, ``final_mat``)."""
+    return _load_model(path)
 
 
 def synth_decode_graph(num_states: int = 60_000, arcs_per_state: int = 8,
@@ -152,3 +180,20 @@ def synth_train_graph(num_states: int, num_pdfs: int, rng, back_arcs: int = 0) -
         arc_oseq=np.zeros(a, np.int32), alpha0=alpha0,
         start_oseq=np.zeros(num_states, np.int32), final_score=final,
         final_oseq=np.zeros(num_states, np.int32), oseqs=[()])
+
+
+def assert_models_close(got, want) -> None:
+    """Two trainings of one model (``TrainedModel``s): the same live
+    Gaussians; weights and transition log-probs within rtol/atol 1e-4; means
+    within an atol of 2e-5 times the largest mean magnitude (the posteriors
+    of split Gaussians are float32 softmaxes in another order); variances
+    within rtol 1e-3 (they are E[x^2] - mean^2, which cancels)."""
+    np.testing.assert_array_equal(got.am.weights > 0, want.am.weights > 0)
+    mask = want.am.weights > 0
+    means = want.am.means()[mask]
+    np.testing.assert_allclose(got.am.means()[mask], means, rtol=0,
+                               atol=2e-5 * np.abs(means).max())
+    np.testing.assert_allclose(got.am.variances()[mask], want.am.variances()[mask], rtol=1e-3)
+    np.testing.assert_allclose(got.am.weights, want.am.weights, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.trans_model.log_probs, want.trans_model.log_probs,
+                               rtol=1e-4, atol=1e-4)
