@@ -126,7 +126,13 @@ Phases, each of which must pass (any failure exits nonzero):
    (``tests/test_sat_lda.py``'s; test WER <= 10 %, a 40-row final_mat) on
    the card and decodes with them; which aligner each stage's triphone
    graphs took, and why, goes to the log, and K2, K6 and that aligner's
-   kernels must have launched.
+   kernels must have launched.  SAT: the committed JAX-trained LDA+MLLT+SAT
+   model (``testing.load_synth_sat``) through ``decode_fmllr`` on the card
+   gives the JAX package's stored words for every test utterance (K1, K2,
+   K3 and K5 launched); the port trains delta+SAT (from mono) and
+   LDA+MLLT+SAT (from tri2b) on the card with ``tests/test_sat_lda.py``'s
+   options and decodes each with ``decode_fmllr``: test WER <= 10 % and
+   transforms off the identity by more than 0.01.
 15. tri2b at full width (splice +-3 of 13-dim features, LDA to 40, 2000 x 5
    Gaussians).  Training half, at phase 8's shape: a K4 alignment with
    phase 8's model on the features' deltas, then the step's own functions
@@ -144,6 +150,24 @@ Phases, each of which must pass (any failure exits nonzero):
    one K3 window and one ``backtrace_best`` per block; K2 at D = 40 is held
    to its float64 plain version on these features and timed against its
    TF32 bound.
+16. SAT at full width (40-dim features, 2000 x 5 Gaussians, 8 speakers).
+   Training half, at phase 8's shape with each speaker's features warped
+   by a known affine transform near the identity: the step's own functions
+   (``steps/train_sat.py``): the initial fMLLR estimate (statistics, row
+   solves, projection), one EM iteration in ``fmllr_iters`` (re-estimate,
+   K2 + K4 realignment, K6 E-step, host M-step with mixup), then ``alimdl``
+   through K6's two-feature path.  Decode half, at phase 7's shape: waves
+   -> ``make_features(deltas=None)`` -> ``lda_decode_feats`` (phase 15's
+   matrix) -> ``decode_fmllr`` over the 60k-state graph with an AM and an
+   ``alimdl`` of 2000 x 5 x 40 drawn on the features' scale, each stage's
+   wall time, the launch counts and the device busy share of a profiled
+   run.  ``acc_fmllr_stats`` (at both shapes; two runs bit-equal) and
+   ``apply_fmllr_batch`` are held to float64 plain versions on the card,
+   K6's two-feature path (x_post != x_acc) to its plain version; every
+   speaker's objective improvement must be >= 0, every transform finite,
+   every utterance must get a T-frame best path with a finite score, and
+   stage 4's gathered costs must equal a float64 recompute of the same
+   arcs; each with its card time and bound.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
@@ -1048,11 +1072,11 @@ def decode_full_width(torch, device, width: Width, log) -> dict:
     return facts
 
 
-def profile_run(torch, run, log, what: str) -> dict:
+def profile_run(torch, run, log, what: str, host_profile: bool = True) -> dict:
     """Three more runs of ``run``: two under torch.profiler, the second of
     them marked and read (device time by kernel and the device busy share of
-    that run's wall time), and one under cProfile (host time by function,
-    into the log)."""
+    that run's wall time), and, with ``host_profile``, one under cProfile
+    (host time by function, into the log)."""
     import cProfile
     import io
     import pstats
@@ -1084,13 +1108,14 @@ def profile_run(torch, run, log, what: str) -> dict:
             total[1] += 1
     busy_us = sum(us for us, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    host = cProfile.Profile()
-    host.enable()
-    run()
-    host.disable()
-    text = io.StringIO()
-    pstats.Stats(host, stream=text).sort_stats("cumulative").print_stats(30)
-    log(f"host profile of one {what} run (cProfile):\n" + text.getvalue())
+    if host_profile:
+        host = cProfile.Profile()
+        host.enable()
+        run()
+        host.disable()
+        text = io.StringIO()
+        pstats.Stats(host, stream=text).sort_stats("cumulative").print_stats(30)
+        log(f"host profile of one {what} run (cProfile):\n" + text.getvalue())
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_busy_share": busy_us / 1e6 / wall,
             "top_device_ms": [[name[:60], us / 1e3, count] for name, (us, count) in top]}
@@ -1592,22 +1617,27 @@ def aligner_kernels(aligner: str) -> tuple:
 
 
 def tri_yesno(torch, device, log) -> dict:
-    """Phase 14: the triphone stages on the device.  Returns, per part, its
-    facts and the launch counts of its run."""
+    """Phase 14: the triphone and SAT stages on the device.  Returns, per
+    part, its facts and the launch counts of its run."""
+    import numpy as np
+
     from synth import LEXICON, SR, make_corpus, make_speaker_corpus
     from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions, _build
-    from voicebridge_tpu_torch.config import LangOptions, MonoTrainOptions, TriTrainOptions
+    from voicebridge_tpu_torch.config import (FmllrDecodeOptions, LangOptions, MonoTrainOptions,
+                                              TriTrainOptions)
     from voicebridge_tpu_torch.data.lang import prepare_lang
     from voicebridge_tpu_torch.fst.hclg import mkgraph
     from voicebridge_tpu_torch.lm.arpa import arpa_to_fst
     from voicebridge_tpu_torch.lm.ngram import estimate_ngram
     from voicebridge_tpu_torch.steps.align import align_utterances
     from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.decode_fmllr import decode_fmllr
     from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
     from voicebridge_tpu_torch.steps.train_lda_mllt import lda_decode_feats, train_lda_mllt
     from voicebridge_tpu_torch.steps.train_mono import train_mono
+    from voicebridge_tpu_torch.steps.train_sat import train_sat
     from voicebridge_tpu_torch.steps.train_tri import train_tri
-    from voicebridge_tpu_torch.testing import compute_wer_set, load_synth_tri2b
+    from voicebridge_tpu_torch.testing import compute_wer_set, load_synth_sat, load_synth_tri2b
 
     def reset():
         for k in _build.launches:
@@ -1702,19 +1732,74 @@ def tri_yesno(torch, device, log) -> dict:
                       "launches": launches}
     log(f"tri2b trained on {device}: {json.dumps(facts['tri2b'])}; test {stats}")
     check(stats.wer <= 10.0, f"tri2b (port-trained): test WER {stats.wer} > 10")
+
+    # SAT: the JAX-trained LDA+MLLT+SAT fixture through decode_fmllr, then
+    # delta+SAT from mono and LDA+MLLT+SAT from tri2b trained on the card
+    # (tests/test_sat_lda.py's options and gates)
+    fmllr_opts = FmllrDecodeOptions(beam=1e9, first_beam=1e9, fmllr_min_count=50.0)
+
+    def sat_decode(hclg, model, alimdl, feats, words):
+        utts = sorted(feats)
+        res, trans = decode_fmllr(hclg, model.trans_model, model.am, alimdl, lang, utts,
+                                  *pad_features(feats, utts), utt2spk, fmllr_opts, device=device)
+        hyps = {r.utt: [words.sym(w) for w in r.words] for r in res}
+        d = trans.shape[1]
+        return hyps, compute_wer_set({u: list(test[u][1]) for u in utts}, hyps), \
+            float(np.abs(trans[:, :, :d] - np.eye(d)[None]).max()), trans
+
+    ms = load_synth_sat()
+    check(ms.corpus == m.corpus, "the SAT fixture's corpus is not the tri2b fixture's")
+    reset()
+    feats = lda_decode_feats({u: base[u] for u in test}, ms.final_mat, device=device)
+    hyps, stats, _, trans = sat_decode(ms.hclg, ms, ms.alimdl, feats, ms.words)
+    launches = dict(_build.launches)
+    bad = [u for u in hyps if hyps[u] != ms.hyps[u]]
+    check(not bad, f"SAT fixture: words differ from the JAX package's for {bad}")
+    want = np.stack([ms.transforms[s] for s in sorted(ms.transforms)])
+    facts["sat_fixture"] = {"utts": len(hyps), "wer": stats.wer, "launches": launches,
+                            "transform_max_abs_diff": float(np.abs(trans - want).max())}
+    log(f"SAT fixture decoded by decode_fmllr on {device}: {json.dumps(facts['sat_fixture'])}")
+    sat_opts = dict(num_iters=8, num_leaves=100, totgauss=300, max_iter_inc=6,
+                    fmllr_iters=(2, 4, 6))
+    lda_train = lda_decode_feats({u: base[u] for u in train}, final_mat, device=device)
+    ali2 = align_utterances(tri2b.am, tri2b.trans_model, lang, lda_train, transcripts,
+                            acoustic_scale=0.1, device=device)
+    variants = {"delta_sat": ({u: delta[u] for u in train}, {u: delta[u] for u in test},
+                              mono, ali, (3, 5, 7)),
+                "lda_sat": (lda_train, lda_test, tri2b, ali2, (2, 4, 6))}
+    for name, (tr_feats, te_feats, prev, prev_ali, realign_iters) in variants.items():
+        t0 = time.perf_counter()
+        reset()
+        sat = train_sat(tr_feats, utt2spk, transcripts, prev_ali, prev.am, lang,
+                        TriTrainOptions(**sat_opts, realign_iters=realign_iters),
+                        prev_trans_model=prev.trans_model, device=device)
+        launches = dict(_build.launches)
+        wall = time.perf_counter() - t0
+        g = arpa_to_fst(estimate_ngram([ws for (_w, ws) in train.values()], order=2),
+                        lang.words.id, lang.word_disambig_id)
+        hclg = mkgraph(lang, sat.model.tree, sat.model.trans_model, g)
+        _, stats, dev, _ = sat_decode(hclg, sat.model, sat.alimdl, te_feats, lang.words)
+        facts[name] = {"wer": stats.wer, "transform_dev": dev, "pdfs": sat.model.tree.num_pdfs,
+                       "gaussians": sat.model.am.num_gauss, "aligner": sat.model.aligner,
+                       "train_s": wall, "launches": launches}
+        log(f"{name} trained on {device}: {json.dumps(facts[name])}; test {stats}")
+        check(stats.wer <= 10.0, f"{name} (port-trained): test WER {stats.wer} > 10")
+        check(dev > 0.01, f"{name}: the transforms stay within 0.01 of the identity ({dev})")
     return facts
 
 
 class IdentityTransitions:
-    """The transition model of the synthetic training graphs, whose
-    transition ids are their pdfs (``testing.synth_train_graph``): what
-    ``train_tri.e_step`` and ``m_step`` read of a transition model."""
+    """The transition model of the synthetic graphs, whose transition ids
+    are their pdfs (``testing.synth_train_graph``, ``synth_decode_graph``):
+    what ``train_tri.e_step`` and ``m_step`` and ``decode_fmllr`` read of a
+    transition model."""
 
     def __init__(self, num_pdfs: int):
         import numpy as np
         from types import SimpleNamespace
 
         self.tid2pdf = np.arange(num_pdfs, dtype=np.int32)
+        self.tid2phone = np.zeros(num_pdfs, np.int32)  # one phone, not silence
         self.num_transition_ids = num_pdfs - 1
         self.tree = SimpleNamespace(num_pdfs=num_pdfs)
 
@@ -1723,18 +1808,19 @@ class IdentityTransitions:
 
 
 def device_function(torch, name: str, pairs, fn, work, log) -> dict:
-    """One device function of the LDA path held to its float64 plain version:
-    each (got, ref, rtol, atol) of ``pairs`` within its tolerance (0, 0:
-    bit-equal), with its wall time of one call, its device time (CUDA
-    events) and its bound from ``work`` = (bytes, operations at the float32
-    rate)."""
-    err, ok = 0.0, True
+    """One device function of the LDA or SAT path held to its float64 plain
+    version: each (got, ref, rtol, atol) of ``pairs`` within its tolerance
+    (0, 0: bit-equal; ``atol`` a number or a tensor of one per entry), with
+    its wall time of one call, its device time (CUDA events) and its bound
+    from ``work`` = (bytes, operations at the float32 rate)."""
+    err, ok, errs = 0.0, True, []
     for g, r, rtol, atol in pairs:
         g = torch.as_tensor(g).double()
         r = torch.as_tensor(r).double().to(g.device)
-        err = max(err, float((g - r).abs().max()))
-        ok = ok and (bool(torch.equal(g, r)) if rtol == atol == 0 else
-                     bool(torch.allclose(g, r, rtol=rtol, atol=atol)))
+        errs.append(float((g - r).abs().max()))
+        err = max(err, errs[-1])
+        ok = ok and (bool(torch.equal(g, r)) if rtol == 0 and not torch.is_tensor(atol)
+                     and atol == 0 else bool(((g - r).abs() <= atol + rtol * r.abs()).all()))
     timed = torch.as_tensor(pairs[0][0]).device.type == "cuda"
     wall_ms = None
     if timed:
@@ -1745,7 +1831,8 @@ def device_function(torch, name: str, pairs, fn, work, log) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     byte_ms, op_ms = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / FP32_OPS_PER_S
-    entry = {"max_abs_err": err, "tolerances": [[p[2], p[3]] for p in pairs],
+    entry = {"max_abs_err": err, "max_abs_errs": errs,
+             "tolerances": [[p[2], float(torch.as_tensor(p[3]).max())] for p in pairs],
              "wall_ms": wall_ms, "ms": cuda_ms(torch, fn) if timed else None,
              "bound_ms": max(byte_ms, op_ms),
              "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -2007,11 +2094,350 @@ def lda_mllt_full_width(torch, device, width: Width, record, results: dict, log)
     if device.type == "cuda":
         decode["profile"] = profile_run(torch, lambda: run(), log, "full-width LDA decode")
     log(f"full-width LDA decode: {json.dumps(decode)}")
+    return {"train": train, "decode": decode, "device_functions": fns, "final_mat": cur_mat}
+
+
+SAT_SPEAKERS = 8  # speakers of phase 16's training and decode shapes
+
+
+def fmllr_stats_check(torch, name: str, am, args: tuple, num_speakers: int, log) -> dict:
+    """``acc_fmllr_stats`` on ``args`` (its positional inputs, the features
+    a tensor on the device) held to ``testing.fmllr_stats_float64``: beta
+    rtol 1e-6; each entry of K and G within rtol 1e-4 plus 1e-4 times the
+    sum of its terms' magnitudes.  The posteriors come from float32
+    log-likelihoods of up to about 1e3 (the decode's narrow GMM), whose
+    rounding (about 1e3 x 2^-24) moves each term by up to about 1e-4 of
+    itself, and the terms of K cancel; the CPU tests hold the statistics
+    to the JAX package's at 1e-6 of the largest entry on a GMM of full
+    variances.  Two runs must give the same bits.  Timed against its bound
+    counted over the rows of nonzero weight (G: 2 n D E^2 operations, K:
+    2 n D E, the posteriors and collapsed statistics 10 n M D); the bound
+    over all rows beside it."""
+    from voicebridge_tpu_torch.testing import fmllr_stats_float64
+    from voicebridge_tpu_torch.transforms import fmllr as F
+
+    params, means, inv_vars, feats, pdf, w, spk = args
+    dev = feats.device
+    got = F.acc_fmllr_stats(*args, num_speakers, device=dev)
+    again = F.acc_fmllr_stats(*args, num_speakers, device=dev)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{name}: two runs of acc_fmllr_stats differ")
+    *ref, k_abs, g_abs = fmllr_stats_float64(am, feats, pdf, w, spk, num_speakers,
+                                             magnitudes=True)
+    rows = int((torch.as_tensor(w) != 0).sum())
+    n_all, d = feats.shape
+    e = d + 1
+    m = means.shape[1]
+
+    def work(n):
+        return (n * (4 * d + 16) + 4 * am.num_pdfs * m * (2 * d + 1)
+                + 4 * num_speakers * (1 + d * e + d * e * e),
+                2 * n * d * e * e + 2 * n * d * e + 10 * n * m * d)
+
+    entry = device_function(
+        torch, name,
+        [(got[0], ref[0], 1e-6, 0.0), (got[1], ref[1], 1e-4, 1e-4 * k_abs),
+         (got[2], ref[2], 1e-4, 1e-4 * g_abs)],
+        lambda: F.acc_fmllr_stats(*args, num_speakers, device=dev), work(rows), log)
+    b_all, o_all = work(n_all)
+    entry.update(rows=n_all, rows_nonzero=rows, bound_ms_all_rows=1e3 * max(
+        b_all / HBM_BYTES_PER_S, o_all / FP32_OPS_PER_S), largest_g=float(ref[2].abs().max()),
+        err_over_magnitude=[float(((a.double() - r).abs() / m.clamp(min=1e-300)).max())
+                            for a, r, m in ((got[1], ref[1], k_abs), (got[2], ref[2], g_abs))])
+    log(f"{name}: {rows} of {n_all} rows weighted, bound over all rows "
+        f"{entry['bound_ms_all_rows']:.4f} ms, largest |G| {entry['largest_g']:.6g}, error over "
+        f"the terms' magnitude (K, G) {entry['err_over_magnitude']}")
+    return entry
+
+
+def fmllr_apply_check(torch, name: str, feats, trans, spk_of_utt, log) -> dict:
+    """``apply_fmllr_batch`` held to float64 and timed against its bound
+    (features in and out once, the transforms).  Tolerance: rtol 1e-6 and,
+    per entry, the worst-case rounding of a float32 dot product of D terms
+    plus the offset, (D + 2) 2^-24 times the sum of the terms' magnitudes."""
+    from voicebridge_tpu_torch.transforms import fmllr as F
+
+    dev = feats.device
+    got = F.apply_fmllr_batch(feats, trans, spk_of_utt, device=dev)
+    t64 = torch.from_numpy(trans).to(dev, torch.float64)[torch.from_numpy(spk_of_utt).to(dev)]
+    x64 = feats.double()
+    ref = x64 @ t64[:, :, :-1].transpose(1, 2) + t64[:, None, :, -1]
+    b, t, d = feats.shape
+    mag = x64.abs() @ t64[:, :, :-1].abs().transpose(1, 2) + t64[:, None, :, -1].abs()
+    return device_function(torch, name, [(got, ref, 1e-6, (d + 2) * 2.0 ** -24 * mag)],
+                           lambda: F.apply_fmllr_batch(feats, trans, spk_of_utt, device=dev),
+                           (8 * b * t * d + 4 * trans.size + 8 * b, 2 * b * t * d * d), log)
+
+
+def arc_costs_float64(torch, w, feats, j, t, pdf, chunk: int = 1 << 18):
+    """Acoustic costs of lattice arcs recomputed in float64: for arc a,
+    ``-logsumexp_m(gconst + miv . x - 0.5 iv . x^2)`` of pdf ``pdf[a]`` at
+    frame ``t[a]`` of utterance ``j[a]`` from the GMM kernel's packed
+    parameters ``w [P, M, 2D+1]``, in chunks of arcs.  Returns the costs
+    and each arc's tolerance for a float32 evaluation: a sum of 2D+1 terms
+    rounds by at most (2D+2) 2^-24 times the sum of their magnitudes, and
+    the logsumexp moves no further than its largest such component error."""
+    d = feats.shape[2]
+    out, tol = [], []
+    for lo in range(0, len(j), chunk):
+        idx = [torch.from_numpy(a[lo:lo + chunk]).to(feats.device) for a in (j, t, pdf)]
+        x = feats[idx[0], idx[1]].double()[:, None, :]  # [A, 1, D]
+        wa = w[idx[2]].double()  # [A, M, 2D+1]
+        lin, quad, gc = wa[..., :d] * x, wa[..., d:2 * d] * x * x, wa[..., 2 * d]
+        out.append(-torch.logsumexp(lin.sum(-1) + quad.sum(-1) + gc, dim=1))
+        mag = lin.abs().sum(-1) + quad.abs().sum(-1) + gc.abs()
+        tol.append((2 * d + 2) * 2.0 ** -24 * torch.where(gc > -1e29, mag, 0.0).amax(dim=1))
+    return torch.cat(out), torch.cat(tol)
+
+
+def sat_full_width(torch, device, width: Width, record, results: dict, final_mat, log) -> dict:
+    """Phase 16: SAT at full width (40-dim features, the 2000 x 5 GMM, 8
+    speakers).  Training half at phase 8's shape through the functions of
+    ``steps/train_sat.py``; decode half at phase 7's shape through
+    ``steps/decode_fmllr.decode_fmllr``.  Returns timing facts."""
+    import copy
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from voicebridge_tpu_torch import FrameOptions, MelOptions, MfccOptions
+    from voicebridge_tpu_torch import _build, convert
+    from voicebridge_tpu_torch.config import DecodeOptions, FmllrDecodeOptions, TriTrainOptions
+    from voicebridge_tpu_torch.ops import gmm_kernels, gmm_stats_kernel
+    from voicebridge_tpu_torch.steps import decode_fmllr as DF
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
+    from voicebridge_tpu_torch.steps.train_lda_mllt import lda_decode_feats
+    from voicebridge_tpu_torch.steps.train_sat import alignment_model, estimate_transforms
+    from voicebridge_tpu_torch.steps.train_tri import e_step, m_step, realign
+    from voicebridge_tpu_torch.testing import feature_scaled_am, synth_decode_graph
+    from voicebridge_tpu_torch.transforms import fmllr as F
+
+    def reset():
+        for key in _build.launches:
+            _build.launches[key] = 0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    fns: dict = {}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # earlier phases' tables, before the float64 references
+    # ---- training half ----
+    graphs, aset, _, nf = train_shape(width, device)
+    b, t, d = width.train_batch, width.train_frames, 40
+    n = b * t
+    spk_of_utt = (np.arange(b) % SAT_SPEAKERS).astype(np.int32)
+    spk_flat = np.repeat(spk_of_utt, t)
+    rng = np.random.default_rng(16)
+    # each speaker's features warped by a known affine transform near the identity
+    eye = np.concatenate([np.eye(d), np.zeros((d, 1))], axis=1)
+    warp = (eye + 0.05 * rng.standard_normal((SAT_SPEAKERS, d, d + 1))).astype(np.float32)
+    clean = torch.from_numpy(rng.standard_normal((b, t, d), dtype=np.float32)).to(device)
+    base = F.apply_fmllr_batch(clean, warp, spk_of_utt, device=device)
+    base_flat = base.reshape(n, d)
+    x64 = clean.reshape(n, d).double()
+    am0 = feature_scaled_am(x64.mean(0).cpu().numpy(), x64.var(0).cpu().numpy(),
+                            width.num_pdfs, width.max_mix, seed=10)
+    del x64, clean
+    prior = aset.align_feats(gmm_kernels.pack_gmm(am0, device), base, nf, acoustic_scale=0.1)
+    check(all(len(r["arcs"]) == k for r, k in zip(prior, nf)), "the SAT prior alignment failed")
+    tids = np.stack([g.arc_tid[r["arcs"]] for g, r in zip(graphs, prior)]).astype(np.int32)
+    weights = np.ones((b, t), np.float32)
+    pdf = tids.reshape(-1)  # the synthetic graphs' transition ids are their pdfs
+    # the initial estimate, piece by piece
+    params = gmm_kernels.pack_gmm(am0, device)
+    stat_args = (params, am0.means(), am0.inv_vars, base_flat, pdf, weights.reshape(-1),
+                 spk_flat)
+    fns["acc_fmllr_stats_train"] = fmllr_stats_check(
+        torch, "acc_fmllr_stats (training shape)", am0, stat_args, SAT_SPEAKERS, log)
+    beta, k, g = F.acc_fmllr_stats(*stat_args, SAT_SPEAKERS, device=device)
+    t0 = time.perf_counter()
+    trans, imprs = F.estimate_fmllr_batch(beta.cpu().numpy(), k.cpu().numpy(), g.cpu().numpy())
+    estimate_s = time.perf_counter() - t0
+    check(np.isfinite(trans).all() and all(i >= 0 for i in imprs),
+          f"initial fMLLR: a transform is not finite or an improvement is negative {imprs}")
+    # how far the estimate undoes each speaker's warp: W_s applied after warp_s
+    undo = [float(np.abs(trans[s, :, :d] @ warp[s] + np.pad(trans[s, :, d:], ((0, 0), (d, 0)))
+                         - eye).max()) for s in range(SAT_SPEAKERS)]
+    log(f"initial fMLLR at full width: improvement per frame {imprs}, host estimate "
+        f"{estimate_s:.3f} s; max |W_s o warp_s - I| per speaker {undo}")
+    fns["apply_fmllr_batch_train"] = fmllr_apply_check(
+        torch, "apply_fmllr_batch (training shape)", base, trans, spk_of_utt, log)
+    tm = IdentityTransitions(width.num_pdfs)
+    opts = TriTrainOptions()
+    names = [f"utt{i}" for i in range(b)]
+
+    def em_iter():
+        """An iteration in ``fmllr_iters``: transforms re-estimated (statistics,
+        row solves, projection), realignment (K2, K4), E-step (K6), host
+        M-step with mixup, on copies."""
+        t_start = time.perf_counter()
+        am = copy.deepcopy(am0)
+        tids_i, w_i = tids.copy(), weights.copy()
+        trans_i, imprs_i = estimate_transforms(am, base_flat, tm.tid2pdf[tids_i.reshape(-1)],
+                                               w_i.reshape(-1), spk_flat, SAT_SPEAKERS)
+        feats = F.apply_fmllr_batch(base, trans_i, spk_of_utt, device=device)
+        realign(aset, am, feats, nf, tids_i, w_i, [], opts, "full-width SAT realign", names)
+        stats = e_step(am, tm, feats.reshape(n, d), tids_i, w_i)
+        m_step(am, tm, stats, am0.num_gauss, opts, seed=3001)
+        check(np.isfinite(stats[4]) and np.isfinite(am.means_invvars).all(),
+              "full-width SAT: statistics are not finite")
+        check(np.isfinite(trans_i).all() and all(i >= 0 for i in imprs_i),
+              f"full-width SAT: a transform is not finite or an improvement is negative "
+              f"{imprs_i}")
+        return time.perf_counter() - t_start, am, feats, tids_i, w_i
+
+    reset()
+    wall, trained, adapted, tids_1, w_1 = em_iter()
+    train_launches = dict(_build.launches)
+    walls = [wall] + [em_iter()[0] for _ in range(REPEATS)]
+    # the speaker-independent alignment model: K6's two-feature path
+    x_adapted = adapted.reshape(n, d)
+    reset()
+    sync()
+    t0 = time.perf_counter()
+    alimdl = alignment_model(trained, x_adapted, base_flat, tids_1.reshape(-1),
+                             w_1.reshape(-1), width.num_pdfs, opts)
+    alimdl_s = time.perf_counter() - t0
+    alimdl_launches = dict(_build.launches)
+    check(np.isfinite(alimdl.means_invvars).all(), "full-width alimdl is not finite")
+    w_k = convert.kernel_params_from_am(trained, device)
+    twin = convert.twin_params_from_kernel(w_k)
+    args = (x_adapted, base_flat, torch.from_numpy(tids_1.reshape(-1)).to(device, torch.int32),
+            torch.from_numpy(w_1.reshape(-1)).to(device))
+    got = gmm_stats_kernel.acc_stats(w_k, *args, width.num_pdfs)
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3], width.num_pdfs, args[3])
+    entry = record("gmm_stats", list(zip(got, ref)),
+                   lambda: gmm_stats_kernel.acc_stats(w_k, *args, width.num_pdfs),
+                   lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3],
+                                                                      width.num_pdfs, args[3]),
+                   (nbytes(w_k, *args, *got), 8 * n * w_k.shape[1] * d),
+                   what=" two features (x_post != x_acc) at D = 40")
+    results["gmm_stats"]["twofeats"] = {**entry, "max_mix": int(w_k.shape[1])}
+    del got, ref, w_k, twin, args
+    audio_s = n * 0.01
+    train = {"audio_s": audio_s, "runs_s": walls,
+             "median_audio_s_per_s": audio_s / float(np.median(walls)),
+             "launches": train_launches, "alimdl_launches": alimdl_launches,
+             "alimdl_s": alimdl_s, "initial_estimate_host_s": estimate_s,
+             "initial_imprs": imprs, "warp_undo_max": undo}
+    if device.type == "cuda":
+        train["profile"] = profile_run(torch, lambda: em_iter()[0], log, "full-width SAT EM")
+    log(f"full-width SAT EM iteration: {json.dumps(train)}")
+    del graphs, aset, base, base_flat, adapted, x_adapted
+
+    # ---- decode half: phase 7's waves, phase 15's final matrix ----
+    waves = synth_waves(width, seed=3)
+    utt2spk = {u: f"spk{i % SAT_SPEAKERS}" for i, u in enumerate(sorted(waves))}
+    mopts = MfccOptions(frame_opts=FrameOptions(samp_freq=width.samp_freq, dither=1.0),
+                        mel_opts=MelOptions(num_bins=23))
+    t0 = time.perf_counter()
+    feats = lda_decode_feats(make_features(waves, utt2spk, mopts, deltas=None, device=device),
+                             final_mat, device=device)
+    utts = sorted(feats)
+    batch, nfd = pad_features(feats, utts)
+    xd = batch.reshape(-1, batch.shape[2]).double()
+    mean, var = xd.mean(0).cpu().numpy(), xd.var(0).cpu().numpy()
+    del xd, feats
+    # alimdl: Gaussians drawn on the features' scale, narrow as phase 9's so
+    # the lattices stay sparse; the AM: alimdl re-estimated (K6, host
+    # M-step, variances floored at alimdl's smallest, as a recipe floors
+    # them at a share of the global variance) on these features from its
+    # own exact best paths, as training leaves a model that fits its
+    # features.  An AM drawn apart from alimdl fits nothing: its transforms
+    # squeeze the features until every pdf scores alike, and the adapted
+    # lattices hold most of the graph's arcs.
+    graph = synth_decode_graph(width.num_states, num_pdfs=width.num_pdfs)
+    alimdl = feature_scaled_am(mean, var / 30.0, width.num_pdfs, width.max_mix, seed=12)
+    si = Decoder.from_dense_graph(graph, alimdl, DecodeOptions(acoustic_scale=1.0 / 12.0),
+                                  device=device)
+    best = si.decode_batch(utts, batch, nfd, keep_tids=True)
+    nfd = nfd.cpu().numpy()
+    x_best = torch.cat([batch[i, :k] for i, k in enumerate(nfd)])
+    am = copy.deepcopy(alimdl)
+    occ, macc, vacc, _ll = gmm_kernels.acc_gmm_stats_chunked(
+        gmm_kernels.pack_gmm(alimdl, device), x_best,
+        np.concatenate([r.tids for r in best]), width.num_pdfs)  # the graph's tids are pdfs
+    am.mle_update(occ, macc, vacc, opts.min_gaussian_occupancy, float(var.min()) / 30.0)
+    log(f"fMLLR decode AM: alimdl re-estimated on {int((occ.sum(1) > 0).sum())} pdfs of its "
+        f"best paths")
+    del si, best, x_best, batch
+    no_silence = SimpleNamespace(silence_phone_ids=[])
+    tm_decode = IdentityTransitions(width.num_pdfs)
+    dopts = FmllrDecodeOptions()
+    setup_s = time.perf_counter() - t0
+    kept: dict = {"stats": [], "rescore": []}
+
+    def keep_stats(*a, **kw):
+        kept["stats"].append((a, kw))
+        return acc_fmllr_stats(*a, **kw)
+
+    def keep_rescore(dec, x, utts, lats):
+        out = rescore_lattices(dec, x, utts, lats)
+        kept["rescore"].append((dec, x, utts, lats, out))
+        return out
+
+    def run():
+        t_start = time.perf_counter()
+        base = make_features(waves, utt2spk, mopts, deltas=None, device=device)
+        feats = lda_decode_feats(base, final_mat, device=device)
+        utts = sorted(feats)
+        batch, nf = pad_features(feats, utts)
+        sync()
+        t_feats = time.perf_counter()
+        stages: dict = {}
+        res, trans = DF.decode_fmllr(graph, tm_decode, am, alimdl, no_silence, utts, batch, nf,
+                                     utt2spk, dopts, device=device, stage_s=stages)
+        return res, trans, batch, nf, stages, t_feats - t_start, time.perf_counter() - t_feats
+
+    acc_fmllr_stats, rescore_lattices = DF.acc_fmllr_stats, DF.rescore_lattices
+    DF.acc_fmllr_stats, DF.rescore_lattices = keep_stats, keep_rescore
+    try:
+        reset()
+        res, trans, batch, nfd, stages, feat_s, dec_s = run()
+        launches = dict(_build.launches)
+    finally:
+        DF.acc_fmllr_stats, DF.rescore_lattices = acc_fmllr_stats, rescore_lattices
+    check(len(res) == len(waves) and all(np.isfinite(r.score) for r in res),
+          "the fMLLR decode lost an utterance or gave a score that is not finite")
+    check(all(len(r.tids) == width.frames for r in res), "an fMLLR best path has not T frames")
+    check(np.isfinite(trans).all(), "a decode transform is not finite")
+    # the decode's own device functions, held and timed on the inputs they had
+    (sargs, _kw), _ = kept["stats"]
+    fns["acc_fmllr_stats_decode"] = fmllr_stats_check(
+        torch, "acc_fmllr_stats (decode shape, stage 1)", am, sargs[:7], sargs[7], log)
+    speakers = sorted(set(utt2spk.values()))
+    spk_utt = np.array([speakers.index(utt2spk[u]) for u in sorted(waves)], np.int32)
+    fns["apply_fmllr_batch_decode"] = fmllr_apply_check(
+        torch, "apply_fmllr_batch (decode shape)", batch, trans, spk_utt, log)
+    (dec, x2, utts, lats, out), = kept["rescore"]
+    j, tt, pp = DF.survivor_index([lats[u] for u in utts], dec.graph.arc_pdf)
+    got = torch.from_numpy(np.concatenate([out[u].acoustic_cost for u in utts])).to(device)
+    ref, tol = arc_costs_float64(torch, dec.gmm_w, x2, j, tt, pp)
+    ll = dec._loglikes(x2.contiguous())
+    idx = [torch.from_numpy(a).to(device) for a in (j, tt, pp)]
+    fns["survivor_gather"] = device_function(
+        torch, "stage-4 survivor gather", [(got, ref, 0.0, tol)],
+        lambda: -ll[idx[0], idx[1], idx[2]], (len(j) * (3 * 8 + 4 + 4), 0), log)
+    fns["survivor_gather"]["arcs"] = len(j)
+    del ll, idx, ref, got, kept
+    audio_s = len(waves) * width.frames * 0.01
+    decode = {"utts": len(waves), "setup_s": setup_s, "first_run_features_s": feat_s,
+              "first_run_decode_s": dec_s, "stage_s": stages, "audio_s": audio_s, "runs_s": [feat_s + dec_s],
+              "median_audio_s_per_s": audio_s / (feat_s + dec_s), "launches": launches,
+              "arcs_per_lattice": [int(min(lats[u].num_arcs for u in utts)),
+                                   len(j) / len(utts), int(max(lats[u].num_arcs for u in utts))]}
+    if device.type == "cuda":
+        decode["profile"] = profile_run(torch, run, log, "full-width fMLLR decode",
+                                        host_profile=False)  # stage_s splits the host's part
+    log(f"full-width fMLLR decode: {json.dumps(decode)}")
     return {"train": train, "decode": decode, "device_functions": fns}
 
 
 def run(device, width: Width, log=print) -> dict:
-    """Phases 2-15 on ``device``; returns the kernels report.  On a CPU
+    """Phases 2-16 on ``device``; returns the kernels report.  On a CPU
     device the wrappers take their plain versions, so this rehearses the
     control flow without kernels."""
     import torch
@@ -2080,8 +2506,20 @@ def run(device, width: Width, log=print) -> dict:
               f"the full-width LDA decode launched backtrace_best "
               f"{lda['decode']['launches']['backtrace_best']} times for "
               f"{lda['decode']['launches']['viterbi_step']} K3 blocks")
+    for part in ("delta_sat", "lda_sat"):
+        launched(tri[part]["launches"],
+                 ("gmm_loglikes", "gmm_stats", *aligner_kernels(tri[part]["aligner"])),
+                 f"{part} training")
+    launched(tri["sat_fixture"]["launches"], LATTICE_KERNELS[1:],  # features made before
+             "the SAT fixture's fMLLR decode")
+    sat = sat_full_width(torch, device, width, record, kernels, lda.pop("final_mat"), log)
+    launched(sat["train"]["launches"], TRAIN_KERNELS, "the full-width SAT EM iteration")
+    launched(sat["train"]["alimdl_launches"], ("gmm_stats",), "the full-width alimdl")
+    launched(sat["decode"]["launches"], LATTICE_KERNELS, "the full-width fMLLR decode")
     runs = (decode, train, lattice, nbest, generic, *rates.values(), tri["fixture"],
-            tri["tri1"], tri["tri2b"], lda["train"], lda["decode"])
+            tri["tri1"], tri["tri2b"], lda["train"], lda["decode"], tri["sat_fixture"],
+            tri["delta_sat"], tri["lda_sat"], sat["train"],
+            {"launches": sat["train"]["alimdl_launches"]}, sat["decode"])
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -2089,7 +2527,8 @@ def run(device, width: Width, log=print) -> dict:
          **kernels[name]} for name in SOURCES],
         "full_width": decode, "train": train, "lattice": lattice, "nbest": nbest,
         "generic": generic, "rates": rates, "tri": tri, "lda_train": lda["train"],
-        "lda_decode": lda["decode"], "device_functions": lda["device_functions"]}
+        "lda_decode": lda["decode"], "sat_train": sat["train"], "sat_decode": sat["decode"],
+        "device_functions": {**lda["device_functions"], **sat["device_functions"]}}
 
 
 def main() -> int:
@@ -2129,7 +2568,8 @@ def main() -> int:
     for key, what in (("full_width", "decode"), ("train", "EM training"),
                       ("lattice", "lattice decode"), ("nbest", "N-best decode"),
                       ("generic", "generic alignment"), ("lda_train", "tri2b EM training"),
-                      ("lda_decode", "LDA decode")):
+                      ("lda_decode", "LDA decode"), ("sat_train", "SAT EM training"),
+                      ("sat_decode", "fMLLR decode")):
         facts = report.pop(key)
         busy = facts["profile"]["device_busy_share"]
         launched = {k: n for k, n in facts["launches"].items() if n}
@@ -2152,7 +2592,9 @@ def main() -> int:
     print(f"triphone stages on {card}: tri2b fixture words = the JAX package's for "
           f"{tri['fixture']['utts']} test utterances; tri1 test WER {tri['tri1']['wer']:.2f} % "
           f"({tri['tri1']['aligner']}); tri2b test WER {tri['tri2b']['wer']:.2f} % "
-          f"({tri['tri2b']['aligner']})")
+          f"({tri['tri2b']['aligner']}); SAT fixture words = the JAX package's for "
+          f"{tri['sat_fixture']['utts']} test utterances; delta+SAT test WER "
+          f"{tri['delta_sat']['wer']:.2f} %, LDA+MLLT+SAT {tri['lda_sat']['wer']:.2f} %")
     for name, f in report.pop("device_functions").items():
         print(f"{name} on {card}: {f['ms']:.4f} ms device, {f['wall_ms']:.3f} ms wall, "
               f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}), max abs err {f['max_abs_err']:.3g}")

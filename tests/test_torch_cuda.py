@@ -22,8 +22,11 @@ and ``decode_nbest`` against the CPU; for the two backtraces 1 to 130 lanes,
 failed N-best walks and strided tables; for the generic aligner
 ragged and empty utterances, a finite beam, graphs whose arcs or whose alpha
 outgrow the default shared memory, a best path through a back arc, and
-``max_active``, which its kernel refuses).  They need an NVIDIA GPU and
-nvcc, and skip without one:
+``max_active``, which its kernel refuses; for the fMLLR statistics D = 40
+on uneven mixtures in one chunk and in chunks against float64, and two runs
+bit-equal; ``apply_fmllr_batch`` against float64; ``decode_fmllr`` of the
+JAX-trained SAT fixture to the JAX package's words).  They need an NVIDIA
+GPU and nvcc, and skip without one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
@@ -1041,3 +1044,79 @@ def test_train_lda_mllt_cuda_matches_cpu(cuda, monkeypatch):
     assert got.tree.nodes == want.tree.nodes
     _hold_card_e_steps(kept)
     assert_models_close(got, want)
+
+
+def test_fmllr_device_functions_cuda_match_float64(cuda):
+    """The fMLLR statistics on the card against their float64 plain version
+    (``testing.fmllr_stats_float64``) at D = 40 on a GMM of uneven mixture
+    counts (1-9), rows of weight 0 and three speakers: beta rtol 1e-6, K and
+    G rtol 1e-4 with an atol of 1e-6 times each one's largest entry, in one
+    chunk and in chunks of 512 rows; two card runs give the same bits.
+    ``apply_fmllr_batch`` against float64 at rtol 1e-6 / atol 1e-5."""
+    from voicebridge_tpu_torch.testing import fmllr_stats_float64
+    from voicebridge_tpu_torch.transforms import fmllr as TFM
+
+    rng = np.random.default_rng(9)
+    am = _am(30, 9, 40, seed=8, ragged=True)
+    n = 3000
+    pdf = rng.integers(0, 30, n)
+    pdf = np.where(am.weights[pdf].max(axis=1) > 0, pdf, int(np.argmax(am.weights[:, 0])))
+    x = torch.from_numpy((am.means()[pdf, 0] + rng.standard_normal((n, 40))).astype(np.float32))
+    w = rng.choice([0.0, 0.3, 1.0], size=n).astype(np.float32)
+    spk = rng.choice([0, 1, 2], size=n, p=[0.5, 0.4, 0.1])
+    ref = fmllr_stats_float64(am, x.to(cuda), pdf, w, spk, 3)
+    params = gmm_kernels.pack_gmm(am, cuda)
+    runs = [TFM.acc_fmllr_stats(params, am.means(), am.inv_vars, x, pdf, w, spk, 3, chunk=c,
+                                device=cuda) for c in (None, None, 512)]
+    for got in runs:
+        for i, (g, r) in enumerate(zip(got, ref)):
+            tol = dict(rtol=1e-6, atol=0.0) if i == 0 else dict(rtol=1e-4, atol=1e-6 * float(
+                r.abs().max()))
+            torch.testing.assert_close(g.double(), r, **tol)
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    feats = torch.from_numpy(3 * rng.standard_normal((4, 50, 40)).astype(np.float32))
+    eye = np.concatenate([np.eye(40), np.zeros((40, 1))], axis=1)
+    trans = (eye + 0.1 * rng.standard_normal((3, 40, 41))).astype(np.float32)
+    s_utt = np.array([2, 0, 1, 0])
+    got = TFM.apply_fmllr_batch(feats, trans, s_utt, device=cuda)
+    t64 = torch.from_numpy(trans).double()[torch.from_numpy(s_utt)]
+    want = feats.double() @ t64[:, :, :-1].transpose(1, 2) + t64[:, None, :, -1]
+    torch.testing.assert_close(got.cpu().double(), want, rtol=1e-6, atol=1e-5)
+
+
+def test_decode_fmllr_cuda_gives_the_jax_words(cuda):
+    """The committed JAX-trained SAT model through ``decode_fmllr`` on the
+    card (features made on the card): the JAX package's words for the 8 test
+    utterances, scores within rtol 1e-4, final transforms within an atol of
+    1e-2 times their largest entry (``tests/test_torch_sat.py`` says why),
+    and K2, K3 and K5 launched."""
+    from voicebridge_tpu_torch.config import FmllrDecodeOptions, LangOptions
+    from voicebridge_tpu_torch.data.lang import prepare_lang
+    from voicebridge_tpu_torch.steps.decode_fmllr import decode_fmllr
+    from voicebridge_tpu_torch.steps.make_feats import pad_features
+    from voicebridge_tpu_torch.steps.train_lda_mllt import lda_decode_feats
+    from voicebridge_tpu_torch.testing import load_synth_sat
+
+    from synth import LEXICON, make_speaker_corpus
+
+    m = load_synth_sat()
+    train, test, utt2spk = make_speaker_corpus(**m.corpus)
+    waves = {u: w for u, (w, _) in {**train, **test}.items()}
+    base = make_features(waves, utt2spk,
+                         MfccOptions(frame_opts=FrameOptions(samp_freq=m.samp_freq, dither=0.0)),
+                         deltas=None, device=cuda)
+    feats = lda_decode_feats({u: base[u] for u in test}, m.final_mat, device=cuda)
+    utts = sorted(feats)
+    lang = prepare_lang(LEXICON, ["SIL"], "SIL", LangOptions())
+    before = dict(_build.launches)
+    res, trans = decode_fmllr(m.hclg, m.trans_model, m.am, m.alimdl, lang, utts,
+                              *pad_features(feats, utts), utt2spk,
+                              FmllrDecodeOptions(beam=1e9, first_beam=1e9,
+                                                 fmllr_min_count=50.0), device=cuda)
+    launched = {k: n - before[k] for k, n in _build.launches.items()}
+    assert all(launched[k] > 0 for k in ("gmm_loglikes", "viterbi_step",
+                                         "viterbi_step_backward", "lattice_fb"))
+    assert {r.utt: [m.words.sym(w) for w in r.words] for r in res} == m.hyps
+    np.testing.assert_allclose([r.score for r in res], [m.scores[u] for u in utts], rtol=1e-4)
+    want = np.stack([m.transforms[s] for s in sorted(m.transforms)])
+    np.testing.assert_allclose(trans, want, rtol=0, atol=1e-2 * np.abs(want).max())

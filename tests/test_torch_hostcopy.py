@@ -180,6 +180,33 @@ def test_mllt_host_steps_are_identical():
         np.testing.assert_array_equal(getattr(ams[0], name), getattr(ams[1], name))
 
 
+def test_fmllr_host_steps_are_identical():
+    """``estimate_fmllr_batch`` and ``estimate_fmllr``: numpy copies,
+    identical transforms and improvements from the same statistics (two
+    speakers estimated, one below ``min_count``)."""
+    import voicebridge_tpu.transforms.fmllr as jax_fmllr
+    import voicebridge_tpu_torch.transforms.fmllr as port_fmllr
+
+    rng = np.random.default_rng(4)
+    d, n = 5, 600
+    beta = np.array([n, n / 2, 40.0], np.float32)
+    k = np.zeros((3, d, d + 1), np.float32)
+    g = np.zeros((3, d, d + 1, d + 1), np.float32)
+    for s in range(3):
+        xhat = np.concatenate([rng.standard_normal((n, d)) * rng.uniform(0.5, 2.0, d)
+                               + rng.standard_normal(d), np.ones((n, 1))], axis=1)
+        iv = rng.uniform(0.5, 2.0, d)
+        k[s] = (iv[:, None] * rng.standard_normal((d, 1))) * xhat.sum(0)[None] / 2
+        g[s] = iv[:, None, None] * (xhat.T @ xhat)[None]
+    got = port_fmllr.estimate_fmllr_batch(beta, k, g, min_count=100.0)
+    want = jax_fmllr.estimate_fmllr_batch(beta, k, g, min_count=100.0)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1] and got[1][0] > 0 and got[1][2] == 0.0
+    one = port_fmllr.estimate_fmllr(float(beta[1]), k[1], g[1], min_count=100.0)
+    np.testing.assert_array_equal(one[0], jax_fmllr.estimate_fmllr(float(beta[1]), k[1], g[1],
+                                                                   min_count=100.0)[0])
+
+
 def test_scoring_and_mbr_are_identical():
     port_score, jax_score = _both("steps.score")
     port_mbr, jax_mbr = _both("steps.mbr")

@@ -29,6 +29,8 @@ names = [m.name for m in pkgutil.walk_packages(voicebridge_tpu_torch.__path__,
                                                 "voicebridge_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("transforms.fmllr", "steps.train_sat", "steps.decode_fmllr"):
+    assert "voicebridge_tpu_torch." + name in names, name
 import chip_smoke
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 assert not (voicebridge_tpu_torch._build._lib), "importing must not build"
@@ -40,7 +42,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=False)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 55
+    assert int(res.stdout.split()[0]) >= 66
 
 
 def test_resolve_device():

@@ -13,6 +13,10 @@ this module imports nothing of the JAX package:
   port's ``HmmTopology``, tree and ``TransitionModel`` (``*_from_json``);
 * a splice+LDA(+MLLT) matrix (``final.mat.npy``) -> a checked float32
   affine array (``final_mat_from_array``);
+* a SAT model (its AM, ``alimdl``, topology, tree and transition model, and
+  its per-speaker fMLLR transforms as a dict) -> the port's ``SatModel``
+  (``sat_model_from_arrays``), the transforms as one ``[S, D, D+1]`` array
+  in sorted speaker order (``transforms_from_dict``);
 * the JAX ``GmmParams`` (``w_matrix [2D, P*M]``, ``gconsts [P, M]``) and the
   Pallas ``w3 [128, M, P_pad]`` -> the same two;
 * a JAX ``EmitPlan`` -> the port's ``EmitPlan`` (then
@@ -100,6 +104,33 @@ def final_mat_from_array(mat) -> np.ndarray:
     if mat.ndim != 2 or mat.shape[1] < 2 or not np.isfinite(mat).all():
         raise ValueError(f"need a finite affine matrix [E, D+1], got shape {mat.shape}")
     return mat
+
+
+def transforms_from_dict(transforms: dict) -> tuple[list, np.ndarray]:
+    """Per-speaker affine transforms ``{speaker: [D, D+1]}`` (what
+    ``train_sat`` returns) -> (speakers sorted, float32 ``[S, D, D+1]``),
+    checked finite and of one affine shape."""
+    speakers = sorted(transforms)
+    mats = np.array([np.asarray(transforms[s], np.float32) for s in speakers], np.float32)
+    if (mats.ndim != 3 or mats.shape[2] != mats.shape[1] + 1
+            or not np.isfinite(mats).all()):
+        raise ValueError(f"need finite affine transforms [S, D, D+1], got shape {mats.shape}")
+    return speakers, mats
+
+
+def sat_model_from_arrays(am: tuple, alimdl: tuple, topo: dict, tree: dict, trans: dict,
+                          lang, transforms: dict):
+    """A SAT model trained elsewhere (``am`` and ``alimdl`` as the three GMM
+    arrays each, the json objects of its topology, tree and transition
+    model, the ``Lang``, and ``{speaker: [D, D+1]}``) -> the port's
+    ``steps/train_sat.SatModel``."""
+    from .steps.train_mono import TrainedModel  # imported here: the steps import this module
+    from .steps.train_sat import SatModel
+
+    tm = transition_model_from_json(topo, tree, trans)
+    speakers, mats = transforms_from_dict(transforms)
+    return SatModel(model=TrainedModel(am_from_arrays(*am), tm, tm.tree, lang, aligner=""),
+                    alimdl=am_from_arrays(*alimdl), transforms=dict(zip(speakers, mats)))
 
 
 def kernel_params_from_twin(params: GmmParams) -> torch.Tensor:

@@ -9,6 +9,11 @@
   (``tools/make_torch_tri_fixture.py``), with its ``final_mat`` and the JAX
   package's exact-search hypotheses and scores for the test utterances,
   committed under ``assets/synth_tri2b``.
+* ``load_synth_sat``: the LDA+MLLT+SAT model (tri3b) that the JAX package
+  trained on the same corpus (``tools/make_torch_sat_fixture.py``), with its
+  ``alimdl``, ``final_mat``, and the JAX package's ``decode_fmllr`` words,
+  scores and final transforms for the test utterances, committed under
+  ``assets/synth_sat``.
 * ``synth_decode_graph`` / ``random_am``: the repo's full-width decode shape
   (``bench.py``): an HCLG-shaped 60k-state / 480k-arc graph and a
   2000-pdf x 5-Gaussian x 39-dim diagonal GMM, from numpy seeds.
@@ -19,6 +24,8 @@
   optional skips, banded and dst-pure like a compiled training graph.
 * ``assert_models_close``: two trainings of one model (the port against the
   JAX package, or the card against the CPU) held to each other.
+* ``fmllr_stats_float64``: the fMLLR statistics' plain version in float64,
+  which ``transforms/fmllr.acc_fmllr_stats`` is held to on the card.
 """
 
 from __future__ import annotations
@@ -42,9 +49,10 @@ from .ops.graph import NEG_INF, DenseGraph
 
 ASSET_DIR = Path(__file__).parent / "assets" / "yesno_mono"
 TRI2B_DIR = Path(__file__).parent / "assets" / "synth_tri2b"
+SAT_DIR = Path(__file__).parent / "assets" / "synth_sat"
 
-__all__ = ["ASSET_DIR", "TRI2B_DIR", "YesNoModel", "assert_models_close", "compute_wer_set",
-           "feature_scaled_am",
+__all__ = ["ASSET_DIR", "SAT_DIR", "TRI2B_DIR", "YesNoModel", "assert_models_close",
+           "compute_wer_set", "feature_scaled_am", "fmllr_stats_float64", "load_synth_sat",
            "load_synth_tri2b", "load_yesno_mono", "random_am", "synth_decode_graph",
            "synth_train_graph"]
 
@@ -60,6 +68,8 @@ class YesNoModel:
     hyps: dict  # utt -> hypothesis words of the JAX package's decode
     scores: dict | None = None  # utt -> the JAX package's best-path score
     final_mat: np.ndarray | None = None  # splice+LDA+MLLT [E, D+1] of an LDA model
+    alimdl: AmDiagGmm | None = None  # a SAT model's speaker-independent first-pass model
+    transforms: dict | None = None  # speaker -> the JAX package's final fMLLR [D, D+1]
 
 
 def _load_model(path: Path) -> YesNoModel:
@@ -68,12 +78,18 @@ def _load_model(path: Path) -> YesNoModel:
     tm.load_probs(path / "trans.json")
     meta = json.loads((path / "hyps.json").read_text())
     mat = path / "final_mat.npy"
+    alimdl = path / "final.alimdl.npz"
+    transforms = None
+    if (path / "transforms.npy").exists():
+        transforms = dict(zip(meta["speakers"], np.load(path / "transforms.npy")))
     return YesNoModel(am=AmDiagGmm.load(path / "am.npz"), hclg=Fst.load(path / "hclg.npz"),
                       trans_model=tm, words=SymbolTable.read(path / "words.txt"),
                       corpus=meta["corpus"], samp_freq=meta["samp_freq"],
                       hyps=meta["hyps"], scores=meta.get("scores"),
                       final_mat=convert.final_mat_from_array(np.load(mat))
-                      if mat.exists() else None)
+                      if mat.exists() else None,
+                      alimdl=AmDiagGmm.load(alimdl) if alimdl.exists() else None,
+                      transforms=transforms)
 
 
 def load_yesno_mono(path: Path = ASSET_DIR) -> YesNoModel:
@@ -85,6 +101,15 @@ def load_synth_tri2b(path: Path = TRI2B_DIR) -> YesNoModel:
     ``tests/synth.py``'s ``make_speaker_corpus``, whose test utterances
     ``hyps`` and ``scores`` cover (features: MFCC without dither, CMVN per
     speaker over train and test, splice +-3, ``final_mat``)."""
+    return _load_model(path)
+
+
+def load_synth_sat(path: Path = SAT_DIR) -> YesNoModel:
+    """The JAX-trained LDA+MLLT+SAT model; ``corpus`` as for
+    ``load_synth_tri2b`` (the same features: base features -> splice ->
+    ``final_mat``), ``hyps`` and ``scores`` from the JAX package's
+    ``decode_fmllr`` (exact search, ``fmllr_min_count`` 50), ``transforms``
+    its final transform of each test speaker."""
     return _load_model(path)
 
 
@@ -197,3 +222,42 @@ def assert_models_close(got, want) -> None:
     np.testing.assert_allclose(got.am.weights, want.am.weights, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got.trans_model.log_probs, want.trans_model.log_probs,
                                rtol=1e-4, atol=1e-4)
+
+
+def fmllr_stats_float64(am: AmDiagGmm, feats, pdf_ids, weights, spk_ids, num_speakers: int,
+                        magnitudes: bool = False):
+    """The fMLLR statistics (beta ``[S]``, K ``[S, D, D+1]``, G ``[S, D,
+    D+1, D+1]``) in float64 on the features' device, from the GMM's own
+    arrays: each row's posteriors over its pdf's Gaussians, then per speaker
+    beta = sum gamma, K = sum (gamma mu/var) xhat^T and G[d] = sum
+    gamma/var_d xhat xhat^T, each one product over the speaker's rows.
+    With ``magnitudes``, also K and G summed over the terms' absolute
+    values: the scale of a float32 sum's rounding error in each entry."""
+    import torch
+
+    dev = feats.device
+    x = feats.to(torch.float64)
+    pdf = torch.as_tensor(pdf_ids).to(dev, torch.int64)
+    w = torch.as_tensor(weights).to(dev, torch.float64)
+    spk = torch.as_tensor(spk_ids).to(dev, torch.int64)
+    miv = torch.from_numpy(am.means_invvars).to(dev, torch.float64)[pdf]  # [N, M, D]
+    iv = torch.from_numpy(am.inv_vars).to(dev, torch.float64)[pdf]
+    gc = torch.from_numpy(np.where(np.isfinite(am.gconsts), am.gconsts, -np.inf)).to(
+        dev, torch.float64)[pdf]
+    ll = gc + (miv * x[:, None]).sum(-1) - 0.5 * (iv * x[:, None] ** 2).sum(-1)
+    gamma = torch.softmax(ll, dim=1) * w[:, None]  # [N, M]
+    w_miv = (gamma[:, :, None] * miv).sum(1)
+    w_iv = (gamma[:, :, None] * iv).sum(1)
+    xhat = torch.cat([x, x.new_ones((len(x), 1))], dim=1)
+    n, d = x.shape
+    beta = x.new_zeros(num_speakers)
+    k = x.new_zeros((2, num_speakers, d, d + 1))
+    g = x.new_zeros((2, num_speakers, d, d + 1, d + 1))
+    for s in range(num_speakers):
+        r = (spk == s) & (w != 0)
+        beta[s] = gamma[r].sum()
+        for i, f in enumerate((lambda a: a, torch.abs)[:1 + magnitudes]):
+            k[i, s] = f(w_miv[r]).T @ f(xhat[r])
+            y = (w_iv[r][:, :, None] * f(xhat[r])[:, None, :]).reshape(-1, d * (d + 1))
+            g[i, s] = (y.T @ f(xhat[r])).view(d, d + 1, d + 1)
+    return (beta, k[0], g[0], k[1], g[1]) if magnitudes else (beta, k[0], g[0])
