@@ -27,8 +27,13 @@ Phases, each of which must pass (any failure exits nonzero):
    16 frames (its time per frame; the line also carries the one-frame
    time), K4 banded alignment forward and
    backtrace (192 utterances x 400 frames, 384-state training graphs;
-   bit-equal scores, equal band-slot codes and arcs), K6 aligned E-step
-   statistics (77k aligned frames, 2000 x 5 x 39), K7 N-best steps (the
+   bit-equal scores, equal band-slot codes and arcs; the forward's bound
+   counts the 32-byte loglik sectors its states' pdfs touch, the 4-byte
+   count beside it), K6 aligned E-step statistics (77k aligned frames,
+   2000 x 5 x 39; its work list built on the card bit-equal to the plain
+   ``torch.sort`` + ``block_table`` list, two runs bit-equal, at most 3
+   device launches a call), with the device time alone (torch.profiler)
+   of K4 and K6 beside their time through the wrapper, K7 N-best steps (the
    60k-state graph, 32 lanes x 4 hypotheses per state: as phase 11 runs
    it, all 1000 frames in one launch at exact search, held to the plain
    version frame by frame; and one frame a launch and as one window of 16
@@ -76,7 +81,8 @@ Phases, each of which must pass (any failure exits nonzero):
    iteration = K2 emissions -> K4 alignment -> K6 statistics -> host M-step
    over 192 utterances of T = 400 frames, 384-state training graphs and the
    2000 x 5 x 39 GMM, with the launch counts of this run (K4's forward
-   once per sub-batch); every utterance must align.  Median audio seconds
+   once per sub-batch; K6 at most 3 device launches a call on the
+   iteration's statistics); every utterance must align.  Median audio seconds
    per second of this run and five more, and the device busy share of one
    profiled run.
 9. The lattice path at full width: waves -> make_features ->
@@ -546,7 +552,7 @@ def compare_kernels(torch, device, width: Width, results: dict, record, log) -> 
     del ll_k
     compare_nbest_kernel(torch, device, width, graph, ll_nbest, acwt, record, log)
     del ll_t, ll_nbest
-    compare_training_kernels(torch, device, width, w, record)
+    compare_training_kernels(torch, device, width, w, record, log)
     compare_generic_kernels(torch, device, width, w, record, log)
     return results
 
@@ -835,11 +841,97 @@ def train_shape(width: Width, device, back_arcs: int = 0):
     return graphs, AlignmentSet(graphs, device=device), feats, nf
 
 
-def compare_training_kernels(torch, device, width: Width, w, record) -> None:
-    """Phase 3, training half: K4 (forward, backtrace) and K6 against their
-    plain versions at the full-width training shape."""
+def device_profile(torch, fn, calls: int = 5) -> dict:
+    """The device time of ``fn`` alone: the sum of the device activities
+    (kernels, copies, memsets) that ``calls`` runs start under
+    torch.profiler, after a run that is not read; per call, with the
+    activities per call and the time by name.  Also the host's time to
+    issue a run (``calls`` runs without a synchronisation)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    mark = "smoke_device_profile"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        with record_function(mark):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    span = next(e.time_range for e in events
+                if e.name == mark and e.device_type == DeviceType.CPU)
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name != mark
+           and span.start <= e.time_range.start <= span.end]
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
+            e.time_range.end - e.time_range.start) / calls / 1e3
+    return {"device_ms": sum(by_name.values()), "host_ms": host_ms,
+            "activities_per_call": len(dev) / calls, "device_ms_by_name": by_name}
+
+
+def k4_sector_bytes(torch, pdf, num_frames, t_total: int, p: int, frames: int = 25) -> int:
+    """The loglik bytes K4's forward must read from HBM: per utterance and
+    active frame, the distinct 32-byte sectors that its states' logliks lie
+    in (``pdf [B, S]``, logliks ``[B, T, P]`` f32), ``frames`` frames at a
+    time on the device."""
+    b = pdf.shape[0]
+    utt = torch.arange(b, device=pdf.device)[:, None, None]
+    sectors = 0
+    for t0 in range(0, t_total, frames):
+        t = torch.arange(t0, min(t0 + frames, t_total), device=pdf.device)
+        at = ((utt * t_total + t[None, :, None]) * p + pdf[:, None, :].long()) // 8
+        srt = at.sort(dim=2).values
+        distinct = 1 + (srt[..., 1:] != srt[..., :-1]).sum(dim=2)
+        sectors += int((distinct * (t[None, :] < num_frames[:, None])).sum())
+    return 32 * sectors
+
+
+def k6_inputs(torch, device, graphs, arcs, x_post, x_acc):
+    """K6's arguments at the training shape: the features, the pdfs of the
+    alignment's arcs, weights 1."""
     import numpy as np
 
+    pdf = np.stack([graphs[i].arc_pdf[arcs[:, i]] for i in range(len(graphs))])
+    return (x_post, x_acc, torch.from_numpy(pdf.reshape(-1)).to(device),
+            torch.ones(x_post.shape[0], dtype=torch.float32, device=device))
+
+
+def check_k6_list_and_runs(torch, w, args, num_pdfs: int, log) -> dict:
+    """K6's work list built on the card against the plain one (``torch.sort``
+    + ``block_table``), bit-equal; two runs of the statistics, bit-equal;
+    the device activities of one call (at most 3) and its device time."""
+    from voicebridge_tpu_torch.ops import gmm_stats_kernel as K6
+
+    got, ref = K6.work_list(args[2], args[3], num_pdfs), K6.work_list_plain(args[2], args[3],
+                                                                             num_pdfs)
+    for name, g, r in zip(ref._fields, got, ref):
+        check(bool(torch.equal(g, r)), f"gmm_stats: the card's work list differs in {name}")
+    one, two = (K6.acc_stats(w, *args, num_pdfs) for _ in range(2))
+    check(all(bool(torch.equal(a, b)) for a, b in zip(one, two)),
+          "gmm_stats: two runs differ")
+    facts = {"real_blocks": int(got.pdf_blk_hi[-1]), "list_blocks": int(got.blk_pdf.shape[0])}
+    if args[0].device.type == "cuda":
+        facts.update(device_profile(torch, lambda: K6.acc_stats(w, *args, num_pdfs)))
+        check(facts["activities_per_call"] <= 3,
+              f"gmm_stats: {facts['activities_per_call']} device activities a call "
+              f"({facts['device_ms_by_name']})")
+    log(f"gmm_stats: work list bit-equal to the plain one, two runs bit-equal; {facts}")
+    return facts
+
+
+def compare_training_kernels(torch, device, width: Width, w, record, log) -> None:
+    """Phase 3, training half: K4 (forward, backtrace) and K6 against their
+    plain versions at the full-width training shape; K6's work list against
+    its plain version and two runs of K6 against each other."""
     from voicebridge_tpu_torch import convert
     from voicebridge_tpu_torch.ops import align_band as AB
     from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel
@@ -850,43 +942,55 @@ def compare_training_kernels(torch, device, width: Width, w, record) -> None:
     ll = gmm_kernel.loglikes_batch(feats, w)
     acwt = 0.1
     fwd = (plan.W, plan.pdf, plan.alpha0, ll, nf, acwt, plan.offsets)
-    ae_k, bps_k = AB.viterbi_forward_banded(*fwd)
+    ae_k, bps_k = AB.viterbi_forward_banded(*fwd, plan.pdf_range)
     ae_p, bps_p = AB.viterbi_forward_banded_plain(*fwd)
     same = bool(torch.equal(ae_k, ae_p) and torch.equal(bps_k, bps_p))
     b, s, k = plan.W.shape
-    t = ll.shape[1]
-    # the band, one gathered loglik per (frame, state), the backpointers out;
-    # an add and a compare per band slot, an add and a multiply per state
-    record("align_forward", [(ae_k, ae_p)], lambda: AB.viterbi_forward_banded(*fwd),
-           lambda: AB.viterbi_forward_banded_plain(*fwd),
-           (nbytes(plan.W, plan.pdf, plan.alpha0, nf, ae_k, bps_k) + 4 * b * t * s,
-            2 * b * t * s * k + 2 * b * t * s), equal=same)
+    t, p = ll.shape[1], ll.shape[2]
+    # the band, the logliks' 32-byte sectors that the states' pdfs touch
+    # (the loglik block does not fit in L2), the backpointers out; an add
+    # and a compare per band slot, an add and a multiply per state
+    plan_bytes = nbytes(plan.W, plan.pdf, plan.alpha0, nf, ae_k, bps_k)
+    sector_bytes = k4_sector_bytes(torch, plan.pdf, nf, t, p)
+    entry = record("align_forward", [(ae_k, ae_p)],
+                   lambda: AB.viterbi_forward_banded(*fwd, plan.pdf_range),
+                   lambda: AB.viterbi_forward_banded_plain(*fwd),
+                   (plan_bytes + sector_bytes, 2 * b * t * s * k + 2 * b * t * s), equal=same)
+    entry["bound_4byte_ms"] = 1e3 * (plan_bytes + 4 * b * t * s) / HBM_BYTES_PER_S
+    entry["loglik_sector_bytes"] = sector_bytes
+    if device.type == "cuda":
+        entry.update(device_profile(torch, lambda: AB.viterbi_forward_banded(*fwd,
+                                                                             plan.pdf_range)))
+    log(f"align_forward: {sector_bytes} bytes of loglik sectors ({sector_bytes / (b * t):.0f} "
+        f"a frame of {4 * p}), bound {entry['bound_ms']:.4g} ms; 4 bytes a loglik "
+        f"{entry['bound_4byte_ms']:.4g} ms; device alone {entry.get('device_ms')} ms")
     del bps_p
     bt = (ae_k, plan.final, bps_k, nf, plan.offsets, plan.arc_of)
     got, ref = AB.backtrace_banded(*bt), AB.backtrace_banded_plain(*bt)
     same = all(bool(torch.equal(g, r.to(g.dtype))) for g, r in zip(got, ref))
     # the end scores, then per (frame, utterance) one backpointer, one arc
     # id looked up and one written
-    record("align_backtrace", [(got[3], ref[3])], lambda: AB.backtrace_banded(*bt),
-           lambda: AB.backtrace_banded_plain(*bt),
-           (nbytes(ae_k, plan.final, nf) + 9 * b * t, b * s + b * t), equal=same)
+    entry = record("align_backtrace", [(got[3], ref[3])], lambda: AB.backtrace_banded(*bt),
+                   lambda: AB.backtrace_banded_plain(*bt),
+                   (nbytes(ae_k, plan.final, nf) + 9 * b * t, b * s + b * t), equal=same)
+    if device.type == "cuda":
+        entry.update(device_profile(torch, lambda: AB.backtrace_banded(*bt)))
     check(bool(got[2].all()), "align_backtrace: an utterance has no path")
     arcs = got[0].cpu().numpy()
     del ll, bps_k, bt
-    pdf = np.stack([graphs[i].arc_pdf[arcs[:, i]] for i in range(len(graphs))])
     x = feats.reshape(-1, feats.shape[2])
-    args = (x, x, torch.from_numpy(pdf.reshape(-1)).to(device),
-            torch.ones(x.shape[0], dtype=torch.float32, device=device))
+    args = k6_inputs(torch, device, graphs, arcs, x, x)
     twin = convert.twin_params_from_kernel(w)
     got = gmm_stats_kernel.acc_stats(w, *args, width.num_pdfs)
     ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3], width.num_pdfs, args[3])
     # per (frame, Gaussian of its pdf): a multiply-add per row of [x, x^2]
     # for the posterior and one per dimension for each of the two sums
-    record("gmm_stats", list(zip(got, ref)),
-           lambda: gmm_stats_kernel.acc_stats(w, *args, width.num_pdfs),
-           lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3],
-                                                              width.num_pdfs, args[3]),
-           (nbytes(w, *args, *got), 8 * x.shape[0] * w.shape[1] * x.shape[1]))
+    entry = record("gmm_stats", list(zip(got, ref)),
+                   lambda: gmm_stats_kernel.acc_stats(w, *args, width.num_pdfs),
+                   lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3],
+                                                                      width.num_pdfs, args[3]),
+                   (nbytes(w, *args, *got), 8 * x.shape[0] * w.shape[1] * x.shape[1]))
+    entry.update(check_k6_list_and_runs(torch, w, args, width.num_pdfs, log))
 
 
 def compare_generic_kernels(torch, device, width: Width, w, record, log) -> None:
@@ -1179,8 +1283,9 @@ def train_full_width(torch, device, width: Width, log) -> dict:
 
     import numpy as np
 
-    from voicebridge_tpu_torch import _build
+    from voicebridge_tpu_torch import _build, convert
     from voicebridge_tpu_torch.ops import gmm_kernels as K
+    from voicebridge_tpu_torch.ops import gmm_stats_kernel
     from voicebridge_tpu_torch.testing import random_am
 
     t0 = time.perf_counter()
@@ -1201,6 +1306,7 @@ def train_full_width(torch, device, width: Width, log) -> dict:
         check(all(len(r["arcs"]) == n for r, n in zip(alis, nf)),
               "full-width training: an utterance did not align")
         pdf = np.stack([g.arc_pdf[r["arcs"]] for g, r in zip(graphs, alis)])
+        last_pdf[:] = [pdf.reshape(-1)]
         occ, macc, vacc, ll = K.acc_gmm_stats_chunked(params, x, pdf.reshape(-1),
                                                       width.num_pdfs)
         am.mle_update(occ, macc, vacc)
@@ -1208,6 +1314,7 @@ def train_full_width(torch, device, width: Width, log) -> dict:
               "full-width training: statistics are not finite")
         return time.perf_counter() - t_start
 
+    last_pdf: list = []  # the pdfs of the last iteration's alignment
     sub_batches = math.ceil(b / aset._batch_chunk(t, width.num_pdfs, dim,
                                                   width.train_states + 1))
     for k in _build.launches:
@@ -1223,6 +1330,16 @@ def train_full_width(torch, device, width: Width, log) -> dict:
              "median_audio_s_per_s": audio_s / float(np.median(walls)), "launches": launches}
     if device.type == "cuda":
         facts["profile"] = profile_run(torch, em_iter, log, "full-width EM")
+        # K6 on the iteration's own statistics: its device activities a call
+        wk = convert.kernel_params_from_twin(K.pack_gmm(am0, device))
+        args = (x, x, torch.from_numpy(last_pdf[0]).to(device),
+                torch.ones(b * t, dtype=torch.float32, device=device))
+        k6 = device_profile(torch, lambda: gmm_stats_kernel.acc_stats(wk, *args,
+                                                                      width.num_pdfs))
+        check(k6["activities_per_call"] <= 3,
+              f"full-width training: K6 made {k6['activities_per_call']} device launches a "
+              f"call ({k6['device_ms_by_name']})")
+        facts["gmm_stats_call"] = k6
     log(f"full-width training: {json.dumps(facts)}")
     return facts
 
@@ -2006,6 +2123,9 @@ def lda_mllt_full_width(torch, device, width: Width, record, results: dict, log)
                                                                     width.num_pdfs, args[3]),
                  (nbytes(w_k, *args, *got), 8 * n * w_k.shape[1] * e),
                  what=" at D = 40, uneven mixtures")
+    if device.type == "cuda":
+        d40.update(device_profile(torch, lambda: gmm_stats_kernel.acc_stats(w_k, *args,
+                                                                           width.num_pdfs)))
     results["gmm_stats"]["lda_features"] = {**d40, "max_mix": int(w_k.shape[1])}
     results["gmm_loglikes"]["max_abs_err_lda_uneven"] = k2_check(
         torch, x.contiguous(), w_k, "the tri2b training features (uneven mixtures)", log)
@@ -2315,6 +2435,9 @@ def sat_full_width(torch, device, width: Width, record, results: dict, final_mat
                                                                       width.num_pdfs, args[3]),
                    (nbytes(w_k, *args, *got), 8 * n * w_k.shape[1] * d),
                    what=" two features (x_post != x_acc) at D = 40")
+    if device.type == "cuda":
+        entry.update(device_profile(torch, lambda: gmm_stats_kernel.acc_stats(w_k, *args,
+                                                                             width.num_pdfs)))
     results["gmm_stats"]["twofeats"] = {**entry, "max_mix": int(w_k.shape[1])}
     del got, ref, w_k, twin, args
     audio_s = n * 0.01

@@ -7,7 +7,9 @@ and its backtrace equal arcs, end states, ok flags and bit-equal scores.
 The cases are those of ``tests/test_align_band.py`` plus negative offsets,
 empty utterances and a graph with no path.  On the committed Yes-No model,
 ``AlignmentSet.align_feats`` gives the JAX package's transition ids; the
-generic aligner matches ``viterbi_forward_batched`` on a non-banded set."""
+generic aligner matches ``viterbi_forward_batched`` on a non-banded set.  The
+device plan keeps its pdf range on the host, and a plan whose pdfs reach past
+the logliks is refused on either device."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -256,3 +258,32 @@ def test_wrappers_reject_other_devices():
         AB.viterbi_forward_banded(meta, meta, meta, meta, meta, 0.1, meta)
     with pytest.raises(ValueError, match="unsupported device"):
         AB.backtrace_banded(meta, meta, meta, meta, meta, meta)
+
+
+def test_band_plan_keeps_its_pdf_range_on_the_host():
+    """``plan_to_device`` records the plan's pdf range from the numpy plan,
+    and ``take`` keeps it, so K4's wrapper checks it without reading the
+    card."""
+    graphs, _, _ = _case("random")
+    plan = AB.build_band_plan(graphs)
+    dev = AB.plan_to_device(plan, "cpu")
+    assert dev.pdf_range == (int(plan.pdf.min()), int(plan.pdf.max()))
+    assert all(isinstance(v, int) for v in dev.pdf_range)
+    sub = dev.take(np.array([2, 0]))
+    assert sub.pdf_range == dev.pdf_range
+    np.testing.assert_array_equal(sub.pdf.numpy(), plan.pdf[[2, 0]])
+
+
+def test_align_banded_refuses_pdfs_past_the_logliks():
+    """A plan whose largest pdf reaches past the logliks' P is refused by its
+    host pdf range before the device branch, so on the CPU as on the card."""
+    graphs, ll, nf = _case("random")
+    plan = AB.build_band_plan(graphs)
+    p = int(plan.pdf.max())  # the largest pdf is one past the last loglik
+    with pytest.raises(ValueError, match="loglikes have"):
+        A.align_banded(plan, graphs, torch.from_numpy(ll[:, :, :p]).contiguous(), nf, 0.37)
+    dev = AB.plan_to_device(plan, "cpu")
+    with pytest.raises(ValueError, match="loglikes have"):
+        AB.viterbi_forward_banded(dev.W, dev.pdf, dev.alpha0,
+                                  torch.from_numpy(ll[:, :, :p]).contiguous(),
+                                  torch.from_numpy(nf), 0.37, dev.offsets, dev.pdf_range)

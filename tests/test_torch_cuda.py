@@ -10,8 +10,13 @@ lanes, uint8 and int16 backpointers, dead and bucket-padding rows, windows
 of 1, 3 and T frames, a one-block grid and the lattice's backward window,
 and the recompute decode; for the aligner K4
 ragged and empty utterances, a failed utterance and a band matrix W too
-large for shared memory; for the E-step K6 a pdf holding most frames,
-zero-weight frames and two different feature arrays; for the lattice step K5
+large for shared memory, one frame, fewer frames than the emission ring
+holds, lanes with no frames and more than 512 states; for the E-step K6 a
+pdf holding most frames, zero-weight frames and two different feature
+arrays, every frame on one pdf, fewer pdfs counted than the model has, fewer
+frames than one chunk of the card's sort, pdfs with no frames and no frame
+of nonzero weight, more chunks than the card's sort holds at once and 12,000
+pdfs, the work list built on the card bit-equal to the plain one; for the lattice step K5
 row widths 1 to 8, 1 to 130 lanes, ragged and empty utterances, utterances
 that reach no final state, windows of 1, 3, 7, 16 and T frames and a
 one-block grid, and the lattice decode against the CPU;
@@ -508,6 +513,103 @@ def test_gmm_stats_matches_plain(cuda, case):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=atol)
     again = gmm_stats_kernel.acc_stats(w, *args, 40)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
+
+
+# (frames T, lanes, states S, band offsets or None for training graphs of
+# 8-40 states, pdfs P): one frame; fewer frames than K4's emission ring
+# holds; lanes with no frames; S > 512 (several states per thread, W in
+# shared memory); W too large for shared memory, read through L2; and a
+# model of 2000 pdfs under graphs of a few states
+ALIGN_EDGES = {"t1": (1, 6, None, None, 50), "below_depth": (2, 6, None, None, 50),
+               "empty_lanes": (60, 8, None, None, 50),
+               "s_above_512": (50, 3, 700, range(-2, 5), 50),
+               "wide_w": (7, 3, 2000, range(-20, 28), 50),
+               "few_states": (45, 6, None, None, 2000)}
+
+
+@pytest.mark.parametrize("case", sorted(ALIGN_EDGES))
+def test_align_forward_edges(cuda, case):
+    """K4's forward at its edges: bit-equal alpha_end and equal band-slot
+    codes against the plain version, with the plan's pdf range from the host
+    and read from the card alike."""
+    rng = np.random.default_rng(17)
+    t, b, s, offsets, num_pdfs = ALIGN_EDGES[case]
+    if offsets is None:
+        plan = AB.build_band_plan([synth_train_graph(int(rng.integers(8, 40)), num_pdfs, rng)
+                                   for _ in range(b)])
+        assert len(plan.offsets) <= 8 and plan.W.shape[1] <= 512  # W in registers
+    else:
+        plan = _wide_band(rng, b, s, offsets, num_pdfs)
+    dev = AB.plan_to_device(plan, cuda)
+    nf = rng.integers(max(1, t // 2), t + 1, b).astype(np.int32)
+    if case == "empty_lanes":
+        nf[[0, 2, b - 1]] = 0
+    nf = torch.from_numpy(nf).to(cuda)
+    ll = torch.from_numpy((rng.standard_normal((b, t, num_pdfs)) * 4 - 20)
+                          .astype(np.float32)).to(cuda)
+    fwd = (dev.W, dev.pdf, dev.alpha0, ll, nf, 0.1, dev.offsets)
+    got = AB.viterbi_forward_banded(*fwd, dev.pdf_range)
+    read = AB.viterbi_forward_banded(*fwd)
+    ref = AB.viterbi_forward_banded_plain(*fwd)
+    torch.cuda.synchronize()
+    for out in (got, read):
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    with pytest.raises(ValueError, match="loglikes have"):
+        AB.viterbi_forward_banded(*fwd, (0, num_pdfs))
+
+
+# (frames N, pdfs of the model P, pdfs counted): every frame on one pdf;
+# fewer pdfs counted than the model has; N below one chunk of the card's
+# sort; pdfs with no frames; no frame of nonzero weight; more chunks than
+# the sort's grid holds at once; pdfs too many for 8 warps' counts in
+# shared memory
+STATS_EDGES = {"one_pdf": (3000, 40, 40), "fewer_pdfs": (4000, 40, 25),
+               "below_chunk": (100, 40, 40), "empty_pdfs": (2000, 300, 300),
+               "no_frames": (500, 40, 40), "many_chunks": (1_500_000, 2000, 2000),
+               "many_pdfs": (50_000, 12_000, 12_000)}
+
+
+@pytest.mark.parametrize("case", sorted(STATS_EDGES))
+def test_gmm_stats_edges(cuda, case):
+    """K6 at its edges: the work list built on the card equals the plain
+    one (``torch.sort`` + ``block_table``) bit for bit, the statistics match
+    the plain version (rtol 1e-5, atol 1e-5 x each accumulator's largest
+    magnitude), and two runs give the same bits."""
+    rng = np.random.default_rng(23)
+    n, p, num_pdfs = STATS_EDGES[case]
+    d = 13
+    w = convert.kernel_params_from_am(_am(p, 3, d, seed=5, ragged=False), cuda)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    pdf = rng.integers(0, num_pdfs, n).astype(np.int32)
+    if case == "one_pdf":
+        pdf[:] = 7
+    elif case == "empty_pdfs":
+        pdf = rng.integers(0, 20, n).astype(np.int32) * 15  # 20 of 300 pdfs
+    weights = rng.random(n).astype(np.float32)
+    weights[rng.random(n) < 0.2] = 0.0
+    if case == "no_frames":
+        weights[:] = 0.0
+    args = [torch.from_numpy(a).to(cuda) for a in (x, x, pdf, weights)]
+    # the list also on pdfs outside [0, num_pdfs), which it leaves out (the
+    # plain statistics cannot take them)
+    outside = np.where(rng.random(n) < 0.1, rng.integers(-2, 3, n) + (num_pdfs - 1) * (pdf > 5),
+                       pdf).astype(np.int32)
+    for pdf_t in (args[2], torch.from_numpy(outside).to(cuda)):
+        got_list = gmm_stats_kernel.work_list(pdf_t, args[3], num_pdfs)
+        ref_list = gmm_stats_kernel.work_list_plain(pdf_t, args[3], num_pdfs)
+        torch.cuda.synchronize()
+        for name, g, r in zip(ref_list._fields, got_list, ref_list):
+            assert torch.equal(g, r), name
+    got = gmm_stats_kernel.acc_stats(w, *args, num_pdfs)
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(convert.twin_params_from_kernel(w),
+                                                     *args[:3], num_pdfs, args[3])
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        r = r.double()
+        atol = 1e-5 * max(1.0, float(r.abs().max()))
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=atol)
+    again = gmm_stats_kernel.acc_stats(w, *args, num_pdfs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 FB_FRAMES = 40

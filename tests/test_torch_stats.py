@@ -5,7 +5,8 @@ with the JAX package's on the same inputs, on the CPU.
 Tolerance: rtol 1e-5, and an atol of 1e-5 times the largest magnitude of the
 accumulator compared (float32 sums in another order; an accumulator's small
 entries carry the rounding of its large ones).  Transition counts are
-equal."""
+equal.  K6's plain work list (the one the card's is held to) equals a numpy
+stable argsort's, array for array."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -155,3 +156,53 @@ def test_block_table_covers_each_pdf_run(skew):
         assert (blk_pdf[blocks] == p).all()
         covered = np.concatenate([np.arange(lo[i], hi[i]) for i in blocks] or [[]])
         np.testing.assert_array_equal(np.sort(covered), np.flatnonzero(key == p))
+
+
+def _work_list_numpy(pdfs, weights, num_pdfs, frames_per_block):
+    """K6's work list from a numpy stable argsort: frames keyed by pdf (the
+    frames left out keyed num_pdfs), each pdf's run cut into blocks of
+    ``frames_per_block``; the list padded to ceil(N / block) + num_pdfs
+    blocks with empty blocks of pdf num_pdfs - 1."""
+    keep = (weights != 0) & (pdfs >= 0) & (pdfs < num_pdfs)
+    key = np.where(keep, pdfs, num_pdfs)
+    order = np.argsort(key, kind="stable")
+    nblk = -(-len(key) // frames_per_block) + num_pdfs
+    blk_pdf = np.full(nblk, num_pdfs - 1)
+    blk_lo, blk_hi = np.zeros(nblk), np.zeros(nblk)
+    first, last = np.zeros(num_pdfs), np.zeros(num_pdfs)
+    j = 0
+    for p in range(num_pdfs):
+        run = np.flatnonzero(key[order] == p)
+        first[p] = j
+        for lo in range(0, len(run), frames_per_block):
+            blk_pdf[j] = p
+            blk_lo[j], blk_hi[j] = run[0] + lo, run[0] + min(lo + frames_per_block, len(run))
+            j += 1
+        last[p] = j
+    return order, blk_pdf, blk_lo, blk_hi, first, last
+
+
+@pytest.mark.parametrize("case", ["uniform", "skew", "zero_weights", "outside", "below_block"])
+def test_plain_work_list_matches_numpy(case):
+    """The plain version of K6's work list (``torch.sort`` + ``block_table``),
+    which the card's list is held to bit for bit, against a numpy stable
+    argsort: a silence-like pdf holding most frames, zero weights, pdfs
+    outside [0, num_pdfs) (left out) and fewer frames than one block."""
+    rng = np.random.default_rng(5)
+    n = 100 if case == "below_block" else 3000
+    num_pdfs = 23
+    pdfs = rng.integers(0, num_pdfs, n).astype(np.int32)
+    weights = rng.random(n).astype(np.float32)
+    if case == "skew":
+        pdfs[rng.random(n) < 0.8] = 4  # about 2400 frames: many blocks of one pdf
+    elif case == "zero_weights":
+        weights[rng.random(n) < 0.4] = 0.0
+    elif case == "outside":
+        out = rng.random(n) < 0.2
+        pdfs[out] = rng.choice([-3, -1, num_pdfs, num_pdfs + 7], int(out.sum()))
+    got = K6.work_list(torch.from_numpy(pdfs), torch.from_numpy(weights), num_pdfs)
+    want = _work_list_numpy(pdfs, weights, num_pdfs, K6.FRAMES_PER_BLOCK)
+    assert got.blk_pdf.shape[0] == K6.list_blocks(n, num_pdfs)
+    for name, g, w in zip(got._fields, got, want):
+        assert g.dtype == torch.int32, name
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)

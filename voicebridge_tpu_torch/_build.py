@@ -55,9 +55,14 @@ _SIGNATURES = {
     # alpha_end, final, bps, num_frames, offsets, arc_of, b, s, k, t, arcs,
     # end_state, ok, score, stream
     "vbt_align_backtrace": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # x_post, x_acc, weights, d, w, m, order, blk_pdf, blk_lo, blk_hi, nblk,
-    # pdf_blk_lo, pdf_blk_hi, num_pdfs, partial, out, stream
-    "vbt_gmm_stats": (_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _P),
+    # pdf, weights, n, num_pdfs, fpb, nblk, cnt, total, order, blk_pdf,
+    # blk_lo, blk_hi, pdf_blk_lo, pdf_blk_hi, ticket, stream
+    "vbt_gmm_stats_list": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    # x_post, x_acc, weights, d, w, m, pdf, n, num_pdfs, fpb, nblk, cnt,
+    # total, order, blk_pdf, blk_lo, blk_hi, pdf_blk_lo, pdf_blk_hi, ticket,
+    # partial, out, ll, stream
+    "vbt_gmm_stats": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P),
     # alpha, buf0, buf1, words, ll, beta, thresh, row_start, row_src, row_w,
     # row_pdf, row_real, row_dst, num_frames, t0, w, acwt, s1, b, p, r, d,
     # max_blocks, stream

@@ -15,18 +15,31 @@
 // alpha_end + final and walks s <- s - off[bps[t, b, s]], resolving each
 // band slot to the original arc id; an empty slot on the path clears ok.
 //
-// What bounds it on the H100: not bytes or FLOPs (S x K adds per frame, a
-// few KB per utterance) but the chain of T dependent frames.  The XLA
-// program ran one scan step per frame; a kernel launch per frame would pay
-// a few microseconds of launch latency T times.  Design: ONE launch for the
-// whole sub-batch, one CTA per utterance, which keeps alpha double-buffered
-// in shared memory and loops over all T frames with one __syncthreads per
-// frame.  W (S x K floats) and the state pdfs live in shared memory when they
-// fit, else W is read through L2.  The only global traffic per frame is one
-// gathered loglik per state and S bytes of backpointers.  The adds and the
-// multiply use __fadd_rn / __fmul_rn (no FMA contraction), in the JAX
-// package's order (shift + W, max, + emission), so equal inputs give
-// bit-equal scores and equal slot choices as the plain version.
+// What bounds it on the H100: the chain of T dependent frames, each a few
+// adds and compares per state and one barrier, and the emissions.  Each
+// frame gathers one loglik per state from its utterance's [P] row; the
+// training graphs draw their pdfs at random, so a frame of 384 states
+// touches about 196 of the row's 250 sectors of 32 bytes, and the loglik
+// block (614 MB at 192 x 400 x 2000) does not fit in L2: about 480 MB of
+// sectors at full width, 0.15 ms.  A gather issued when its frame begins
+// puts a round trip to HBM (about 1 us) into every frame of the chain.
+// Design: ONE launch for the whole sub-batch, one CTA per utterance looping
+// over all T frames with alpha double-buffered in shared memory and one
+// __syncthreads per frame.  The emissions of frames t+1 .. t+kDepth-1 are
+// in flight while frame t runs, in a ring of kDepth frames in shared memory
+// filled by cp.async (one commit group a frame): each thread copies its
+// states' logliks and waits for its copies of the next frame before the
+// frame's barrier.  (Copying each frame's whole row instead, coalesced, and
+// copying in pdf order, so that a warp's copies fall in fewer lines of the
+// row, timed slower and the same on the card.)  With K <= 8 and S <= 512 (one state per thread) the kernel is
+// compiled for the exact K, with the state's K band weights and the offsets
+// in registers: the frame's work is then a few instructions a state;
+// otherwise W lives in shared memory when it fits, else it is read through
+// L2.  The backpointers are written as one coalesced row of S bytes a
+// frame.  The adds and the multiply use __fadd_rn / __fmul_rn (no FMA
+// contraction), in the JAX package's order (shift + W, max, + emission), so
+// equal inputs give bit-equal scores and equal slot choices as the plain
+// version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,8 +50,36 @@ constexpr float kNeg = -1.0e30f;
 constexpr int kMaxThreads = 512;
 constexpr size_t kSmemWLimit = 96 * 1024;  // two CTAs per SM at most this
 constexpr int kWarpsPerBlock = 4;
+// Frames of emissions in the ring: the frame being read and 3 in flight (8
+// and 16 timed faster with one CTA an SM, slower at full width's 192).
+constexpr int kDepth = 4;
 
-template <bool kWShared>
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest kDepth - 2 has landed
+__device__ __forceinline__ void copy_wait_next() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kDepth - 2) : "memory");
+}
+
+// alpha[src], NEG_INF outside [0, s)
+__device__ __forceinline__ float shifted(const float* alpha, int src, int s) {
+  return static_cast<unsigned>(src) < static_cast<unsigned>(s) ? alpha[src] : kNeg;
+}
+
+// Where the band weights W live.
+enum WMode { kWRegisters, kWShared, kWGlobal };
+
+// kK > 0 (with kWRegisters): one state per thread, exactly kK band slots, W
+// and the offsets in registers.  kK == 0: any S (states strided over the
+// threads) and K, W in shared memory or read through L2.  Shared memory:
+// alpha twice, the emission ring [kDepth][s], the pdfs, the offsets, then W
+// [s][k] when kW == kWShared.
+template <int kK, WMode kW>
 __global__ void __launch_bounds__(kMaxThreads)
 align_forward_kernel(const float* __restrict__ W, const int* __restrict__ pdf,
                      const float* __restrict__ alpha0, const float* __restrict__ ll,
@@ -48,13 +89,15 @@ align_forward_kernel(const float* __restrict__ W, const int* __restrict__ pdf,
   extern __shared__ float smem[];
   float* a_cur = smem;
   float* a_nxt = smem + s;
-  int* pdf_s = reinterpret_cast<int*>(smem + 2 * s);
-  int* off_s = pdf_s + s;
-  float* w_s = reinterpret_cast<float*>(off_s + k);
+  float* ring = smem + 2 * s;                                   // [kDepth][s]
+  int* pdf_s = reinterpret_cast<int*>(ring + kDepth * s);      // [s]
+  int* off_s = pdf_s + s;                                       // [k]
+  float* w_s = reinterpret_cast<float*>(off_s + k);             // [s][k]
   const int b = blockIdx.x;
   const int64_t row = static_cast<int64_t>(b) * s;
   const float* w_b = W + row * k;
   const int nf = num_frames[b];
+  const int n_ll = min(nf, t_total);  // frames whose emissions are read
   for (int i = threadIdx.x; i < s; i += blockDim.x) {
     const float a0 = alpha0[row + i];
     a_cur[i] = a0;
@@ -62,40 +105,91 @@ align_forward_kernel(const float* __restrict__ W, const int* __restrict__ pdf,
     alpha_end[row + i] = nf == 0 ? a0 : kNeg;
   }
   for (int i = threadIdx.x; i < k; i += blockDim.x) off_s[i] = offsets[i];
-  if (kWShared)
+  if (kW == kWShared)
     for (int i = threadIdx.x; i < s * k; i += blockDim.x) w_s[i] = w_b[i];
-  const float* w_src = kWShared ? w_s : w_b;
+  const float* w_src = kW == kWShared ? w_s : w_b;
   const float* ll_b = ll + static_cast<int64_t>(b) * t_total * p;
+  constexpr int kR = kK > 0 ? kK : 1;  // registers of the one-state-per-thread form
+  const int st0 = threadIdx.x;
+  const bool live0 = st0 < s;
+  float w_r[kR];
+  int off_r[kR];
+  if (kK > 0) {
+#pragma unroll
+    for (int kk = 0; kk < kR; ++kk) {
+      w_r[kk] = live0 ? w_b[static_cast<int64_t>(st0) * k + kk] : kNeg;
+      off_r[kk] = offsets[kk];
+    }
+  }
+  __syncthreads();
+  const int pdf0 = live0 ? pdf_s[st0] : 0;
+
+  // frame tf's emissions of this thread's states into its ring slot
+  auto prefetch = [&](int tf) {
+    if (tf < n_ll) {
+      const float* ll_t = ll_b + static_cast<int64_t>(tf) * p;
+      float* slot = ring + (tf % kDepth) * s;
+      if (kK > 0) {
+        if (live0) copy_async4(slot + st0, ll_t + pdf0);
+      } else {
+        for (int st = threadIdx.x; st < s; st += blockDim.x)
+          copy_async4(slot + st, ll_t + pdf_s[st]);
+      }
+    }
+    copy_commit();
+  };
+  for (int tf = 0; tf < kDepth - 1; ++tf) prefetch(tf);
+  copy_wait_next();  // this thread's copies of frame 0 have landed
   __syncthreads();
 
-  for (int t = 0; t < t_total; ++t) {
-    const float* ll_t = ll_b + static_cast<int64_t>(t) * p;
-    uint8_t* bp_t = bps + (static_cast<int64_t>(t) * b_total + b) * s;
+  uint8_t* bp_t = bps + static_cast<int64_t>(b) * s;
+  const int64_t bp_step = static_cast<int64_t>(b_total) * s;
+  for (int t = 0; t < t_total; ++t, bp_t += bp_step) {
+    prefetch(t + kDepth - 1);  // into the slot frame t - 1 used
+    const float* e_t = ring + (t % kDepth) * s;
     const bool active = t < nf;
-    for (int st = threadIdx.x; st < s; st += blockDim.x) {
-      const float e = __fmul_rn(ll_t[pdf_s[st]], acwt);
-      const float* w_st = w_src + static_cast<int64_t>(st) * k;
-      float best = 0.f;
-      int slot = 0;
-      for (int kk = 0; kk < k; ++kk) {
-        const int src = st - off_s[kk];
-        const float a = (src >= 0 && src < s) ? a_cur[src] : kNeg;
-        const float c = __fadd_rn(a, w_st[kk]);
-        if (kk == 0 || c > best) {
-          best = c;
-          slot = kk;
+    if (kK > 0) {
+      if (live0) {
+        float best = __fadd_rn(shifted(a_cur, st0 - off_r[0], s), w_r[0]);
+        int slot = 0;
+#pragma unroll
+        for (int kk = 1; kk < kR; ++kk) {
+          const float c = __fadd_rn(shifted(a_cur, st0 - off_r[kk], s), w_r[kk]);
+          if (c > best) {
+            best = c;
+            slot = kk;
+          }
         }
+        bp_t[st0] = static_cast<uint8_t>(slot);
+        const float v = active ? __fadd_rn(best, __fmul_rn(e_t[st0], acwt)) : a_cur[st0];
+        a_nxt[st0] = v;
+        if (t + 1 == nf) alpha_end[row + st0] = v;
       }
-      bp_t[st] = static_cast<uint8_t>(slot);
-      const float v = active ? __fadd_rn(best, e) : a_cur[st];
-      a_nxt[st] = v;
-      if (t + 1 == nf) alpha_end[row + st] = v;
+    } else {
+      for (int st = threadIdx.x; st < s; st += blockDim.x) {
+        const float* w_st = w_src + static_cast<int64_t>(st) * k;
+        float best = __fadd_rn(shifted(a_cur, st - off_s[0], s), w_st[0]);
+        int slot = 0;
+        for (int kk = 1; kk < k; ++kk) {
+          const float c = __fadd_rn(shifted(a_cur, st - off_s[kk], s), w_st[kk]);
+          if (c > best) {
+            best = c;
+            slot = kk;
+          }
+        }
+        bp_t[st] = static_cast<uint8_t>(slot);
+        const float v = active ? __fadd_rn(best, __fmul_rn(e_t[st], acwt)) : a_cur[st];
+        a_nxt[st] = v;
+        if (t + 1 == nf) alpha_end[row + st] = v;
+      }
     }
+    copy_wait_next();  // this thread's copies of frame t + 1 have landed
     __syncthreads();
     float* tmp = a_cur;
     a_cur = a_nxt;
     a_nxt = tmp;
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // One warp per utterance: the end state by a warp argmax (first maximal
@@ -150,6 +244,34 @@ align_backtrace_kernel(const float* __restrict__ alpha_end,
   ok_out[b] = ok ? 1 : 0;
 }
 
+struct ForwardArgs {
+  const float* W;
+  const int* pdf;
+  const float* alpha0;
+  const float* ll;
+  const int* num_frames;
+  const int* offsets;
+  float acwt;
+  int b, s, k, t, p;
+  float* alpha_end;
+  uint8_t* bps;
+};
+
+template <int kK, WMode kW>
+cudaError_t launch_forward(const ForwardArgs& a, size_t smem, int threads, cudaStream_t st) {
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(align_forward_kernel<kK, kW>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  align_forward_kernel<kK, kW><<<a.b, threads, smem, st>>>(
+      a.W, a.pdf, a.alpha0, a.ll, a.num_frames, a.offsets, a.acwt, a.b, a.s, a.k, a.t, a.p,
+      a.alpha_end, a.bps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int vbt_align_forward(const float* W, const int* pdf, const float* alpha0,
@@ -158,31 +280,28 @@ extern "C" int vbt_align_forward(const float* W, const int* pdf, const float* al
                                  float* alpha_end, uint8_t* bps, void* stream) {
   if (b == 0 || s == 0) return 0;
   if (k < 1 || k > 255) return cudaErrorInvalidValue;
+  const ForwardArgs a{W, pdf, alpha0, ll, num_frames, offsets, acwt, b, s, k, t, p,
+                      alpha_end, bps};
   const int threads = s >= kMaxThreads ? kMaxThreads : ((s + 31) / 32) * 32;
-  const size_t base = sizeof(float) * (3 * static_cast<size_t>(s) + k);
+  // alpha twice, the emission ring, pdfs, offsets; then W when it is shared
+  const size_t base = sizeof(float) * ((2 + kDepth + 1) * static_cast<size_t>(s) + k);
   const size_t with_w = base + sizeof(float) * static_cast<size_t>(s) * k;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (with_w <= kSmemWLimit) {
-    if (with_w > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          align_forward_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(with_w));
-      if (err != cudaSuccess) return err;
+  if (s <= kMaxThreads) {
+    switch (k) {
+      case 1: return launch_forward<1, kWRegisters>(a, base, threads, st);
+      case 2: return launch_forward<2, kWRegisters>(a, base, threads, st);
+      case 3: return launch_forward<3, kWRegisters>(a, base, threads, st);
+      case 4: return launch_forward<4, kWRegisters>(a, base, threads, st);
+      case 5: return launch_forward<5, kWRegisters>(a, base, threads, st);
+      case 6: return launch_forward<6, kWRegisters>(a, base, threads, st);
+      case 7: return launch_forward<7, kWRegisters>(a, base, threads, st);
+      case 8: return launch_forward<8, kWRegisters>(a, base, threads, st);
+      default: break;
     }
-    align_forward_kernel<true><<<b, threads, with_w, st>>>(
-        W, pdf, alpha0, ll, num_frames, offsets, acwt, b, s, k, t, p, alpha_end, bps);
-  } else {
-    if (base > 227 * 1024) return cudaErrorInvalidValue;
-    if (base > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          align_forward_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(base));
-      if (err != cudaSuccess) return err;
-    }
-    align_forward_kernel<false><<<b, threads, base, st>>>(
-        W, pdf, alpha0, ll, num_frames, offsets, acwt, b, s, k, t, p, alpha_end, bps);
   }
-  return cudaGetLastError();
+  if (with_w <= kSmemWLimit) return launch_forward<0, kWShared>(a, with_w, threads, st);
+  return launch_forward<0, kWGlobal>(a, base, threads, st);
 }
 
 extern "C" int vbt_align_backtrace(const float* alpha_end, const float* final_score,

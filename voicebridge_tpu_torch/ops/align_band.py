@@ -15,7 +15,9 @@ device half has a plain PyTorch version (``viterbi_forward_banded_plain``,
 a CPU tensor to it and a CUDA tensor to K4:
 
 * ``viterbi_forward_banded``: ONE launch for the whole sub-batch, one CTA
-  per utterance looping over all frames;
+  per utterance looping over all frames, the emissions of the next frames
+  in flight; the plan's pdf range is checked on the host
+  (``BandPlanDev.pdf_range``), so the wrapper does not synchronise;
 * ``backtrace_banded``: one launch, one warp per utterance.
 
 Rounding follows the JAX package: the candidate is ``(shift + W)``, then the
@@ -155,7 +157,8 @@ def build_band_plan(graphs: list[DenseGraph], pad_states: int | None = None,
 
 
 class BandPlanDev(NamedTuple):
-    """A ``BandPlan`` on a device (``n2o`` stays on the host)."""
+    """A ``BandPlan`` on a device (``n2o`` and ``pdf_range`` stay on the
+    host)."""
 
     W: torch.Tensor  # [B, S, K] f32
     pdf: torch.Tensor  # [B, S] int32
@@ -164,24 +167,27 @@ class BandPlanDev(NamedTuple):
     alpha0: torch.Tensor  # [B, S] f32
     final: torch.Tensor  # [B, S] f32
     n2o: np.ndarray  # [B, S] int32, host
+    pdf_range: tuple  # (smallest, largest) pdf of the plan, host ints
 
     def take(self, idx: np.ndarray) -> "BandPlanDev":
         """The plan of the utterances ``idx`` (a batch subset), gathered on
-        the device."""
+        the device; ``pdf_range`` stays the whole plan's, which bounds the
+        subset's."""
         i = torch.from_numpy(np.asarray(idx, np.int64)).to(self.W.device)
         return BandPlanDev(self.W[i], self.pdf[i], self.arc_of[i], self.offsets,
-                           self.alpha0[i], self.final[i], self.n2o[idx])
+                           self.alpha0[i], self.final[i], self.n2o[idx], self.pdf_range)
 
 
 def plan_to_device(plan: BandPlan, device) -> BandPlanDev:
     def dev(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
+    lo, hi = (int(plan.pdf.min()), int(plan.pdf.max())) if plan.pdf.size else (0, 0)
     return BandPlanDev(W=dev(plan.W, np.float32), pdf=dev(plan.pdf, np.int32),
                        arc_of=dev(plan.arc_of, np.int32),
                        offsets=dev(np.asarray(plan.offsets), np.int32),
                        alpha0=dev(plan.alpha0, np.float32),
-                       final=dev(plan.final, np.float32), n2o=plan.n2o)
+                       final=dev(plan.final, np.float32), n2o=plan.n2o, pdf_range=(lo, hi))
 
 
 def _initial_end(alpha0: torch.Tensor, num_frames: torch.Tensor) -> torch.Tensor:
@@ -251,15 +257,26 @@ def _check(tensors, device) -> None:
 
 
 def viterbi_forward_banded(W, pdf, alpha0, loglikes, num_frames,
-                           acoustic_scale: float, offsets: torch.Tensor):
+                           acoustic_scale: float, offsets: torch.Tensor,
+                           pdf_range: tuple | None = None):
     """Banded forward (K4) over a sub-batch in ONE launch.  Shapes as
     ``viterbi_forward_banded_plain``; ``offsets`` a [K] int32 tensor on the
-    device.  A CPU tensor goes to the plain version."""
+    device.  ``pdf_range`` is (smallest, largest) pdf of ``pdf`` as the host
+    knows it (``BandPlanDev.pdf_range``): it is checked against P on either
+    device before anything runs, without reading the card.  Without it the
+    wrapper reads the range from ``pdf`` (one host synchronisation).  A CPU
+    tensor goes to the plain version."""
+    if loglikes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {loglikes.device}")
+    p = loglikes.shape[-1]
+    if pdf_range is None:
+        pdf_range = tuple(int(v) for v in pdf.aminmax()) if pdf.numel() else (0, 0)
+    lo, hi = pdf_range
+    if lo < 0 or hi >= p:
+        raise ValueError(f"the band plan uses pdfs [{lo}, {hi}], loglikes have {p}")
     if loglikes.device.type == "cpu":
         return viterbi_forward_banded_plain(W, pdf, alpha0, loglikes, num_frames,
                                             acoustic_scale, offsets)
-    if loglikes.device.type != "cuda":
-        raise ValueError(f"unsupported device {loglikes.device}")
     b, t_total, p = loglikes.shape
     s, k = W.shape[1], W.shape[2]
     f32, i32 = torch.float32, torch.int32
@@ -269,9 +286,6 @@ def viterbi_forward_banded(W, pdf, alpha0, loglikes, num_frames,
     if (W.shape[0] != b or pdf.shape != (b, s) or alpha0.shape != (b, s)
             or num_frames.shape != (b,) or offsets.shape != (k,) or not 0 < k <= 255):
         raise ValueError("viterbi_forward_banded: inconsistent shapes")
-    lo, hi = (int(v) for v in pdf.aminmax()) if pdf.numel() else (0, 0)
-    if lo < 0 or hi >= p:
-        raise ValueError(f"the band plan uses pdfs [{lo}, {hi}], loglikes have {p}")
     alpha_end = torch.empty((b, s), dtype=f32, device=loglikes.device)
     bps = torch.empty((t_total, b, s), dtype=torch.uint8, device=loglikes.device)
     if b * s == 0:

@@ -146,7 +146,8 @@ def acc_gmm_stats_twofeats_chunked(params: GmmParams, x_post, x_acc, pdf_ids,
                                    num_pdfs: int, frame_weights=None,
                                    chunk: int | None = None):
     """E-step statistics over frame chunks through the K6 wrapper
-    (``ops/gmm_stats_kernel.acc_stats``); chunks are summed in float64.
+    (``ops/gmm_stats_kernel.acc_stats``); chunks are summed in float64 (one
+    chunk, the usual case, is returned as it is).
     Inputs may be arrays or tensors; they go to the device of ``params``.
     ``chunk`` (frames) defaults to what the device's free memory holds.
     Returns numpy float32 (occ, mean_acc, var_acc) and a float ll."""
@@ -163,12 +164,17 @@ def acc_gmm_stats_twofeats_chunked(params: GmmParams, x_post, x_acc, pdf_ids,
     wk = convert.kernel_params_from_twin(params)
     c = chunk or _stats_chunk(device, params.max_mix, params.dim)
     m, d = params.max_mix, params.dim
-    sums = [torch.zeros(shape, dtype=torch.float64, device=device)
-            for shape in ((num_pdfs, m), (num_pdfs, m, d), (num_pdfs, m, d), ())]
-    for lo in range(0, n, c):
-        part = acc_stats(wk, x_post[lo:lo + c].contiguous(), x_acc[lo:lo + c].contiguous(),
-                         pdf_ids[lo:lo + c].contiguous(), w[lo:lo + c].contiguous(), num_pdfs)
-        sums = [a + b for a, b in zip(sums, part)]
+    if n <= c:  # one chunk holds every frame: no chunk sums
+        sums = acc_stats(wk, x_post.contiguous(), x_acc.contiguous(), pdf_ids.contiguous(),
+                         w.contiguous(), num_pdfs)
+    else:
+        sums = [torch.zeros(shape, dtype=torch.float64, device=device)
+                for shape in ((num_pdfs, m), (num_pdfs, m, d), (num_pdfs, m, d), ())]
+        for lo in range(0, n, c):
+            part = acc_stats(wk, x_post[lo:lo + c].contiguous(), x_acc[lo:lo + c].contiguous(),
+                             pdf_ids[lo:lo + c].contiguous(), w[lo:lo + c].contiguous(),
+                             num_pdfs)
+            sums = [a + b for a, b in zip(sums, part)]
     occ, macc, vacc, ll = sums
     return (occ.float().cpu().numpy(), macc.float().cpu().numpy(),
             vacc.float().cpu().numpy(), float(ll))

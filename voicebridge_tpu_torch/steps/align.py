@@ -48,7 +48,7 @@ def align_banded(plan: AB.BandPlan | AB.BandPlanDev, graphs: list, loglikes: tor
     nf = torch.from_numpy(nf_np).to(loglikes.device)
     alpha_end, bps = AB.viterbi_forward_banded(
         plan.W, plan.pdf, plan.alpha0, loglikes.contiguous(), nf, acoustic_scale,
-        plan.offsets)
+        plan.offsets, plan.pdf_range)
     arcs, end_b, ok, score = AB.backtrace_banded(alpha_end, plan.final, bps, nf,
                                                  plan.offsets, plan.arc_of)
     end_b = end_b.cpu().numpy()
