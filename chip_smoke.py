@@ -29,7 +29,10 @@ Phases, each of which must pass (any failure exits nonzero):
    backtrace (192 utterances x 400 frames, 384-state training graphs;
    bit-equal scores, equal band-slot codes and arcs; the forward's bound
    counts the 32-byte loglik sectors its states' pdfs touch, the 4-byte
-   count beside it), K6 aligned E-step statistics (77k aligned frames,
+   count beside it; the backtrace also with every 8th utterance's path cut
+   at a frame in its middle (a forced failure, equal arcs and ok flags),
+   its time for one utterance alone, and its bound by the staged rows'
+   bytes beside the chain's), K6 aligned E-step statistics (77k aligned frames,
    2000 x 5 x 39; its work list built on the card bit-equal to the plain
    ``torch.sort`` + ``block_table`` list, two runs bit-equal, at most 3
    device launches a call), with the device time alone (torch.profiler)
@@ -45,8 +48,9 @@ Phases, each of which must pass (any failure exits nonzero):
    backpointers and arcs), and the best-path backtrace ``backtrace_best``
    over the K3 backpointer table of a whole full-width decode block (1000
    frames x 60k states x 128 lanes, keep mode; equal codes, arcs and
-   carried state, and its time for one lane, the latency of its chain of
-   dependent loads).  Beside each time stands the kernel's
+   carried state, and its time for one lane alone, the latency floor of
+   its chain of dependent loads, beside the time of all 128).  Beside each
+   time stands the kernel's
    bound: the larger of its bytes (inputs once, outputs once) over 3.35 TB/s
    and its operations over 67 TFLOP/s (float32; 495 TFLOP/s TF32 for K2),
    from this run's shapes (K1: the sparse mel's nonzeros).  A window's
@@ -597,8 +601,9 @@ def compare_backtrace_best(torch, graph, plan, dev, alpha, ll, acwt, record, log
           "backtrace_best: one lane alone differs from the same lane among all")
     entry["one_lane_ms"] = cuda_ms(torch, lambda: DC.backtrace_scan(dev, *one)) \
         if device.type == "cuda" else None
-    log(f"backtrace_best for one lane (the chain of {t} dependent frames): "
-        f"{entry['one_lane_ms']} ms")
+    log(f"backtrace_best: all {b} lanes {entry['ms']} ms, one lane alone (the chain of {t} "
+        f"dependent frames, its latency floor) {entry['one_lane_ms']} ms; bytes bound "
+        f"{entry['bound_ms']:.4g} ms")
 
 
 def compare_lattice_kernel(torch, device, graph, plan, dev, ll_k, ll_t, k3_alphas, acwt,
@@ -973,9 +978,43 @@ def compare_training_kernels(torch, device, width: Width, w, record, log) -> Non
     entry = record("align_backtrace", [(got[3], ref[3])], lambda: AB.backtrace_banded(*bt),
                    lambda: AB.backtrace_banded_plain(*bt),
                    (nbytes(ae_k, plan.final, nf) + 9 * b * t, b * s + b * t), equal=same)
+    # the staged walk reads each active frame's row of S backpointers once
+    entry["bound_staged_ms"] = 1e3 * (nbytes(ae_k, plan.final, nf) + b * t * (s + 8)) \
+        / HBM_BYTES_PER_S
     if device.type == "cuda":
         entry.update(device_profile(torch, lambda: AB.backtrace_banded(*bt)))
     check(bool(got[2].all()), "align_backtrace: an utterance has no path")
+    one = (ae_k[:1], plan.final[:1], bps_k[:, :1].contiguous(), nf[:1], plan.offsets,
+           plan.arc_of[:1])
+    check(all(bool(torch.equal(x, y[:1] if y.dim() == 1 else y[:, :1]))
+              for x, y in zip(AB.backtrace_banded(*one), got)),
+          "align_backtrace: one utterance alone differs from the same among all")
+    entry["one_utt_ms"] = cuda_ms(torch, lambda: AB.backtrace_banded(*one)) \
+        if device.type == "cuda" else None
+    log(f"align_backtrace: all {b} utterances {entry['ms']} ms (device alone "
+        f"{entry.get('device_ms')} ms), one utterance alone {entry['one_utt_ms']} ms; bound "
+        f"{entry['bound_ms']:.4g} ms by the chain's bytes, {entry['bound_staged_ms']:.4g} ms by "
+        f"the staged rows")
+    # forced failures: every 8th utterance loses the arc its path takes at
+    # a frame in the middle, so its walk meets an empty slot there
+    arc_cut = plan.arc_of.clone()
+    cut = torch.arange(0, b, 8, device=device)
+    taken = got[0][t // 2 + cut % 97, cut]
+    arc_cut[cut] = torch.where(arc_cut[cut] == taken[:, None, None], -1, arc_cut[cut])
+    bt_cut = (*bt[:5], arc_cut)
+    got_c, ref_c = AB.backtrace_banded(*bt_cut), AB.backtrace_banded_plain(*bt_cut)
+    same = all(bool(torch.equal(g, r.to(g.dtype))) for g, r in zip(got_c, ref_c))
+    failed = torch.zeros(b, dtype=torch.bool, device=device)
+    failed[cut] = True
+    check(bool(torch.equal(~got_c[2], failed)),
+          "align_backtrace: the forced failures did not fail exactly their utterances")
+    fail_entry = record("align_backtrace", [(got_c[3], ref_c[3])],
+                        lambda: AB.backtrace_banded(*bt_cut),
+                        lambda: AB.backtrace_banded_plain(*bt_cut),
+                        (nbytes(ae_k, plan.final, nf) + 9 * b * t, b * s + b * t), equal=same,
+                        what=f" with {len(cut)} forced failures")
+    entry["forced_failures_ms"] = fail_entry["ms"]
+    del arc_cut, bt_cut, got_c, ref_c
     arcs = got[0].cpu().numpy()
     del ll, bps_k, bt
     x = feats.reshape(-1, feats.shape[2])

@@ -29,7 +29,7 @@ from voicebridge_tpu_torch.ops import align_band as AB
 from voicebridge_tpu_torch.ops import gmm_kernels as K
 from voicebridge_tpu_torch.ops import viterbi as V
 from voicebridge_tpu_torch.steps import align as A
-from voicebridge_tpu_torch.testing import load_yesno_mono
+from voicebridge_tpu_torch.testing import load_yesno_mono, random_band_walk
 
 from synth import LEXICON, make_corpus
 from test_align_band import _random_banded_graph
@@ -126,6 +126,52 @@ def test_banded_forward_backtrace_bit_equal(case):
     got = A.align_banded(plan, graphs, torch.from_numpy(ll), nf, 0.37)
     want = JA.align_banded(JAB.build_band_plan(graphs), graphs, ll, nf, 0.37)
     assert got == want
+
+
+# (lanes B, states S, frames T, band offsets, fail rate): walks that meet an
+# empty slot in mid-utterance; K = 1, whose walk reaches state 0 and fails
+# at every frame after; lanes with no frames, fewer frames than T, and no
+# final state reachable
+WALK_CASES = {"mid_failure": (6, 60, 300, range(-3, 5), 1 / 50),
+              "fail_every_frame": (4, 40, 100, (1,), 0.0),
+              "short_lanes": (7, 50, 80, range(-2, 3), 0.0),
+              "no_final": (5, 30, 60, range(0, 3), 1 / 100)}
+
+
+@pytest.mark.parametrize("case", sorted(WALK_CASES))
+def test_backtrace_plain_matches_jax_on_failures(case):
+    """``backtrace_banded_plain`` against the JAX ``backtrace_banded_device``
+    on directly drawn backpointers: equal arcs, end states, ok flags and
+    scores, in the regime K4's replay after a failure must match."""
+    b, s, t, offsets, fail_rate = WALK_CASES[case]
+    rng = np.random.default_rng(sorted(WALK_CASES).index(case) + 41)
+    alpha_end, final, bps, nf, arc_of = random_band_walk(rng, b, s, t, offsets, fail_rate)
+    if case == "short_lanes":
+        nf[1:4] = [0, 1, t // 2]
+    if case == "no_final":
+        final[[1, 3]] = -1e30
+    offs = np.asarray(list(offsets), np.int32)
+    packed, score_j = JAB.backtrace_banded_device(alpha_end, final, jnp.asarray(bps),
+                                                  jnp.asarray(nf), jnp.asarray(offs), arc_of)
+    packed = np.asarray(packed)
+    arcs, end, ok, score = AB.backtrace_banded_plain(
+        *(torch.from_numpy(x) for x in (alpha_end, final, bps, nf)), tuple(offs),
+        torch.from_numpy(arc_of))
+    np.testing.assert_array_equal(arcs.numpy(), packed[:t])
+    np.testing.assert_array_equal(end.numpy(), packed[t])
+    np.testing.assert_array_equal(ok.numpy(), packed[t + 1].astype(bool))
+    np.testing.assert_array_equal(score.numpy(), np.asarray(score_j))
+    active = np.arange(t)[:, None] < nf[None, :]
+    failed = (arcs.numpy() < 0) & active  # [T, B]
+    if case == "mid_failure":  # a lane fails inside its frames, and one walks through
+        first = [int(np.flatnonzero(failed[:, i]).max()) for i in range(b) if failed[:, i].any()]
+        assert any(0 < f < t - 1 for f in first) and bool(ok.any())
+    if case == "fail_every_frame":  # held at state 0, every frame below fails
+        assert int(failed[:, 0].sum()) > t // 2 and not bool(ok[0])
+    if case == "short_lanes":
+        assert (arcs.numpy()[:, 1] == -1).all() and (arcs.numpy()[1:, 2] == -1).all()
+    if case == "no_final":
+        assert not bool(ok[1]) and not bool(ok[3])
 
 
 @pytest.fixture(scope="module")

@@ -24,7 +24,11 @@ for the N-best step K7 list lengths 1 to 16, 1 to 33 lanes, windows of 1, 3
 and T frames, a one-block grid, a finite beam, ragged and empty utterances,
 and ``decode_nbest`` against the CPU; for the two backtraces 1 to 130 lanes,
 1 to 1000 frames, uint8 and int16 codes, a state carried across blocks,
-failed N-best walks and strided tables; for the generic aligner
+failed N-best walks and strided tables, and for the best path row widths 1,
+8 and 12, an empty block, a block starting inside the lanes' frames, a
+state of more slots than a warp speculates on and row starts past 16 bits; for K4's backtrace failures
+on the path, K = 1 and 12, S of 45, 700 and 120,000 (rows too wide to
+stage), one lane and 130, and 2000 frames in 24 staged chunks; for the generic aligner
 ragged and empty utterances, a finite beam, graphs whose arcs or whose alpha
 outgrow the default shared memory, a best path through a back arc, and
 ``max_active``, which its kernel refuses; for the fMLLR statistics D = 40
@@ -60,7 +64,7 @@ from voicebridge_tpu_torch.ops.graph import DenseGraph
 from voicebridge_tpu_torch.steps.decode import Decoder
 from voicebridge_tpu_torch.steps.make_feats import make_features
 from voicebridge_tpu_torch.testing import (assert_models_close, feature_scaled_am,
-                                           load_yesno_mono, random_am,
+                                           load_yesno_mono, random_am, random_band_walk,
                                            random_codes, synth_decode_graph, synth_train_graph)
 from voicebridge_tpu_torch.transforms import cmvn as TC
 from voicebridge_tpu_torch.transforms import lda as TL
@@ -558,6 +562,50 @@ def test_align_forward_edges(cuda, case):
         AB.viterbi_forward_banded(*fwd, (0, num_pdfs))
 
 
+# (lanes B, states S, frames T, band offsets, fail rate) of K4's backtrace:
+# failures on the path; K = 1 (the walk reaches state 0 and fails at every
+# frame after) and K = 12; S not a multiple of 4 (plain byte copies), of 16
+# (4-byte copies) and above 512; one lane and 130; 2000 frames of 384
+# states, 24 chunks of staged rows; rows too wide to stage two (the walk
+# reads global memory); lanes with no frames and no final state
+ALIGN_WALKS = {"failures": (6, 60, 300, range(-3, 5), 1 / 50),
+               "k1": (5, 40, 100, (1,), 0.0), "k12": (5, 100, 200, range(-5, 7), 1 / 60),
+               "s45": (5, 45, 120, range(-2, 3), 1 / 40),
+               "s700": (3, 700, 90, range(-2, 5), 1 / 20),
+               "b1": (1, 384, 400, range(-2, 5), 1 / 100),
+               "b130": (130, 64, 50, range(0, 3), 1 / 100),
+               "t2000": (4, 384, 2000, range(-2, 5), 1 / 400),
+               "unstaged": (2, 120_000, 20, (0, 1), 0.9),
+               "empty_lanes": (8, 96, 70, range(-1, 3), 1 / 20)}
+
+
+@pytest.mark.parametrize("case", sorted(ALIGN_WALKS))
+def test_align_backtrace_edges(cuda, case):
+    """K4's backtrace against its plain version on directly drawn
+    backpointers: equal arcs, end states and ok flags, bit-equal scores, one
+    launch."""
+    b, s, t, offsets, fail_rate = ALIGN_WALKS[case]
+    rng = np.random.default_rng(sorted(ALIGN_WALKS).index(case) + 61)
+    alpha_end, final, bps, nf, arc_of = random_band_walk(rng, b, s, t, offsets, fail_rate)
+    if case == "empty_lanes":
+        nf[[1, 2, 5]] = [0, 0, 1]
+        final[[3, 5]] = DC.NEG_INF
+    bt = [torch.from_numpy(x).to(cuda) for x in (alpha_end, final, bps, nf)]
+    offs = torch.tensor(list(offsets), dtype=torch.int32, device=cuda)
+    bt += [offs, torch.from_numpy(arc_of).to(cuda)]
+    before = _build.launches["align_backtrace"]
+    got = AB.backtrace_banded(*bt)
+    ref = AB.backtrace_banded_plain(*bt)
+    torch.cuda.synchronize()
+    assert _build.launches["align_backtrace"] - before == 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y.to(x.dtype))
+    active = torch.arange(t, device=cuda)[:, None] < bt[3][None, :]
+    failed = ((got[0] < 0) & active).any(dim=0)
+    if fail_rate > 0 or case == "k1":  # some walks fail, and their flags say so
+        assert bool(failed.any()) and not bool(got[2][failed].any())
+
+
 # (frames N, pdfs of the model P, pdfs counted): every frame on one pdf;
 # fewer pdfs counted than the model has; N below one chunk of the card's
 # sort; pdfs with no frames; no frame of nonzero weight; more chunks than
@@ -780,6 +828,51 @@ def test_backtrace_best_matches_plain(cuda, b, t):
         assert torch.equal(state_k, state_p), (lo, hi)
     assert _build.launches["backtrace_best"] - before == 2
     assert int((codes_k >= 0).sum()) > 0 or cut == 0
+
+
+# (graph, row width D, lanes B, frames T, block start t0): D = 1, 8 and 12;
+# an empty block after frames; a block that starts at frame 40 with lanes
+# ending before, inside and after it; the walk starts at the hub state, so
+# its first code lies past the 32 slots a warp speculates on; 81,402 more
+# rows than states, past the 16-bit row starts of shared memory (the walk
+# reads them from global memory)
+BEST_EDGES = {"d1": ("packed", 1, 33, 60, 0), "d8": ("int16", 8, 64, 200, 0),
+              "d12": ("packed", 12, 5, 100, 0), "empty_block": ("packed", 4, 7, 0, 30),
+              "t0_inside": ("int16", 4, 130, 50, 40), "hub_start": ("int16", 2, 9, 40, 0),
+              "wide_rows": ("wide_rows", 1, 6, 300, 0)}
+
+
+@pytest.mark.parametrize("case", sorted(BEST_EDGES))
+def test_backtrace_best_edges(cuda, case):
+    """``backtrace_best`` at its edges: equal codes, arcs and states against
+    the plain version, one launch."""
+    which, d, b, w, t0 = BEST_EDGES[case]
+    graph = (synth_decode_graph(10_000, num_pdfs=40) if which == "wide_rows"
+             else _k3_graph(which))
+    plan = DC.build_emit_plan(graph, d=d)
+    if which == "wide_rows":
+        assert plan.num_rows - (plan.num_states + 1) >= 1 << 16
+    dev = DC.plan_to_device(plan, cuda)
+    rng = np.random.default_rng(sorted(BEST_EDGES).index(case) + 5)
+    bps = torch.from_numpy(random_codes(rng, plan, w, b)).to(cuda)
+    nf = torch.from_numpy(rng.integers(0, t0 + w + 20, b).astype(np.int32)).to(cuda)
+    state = rng.integers(0, plan.num_states, b).astype(np.int32)
+    if case == "hub_start":  # plan state of graph state 7, 400 arcs in
+        state[:] = int(np.flatnonzero(plan.sperm == 7)[0])
+        nf[:] = w
+        assert int(np.diff(plan.row_start)[state[0]]) * d > 32
+    state = torch.from_numpy(state).to(cuda)
+    before = _build.launches["backtrace_best"]
+    got = DC.backtrace_scan(dev, bps, state, nf, t0)
+    ref = DC.backtrace_scan_plain(dev.row_start, dev.row_src, dev.row_arc, plan.d, bps, state,
+                                  nf, t0)
+    torch.cuda.synchronize()
+    assert _build.launches["backtrace_best"] - before == 1
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    if case == "t0_inside":
+        ends = nf - t0
+        assert bool(((ends > 0) & (ends < w)).any()) and bool((ends <= 0).any())
 
 
 @pytest.mark.parametrize("b", [1, 5, 128, 130])

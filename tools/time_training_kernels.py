@@ -13,7 +13,8 @@ parent commit, unpack it under ``_archive/`` (``git archive``) and run the
 two in turns in one call: parent, change, change, parent.
 
 Shapes: K4 at phase 3's (192 utterances x 400 frames, 384-state training
-graphs, 2000 pdfs; phases 15 and 16 align at the same shape); K6 on the
+graphs, 2000 pdfs; phases 15 and 16 align at the same shape), its backtrace
+also for one utterance alone; K6 on the
 pdfs of that alignment (76,800 frames) at phase 3's model (2000 x 5 x 39,
 one feature array), at D = 40 with 1-8 Gaussians a pdf (phase 15's uneven
 mixtures, drawn here) and at D = 40 with two feature arrays (phase 16's
@@ -102,6 +103,9 @@ def main() -> int:
     bt = (alpha_end, plan.final, bps, nf, plan.offsets, plan.arc_of)
     arcs = AB.backtrace_banded(*bt)[0].cpu().numpy()
     timed("align_backtrace", lambda: AB.backtrace_banded(*bt))
+    one = (alpha_end[:1], plan.final[:1], bps[:, :1].contiguous(), nf[:1], plan.offsets,
+           plan.arc_of[:1])
+    timed("align_backtrace_one_utt", lambda: AB.backtrace_banded(*one))
     del ll, bps
     n = feats.shape[0] * feats.shape[1]
     rng = np.random.default_rng(15)

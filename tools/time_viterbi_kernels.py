@@ -1,7 +1,7 @@
-"""Time the Viterbi relaxation (K3), the lattice recompute-and-test step (K5)
-and the N-best relaxation (K7) of voicebridge_tpu_torch at full width on one
-NVIDIA GPU, for the checkout's kernel sources and for other versions of them
-side by side.
+"""Time the Viterbi relaxation (K3), the lattice recompute-and-test step (K5),
+the N-best relaxation (K7) and the best-path backtrace (``backtrace_best``)
+of voicebridge_tpu_torch at full width on one NVIDIA GPU, for the checkout's
+kernel sources and for other versions of them side by side.
 
     python tools/time_viterbi_kernels.py [--lanes 128] [--frames 16]
                                          [--variant NAME=DIR ...]
@@ -14,12 +14,17 @@ backpointers and one frame a launch; K3 over the backward plan (the lattice's
 ``bwd_window``, beta_eff select fused) as a window and one frame a launch;
 K5 as a window and one frame a launch; K7 at the full-width N-best shape (32
 lanes x 4 slots, exact search, every slot live as late in an utterance) as a
-window and one frame a launch.  Each ``--variant`` names a directory holding
-other versions of ``viterbi_step.cu``, ``lattice_fb.cu`` and/or
-``viterbi_nbest.cu`` (same C interface); every version is built with the package's nvcc flags into its
-own library under ``_archive/kernel_variants/`` and timed in turns (all in
-order, then in reverse).  Prints one JSON object with the card's name and
-power limit.
+window and one frame a launch; ``backtrace_best`` for all ``--lanes`` lanes
+and for one lane alone (ms per call, as the decode launches it once a
+block) over a 1000-frame table that K3 wrote, as the smoke times it (the
+same walk repeated: the table's lines it reads stay in L2) and with the L2
+cache flushed before each run and the plan's arrays read back into it (as
+the decode finds it after K3).  Each ``--variant`` names a
+directory holding other versions of ``viterbi_step.cu``, ``lattice_fb.cu``,
+``viterbi_nbest.cu`` and/or ``backtrace.cu`` (same C interface); every
+version is built with the package's nvcc flags into its own library under
+``_archive/kernel_variants/`` and timed in turns (all in order, then in
+reverse).  Prints one JSON object with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from voicebridge_tpu_torch.ops import viterbi as V  # noqa: E402
 from voicebridge_tpu_torch.testing import synth_decode_graph  # noqa: E402
 
 OUT = ROOT / "_archive" / "kernel_variants"
-KERNEL_SOURCES = ("viterbi_step.cu", "lattice_fb.cu", "viterbi_nbest.cu")
+KERNEL_SOURCES = ("viterbi_step.cu", "lattice_fb.cu", "viterbi_nbest.cu", "backtrace.cu")
 
 
 def build(name: str, src_dir: Path | None) -> tuple[ctypes.CDLL, str]:
@@ -69,7 +74,7 @@ def build(name: str, src_dir: Path | None) -> tuple[ctypes.CDLL, str]:
     lib_path = out / "libvariant.so"
     subprocess.run([nvcc, "-shared", "-o", str(lib_path), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    for fn in ("vbt_viterbi_step", "vbt_lattice_fb", "vbt_viterbi_nbest"):
+    for fn in ("vbt_viterbi_step", "vbt_lattice_fb", "vbt_viterbi_nbest", "vbt_backtrace_best"):
         getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     lib.vbt_error_string.argtypes = (ctypes.c_int,)
@@ -89,7 +94,27 @@ def ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def cases(lanes: int, frames: int) -> dict:
+def ms_cold(fn, warm: tuple, reps: int = 5) -> float:
+    """``ms`` with the L2 cache flushed before each run (a 256 MB write) and
+    then only ``warm`` read back into it, as the decode's backtrace finds the
+    cache after K3: the plan's arrays hot, the backpointer table cold."""
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        for x in warm:
+            x.sum()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def cases(lanes: int, frames: int) -> tuple:
     dev = torch.device("cuda", 0)
     graph = synth_decode_graph(60_000, num_pdfs=2000)
     fwd = DC.build_emit_plan(graph, d=8)
@@ -116,6 +141,24 @@ def cases(lanes: int, frames: int) -> dict:
     nbp = (torch.empty((k, graph.num_states, nb, nk), dtype=torch.int32, device=dev),
            torch.empty((k, graph.num_states, nb, nk), dtype=torch.int8, device=dev))
     n7 = (nf[:nb].contiguous(), 0, 0.077, 1e9)
+    # backtrace_best over a 1000-frame table (7.7 GB) that K3 wrote from the
+    # start state over random logliks; lanes end at 1000 and, a quarter of
+    # them, just before
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bnf = torch.full((b,), 1000, dtype=torch.int32, device=dev)
+    bnf[: b // 4] = torch.arange(1000 - b // 4, 1000, dtype=torch.int32, device=dev)
+    table = torch.empty((1000, s1, b), dtype=torch.uint8 if fwd.packed else torch.int16,
+                        device=dev)
+    bll = torch.randn((1000, 2000, b), generator=gen, device=dev) * 5 - 60
+    a0 = np.concatenate([graph.alpha0[fwd.sperm[:-1]], [DC.NEG_INF]]).astype(np.float32)
+    balpha = torch.from_numpy(a0).to(dev)[:, None].expand(s1, b).contiguous()
+    bae = torch.full_like(balpha, DC.NEG_INF)
+    DC.viterbi_window(balpha, bae, bll, fwd_dev, bnf, 0, 0.077, fwd.rspec, fwd.packed, table)
+    final = torch.from_numpy(graph.final_score[fwd.sperm[:-1]]).to(dev)
+    bend = DC.select_end_state(bae, final)[0].to(torch.int32)
+    del bll, balpha, bae
+    walk = (table, bend, bnf, 0)
+    one = (table[:, :, :1].contiguous(), bend[:1].contiguous(), bnf[:1].contiguous(), 0)
     f = (fwd_dev, nf, 0, 0.077, fwd.rspec, fwd.packed)
     bw = (bwd_dev, nf, 0, 0.077, bwd.rspec, bwd.packed, final_eff)
     fb = (fwd_dev, row_dst, slab, nf, 0, 0.077, thresh, fwd.rspec)
@@ -131,7 +174,11 @@ def cases(lanes: int, frames: int) -> dict:
         "k7_window": (lambda: V.nbest_window(nplan, nalpha, nend, nll, *n7, *nbp), k),
         "k7_frame": (lambda: V.nbest_window(nplan, nalpha, nend, nll[:1], *n7, nbp[0][:1],
                                             nbp[1][:1]), 1),
-    }
+        "backtrace_best": (lambda: DC.backtrace_scan(fwd_dev, *walk), 1),
+        "backtrace_best_one_lane": (lambda: DC.backtrace_scan(fwd_dev, *one), 1),
+        "backtrace_best_cold": (lambda: DC.backtrace_scan(fwd_dev, *walk), 1),
+        "backtrace_best_one_lane_cold": (lambda: DC.backtrace_scan(fwd_dev, *one), 1),
+    }, (fwd_dev.row_start, fwd_dev.row_src)
 
 
 def main() -> int:
@@ -148,14 +195,14 @@ def main() -> int:
     sources = {"checkout": None}
     sources.update((n, Path(d)) for n, d in (v.split("=", 1) for v in args.variant))
     libs = {name: build(name, d) for name, d in sources.items()}
-    todo = cases(args.lanes, args.frames)
+    todo, warm = cases(args.lanes, args.frames)
     res: dict = {"card": card, "lanes": args.lanes, "frames": args.frames, "ms_per_frame": {}}
     for order in (list(libs), list(libs)[::-1]):
         for name in order:
             _build._lib = libs[name][0]
             for case, (fn, frames) in todo.items():
-                res["ms_per_frame"].setdefault(name, {}).setdefault(case, []).append(
-                    ms(fn) / frames)
+                t = ms_cold(fn, warm) if case.endswith("_cold") else ms(fn)
+                res["ms_per_frame"].setdefault(name, {}).setdefault(case, []).append(t / frames)
     res["spills"] = {name: sorted({ln.split(":")[-1].strip() for ln in rep.splitlines()
                                    if "spill stores" in ln and "0 bytes spill stores" not in ln})
                      for name, (_lib, rep) in libs.items()}

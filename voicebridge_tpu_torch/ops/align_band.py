@@ -18,7 +18,9 @@ a CPU tensor to it and a CUDA tensor to K4:
   per utterance looping over all frames, the emissions of the next frames
   in flight; the plan's pdf range is checked on the host
   (``BandPlanDev.pdf_range``), so the wrapper does not synchronise;
-* ``backtrace_banded``: one launch, one warp per utterance.
+* ``backtrace_banded``: one launch, one CTA per utterance walking its
+  backpointer rows staged in shared memory, with an exact replay from the
+  first empty band slot on the path.
 
 Rounding follows the JAX package: the candidate is ``(shift + W)``, then the
 max, then ``+ fl(ll[pdf] * acwt)``; ties go to the first maximal slot in
@@ -315,13 +317,13 @@ def backtrace_banded(alpha_end, final, bps, num_frames, offsets: torch.Tensor, a
         raise ValueError("backtrace_banded: inconsistent shapes")
     arcs = torch.empty((t_total, b), dtype=i32, device=bps.device)
     end_state = torch.empty(b, dtype=i32, device=bps.device)
-    ok = torch.empty(b, dtype=torch.uint8, device=bps.device)
+    ok = torch.empty(b, dtype=torch.bool, device=bps.device)  # the kernel writes 0 or 1
     score = torch.empty(b, dtype=f32, device=bps.device)
     if b * s == 0:
-        return arcs, end_state, ok.bool(), score
+        return arcs, end_state, ok, score
     _build.launch("align_backtrace", alpha_end.data_ptr(), final.data_ptr(),
                   bps.data_ptr(), num_frames.data_ptr(), offsets.data_ptr(),
                   arc_of.data_ptr(), b, s, k, t_total, arcs.data_ptr(),
                   end_state.data_ptr(), ok.data_ptr(), score.data_ptr(),
                   stream_handle(bps.device))
-    return arcs, end_state, ok.bool(), score
+    return arcs, end_state, ok, score

@@ -494,7 +494,8 @@ def backtrace_scan(dev: EmitPlanDev, bps: torch.Tensor, end_state: torch.Tensor,
     ``backtrace_scan_plain``.
 
     On CUDA it is one launch of ``backtrace_best`` (``csrc/backtrace.cu``), a
-    thread per lane."""
+    warp per lane, its threads reading the state's row slots beside its
+    code."""
     d = dev.row_w.shape[1]
     if bps.device.type == "cpu":
         return backtrace_scan_plain(dev.row_start, dev.row_src, dev.row_arc, d, bps, end_state,

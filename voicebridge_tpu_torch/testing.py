@@ -22,6 +22,8 @@
 * ``synth_train_graph``: the repo's full-width training-alignment graph
   (``bench.py``): a left-to-right chain of HMM states with self-loops and
   optional skips, banded and dst-pure like a compiled training graph.
+* ``random_band_walk``: inputs of K4's backtrace drawn directly (no graph
+  or forward), with empty band slots on the walk at a chosen rate.
 * ``assert_models_close``: two trainings of one model (the port against the
   JAX package, or the card against the CPU) held to each other.
 * ``fmllr_stats_float64``: the fMLLR statistics' plain version in float64,
@@ -205,6 +207,39 @@ def synth_train_graph(num_states: int, num_pdfs: int, rng, back_arcs: int = 0) -
         arc_oseq=np.zeros(a, np.int32), alpha0=alpha0,
         start_oseq=np.zeros(num_states, np.int32), final_score=final,
         final_oseq=np.zeros(num_states, np.int32), oseqs=[()])
+
+
+def random_band_walk(rng, b: int, s: int, t: int, offsets, fail_rate: float,
+                     fill: float = 0.7):
+    """Inputs of K4's backtrace (``backtrace_banded``) drawn directly:
+    (alpha_end [B, S] f32, final [B, S] f32, bps [T, B, S] uint8,
+    num_frames [B] int32, arc_of [B, S, K] int32).  Slot k of state st
+    holds an arc when its source st - offsets[k] lies in [0, S), with
+    probability ``fill`` (the first such slot always does).  With
+    probability ``fail_rate`` a backpointer names a random slot, which may
+    be empty, else one of its state's arcs (a random slot where the state
+    has none), so a walk meets its first failure after a few / fail_rate
+    frames.  Frame counts are drawn in [0, T], the first lane's is T; half
+    the final scores are NEG_INF."""
+    offs = np.asarray(list(offsets), np.int64)
+    k = len(offs)
+    src = np.arange(s)[:, None] - offs[None, :]
+    in_range = (src >= 0) & (src < s)
+    has = in_range[None] & (rng.random((b, s, k)) < fill)
+    first = np.argmax(in_range, axis=1)
+    any_in = in_range.any(axis=1)
+    has[:, np.flatnonzero(any_in), first[any_in]] = True
+    arc_of = np.where(has, np.arange(b * s * k).reshape(b, s, k), -1).astype(np.int32)
+    u = rng.integers(0, k, (t, b, s))
+    present = has[np.arange(b)[None, :, None], np.arange(s)[None, None, :], u]
+    fix = ~present & any_in[None, None, :] & (rng.random((t, b, s)) >= fail_rate)
+    bps = np.where(fix, np.argmax(has, axis=2)[None], u).astype(np.uint8)
+    alpha_end = (rng.standard_normal((b, s)) * 10 - 50).astype(np.float32)
+    final = np.where(rng.random((b, s)) < 0.5, rng.standard_normal((b, s)) * 3,
+                     NEG_INF).astype(np.float32)
+    nf = rng.integers(0, t + 1, b).astype(np.int32)
+    nf[0] = t
+    return alpha_end, final, bps, nf, arc_of
 
 
 def assert_models_close(got, want) -> None:
