@@ -43,9 +43,14 @@ Phases, each of which must pass (any failure exits nonzero):
    frames, at the start and after a 60-frame window of the kernel alone,
    at exact search and at beam 13, with lanes that end inside the windows;
    bit-equal scores and alpha_end, equal arcs and slots), the generic
-   aligner's forward and backtrace (192 x 400 frames over 384-state graphs
-   with back arcs, which the banded form refuses; bit-equal scores, equal
-   backpointers and arcs), and the best-path backtrace ``backtrace_best``
+   aligner's forward and backtrace through the set's plan, as
+   ``align_feats`` runs them (192 x 400 frames over 384-state graphs with
+   back arcs, which the banded form refuses; bit-equal scores, equal
+   backpointers, byte codes and arcs; one device activity a call, with the
+   device time alone; the forward's bound by the 32-byte loglik sectors its
+   graphs' distinct pdfs touch, the 4-byte bound beside it; the
+   backtrace's by the chain's bytes, the staged codes' bytes beside it),
+   and the best-path backtrace ``backtrace_best``
    over the K3 backpointer table of a whole full-width decode block (1000
    frames x 60k states x 128 lanes, keep mode; equal codes, arcs and
    carried state, and its time for one lane alone, the latency floor of
@@ -120,8 +125,9 @@ Phases, each of which must pass (any failure exits nonzero):
 12. Generic alignment at full width: the training shape of phase 8 over
    graphs with back arcs, which ``build_band_plan`` refuses (the reason goes
    to the log), aligned by ``AlignmentSet.align_feats`` through the generic
-   aligner's kernels, with the launch counts of this run; every utterance
-   must align.  On the banded set of phase 8 the banded and the generic
+   aligner's kernels (its plan built once for the set), with the launch
+   counts of this run: one forward and one backtrace a sub-batch; every
+   utterance must align.  On the banded set of phase 8 the banded and the generic
    aligner must give equal scores, and equal transition ids unless two best
    paths tie in float32 (both then score the same, rescored in float64).
 13. Features at 22.05 kHz and 48 kHz: waves -> make_features on the card
@@ -1035,7 +1041,8 @@ def compare_training_kernels(torch, device, width: Width, w, record, log) -> Non
 def compare_generic_kernels(torch, device, width: Width, w, record, log) -> None:
     """Phase 3, generic aligner: forward and backtrace against their plain
     versions at the full-width training shape, over graphs with back arcs
-    (refused by the banded form), unpruned as training calls it."""
+    (refused by the banded form), unpruned as training calls it, through the
+    set's plan (``AlignmentSet.generic_dev``) as ``align_feats`` runs them."""
     import numpy as np
 
     from voicebridge_tpu_torch.ops import gmm_kernel
@@ -1043,46 +1050,76 @@ def compare_generic_kernels(torch, device, width: Width, w, record, log) -> None
 
     graphs, aset, feats, nf_np = train_shape(width, device, width.back_arcs)
     check(aset.band is None, "the graphs with back arcs fit the banded form")
-    p = aset.padded
+    plan = aset.generic_dev
     nf = torch.from_numpy(nf_np).to(device)
     ll = gmm_kernel.loglikes_batch(feats, w)
     acwt, beam = 0.1, 1e9
-
-    def tensor(name, dtype):
-        return torch.from_numpy(p[name]).to(device, dtype)
-
-    fwd = (p["arc_src"], p["arc_dst"], p["arc_pdf"], p["arc_score"], p["alpha0"], ll, nf_np,
-           acwt, beam, p["num_states"])
-    plain = (tensor("arc_src", torch.int64), tensor("arc_dst", torch.int64),
-             tensor("arc_pdf", torch.int64), tensor("arc_score", torch.float32),
-             tensor("alpha0", torch.float32), ll, nf, float(np.float32(acwt)),
+    fwd = (plan, ll, nf, acwt, beam)
+    plain = (*V.plan_arcs(plan), plan.alpha0, ll, nf, float(np.float32(acwt)),
              float(np.float32(beam)))
-    ae_k, bps_k = V.viterbi_forward_batched(*fwd)
+    ae_k, bps_k, codes_k = V.generic_forward(*fwd)
     ae_p, bps_p = V.viterbi_forward_batched_plain(*plain)
-    same = bool(torch.equal(ae_k, ae_p) and torch.equal(bps_k, bps_p))
-    b, t, _ = ll.shape
-    a, s = p["arc_src"].shape[1], p["num_states"]
-    pdfs = sum(len(np.unique(g.arc_pdf)) for g in graphs)  # logliks a frame needs
-    log(f"generic aligner: {b} graphs of {s} states, up to {a} arcs, {pdfs / b:.1f} distinct "
-        f"pdfs each")
-    # the arcs (source, destination, pdf, score), one loglik per (frame, pdf
-    # of the graph), the backpointers out; per (frame, arc) two adds, a
-    # multiply and a compare, per (frame, state) the beam's max and compare
-    record("generic_forward", [(ae_k, ae_p)], lambda: V.viterbi_forward_batched(*fwd),
-           lambda: V.viterbi_forward_batched_plain(*plain),
-           (16 * b * a + nbytes(ae_k, ae_k, bps_k, nf) + 4 * t * pdfs,
-            4 * b * t * a + 2 * b * t * s), equal=same)
-    del bps_p
-    bt = (p["arc_src"], ae_k, p["final_score"], bps_k, nf_np)
-    bt_plain = (plain[0], ae_k, tensor("final_score", torch.float32), bps_k, nf)
-    got, ref = V.backtrace_batched_device(*bt), V.backtrace_batched_plain(*bt_plain)
-    same = all(bool(torch.equal(g, r.to(g.dtype))) for g, r in zip(got, ref))
+    codes_p = V.generic_codes_plain(bps_p, plan)
+    check(codes_k is not None, "the generic aligner wrote no byte codes at full width")
+    same = bool(torch.equal(ae_k, ae_p) and torch.equal(bps_k, bps_p)
+                and torch.equal(codes_k, codes_p))
+    b, t, p = ll.shape
+    a, s = plan.in_arc.shape[1], plan.num_states
+    u = plan.pdf_list.shape[1]
+    log(f"generic aligner: {b} graphs of {s} states, up to {a} arcs, "
+        f"{float(plan.n_pdf.float().mean()):.1f} distinct pdfs each (up to {u}), largest "
+        f"in-degree read {plan.max_in_degree}")
+    # the plan's rows once, the logliks of each graph's distinct pdfs (as the
+    # 32-byte sectors they lie in, the block not fitting in L2; 4 bytes each
+    # beside), alpha_end, the arc ids and the codes out; per (frame, arc) two
+    # adds, a multiply and a compare, per (frame, state) the beam's max and
+    # compare
+    plan_bytes = nbytes(plan.in_start, plan.in_len, plan.in_src, plan.in_score, plan.in_lpdf,
+                        plan.in_arc, plan.pdf_list, plan.n_pdf, plan.alpha0, nf, ae_k, bps_k,
+                        codes_k)
+    live = torch.arange(u, device=device)[None, :] < plan.n_pdf[:, None]
+    sector_bytes = k4_sector_bytes(torch, torch.where(live, plan.pdf_list, plan.pdf_list[:, :1]),
+                                   nf, t, p)
+    n_act = nf.clamp(max=t).long()
+    loglik_bytes = 4 * int((n_act * plan.n_pdf.long()).sum())
+    entry = record("generic_forward", [(ae_k, ae_p)], lambda: V.generic_forward(*fwd),
+                   lambda: V.viterbi_forward_batched_plain(*plain),
+                   (plan_bytes + sector_bytes, 4 * b * t * a + 2 * b * t * s), equal=same)
+    entry["bound_4byte_ms"] = 1e3 * (plan_bytes + loglik_bytes) / HBM_BYTES_PER_S
+    entry["loglik_sector_bytes"] = sector_bytes
+    if device.type == "cuda":
+        entry.update(device_profile(torch, lambda: V.generic_forward(*fwd)))
+        check(entry["activities_per_call"] <= 1,
+              f"generic_forward: {entry['activities_per_call']} device activities a call "
+              f"({entry['device_ms_by_name']})")
+    log(f"generic_forward: {sector_bytes} bytes of loglik sectors ({sector_bytes / (b * t):.0f} "
+        f"a frame), bound {entry['bound_ms']:.4g} ms; 4 bytes a loglik "
+        f"{entry['bound_4byte_ms']:.4g} ms; device alone {entry.get('device_ms')} ms")
+    del bps_p, codes_p
+    bt = (plan, ae_k, bps_k, codes_k, nf)
+    got = V.generic_backtrace(*bt)
+    ref = V.backtrace_batched_plain(plain[0], ae_k, plan.final, bps_k, nf)
+    ref_c = V.generic_backtrace_codes_plain(plan, ae_k, plan.final, codes_k, nf)
+    same = all(bool(torch.equal(g, r.to(g.dtype)) and torch.equal(g, c.to(g.dtype)))
+               for g, r, c in zip(got, ref, ref_c))
     # the end scores, then per (frame, utterance) one backpointer, one arc's
     # source looked up and one arc id written
-    record("generic_backtrace", [(got[3], ref[3])],
-           lambda: V.backtrace_batched_device(*bt),
-           lambda: V.backtrace_batched_plain(*bt_plain),
-           (2 * nbytes(ae_k) + nbytes(nf) + 12 * b * t, b * s + b * t), equal=same)
+    chain_bytes = 2 * nbytes(ae_k) + nbytes(nf) + 12 * b * t
+    entry = record("generic_backtrace", [(got[3], ref[3])], lambda: V.generic_backtrace(*bt),
+                   lambda: V.generic_backtrace_codes_plain(plan, ae_k, plan.final, codes_k, nf),
+                   (chain_bytes, b * s + b * t), equal=same)
+    # the staged walk reads each active frame's row of S codes once, the
+    # row starts and in-arc sources, and an arc id a frame
+    staged = 2 * nbytes(ae_k) + nbytes(nf, plan.in_start, plan.in_src) \
+        + int(n_act.sum()) * s + 8 * b * t
+    entry["bound_staged_ms"] = 1e3 * staged / HBM_BYTES_PER_S
+    if device.type == "cuda":
+        entry.update(device_profile(torch, lambda: V.generic_backtrace(*bt)))
+        check(entry["activities_per_call"] <= 1,
+              f"generic_backtrace: {entry['activities_per_call']} device activities a call")
+    log(f"generic_backtrace: {entry['ms']} ms (device alone {entry.get('device_ms')} ms); bound "
+        f"{entry['bound_ms']:.4g} ms by the chain's bytes, {entry['bound_staged_ms']:.4g} ms by "
+        f"the staged codes")
     check(bool(got[1].all()), "generic_backtrace: an utterance has no path")
 
 
@@ -1682,12 +1719,22 @@ def generic_full_width(torch, device, width: Width, log) -> dict:
         alis = aset.align_feats(params, feats, nf, acoustic_scale=0.1)
         return alis, time.perf_counter() - t_start
 
+    chunks: list = []  # the sub-batch size align_feats takes from the free memory
+    batch_chunk = aset._batch_chunk
+    aset._batch_chunk = lambda *args: chunks.append(batch_chunk(*args)) or chunks[-1]
     for k in _build.launches:
         _build.launches[k] = 0
     alis, wall = run()
     launches = dict(_build.launches)
+    del aset._batch_chunk
+    sub_batches = math.ceil(len(graphs) / chunks[0])
     check(all(len(r["arcs"]) == n and np.isfinite(r["score"]) for r, n in zip(alis, nf)),
           "full-width generic alignment: an utterance did not align")
+    if device.type == "cuda":
+        check(launches["generic_forward"] == launches["generic_backtrace"] == sub_batches,
+              f"full-width generic alignment: the forward launched "
+              f"{launches['generic_forward']} and the backtrace "
+              f"{launches['generic_backtrace']} times for {sub_batches} sub-batches")
     back = sum(int((g.arc_dst[r["arcs"]] < g.arc_src[r["arcs"]]).sum())
                for g, r in zip(graphs, alis))
     walls = [wall] + [run()[1] for _ in range(REPEATS)]
@@ -1695,7 +1742,7 @@ def generic_full_width(torch, device, width: Width, log) -> dict:
     b_graphs, b_aset, b_feats, b_nf = train_shape(width, device)
     want = b_aset.align_feats(params, b_feats, b_nf, acoustic_scale=0.1)
     ll = gmm_kernel.loglikes_batch(b_feats, convert.kernel_params_from_twin(params))
-    got = A._align_generic(b_aset.padded, b_graphs, ll, b_nf, 0.1, 1e9)
+    got = A._align_generic(b_aset.generic_dev, b_graphs, ll, b_nf, 0.1, 1e9)
     differ = [i for i, (g, w_) in enumerate(zip(got, want)) if g["score"] != w_["score"]]
     check(not differ, f"banded and generic aligner score utterances {differ[:8]} differently")
     # equal scores, so where the transition ids differ two best paths tie in
@@ -1718,7 +1765,7 @@ def generic_full_width(torch, device, width: Width, log) -> dict:
     audio_s = float(nf.sum()) * 0.01
     facts = {"setup_s": setup_s, "audio_s": audio_s, "runs_s": walls,
              "median_audio_s_per_s": audio_s / float(np.median(walls)), "launches": launches,
-             "back_arcs_taken": back, "tied_with_banded": len(tied)}
+             "sub_batches": sub_batches, "back_arcs_taken": back, "tied_with_banded": len(tied)}
     if device.type == "cuda":
         facts["profile"] = profile_run(torch, run, log, "full-width generic alignment")
     log(f"full-width generic alignment: {json.dumps(facts)}")

@@ -29,7 +29,7 @@ from voicebridge_tpu_torch.ops import align_band as AB
 from voicebridge_tpu_torch.ops import gmm_kernels as K
 from voicebridge_tpu_torch.ops import viterbi as V
 from voicebridge_tpu_torch.steps import align as A
-from voicebridge_tpu_torch.testing import load_yesno_mono, random_band_walk
+from voicebridge_tpu_torch.testing import load_yesno_mono, random_band_walk, synth_train_graph
 
 from synth import LEXICON, make_corpus
 from test_align_band import _random_banded_graph
@@ -287,6 +287,227 @@ def test_generic_aligner_pruned_and_feats():
     got = A.AlignmentSet(graphs, device="cpu").align_feats(K.pack_gmm(am, "cpu"), feats, nf,
                                                           acoustic_scale=0.3)
     assert [r["tids"] for r in got] == [r["tids"] for r in want]
+
+
+def _generic_case(name):
+    """Graph sets the banded form refuses, loglikes [B, T, 11] and frame
+    counts: ``ragged`` (graphs of 9-40 states, one not dst-pure, arcs back
+    over up to 12 states); ``dead_ends`` (a chain too long for its frames, so
+    no path, arcs into states with no way on, an utterance with no frames and
+    one with T + 3); ``fan_in`` (a state entered by 300 arcs: more than a
+    byte code names)."""
+    rng = np.random.default_rng({"ragged": 21, "dead_ends": 22, "fan_in": 23}[name])
+    t = 30
+    if name == "ragged":
+        graphs = _non_banded()[0] + [_random_banded_graph(rng, n, band=(-12, 4))
+                                     for n in (40, 25, 33)]
+        nf = np.asarray([30, 21, 30, 24, 28], np.int32)
+    elif name == "dead_ends":
+        sink = _random_banded_graph(rng, 14)
+        extra = 3  # arcs into three new states no arc leaves
+        sink = sink._replace(
+            num_states=sink.num_states + extra,
+            arc_src=np.concatenate([sink.arc_src, [2, 5, 7]]).astype(np.int32),
+            arc_dst=np.concatenate([sink.arc_dst, [14, 15, 16]]).astype(np.int32),
+            **{f: np.concatenate([getattr(sink, f), getattr(sink, f)[:extra]])
+               for f in ("arc_tid", "arc_pdf", "arc_score", "arc_oseq")},
+            **{f: np.concatenate([getattr(sink, f), np.full(extra, v, getattr(sink, f).dtype)])
+               for f, v in (("alpha0", V.NEG_INF), ("final_score", V.NEG_INF),
+                            ("start_oseq", 0), ("final_oseq", 0))})
+        graphs = [_chain_graph(50), sink, _random_banded_graph(rng, 25, band=(-8, 3)),
+                  _non_banded()[0][0]]
+        nf = np.asarray([30, 30, 0, t + 3], np.int32)
+    else:
+        graphs = [synth_train_graph(320, 11, rng, back_arcs=1, fan_in=300),
+                  synth_train_graph(20, 11, rng)]
+        nf = np.asarray([30, 25], np.int32)
+    assert AB.build_band_plan(graphs) is None
+    ll = rng.standard_normal((len(graphs), t, 11)).astype(np.float32)
+    return graphs, ll, nf
+
+
+GENERIC_CASES = ["ragged", "dead_ends", "fan_in"]
+
+
+def _csr_today(padded):
+    """The destination CSR as the wrapper built it before the plan: a stable
+    argsort by destination and a cumulative count."""
+    dst = torch.from_numpy(padded["arc_dst"]).long()
+    in_arc = torch.argsort(dst, dim=1, stable=True)
+    counts = torch.zeros((dst.shape[0], padded["num_states"]), dtype=torch.int64).scatter_add_(
+        1, dst, torch.ones_like(dst))
+    in_start = torch.cat([torch.zeros((dst.shape[0], 1), dtype=torch.int64), counts.cumsum(1)],
+                         dim=1)
+    return in_arc.numpy(), in_start.numpy(), counts.numpy()
+
+
+@pytest.mark.parametrize("case", GENERIC_CASES)
+def test_generic_plan_equals_pad_graphs_and_csr(case):
+    """The plan's arcs (``plan_arcs``) are ``pad_graphs``'s, its CSR the one
+    the wrapper built per call, its rows the arcs in that order, its pdf
+    lists index the arcs' pdfs; a row reads one arc exactly where all its
+    arcs are one (source, score, pdf); ``take`` equals the plan of the
+    subset padded alike."""
+    graphs, _, _ = _generic_case(case)
+    padded = V.pad_graphs(graphs)
+    plan = V.generic_plan_to_device(graphs, "cpu")
+    arcs = dict(zip(("arc_src", "arc_dst", "arc_pdf", "arc_score"), V.plan_arcs(plan)))
+    for name, got_x in (*arcs.items(), ("arc_src", plan.arc_src), ("alpha0", plan.alpha0),
+                        ("final_score", plan.final)):
+        np.testing.assert_array_equal(got_x.numpy(), padded[name], err_msg=name)
+    in_arc, in_start, counts = _csr_today(padded)
+    np.testing.assert_array_equal(plan.in_arc.numpy(), in_arc)
+    np.testing.assert_array_equal(plan.in_start.numpy(), in_start)
+    for field, name in (("in_src", "arc_src"), ("in_score", "arc_score")):
+        np.testing.assert_array_equal(getattr(plan, field).numpy(),
+                                      np.take_along_axis(padded[name], in_arc, axis=1))
+    got_pdf = np.take_along_axis(plan.pdf_list.numpy(), plan.in_lpdf.numpy().astype(np.int64), 1)
+    np.testing.assert_array_equal(got_pdf, np.take_along_axis(padded["arc_pdf"], in_arc, axis=1))
+    for i in range(len(graphs)):
+        n = int(plan.n_pdf[i])
+        np.testing.assert_array_equal(plan.pdf_list[i, :n].numpy(), np.unique(padded["arc_pdf"][i]))
+        for st in range(padded["num_states"]):
+            row = in_arc[i, in_start[i, st]: in_start[i, st + 1]]
+            same = len({(padded["arc_src"][i, j], padded["arc_pdf"][i, j],
+                         padded["arc_score"][i, j].tobytes()) for j in row}) == 1
+            assert int(plan.in_len[i, st]) == (1 if same else len(row)), (i, st)
+    assert plan.max_in_degree == int(plan.in_len.max())
+    assert plan.pdf_range == (int(padded["arc_pdf"].min()), int(padded["arc_pdf"].max()))
+    if case == "fan_in":
+        assert plan.max_in_degree > V.CODE_MAX_DEGREE
+    else:
+        assert plan.max_in_degree < counts.max()  # the dead state's padding arcs read as one
+    idx = np.array([len(graphs) - 1, 0])
+    sub = plan.take(idx)
+    want = V.generic_plan_to_device(
+        V.pad_graphs([graphs[i] for i in idx], pad_states=padded["num_states"] - 1,
+                     pad_arcs=padded["arc_src"].shape[1]), "cpu")
+    for field in V.GenericPlanDev._fields[:-2]:
+        got_x, want_x = getattr(sub, field), getattr(want, field)
+        if field == "pdf_list":  # as wide as the whole plan's longest list
+            assert not got_x[:, want_x.shape[1]:].any()
+            got_x = got_x[:, : want_x.shape[1]]
+        assert torch.equal(got_x, want_x), field
+    assert (sub.max_in_degree, sub.pdf_range) == (plan.max_in_degree, plan.pdf_range)
+
+
+@pytest.mark.parametrize("beam", [1e9, 2.5])
+@pytest.mark.parametrize("case", GENERIC_CASES)
+def test_generic_plan_forward_backtrace_match_jax(case, beam):
+    """The plain forward and backtrace driven from the plan against JAX's
+    ``viterbi_forward_batched`` and ``backtrace_batched_device``: equal
+    backpointers at active frames and alpha_end within rtol 1e-6 and atol
+    1e-5 (XLA on the CPU fuses ``ll * acwt`` into the add, one rounding where
+    the port, as the JAX source reads, has two: 30 frames of such roundings
+    on terms of magnitude up to 10 leave scores near 0 a few 1e-7 apart);
+    the backtrace, fed the same alpha_end and
+    backpointers, gives equal arcs, ok flags and end states and bit-equal
+    scores.  The old signatures given the port's padded arrays agree."""
+    graphs, ll, nf = _generic_case(case)
+    acwt = 0.43
+    p = JV.pad_graphs(graphs)
+    ae_j, bps_j = JV.viterbi_forward_batched(
+        p["arc_src"], p["levels"], p["arc_pdf"], p["arc_score"], p["alpha0"], jnp.asarray(ll),
+        jnp.asarray(nf), np.float32(acwt), np.float32(beam), p["num_states"])
+    plan = V.generic_plan_to_device(graphs, "cpu")
+    nf_t = torch.from_numpy(nf)
+    ae, bps, codes = V.generic_forward(plan, torch.from_numpy(ll), nf_t, acwt, beam)
+    np.testing.assert_allclose(ae.numpy(), np.asarray(ae_j), rtol=1e-6, atol=1e-5)
+    t = ll.shape[1]
+    active = np.arange(t)[:, None] < nf[None, :]
+    np.testing.assert_array_equal(bps.numpy()[active], np.asarray(bps_j)[active])
+    assert (bps.numpy()[~active] == -1).all()
+    assert (codes is None) == (case == "fan_in")
+    want = JV.backtrace_batched_device(p["arc_src"], jnp.asarray(ae.numpy()), p["final_score"],
+                                       jnp.asarray(bps.numpy()), jnp.asarray(nf))
+    got = V.generic_backtrace(plan, ae, bps, codes, nf_t)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    q = V.pad_graphs(graphs)
+    ae2, bps2 = V.viterbi_forward_batched(q["arc_src"], q["arc_dst"], q["arc_pdf"],
+                                          q["arc_score"], q["alpha0"], torch.from_numpy(ll), nf,
+                                          acwt, beam, q["num_states"])
+    assert torch.equal(ae2, ae) and torch.equal(bps2, bps)
+    got2 = V.backtrace_batched_device(q["arc_src"], ae, q["final_score"], bps, nf)
+    assert all(torch.equal(x, y) for x, y in zip(got2, got))
+    if case == "dead_ends":
+        np.testing.assert_array_equal(ae[2].numpy(), p["alpha0"][2])
+    if beam < 1e8:
+        return
+    ok = got[1].numpy()  # exact search: only the dead ends' first, third and fourth fail
+    assert ok.tolist() == ([False, True, False, False] if case == "dead_ends" else [True] * len(ok))
+
+
+@pytest.mark.parametrize("case", GENERIC_CASES)
+def test_generic_codes_and_code_backtrace_match_plain(case):
+    """``generic_codes_plain`` names each backpointer's rank in its CSR row
+    (0xFF exactly where it is -1), and the code-driven backtrace equals
+    ``backtrace_batched_plain`` on the forward's backpointers and on
+    backpointers with -1s and other arcs of the same row put in (walks that
+    fail in mid-utterance and hold their state)."""
+    graphs, ll, nf = _generic_case(case)
+    plan = V.generic_plan_to_device(graphs, "cpu")
+    nf_t = torch.from_numpy(nf)
+    ae, bps, codes = V.generic_forward(plan, torch.from_numpy(ll), nf_t, 0.43, 1e9)
+    if case == "fan_in":
+        assert codes is None and V.generic_codes_plain(bps, plan) is None
+        return
+    rng = np.random.default_rng(7)
+    drawn = bps.clone()
+    t, b, s = bps.shape
+    arc_dst = V.plan_arcs(plan)[1]
+    path = V.backtrace_batched_plain(plan.arc_src.long(), ae, plan.final, bps, nf_t)[0].long()
+    for bi in range(b):  # on each path: another arc of the row, then a -1 further back
+        for ti, cut in ((int(rng.integers(t // 2, t)), False), (int(rng.integers(1, t // 2)), True)):
+            if ti >= nf[bi] or path[ti, bi] < 0:
+                continue
+            si = int(arc_dst[bi, path[ti, bi]])
+            row = torch.nonzero(arc_dst[bi] == si).ravel()
+            drawn[ti, bi, si] = -1 if cut else int(row[rng.integers(len(row))])
+    for walk in (bps, drawn):
+        c = V.generic_codes_plain(walk, plan)
+        assert c.dtype == torch.uint8 and c.shape == (b, t, s)
+        by_utt = walk.permute(1, 0, 2).long()
+        assert torch.equal(c == V.NO_ARC, by_utt < 0)
+        hit = by_utt >= 0
+        dst = torch.gather(arc_dst, 1, by_utt.clamp(min=0).reshape(b, -1)).view(b, t, s)
+        pos = torch.gather(plan.in_start.long(), 1, dst.reshape(b, -1)).view(b, t, s) + c.long()
+        arc = torch.gather(plan.in_arc.long(), 1, pos.clamp(max=plan.in_arc.shape[1] - 1)
+                           .reshape(b, -1)).view(b, t, s)
+        assert torch.equal(arc[hit], by_utt[hit])
+        got = V.generic_backtrace_codes_plain(plan, ae, plan.final, c, nf_t)
+        want = V.backtrace_batched_plain(plan.arc_src.long(), ae, plan.final, walk, nf_t)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(V.generic_codes_plain(bps, plan), codes)
+    assert not bool(V.backtrace_batched_plain(plan.arc_src.long(), ae, plan.final, drawn,
+                                              nf_t)[1].all())
+
+
+def test_align_feats_generic_plan_built_once(monkeypatch):
+    """``AlignmentSet.align_feats`` on refused graphs gives the JAX package's
+    alignments in sub-batches of two, twice, over one plan built once: no
+    sub-batch pads its graphs again."""
+    from voicebridge_tpu.models.gmm import AmDiagGmm
+
+    graphs, _, nf = _generic_case("ragged")
+    nf[nf == 0] = 5
+    rng = np.random.default_rng(31)
+    am = AmDiagGmm(rng.standard_normal((11, 2, 6)).astype(np.float32),
+                   np.abs(rng.standard_normal((11, 2, 6))).astype(np.float32) + 0.5,
+                   np.full((11, 2), 0.5, np.float32))
+    feats = rng.standard_normal((len(graphs), int(nf.max()), 6)).astype(np.float32)
+    want = JA.AlignmentSet(graphs).align_feats(JK.pack_gmm(am), feats, nf, acoustic_scale=0.3)
+    aset = A.AlignmentSet(graphs, device="cpu")
+    monkeypatch.setattr(aset, "_batch_chunk", lambda *args: 2)
+    built, pad_graphs = [], V.pad_graphs
+    monkeypatch.setattr(V, "pad_graphs", lambda *a, **k: built.append(1) or pad_graphs(*a, **k))
+    params = K.pack_gmm(am, "cpu")
+    for _ in range(2):
+        got = aset.align_feats(params, feats, nf, acoustic_scale=0.3)
+        assert [r["tids"] for r in got] == [r["tids"] for r in want]
+        np.testing.assert_allclose([r["score"] for r in got], [r["score"] for r in want],
+                                   rtol=1e-6)
+    assert len(built) == 1 and aset.generic_dev is aset._generic_dev
 
 
 def test_apply_alignments_zeroes_failures():

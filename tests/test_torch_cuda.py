@@ -30,7 +30,12 @@ state of more slots than a warp speculates on and row starts past 16 bits; for K
 on the path, K = 1 and 12, S of 45, 700 and 120,000 (rows too wide to
 stage), one lane and 130, and 2000 frames in 24 staged chunks; for the generic aligner
 ragged and empty utterances, a finite beam, graphs whose arcs or whose alpha
-outgrow the default shared memory, a best path through a back arc, and
+outgrow the default shared memory, a best path through a back arc, rows of
+6 and 15 arcs (past the registers' 4) and of 304 (past the byte codes),
+19,301 states with about 3,970 distinct pdfs (the emissions read without the
+ring, near the largest alpha the kernel takes), each through the old
+signatures and through a plan, the staged walk meeting a missing arc
+over 1 and 1000 frames, no host synchronisation given a plan, and
 ``max_active``, which its kernel refuses; for the fMLLR statistics D = 40
 on uneven mixtures in one chunk and in chunks against float64, and two runs
 bit-equal; ``apply_fmllr_batch`` against float64; ``decode_fmllr`` of the
@@ -955,43 +960,82 @@ def _generic_case(case):
     if case == "back_arc":  # a best path through the back arc, beside a ragged graph
         graphs = [_loop_graph()[0], synth_train_graph(160, 50, rng, back_arcs=2)]
         t_total, nf = 81, [81, 0]
-    elif case == "global_arcs":  # 12 bytes an arc beyond 96 KB: arcs read through L2
+    elif case == "global_arcs":  # 16 bytes an arc beyond 96 KB: rows read through L2
         graphs = [synth_train_graph(2400, 50, rng, back_arcs=1500) for _ in range(3)]
         t_total, nf = 40, [40, 33, 0]
-    elif case == "big_alpha":  # alpha beyond 48 KB: the shared-memory opt-in
+    elif case == "big_alpha":  # alpha and rows beyond 48 KB: the shared-memory opt-in
         graphs = [synth_train_graph(5000, 50, rng, back_arcs=3) for _ in range(2)]
         t_total, nf = 30, [30, 12]
+    elif case in ("mid_in", "wide_in"):  # 6 or 15 arcs into a state: past the registers' 4
+        graphs = [synth_train_graph(200, 50, rng, back_arcs=1,
+                                    fan_in=3 if case == "mid_in" else 12),
+                  synth_train_graph(170, 50, rng, back_arcs=2)]
+        t_total, nf = 180, [180, 150]
+    elif case == "no_ring":  # alpha and row starts near 227 KB: no room for the ring
+        graphs = [synth_train_graph(19300, 4000, rng, back_arcs=2) for _ in range(2)]
+        t_total, nf = 12, [12, 9]
+    elif case == "fan_in":  # 300 arcs into a state: no byte codes, the walk reads bps
+        graphs = [synth_train_graph(320, 50, rng, back_arcs=1, fan_in=300),
+                  synth_train_graph(160, 50, rng, back_arcs=2)]
+        t_total, nf = 170, [170, 170]
     else:
         graphs = [synth_train_graph(int(n), 50, rng, back_arcs=2) for n in (160, 170, 165, 175)]
         t_total, nf = 180, [180, 150, 0, 1]
     return graphs, t_total, np.asarray(nf, np.int32)
 
 
-@pytest.mark.parametrize("case", ["ragged", "pruned", "global_arcs", "big_alpha", "back_arc"])
+GENERIC_CASES = ["ragged", "pruned", "global_arcs", "big_alpha", "back_arc", "mid_in", "wide_in",
+                 "fan_in", "no_ring"]
+
+
+@pytest.mark.parametrize("case", GENERIC_CASES)
 def test_generic_aligner_matches_plain(cuda, case):
     """The generic aligner's kernels against their plain versions on the
-    same CUDA tensors: bit-equal scores, equal backpointers and arcs.  In
-    the ``back_arc`` case the loop graph's pdfs win their frames by 8, so
-    its best path takes the back arc twice."""
+    same CUDA tensors: bit-equal scores, equal backpointers, codes and arcs,
+    one launch of each kernel a call; through the old signatures (the plan
+    built in the wrapper, the backtrace walking ``bps``) and through a plan
+    built once (``generic_forward`` / ``generic_backtrace``: the codes, the
+    staged walk).  The forward takes its in-arcs from registers in
+    ``ragged``, ``pruned`` and ``back_arc``, from shared memory in
+    ``mid_in``, ``wide_in`` and ``fan_in``, through L2 in ``global_arcs``,
+    ``big_alpha`` and ``no_ring``, the last reading its emissions from global
+    memory.  In the ``back_arc`` case the loop graph's pdfs win their frames
+    by 8, so its best path takes the back arc twice."""
     graphs, t_total, nf_np = _generic_case(case)
     beam = 6.0 if case == "pruned" else 1e9
     p = V.pad_graphs(graphs)
     b = len(graphs)
     rng = np.random.default_rng(6)
-    ll_np = rng.standard_normal((b, t_total, 50)).astype(np.float32)
+    ll_np = rng.standard_normal((b, t_total, max(50, int(p["arc_pdf"].max()) + 1))).astype(
+        np.float32)
     if case == "back_arc":
         ll_np[0] = -8.0
         ll_np[0, np.arange(t_total), _loop_graph()[1]] = 0.0
     ll = torch.from_numpy(ll_np).to(cuda)
     nf = torch.from_numpy(nf_np).to(cuda)
+    plan = V.generic_plan_to_device(graphs, cuda)
+    s = plan.num_states
+    small = s <= 512 and plan.max_in_degree <= 4
+    assert small == (case in ("ragged", "pruned", "back_arc"))
+    # alpha twice, the maxima, the ring and pdf list, the row starts
+    ring_fits = 4 * (2 * s + 4) + 20 * plan.pdf_list.shape[1] + 4 * (s + 1) <= 227 * 1024
+    assert ring_fits == (case != "no_ring")
+    assert (plan.max_in_degree > V.CODE_MAX_DEGREE) == (case == "fan_in")
 
     def tensor(name, dtype):
         return torch.from_numpy(p[name]).to(cuda, dtype)
 
-    before = dict(_build.launches)
-    ae_k, bps_k = V.viterbi_forward_batched(
+    def launches(fn):
+        before = dict(_build.launches)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: _build.launches[k] - before[k] for k in before if
+                     _build.launches[k] != before[k]}
+
+    (ae_k, bps_k), n = launches(lambda: V.viterbi_forward_batched(
         p["arc_src"], p["arc_dst"], p["arc_pdf"], p["arc_score"], p["alpha0"], ll, nf_np, 0.5,
-        beam, p["num_states"])
+        beam, p["num_states"]))
+    assert n == {"generic_forward": 1}
     ae_p, bps_p = V.viterbi_forward_batched_plain(
         tensor("arc_src", torch.int64), tensor("arc_dst", torch.int64),
         tensor("arc_pdf", torch.int64), tensor("arc_score", torch.float32),
@@ -999,14 +1043,28 @@ def test_generic_aligner_matches_plain(cuda, case):
     torch.cuda.synchronize()
     assert torch.equal(ae_k, ae_p)
     assert torch.equal(bps_k, bps_p)
-    got = V.backtrace_batched_device(p["arc_src"], ae_k, p["final_score"], bps_k, nf_np)
+    got, n = launches(lambda: V.backtrace_batched_device(p["arc_src"], ae_k, p["final_score"],
+                                                         bps_k, nf_np))
+    assert n == {"generic_backtrace": 1}
     ref = V.backtrace_batched_plain(tensor("arc_src", torch.int64), ae_k,
                                     tensor("final_score", torch.float32), bps_k, nf)
-    torch.cuda.synchronize()
     for g_, r_ in zip(got, ref):
         assert torch.equal(g_, r_.to(g_.dtype))
-    assert _build.launches["generic_forward"] == before["generic_forward"] + 1
-    assert _build.launches["generic_backtrace"] == before["generic_backtrace"] + 1
+    (ae_c, bps_c, codes), n = launches(lambda: V.generic_forward(plan, ll, nf, 0.5, beam))
+    assert n == {"generic_forward": 1}
+    assert torch.equal(ae_c, ae_p) and torch.equal(bps_c, bps_p)
+    want_codes = V.generic_codes_plain(bps_p, plan)
+    assert (codes is None) == (want_codes is None) == (case == "fan_in")
+    if codes is not None:
+        assert torch.equal(codes, want_codes)
+    got_c, n = launches(lambda: V.generic_backtrace(plan, ae_c, bps_c, codes, nf))
+    assert n == {"generic_backtrace": 1}
+    for g_, r_ in zip(got_c, ref):
+        assert torch.equal(g_, r_.to(g_.dtype))
+    if codes is not None:
+        for g_, r_ in zip(got_c, V.generic_backtrace_codes_plain(plan, ae_c, plan.final, codes,
+                                                                  nf)):
+            assert torch.equal(g_, r_.to(g_.dtype))
     if case == "ragged":
         assert bool(got[1][0]) and not bool(got[1][2])  # a full path; no frames, no path
     if case == "back_arc":
@@ -1014,6 +1072,49 @@ def test_generic_aligner_matches_plain(cuda, case):
         assert bool(got[1][0]) and (arcs >= 0).all()
         np.testing.assert_array_equal(g.arc_dst[arcs], _loop_graph()[1])
         assert int((g.arc_dst[arcs] < g.arc_src[arcs]).sum()) == 2
+
+
+def test_generic_aligner_backtrace_failures(cuda):
+    """The staged walk against the plain code-driven backtrace where the
+    path meets a 0xFF (held state, ok cleared) in mid-utterance, over 1 to
+    1000 frames (up to 13 staged chunks) and a lane with no frames."""
+    rng = np.random.default_rng(8)
+    graphs = [synth_train_graph(int(n), 50, rng, back_arcs=2) for n in (160, 384, 200, 170)]
+    plan = V.generic_plan_to_device(graphs, cuda)
+    for t_total, nf_np in ((1, [1, 1, 0, 1]), (1000, [1000, 999, 0, 517])):
+        nf = torch.tensor(nf_np, dtype=torch.int32, device=cuda)
+        ll = torch.from_numpy(rng.standard_normal((4, t_total, 50), dtype=np.float32)).to(cuda)
+        ae, bps, codes = V.generic_forward(plan, ll, nf, 0.5, 1e9)
+        arcs = V.generic_backtrace(plan, ae, bps, codes, nf)[0]
+        cut = codes.clone()
+        for bi in (0, 3):  # a 0xFF at the state the path holds at a middle frame
+            ti = nf_np[bi] // 2
+            if arcs[ti, bi] >= 0:
+                cut[bi, ti, V.plan_arcs(plan)[1][bi, arcs[ti, bi].long()]] = V.NO_ARC
+        got = V.generic_backtrace(plan, ae, bps, cut, nf)
+        want = V.generic_backtrace_codes_plain(plan, ae, plan.final, cut, nf)
+        for g_, r_ in zip(got, want):
+            assert torch.equal(g_, r_.to(g_.dtype))
+        if t_total > 1:
+            assert not bool(got[1][0]) and not bool(got[1][3]) and bool(got[1][1])
+
+
+def test_generic_aligner_plan_makes_no_sync(cuda):
+    """Given a plan, and the frame counts on the card, the forward and the
+    backtrace make no host synchronisation."""
+    rng = np.random.default_rng(9)
+    graphs = [synth_train_graph(int(n), 50, rng, back_arcs=2) for n in (160, 170)]
+    plan = V.generic_plan_to_device(graphs, cuda)
+    ll = torch.from_numpy(rng.standard_normal((2, 200, 50), dtype=np.float32)).to(cuda)
+    nf = torch.tensor([200, 181], dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ae, bps, codes = V.generic_forward(plan, ll, nf, 0.5, 1e9)
+        out = V.generic_backtrace(plan, ae, bps, codes, nf)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(out[1].all())
 
 
 def test_generic_aligner_kernel_refuses_max_active(cuda):

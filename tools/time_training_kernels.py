@@ -1,7 +1,8 @@
-"""Time K4 (banded alignment forward and backtrace) and K6 (aligned E-step
-statistics) of one checkout of voicebridge_tpu_torch on one NVIDIA GPU, at
-the shapes of ``chip_smoke.py`` phases 3, 15 and 16, so that two checkouts
-compare in one call.
+"""Time K4 (banded alignment forward and backtrace), K6 (aligned E-step
+statistics) and the generic aligner (forward and backtrace) of one checkout
+of voicebridge_tpu_torch on one NVIDIA GPU, at the shapes of
+``chip_smoke.py`` phases 3, 15 and 16, so that two checkouts compare in one
+call.
 
     python tools/time_training_kernels.py [--tree DIR] [--label NAME] [--reps N]
 
@@ -18,8 +19,15 @@ also for one utterance alone; K6 on the
 pdfs of that alignment (76,800 frames) at phase 3's model (2000 x 5 x 39,
 one feature array), at D = 40 with 1-8 Gaussians a pdf (phase 15's uneven
 mixtures, drawn here) and at D = 40 with two feature arrays (phase 16's
-``alimdl`` path).  Prints one JSON object: the card's name and power limit,
-and per kernel and shape the time through the wrapper (CUDA events, mean of
+``alimdl`` path); the generic aligner at phase 3's shape over graphs with
+two back arcs each, as ``align_feats`` calls it, also its forward for one
+utterance a streaming multiprocessor and both for one utterance alone (a
+checkout whose ``ops/viterbi.py`` has no ``generic_forward`` is called
+through the padded arrays, its CSR built per call).  Another version of a
+kernel source is timed by ``--tree`` on a copy of the checkout with that
+source in its ``csrc/`` (``tools/kernel_variants/``).  Prints one JSON
+object: the card's name and power limit, and per kernel and shape the time
+through the wrapper (CUDA events, mean of
 ``--reps`` calls after a warm-up), the host's time to issue a call (the
 wrapper's own cost: ``--reps`` calls without a synchronisation), the device
 time alone and the device activities a call (torch.profiler over ``--reps``
@@ -75,6 +83,7 @@ def main() -> int:
     from voicebridge_tpu_torch import _build, convert
     from voicebridge_tpu_torch.ops import align_band as AB
     from voicebridge_tpu_torch.ops import gmm_kernel, gmm_stats_kernel
+    from voicebridge_tpu_torch.ops import viterbi as V
     from voicebridge_tpu_torch.testing import random_am
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,6 +127,32 @@ def main() -> int:
                                    ("gmm_stats_d40_twofeats", w40, x40, x40b)):
         k6 = C.k6_inputs(torch, device, graphs, arcs, x_post, x_acc)
         timed(name, lambda: gmm_stats_kernel.acc_stats(w, *k6, width.num_pdfs))
+    del k6, x40, x40b
+    _, g_aset, g_feats, g_nf_np = C.train_shape(width, device, width.back_arcs)
+    g_nf = torch.from_numpy(g_nf_np).to(device)
+    g_ll = gmm_kernel.loglikes_batch(g_feats, w39)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sizes = (("", g_nf.shape[0]), ("_one_per_sm", sms), ("_one_utt", 1))
+    for suffix, n in sizes:  # all utterances, one a SM, one alone
+        idx = np.arange(n)
+        ll_i, nf_i = g_ll[:n].contiguous(), g_nf[:n].contiguous()
+        if hasattr(V, "generic_forward"):  # the set's plan, built once
+            plan = g_aset.generic_dev.take(idx)
+            fwd = (plan, ll_i, nf_i, 0.1, 1e9)
+            ae, bps, codes = V.generic_forward(*fwd)
+            timed("generic_forward" + suffix, lambda: V.generic_forward(*fwd))
+            bt = (plan, ae, bps, codes, nf_i)
+            backtrace = lambda: V.generic_backtrace(*bt)  # noqa: E731
+        else:  # the padded arrays, the CSR built per call
+            p = {k: v[idx] if isinstance(v, np.ndarray) else v for k, v in g_aset.padded.items()}
+            fwd = (p["arc_src"], p["arc_dst"], p["arc_pdf"], p["arc_score"], p["alpha0"], ll_i,
+                   g_nf_np[idx], 0.1, 1e9, p["num_states"])
+            ae, bps = V.viterbi_forward_batched(*fwd)
+            timed("generic_forward" + suffix, lambda: V.viterbi_forward_batched(*fwd))
+            bt = (p["arc_src"], ae, p["final_score"], bps, g_nf_np[idx])
+            backtrace = lambda: V.backtrace_batched_device(*bt)  # noqa: E731
+        if suffix != "_one_per_sm":
+            timed("generic_backtrace" + suffix, backtrace)
     print(json.dumps(report))
     return 0
 

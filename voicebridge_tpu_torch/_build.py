@@ -73,13 +73,15 @@ _SIGNATURES = {
     # stream
     "vbt_viterbi_nbest": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F,
                           _F, _I, _I, _I, _I, _I, _P),
-    # arc_src, arc_pdf, arc_score, in_start, in_arc, alpha0, ll, num_frames,
-    # acwt, beam, b, s, a, t, p, alpha_end, bps, stream
-    "vbt_generic_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _P,
-                            _P, _P),
-    # arc_src, alpha_end, final_score, bps, num_frames, b, s, a, t, arcs, ok,
-    # end_state, score, stream
-    "vbt_generic_backtrace": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # in_start, in_len, in_src, in_score, in_lpdf, in_arc, pdf_list, n_pdf,
+    # alpha0, ll, num_frames, acwt, beam, b, s, a, u, t, p, max_deg,
+    # alpha_end, bps, codes, stream
+    "vbt_generic_forward": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I,
+                            _I, _I, _I, _P, _P, _P, _P),
+    # alpha_end, final_score, codes, bps, num_frames, in_start, in_src,
+    # in_arc, arc_src, b, s, a, t, arcs, ok, end_state, score, stream
+    "vbt_generic_backtrace": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                              _P, _P),
     # bps, bp_bytes, row_start, row_src, row_arc, end_state, num_frames, t0, w,
     # s1, b, d, codes, arcs, state, stream
     "vbt_backtrace_best": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),

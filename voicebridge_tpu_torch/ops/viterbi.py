@@ -9,11 +9,15 @@ a state's in-arcs; the results are the same, ties included: the tree's
 ``argmax``/``top_k`` take the lowest position in the destination-sorted arc
 list, which is the lowest arc id among equals.
 
-* **Generic aligner** (``viterbi_forward_batched``,
-  ``backtrace_batched_device``; ``csrc/viterbi_generic.cu``): per-utterance
-  graphs ``arc_* [B, A]``, used when a set of training graphs does not fit
-  the banded form of ``ops/align_band.py``.  One CTA per utterance runs all
-  frames with alpha in shared memory; the backtrace is one launch.
+* **Generic aligner** (``generic_forward``, ``generic_backtrace`` over a
+  ``GenericPlanDev`` built once per graph set; ``viterbi_forward_batched``,
+  ``backtrace_batched_device`` keep the JAX package's signatures;
+  ``csrc/viterbi_generic.cu``): per-utterance graphs ``arc_* [B, A]``, used
+  when a set of training graphs does not fit the banded form of
+  ``ops/align_band.py``.  One CTA per utterance runs all frames with alpha
+  in shared memory and the emissions of the next frames in flight, and
+  writes a byte code per (frame, state) beside the arc ids; the backtrace,
+  one launch, walks the codes staged in shared memory.
 * **N-best** (``viterbi_nbest_forward``, K7, ``csrc/viterbi_nbest.cu``): every
   state of a shared graph carries its K best partial-path scores with (arc,
   slot) provenance, in a lane-minor layout ``[S, B, K]``; one cooperative
@@ -42,7 +46,9 @@ from ..device import stream_handle
 from . import decode_core as DC
 from .graph import NEG_INF, DenseGraph, compile_dense_graph
 
-__all__ = ["NEG_INF", "DenseGraph", "compile_dense_graph", "pad_graphs",
+__all__ = ["NEG_INF", "DenseGraph", "compile_dense_graph", "pad_graphs", "GenericPlanDev",
+           "generic_plan_to_device", "plan_arcs", "generic_forward", "generic_backtrace",
+           "generic_codes_plain", "generic_backtrace_codes_plain",
            "viterbi_forward_batched", "backtrace_batched_device",
            "assemble_batched_results", "NbestPlan", "build_nbest_plan", "nbest_step",
            "nbest_window", "viterbi_nbest_forward", "nbest_walk", "backtrace_nbest",
@@ -129,6 +135,257 @@ def viterbi_forward_batched_plain(arc_src, arc_dst, arc_pdf, arc_score, alpha0, 
     return alpha_end, bps
 
 
+class GenericPlanDev(NamedTuple):
+    """Per-utterance padded graphs (``pad_graphs``) on one device, as the
+    generic aligner's kernels read them, built once per graph set
+    (``generic_plan_to_device``).  The arcs entering state s of utterance b
+    are the CSR positions ``in_start[b, s] : in_start[b, s + 1]``, in
+    ascending arc id (the grouping of a stable sort by destination); the
+    ``in_*`` rows hold them in that order (``plan_arcs`` gives them back in
+    arc order).  ``max_in_degree`` and ``pdf_range`` stay on the host."""
+
+    in_start: torch.Tensor  # [B, S+1] int32
+    in_arc: torch.Tensor  # [B, A] int32 arc id at each CSR position
+    in_src: torch.Tensor  # [B, A] int32 source state, CSR order
+    in_score: torch.Tensor  # [B, A] f32, CSR order
+    in_lpdf: torch.Tensor  # [B, A] int32 the arc's index into pdf_list[b], CSR order
+    in_len: torch.Tensor  # [B, S] int32 arcs of a row the forward reads: 1 where
+    #                       every arc of the row has one (source, score, pdf), else
+    #                       the in-degree (equal arcs give equal candidates, and the
+    #                       first wins)
+    pdf_list: torch.Tensor  # [B, U] int32 each graph's distinct pdfs, ascending, 0 after
+    n_pdf: torch.Tensor  # [B] int32 distinct pdfs of each graph
+    alpha0: torch.Tensor  # [B, S] f32
+    final: torch.Tensor  # [B, S] f32
+    arc_src: torch.Tensor  # [B, A] int32 source state, arc order (the walk of bps)
+    max_in_degree: int  # the largest in_len: picks the forward's compiled row bound
+    pdf_range: tuple  # (smallest, largest) pdf of the arcs, host ints
+
+    @property
+    def num_states(self) -> int:
+        return self.in_len.shape[1]
+
+    def take(self, idx: np.ndarray) -> "GenericPlanDev":
+        """The plan of the utterances ``idx`` (a batch subset), gathered on
+        the device; the host fields stay the whole plan's, which bound the
+        subset's."""
+        i = torch.from_numpy(np.asarray(idx, np.int64)).to(self.in_len.device)
+        return GenericPlanDev(*(x[i] for x in self[:-2]), self.max_in_degree, self.pdf_range)
+
+
+CODE_MAX_DEGREE = 255  # a byte code names the rank of a row's arc; 0xFF names none
+NO_ARC = 0xFF
+
+
+def generic_plan_to_device(graphs, device) -> GenericPlanDev:
+    """The generic aligner's plan of ``graphs`` (a list of ``DenseGraph``, or
+    the dict ``pad_graphs`` returns) on ``device``: the numpy work (padding,
+    the CSR by destination, the pdf lists) is done here once."""
+    padded = graphs if isinstance(graphs, dict) else pad_graphs(graphs)
+    src, dst, pdf = (np.asarray(padded[k], np.int32) for k in ("arc_src", "arc_dst", "arc_pdf"))
+    score = np.asarray(padded["arc_score"], np.float32)
+    b, a = src.shape
+    s = int(padded["num_states"])
+    rows = np.arange(b)[:, None]
+    order = np.argsort(dst, axis=1, kind="stable")
+    key = (dst.astype(np.int64) + s * rows).ravel()
+    counts = np.bincount(key, minlength=b * s).reshape(b, s)
+    in_start = np.concatenate([np.zeros((b, 1), np.int64), np.cumsum(counts, axis=1)], axis=1)
+    in_src, in_dst, in_pdf, in_score = (np.take_along_axis(x, order, axis=1)
+                                        for x in (src, dst, pdf, score))
+    # a row reads one arc when all its arcs equal its first (scores bit for bit)
+    first = np.take_along_axis(in_start[:, :-1], in_dst.astype(np.int64), axis=1)
+    differ = ((np.take_along_axis(in_src, first, axis=1) != in_src)
+              | (np.take_along_axis(in_pdf, first, axis=1) != in_pdf)
+              | (np.take_along_axis(in_score, first, axis=1).view(np.int32)
+                 != in_score.view(np.int32)))
+    mixed = np.bincount((in_dst.astype(np.int64) + s * rows)[differ], minlength=b * s)
+    in_len = np.where((counts > 0) & (mixed.reshape(b, s) == 0), 1, counts)
+    lists = [np.unique(pdf[i]) for i in range(b)]
+    n_pdf = np.asarray([len(x) for x in lists], np.int32)
+    pdf_list = np.zeros((b, int(n_pdf.max()) if b else 0), np.int32)
+    in_lpdf = np.empty_like(in_pdf)
+    for i, x in enumerate(lists):
+        pdf_list[i, : len(x)] = x
+        in_lpdf[i] = np.searchsorted(x, in_pdf[i])
+
+    def dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    return GenericPlanDev(
+        in_start=dev(in_start, np.int32), in_arc=dev(order, np.int32),
+        in_src=dev(in_src, np.int32), in_score=dev(in_score, np.float32),
+        in_lpdf=dev(in_lpdf, np.int32), in_len=dev(in_len, np.int32),
+        pdf_list=dev(pdf_list, np.int32), n_pdf=dev(n_pdf, np.int32),
+        alpha0=dev(padded["alpha0"], np.float32), final=dev(padded["final_score"], np.float32),
+        arc_src=dev(src, np.int32), max_in_degree=int(in_len.max()) if in_len.size else 0,
+        pdf_range=(int(pdf.min()), int(pdf.max())) if pdf.size else (0, 0))
+
+
+def _csr_dst(plan: GenericPlanDev) -> torch.Tensor:
+    """[B, A] int64: the destination of the arc at each CSR position."""
+    b, a = plan.in_arc.shape
+    pos = torch.arange(a, device=plan.in_arc.device).expand(b, a).contiguous()
+    return torch.searchsorted(plan.in_start[:, 1:].long().contiguous(), pos, right=True)
+
+
+def plan_arcs(plan: GenericPlanDev):
+    """The plan's arcs in arc order, as the plain versions take them:
+    (arc_src, arc_dst, arc_pdf int64, arc_score f32), each [B, A], equal to
+    ``pad_graphs``'s arrays."""
+    arc = plan.in_arc.long()
+
+    def by_arc(x):
+        return torch.empty_like(x).scatter_(1, arc, x)
+
+    pdf = torch.gather(plan.pdf_list.long(), 1, plan.in_lpdf.long())
+    return (plan.arc_src.long(), by_arc(_csr_dst(plan)), by_arc(pdf), by_arc(plan.in_score))
+
+
+def generic_codes_plain(bps: torch.Tensor, plan: GenericPlanDev) -> Optional[torch.Tensor]:
+    """Plain version of the forward's byte codes: [B, T, S] uint8, the rank
+    of the arc ``bps`` names in its destination's CSR row, 0xFF where it is
+    -1; None when a row reads more than 255 arcs (``max_in_degree``)."""
+    if plan.max_in_degree > CODE_MAX_DEGREE:
+        return None
+    b, a = plan.in_arc.shape
+    rank = torch.empty((b, a), dtype=torch.int64, device=bps.device)
+    rank.scatter_(1, plan.in_arc.long(), torch.arange(a, device=bps.device)[None, :]
+                  - torch.gather(plan.in_start.long(), 1, _csr_dst(plan)))
+    by_utt = bps.permute(1, 0, 2).long()  # [B, T, S]
+    t_total, s = by_utt.shape[1], by_utt.shape[2]
+    if a == 0:
+        return torch.full((b, t_total, s), NO_ARC, dtype=torch.uint8, device=bps.device)
+    got = torch.gather(rank, 1, by_utt.clamp(min=0).reshape(b, -1)).view(b, t_total, s)
+    return torch.where(by_utt >= 0, got, NO_ARC).to(torch.uint8)
+
+
+def generic_backtrace_codes_plain(plan: GenericPlanDev, alpha_end, final, codes, num_frames):
+    """Plain version of the code-driven backtrace: the end state as
+    ``backtrace_batched_plain`` takes it, then per active frame, from the
+    last, the code of the state: st <- in_src[in_start[st] + code]; a 0xFF
+    clears ok and holds the state.  Returns as ``backtrace_batched_plain``."""
+    b, t_total, _ = codes.shape
+    dev = codes.device
+    score, end_state = torch.max(alpha_end + final, dim=1)
+    ok = score > NEG_INF / 2
+    bidx = torch.arange(b, device=dev)
+    zero = torch.zeros((b, 1), dtype=torch.int64, device=dev)  # a target when A is 0
+    src = torch.cat([plan.in_src.long(), zero], dim=1)
+    arc_of = torch.cat([plan.in_arc.long(), zero], dim=1)
+    start = plan.in_start.long()
+    st = end_state
+    arcs = torch.empty((t_total, b), dtype=torch.int32, device=dev)
+    for t in range(t_total - 1, -1, -1):
+        active = t < num_frames
+        code = codes[bidx, t, st].long()
+        hit = code != NO_ARC
+        j = torch.where(hit, start[bidx, st] + code, src.shape[1] - 1)
+        ok = torch.where(active, ok & hit, ok)
+        st = torch.where(active & hit, src[bidx, j], st)
+        arcs[t] = torch.where(active & hit, arc_of[bidx, j], -1).to(torch.int32)
+    return arcs, ok, end_state.to(torch.int32), score
+
+
+def generic_forward(plan: GenericPlanDev, loglikes: torch.Tensor, num_frames: torch.Tensor,
+                    acoustic_scale: float, beam: float):
+    """The generic aligner's forward over ``plan``: loglikes [B, T, P] f32
+    and num_frames [B] int32 on the plan's device.  Returns (alpha_end [B, S]
+    f32, bps [T, B, S] int32 arc ids, codes [B, T, S] uint8 or None when a
+    row reads more than 255 arcs).  The pdf range is checked against P on
+    the host (``plan.pdf_range``).  On CUDA it is ONE launch of
+    ``generic_forward`` with no host synchronisation and no copy; a CPU
+    tensor goes to ``viterbi_forward_batched_plain`` and
+    ``generic_codes_plain``."""
+    dev = loglikes.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    b, t_total, p = loglikes.shape
+    lo, hi = plan.pdf_range
+    if lo < 0 or hi >= p:
+        raise ValueError(f"the graphs use pdfs [{lo}, {hi}], loglikes have only {p}")
+    acwt = float(np.float32(acoustic_scale))
+    beam = float(np.float32(beam))
+    if dev.type == "cpu":
+        alpha_end, bps = viterbi_forward_batched_plain(*plan_arcs(plan), plan.alpha0, loglikes,
+                                                       num_frames, acwt, beam)
+        return alpha_end, bps, generic_codes_plain(bps, plan)
+    s = plan.num_states
+    a, u = plan.in_arc.shape[1], plan.pdf_list.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    _check("loglikes", loglikes, f32, dev)
+    _check("num_frames", num_frames, i32, dev, (b,))
+    _check("in_start", plan.in_start, i32, dev, (b, s + 1))
+    for name in ("in_arc", "in_src", "in_score", "in_lpdf"):
+        x = getattr(plan, name)
+        _check(name, x, f32 if name == "in_score" else i32, dev, (b, a))
+    _check("in_len", plan.in_len, i32, dev, (b, s))
+    _check("pdf_list", plan.pdf_list, i32, dev, (b, u))
+    _check("n_pdf", plan.n_pdf, i32, dev, (b,))
+    _check("alpha0", plan.alpha0, f32, dev, (b, s))
+    alpha_end = torch.empty((b, s), dtype=f32, device=dev)
+    bps = torch.empty((t_total, b, s), dtype=i32, device=dev)
+    codes = (torch.empty((b, t_total, s), dtype=torch.uint8, device=dev)
+             if plan.max_in_degree <= CODE_MAX_DEGREE else None)
+    if b * s == 0:
+        return alpha_end, bps, codes
+    _build.launch("generic_forward", plan.in_start.data_ptr(), plan.in_len.data_ptr(),
+                  plan.in_src.data_ptr(), plan.in_score.data_ptr(), plan.in_lpdf.data_ptr(),
+                  plan.in_arc.data_ptr(), plan.pdf_list.data_ptr(), plan.n_pdf.data_ptr(),
+                  plan.alpha0.data_ptr(), loglikes.data_ptr(), num_frames.data_ptr(), acwt,
+                  beam, b, s, a, u, t_total, p, plan.max_in_degree, alpha_end.data_ptr(),
+                  bps.data_ptr(), None if codes is None else codes.data_ptr(),
+                  stream_handle(dev))
+    return alpha_end, bps, codes
+
+
+def generic_backtrace(plan: GenericPlanDev, alpha_end: torch.Tensor, bps: torch.Tensor,
+                      codes: Optional[torch.Tensor], num_frames: torch.Tensor,
+                      final: Optional[torch.Tensor] = None):
+    """Backtrace of ``generic_forward``'s result on its device (``final``
+    defaults to the plan's).  Returns (arcs [T, B] int32, -1 at inactive
+    frames and where the path found no arc; ok [B] bool; end_state [B]
+    int32, the first state with the best final-weighted score; score [B]
+    f32).  On CUDA it is ONE launch of ``generic_backtrace``: a CTA per
+    utterance walking its code rows staged in shared memory, or, without
+    codes, ``bps`` in global memory.  A CPU tensor goes to
+    ``generic_backtrace_codes_plain`` (with codes) or
+    ``backtrace_batched_plain``."""
+    dev = bps.device
+    final = plan.final if final is None else final
+    if dev.type == "cpu":
+        if codes is not None:
+            return generic_backtrace_codes_plain(plan, alpha_end, final, codes, num_frames)
+        return backtrace_batched_plain(plan.arc_src.long(), alpha_end, final, bps, num_frames)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    t_total, b, s = bps.shape
+    a = plan.in_arc.shape[1]
+    f32, i32 = torch.float32, torch.int32
+    _check("bps", bps, i32, dev)
+    _check("alpha_end", alpha_end, f32, dev, (b, s))
+    _check("final", final, f32, dev, (b, s))
+    _check("num_frames", num_frames, i32, dev, (b,))
+    _check("in_start", plan.in_start, i32, dev, (b, s + 1))
+    for name in ("arc_src", "in_src", "in_arc"):
+        _check(name, getattr(plan, name), i32, dev, (b, a))
+    if codes is not None:
+        _check("codes", codes, torch.uint8, dev, (b, t_total, s))
+    arcs = torch.empty((t_total, b), dtype=i32, device=dev)
+    ok = torch.empty(b, dtype=torch.bool, device=dev)  # the kernel writes 0 or 1
+    end_state = torch.empty(b, dtype=i32, device=dev)
+    score = torch.empty(b, dtype=f32, device=dev)
+    if b * s == 0:
+        return arcs, ok, end_state, score
+    _build.launch("generic_backtrace", alpha_end.data_ptr(), final.data_ptr(),
+                  None if codes is None else codes.data_ptr(), bps.data_ptr(),
+                  num_frames.data_ptr(), plan.in_start.data_ptr(), plan.in_src.data_ptr(),
+                  plan.in_arc.data_ptr(), plan.arc_src.data_ptr(), b, s, a, t_total,
+                  arcs.data_ptr(), ok.data_ptr(), end_state.data_ptr(), score.data_ptr(),
+                  stream_handle(dev))
+    return arcs, ok, end_state, score
+
+
 def viterbi_forward_batched(arc_src, arc_dst, arc_pdf, arc_score, alpha0, loglikes,
                             num_frames, acoustic_scale: float, beam: float,
                             num_states: int, max_active: int = 0):
@@ -137,10 +394,10 @@ def viterbi_forward_batched(arc_src, arc_dst, arc_pdf, arc_score, alpha0, loglik
     Returns (alpha_end [B, S] f32, bps [T, B, S] int32 per-utterance arc ids,
     -1 where no arc won and at frames past an utterance's end).
 
-    On CUDA the forward pass is one launch of ``generic_forward``: the arcs
-    are grouped by destination here (a stable sort per utterance) and the
-    kernel runs all frames.  ``max_active`` is supported by the plain version
-    only; no caller of the aligner sets it."""
+    On CUDA the forward pass is one launch of ``generic_forward``, over a
+    plan built here from the arrays (``AlignmentSet`` builds its plan once
+    and calls ``generic_forward``).  ``max_active`` is supported by the plain
+    version only; no caller of the aligner sets it."""
     dev = loglikes.device
 
     def tensor(x, dtype):
@@ -148,52 +405,37 @@ def viterbi_forward_batched(arc_src, arc_dst, arc_pdf, arc_score, alpha0, loglik
 
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    nf = tensor(num_frames, torch.int32)
     alpha0 = tensor(alpha0, torch.float32).contiguous()
     if alpha0.shape[1] != num_states:
         raise ValueError(f"alpha0 has {alpha0.shape[1]} states, expected {num_states}")
-    nf = tensor(np.asarray(num_frames), torch.int32)
-    acwt = float(np.float32(acoustic_scale))
-    beam = float(np.float32(beam))
     if dev.type == "cpu":
         return viterbi_forward_batched_plain(
             tensor(arc_src, torch.int64), tensor(arc_dst, torch.int64),
             tensor(arc_pdf, torch.int64), tensor(arc_score, torch.float32), alpha0,
-            loglikes, nf, acwt, beam, max_active)
+            loglikes, nf, float(np.float32(acoustic_scale)), float(np.float32(beam)),
+            max_active)
     if max_active:
         raise NotImplementedError("the generic aligner's kernel has no max_active pruning")
-    arc_src = tensor(arc_src, torch.int32).contiguous()
-    arc_pdf = tensor(arc_pdf, torch.int32).contiguous()
-    arc_score = tensor(arc_score, torch.float32).contiguous()
-    arc_dst = tensor(arc_dst, torch.int64)
-    b, t_total, p = loglikes.shape
-    a = arc_src.shape[1]
-    s = num_states
-    # CSR by destination: in_arc[b, in_start[b, s] : in_start[b, s + 1]] are
-    # the arcs entering s in ascending arc id
-    in_arc = torch.argsort(arc_dst, dim=1, stable=True).to(torch.int32).contiguous()
-    counts = torch.zeros((b, s), dtype=torch.int64, device=dev).scatter_add_(
-        1, arc_dst, torch.ones_like(arc_dst))
-    in_start = torch.cat([torch.zeros((b, 1), dtype=torch.int64, device=dev),
-                          counts.cumsum(1)], dim=1).to(torch.int32).contiguous()
-    loglikes = loglikes.contiguous()
-    _check("loglikes", loglikes, torch.float32, dev)
-    for name, x in (("arc_src", arc_src), ("arc_pdf", arc_pdf), ("arc_score", arc_score)):
-        if tuple(x.shape) != (b, a):
-            raise ValueError(f"{name}: need shape {(b, a)}, got {tuple(x.shape)}")
-    if int(arc_pdf.max()) >= p:
-        raise ValueError(f"the graphs use pdf {int(arc_pdf.max())}, loglikes have only {p}")
-    alpha_end = torch.empty_like(alpha0)
-    bps = torch.empty((t_total, b, s), dtype=torch.int32, device=dev)
-    _build.launch("generic_forward", arc_src.data_ptr(), arc_pdf.data_ptr(),
-                  arc_score.data_ptr(), in_start.data_ptr(), in_arc.data_ptr(),
-                  alpha0.data_ptr(), loglikes.data_ptr(), nf.data_ptr(), acwt, beam,
-                  b, s, a, t_total, p, alpha_end.data_ptr(), bps.data_ptr(),
-                  stream_handle(dev))
-    return alpha_end, bps
+
+    def host(x):
+        return torch.as_tensor(x).cpu().numpy()
+
+    b = alpha0.shape[0]
+    arcs = {k: host(x) for k, x in (("arc_src", arc_src), ("arc_dst", arc_dst),
+                                    ("arc_pdf", arc_pdf), ("arc_score", arc_score))}
+    for name, x in arcs.items():
+        if x.shape != arcs["arc_src"].shape or x.shape[0] != b:
+            raise ValueError(f"{name}: need shape {arcs['arc_src'].shape}, got {x.shape}")
+    plan = generic_plan_to_device(dict(arcs, alpha0=host(alpha0),
+                                       final_score=np.full((b, num_states), NEG_INF,
+                                                           np.float32),  # not read here
+                                       num_states=num_states), dev)
+    return generic_forward(plan, loglikes.contiguous(), nf, acoustic_scale, beam)[:2]
 
 
 def backtrace_batched_plain(arc_src, alpha_end, final_score, bps, num_frames):
-    """Plain version of the generic aligner's backtrace."""
+    """Plain version of the generic aligner's backtrace over ``bps``."""
     b = arc_src.shape[0]
     t_total = bps.shape[0]
     score, end_state = torch.max(alpha_end + final_score, dim=1)
@@ -217,13 +459,14 @@ def backtrace_batched_device(arc_src, alpha_end, final_score, bps, num_frames):
     arc_src [B, A]; alpha_end/final_score [B, S]; bps [T, B, S] int32 arc
     ids.  Returns (arcs [T, B] int32, -1 at inactive frames; ok [B] bool;
     end_state [B] int32, the first state with the best final-weighted score;
-    score [B] f32).  On CUDA it is one launch of ``generic_backtrace``, a
-    thread per utterance."""
+    score [B] f32).  On CUDA it is one launch of ``generic_backtrace``
+    walking ``bps`` in global memory (``generic_backtrace`` walks the
+    forward's byte codes staged in shared memory)."""
     dev = bps.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     final_score = torch.as_tensor(final_score, dtype=torch.float32).to(dev).contiguous()
-    nf = torch.as_tensor(np.asarray(num_frames), dtype=torch.int32).to(dev)
+    nf = torch.as_tensor(num_frames, dtype=torch.int32).to(dev)
     if dev.type == "cpu":
         return backtrace_batched_plain(torch.as_tensor(arc_src, dtype=torch.int64),
                                        alpha_end, final_score, bps, nf)
@@ -235,14 +478,14 @@ def backtrace_batched_device(arc_src, alpha_end, final_score, bps, num_frames):
     if arc_src.shape[0] != b or nf.shape != (b,):
         raise ValueError("backtrace_batched_device: inconsistent shapes")
     arcs = torch.empty((t_total, b), dtype=torch.int32, device=dev)
-    ok = torch.empty(b, dtype=torch.uint8, device=dev)
+    ok = torch.empty(b, dtype=torch.bool, device=dev)
     end_state = torch.empty(b, dtype=torch.int32, device=dev)
     score = torch.empty(b, dtype=torch.float32, device=dev)
-    _build.launch("generic_backtrace", arc_src.data_ptr(), alpha_end.data_ptr(),
-                  final_score.data_ptr(), bps.data_ptr(), nf.data_ptr(), b, s,
+    _build.launch("generic_backtrace", alpha_end.data_ptr(), final_score.data_ptr(), None,
+                  bps.data_ptr(), nf.data_ptr(), None, None, None, arc_src.data_ptr(), b, s,
                   arc_src.shape[1], t_total, arcs.data_ptr(), ok.data_ptr(),
                   end_state.data_ptr(), score.data_ptr(), stream_handle(dev))
-    return arcs, ok.bool(), end_state, score
+    return arcs, ok, end_state, score
 
 
 def assemble_batched_results(graphs: list[DenseGraph], arcs: np.ndarray,

@@ -6,10 +6,12 @@ sub-batch advance together through their own graphs.  Exact alignment over
 banded training graphs goes through K4 (``ops/align_band.py``): one forward
 launch and one backtrace launch per sub-batch, with emissions from K2
 (``ops/gmm_kernel.py``).  Graph sets that are not banded, or a finite beam,
-go to the plain-torch generic aligner (``ops/viterbi.py``).
+go to the generic aligner (``ops/viterbi.py``, ``csrc/viterbi_generic.cu``):
+one forward launch and one backtrace launch per sub-batch too.
 
-Sub-batches are sized from the memory free on the device; the band plan is
-moved to the device once per ``AlignmentSet``.
+Sub-batches are sized from the memory free on the device; the band plan and
+the generic aligner's plan are each built and moved to the device once per
+``AlignmentSet``, and a sub-batch takes its rows of them on the device.
 """
 
 from __future__ import annotations
@@ -57,17 +59,18 @@ def align_banded(plan: AB.BandPlan | AB.BandPlanDev, graphs: list, loglikes: tor
                                       np.maximum(end_orig, 0), score.cpu().numpy(), nf_np)
 
 
-def _align_generic(padded: dict, graphs: list, loglikes: torch.Tensor, num_frames,
+def _align_generic(plan: V.GenericPlanDev, graphs: list, loglikes: torch.Tensor, num_frames,
                    acoustic_scale: float, beam: float):
-    alpha_end, bps = V.viterbi_forward_batched(
-        padded["arc_src"], padded["arc_dst"], padded["arc_pdf"], padded["arc_score"],
-        padded["alpha0"], loglikes, num_frames, acoustic_scale, beam,
-        padded["num_states"])
-    arcs, ok, end_state, score = V.backtrace_batched_device(
-        padded["arc_src"], alpha_end, padded["final_score"], bps, num_frames)
+    """Generic alignment (one forward and one backtrace launch on CUDA) of
+    ``graphs`` under ``plan`` (their rows of the set's plan), assembled per
+    utterance.  loglikes [B, T, P] on the plan's device."""
+    nf_np = np.asarray(num_frames, np.int32)
+    nf = torch.from_numpy(nf_np).to(loglikes.device)
+    alpha_end, bps, codes = V.generic_forward(plan, loglikes.contiguous(), nf, acoustic_scale,
+                                              beam)
+    arcs, ok, end_state, score = V.generic_backtrace(plan, alpha_end, bps, codes, nf)
     return V.assemble_batched_results(graphs, arcs.cpu().numpy(), ok.cpu().numpy(),
-                                      end_state.cpu().numpy(), score.cpu().numpy(),
-                                      np.asarray(num_frames))
+                                      end_state.cpu().numpy(), score.cpu().numpy(), nf_np)
 
 
 class AlignmentSet:
@@ -77,7 +80,7 @@ class AlignmentSet:
     def __init__(self, graphs: list[V.DenseGraph], *, device=None):
         self.graphs = graphs
         self.device = resolve_device(device)
-        self._padded = None
+        self._generic_dev = None
         self._band = _UNSET
         self._band_dev = None
         self.band_refusal: str | None = None  # why build_band_plan refused the set
@@ -111,11 +114,12 @@ class AlignmentSet:
         return self._band_dev
 
     @property
-    def padded(self) -> dict:
-        """Monolithic padded batch for the generic aligner."""
-        if self._padded is None:
-            self._padded = V.pad_graphs(self.graphs)
-        return self._padded
+    def generic_dev(self) -> V.GenericPlanDev:
+        """The generic aligner's plan of the whole set on the device, built
+        once."""
+        if self._generic_dev is None:
+            self._generic_dev = V.generic_plan_to_device(self.graphs, self.device)
+        return self._generic_dev
 
     @classmethod
     def from_fsts(cls, fsts: list[Fst], trans_model: TransitionModel, *,
@@ -133,13 +137,14 @@ class AlignmentSet:
         if beam >= _NO_PRUNE_BEAM and self.band is not None:
             return align_banded(self.band_dev, self.graphs, loglikes, num_frames,
                                 acoustic_scale)
-        return _align_generic(self.padded, self.graphs, loglikes, num_frames,
+        return _align_generic(self.generic_dev, self.graphs, loglikes, num_frames,
                               acoustic_scale, beam)
 
     def _batch_chunk(self, t: int, num_pdfs: int, dim: int, s_pad: int) -> int:
-        """Utterances per sub-batch so that its loglikes, features and
-        backpointers take at most a quarter of the free device memory."""
-        per_utt = t * (4 * (num_pdfs + dim) + 8 * s_pad)
+        """Utterances per sub-batch so that its loglikes, features,
+        backpointers and byte codes take at most a quarter of the free device
+        memory."""
+        per_utt = t * (4 * (num_pdfs + dim) + 9 * s_pad)
         return max(1, free_bytes(self.device) // (4 * max(per_utt, 1)))
 
     def align_feats(self, params: GmmParams, feats, num_frames,
@@ -156,8 +161,8 @@ class AlignmentSet:
             return []
         w = convert.kernel_params_from_twin(params)
         s_max = max(g.num_states for g in self.graphs)
-        a_max = max(g.num_arcs for g in self.graphs)
         band = self.band if beam >= _NO_PRUNE_BEAM else None
+        plan = self.generic_dev if band is None else None  # on the device before sizing
         b_chunk = self._batch_chunk(int(num_frames.max()), params.num_pdfs,
                                     feats.shape[2], s_max + 1)
         order = np.argsort(-num_frames, kind="stable")
@@ -173,8 +178,8 @@ class AlignmentSet:
                 chunk_res = align_banded(self.band_dev.take(idx), graphs_c, ll, nf_c,
                                          acoustic_scale)
             else:
-                padded = V.pad_graphs(graphs_c, pad_states=s_max, pad_arcs=a_max)
-                chunk_res = _align_generic(padded, graphs_c, ll, nf_c, acoustic_scale, beam)
+                chunk_res = _align_generic(plan.take(idx), graphs_c, ll, nf_c, acoustic_scale,
+                                           beam)
             for j, i in enumerate(idx):
                 results[int(i)] = chunk_res[j]
         return results

@@ -171,13 +171,16 @@ def feature_scaled_am(mean: np.ndarray, var: np.ndarray, num_pdfs: int = 2000,
                      np.full((num_pdfs, max_mix), 1.0 / max_mix, np.float32))
 
 
-def synth_train_graph(num_states: int, num_pdfs: int, rng, back_arcs: int = 0) -> DenseGraph:
+def synth_train_graph(num_states: int, num_pdfs: int, rng, back_arcs: int = 0,
+                      fan_in: int = 0) -> DenseGraph:
     """Synthetic training-alignment graph (``bench.py`` ``synth_train_graph``):
     a left-to-right chain with self-loops and 25 % optional skip arcs, all
     arcs entering a state sharing its pdf; start at state 0, final at the
     last state.  ``back_arcs`` adds that many arcs back over 49 to 149 states
     (a repeated phrase), which a set of such graphs cannot hold in 48 band
-    offsets: ``build_band_plan`` refuses it and the generic aligner runs."""
+    offsets: ``build_band_plan`` refuses it and the generic aligner runs.
+    ``fan_in`` adds that many arcs into the last state from random states
+    before it, for a state of large in-degree."""
     pdf_of = rng.integers(0, num_pdfs, size=num_states)
     src, dst, score = [], [], []
     for s in range(num_states):
@@ -194,6 +197,10 @@ def synth_train_graph(num_states: int, num_pdfs: int, rng, back_arcs: int = 0) -
         src.append(s)
         dst.append(s - span)
         score.append(float(-rng.exponential(0.5)))
+    for s in rng.integers(0, num_states - 1, size=fan_in) if fan_in else ():
+        src.append(int(s))
+        dst.append(num_states - 1)
+        score.append(float(-rng.exponential(2.0)))
     pdf = [int(pdf_of[d]) for d in dst]
     alpha0 = np.full(num_states, NEG_INF, np.float32)
     alpha0[0] = 0.0
