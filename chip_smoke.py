@@ -324,6 +324,27 @@ def cuda_ms(torch, fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_cold(torch, fn, warm: tuple, reps: int = 5) -> float:
+    """``cuda_ms`` with the L2 cache flushed before each run (a 256 MB
+    write) and then only ``warm`` read back into it (the plan's arrays, as a
+    caller finds them), so the tables ``fn`` walks come from device memory."""
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        for x in warm:
+            x.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -882,11 +903,14 @@ def device_profile(torch, fn, calls: int = 5) -> dict:
     dev = [e for e in events if e.device_type == DeviceType.CUDA and e.name != mark
            and span.start <= e.time_range.start <= span.end]
     by_name: dict = {}
+    count: dict = {}
     for e in dev:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + (
             e.time_range.end - e.time_range.start) / calls / 1e3
+        count[e.name[:60]] = count.get(e.name[:60], 0) + 1 / calls
     return {"device_ms": sum(by_name.values()), "host_ms": host_ms,
-            "activities_per_call": len(dev) / calls, "device_ms_by_name": by_name}
+            "activities_per_call": len(dev) / calls, "device_ms_by_name": by_name,
+            "activities_by_name": count}
 
 
 def k4_sector_bytes(torch, pdf, num_frames, t_total: int, p: int, frames: int = 25) -> int:
@@ -1651,48 +1675,80 @@ def nbest_full_width(torch, device, width: Width, log) -> dict:
 def compare_backtrace_nbest(torch, dec, batch, nf, width: Width, record, log) -> None:
     """Phase 11: ``backtrace_nbest`` against its plain version on the N-best
     tables of the first sub-batch of the full-width decode, walked from the
-    end entries ``backtrace_nbest_device`` takes.  Its time for one walk, a
-    single chain of dependent loads, goes beside the bound."""
+    end entries ``backtrace_nbest_device`` takes.  Its time for all walks
+    and for one walk (a single chain of dependent loads) goes beside the
+    bound, with the tables in L2 (the same walk repeated) and with the L2
+    flushed (as the decode finds the tables), and the time and device
+    activities of ``backtrace_nbest_device`` given the decoder's plan."""
+    import numpy as np
+
     from voicebridge_tpu_torch.ops import viterbi as V
 
     device = batch.device
     if device.type == "cuda":
         torch.cuda.empty_cache()
     b = min(batch.shape[0], dec._nbest_chunk(batch.shape[1], batch.shape[2], width.nbest))
-    nf = torch.as_tensor(nf[:b]).to(device, torch.int32)
+    nf_np = torch.as_tensor(nf[:b]).cpu().numpy().astype(np.int32)
+    nf = torch.from_numpy(nf_np).to(device)
+    plan = dec._nbest_plan
     ae, bp_arc, bp_slot = V.viterbi_nbest_forward(
-        dec._nbest_plan, dec.graph.alpha0, dec._loglikes(batch[:b].contiguous()), nf.cpu().numpy(),
+        plan, dec.graph.alpha0, dec._loglikes(batch[:b].contiguous()), nf_np,
         dec.opts.acoustic_scale, dec.opts.beam, width.nbest)
     s, k = ae.shape[1:]
-    final = torch.from_numpy(dec.graph.final_score).to(device)
     c = min(4 * width.nbest, s * k)
-    fidx = (ae + final[None, :, None]).reshape(b, s * k).sort(dim=1, descending=True,
-                                                             stable=True)[1][:, :c]
-    walk = (bp_arc, bp_slot, torch.from_numpy(dec.graph.arc_src).to(device), nf,
-            (fidx // k).to(torch.int32), (fidx % k).to(torch.int32))
-    got, ref = V.nbest_walk(*walk), V.nbest_walk_plain(*walk)
+    fidx = (ae + plan.final[None, :, None]).reshape(b, s * k).sort(dim=1, descending=True,
+                                                                  stable=True)[1][:, :c]
+    state, slot = (fidx // k).to(torch.int32), (fidx % k).to(torch.int32)
+    walk = (plan, bp_arc, bp_slot, nf, state, slot)
+    plain = (bp_arc, bp_slot, plan.arc_src, nf, state, slot)
+    got, ref = V.nbest_walk(*walk), V.nbest_walk_plain(*plain)
     same = all(bool(torch.equal(x, y)) for x, y in zip(got, ref))
     check(bool(got[2].any()), "backtrace_nbest: no walk reaches the start")
-    one = (bp_arc[:, :1], bp_slot[:, :1], walk[2], nf[:1].contiguous(),
-           walk[4][:1, :1].contiguous(), walk[5][:1, :1].contiguous())
+    one = (plan, bp_arc[:, :1], bp_slot[:, :1], nf[:1].contiguous(), state[:1, :1].contiguous(),
+           slot[:1, :1].contiguous())
     t = bp_arc.shape[0]
+    steps = int((got[0] >= 0).sum())
+    failed = int((~got[2]).sum())
     log(f"backtrace_nbest: {b} lanes x {c} walks x {t} frames over the phase's K7 tables, "
-        f"{int(got[2].sum())} walks reach the start; equal to the plain version: {same}")
-    # per (frame, walk): the arc and the slot read, the arc's source looked
-    # up, the arc written; the start entries in, the start states and flags
-    # out; an index computation (three multiply-adds) and a compare each
+        f"{int(got[2].sum())} walks reach the start, {steps} steps; equal to the plain "
+        f"version: {same}")
+    # per step the arc and the slot read and the arc's source looked up, a
+    # failed walk's last arc and slot, every (frame, walk)'s arc written; the
+    # start entries in, the start states and flags out; per step an index
+    # computation (three multiply-adds) and a compare
     entry = record("backtrace_nbest", [(got[0], ref[0])], lambda: V.nbest_walk(*walk),
-                   lambda: V.nbest_walk_plain(*walk),
-                   (13 * t * b * c + nbytes(nf, walk[4], walk[5], got[1], got[2]),
-                    7 * t * b * c), equal=same)
+                   lambda: V.nbest_walk_plain(*plain),
+                   (9 * steps + 5 * failed + 4 * t * b * c
+                    + nbytes(nf, state, slot, got[1], got[2]), 7 * steps), equal=same)
     check(all(bool(torch.equal(x, y)) for x, y in zip(V.nbest_walk(*one),
                                                       (got[0][:, :1, :1], got[1][:1, :1],
                                                        got[2][:1, :1]))),
           "backtrace_nbest: one walk alone differs from the same walk among all")
-    entry["one_walk_ms"] = cuda_ms(torch, lambda: V.nbest_walk(*one)) \
-        if device.type == "cuda" else None
-    log(f"backtrace_nbest for one walk (the chain of {t} dependent frames): "
-        f"{entry['one_walk_ms']} ms")
+    wrapper = (dec.graph, ae, bp_arc, bp_slot, nf_np, width.nbest)
+    hyps = V.backtrace_nbest_device(*wrapper, plan=plan)
+    check(hyps == V.backtrace_nbest_device(*wrapper),
+          "backtrace_nbest_device: the plan's hypotheses differ from those of a plan built "
+          "for the call")
+    if device.type == "cuda":
+        warm = (plan.in_start, plan.in_base, plan.in_off, plan.arc, plan.src, plan.arc_src, nf,
+                state, slot)
+        entry["cold_ms"] = cuda_ms_cold(torch, lambda: V.nbest_walk(*walk), warm)
+        entry["one_walk_ms"] = cuda_ms(torch, lambda: V.nbest_walk(*one))
+        entry["one_walk_cold_ms"] = cuda_ms_cold(torch, lambda: V.nbest_walk(*one), warm)
+        prof = device_profile(torch, lambda: V.backtrace_nbest_device(*wrapper, plan=plan))
+        entry["wrapper_ms"] = prof["host_ms"]  # the call ends in its one synchronisation
+        entry["wrapper_device_ms"] = prof["device_ms"]
+        entry["wrapper_activities_per_call"] = prof["activities_per_call"]
+        entry["wrapper_activities_by_name"] = prof["activities_by_name"]
+        uploads = sum(n for name, n in prof["activities_by_name"].items() if "HtoD" in name)
+        check(uploads <= 1, f"backtrace_nbest_device with the plan made {uploads} host-to-device "
+                            f"copies a call (the frame counts alone are allowed)")
+    log(f"backtrace_nbest: all walks {entry['ms']} ms in L2, {entry.get('cold_ms')} ms with the "
+        f"L2 flushed; one walk (the chain of {t} dependent frames) {entry.get('one_walk_ms')} ms "
+        f"in L2, {entry.get('one_walk_cold_ms')} ms flushed; backtrace_nbest_device with the "
+        f"plan {entry.get('wrapper_ms')} ms a call, device {entry.get('wrapper_device_ms')} ms in "
+        f"{entry.get('wrapper_activities_per_call')} activities "
+        f"({entry.get('wrapper_activities_by_name')})")
 
 
 def generic_full_width(torch, device, width: Width, log) -> dict:

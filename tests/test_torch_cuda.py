@@ -24,7 +24,9 @@ for the N-best step K7 list lengths 1 to 16, 1 to 33 lanes, windows of 1, 3
 and T frames, a one-block grid, a finite beam, ragged and empty utterances,
 and ``decode_nbest`` against the CPU; for the two backtraces 1 to 130 lanes,
 1 to 1000 frames, uint8 and int16 codes, a state carried across blocks,
-failed N-best walks and strided tables, and for the best path row widths 1,
+failed N-best walks and strided tables, for the N-best walk also a state of
+more than 32 in-arcs, arcs its row does not hold and the tables K7 writes,
+and for the best path row widths 1,
 8 and 12, an empty block, a block starting inside the lanes' frames, a
 state of more slots than a warp speculates on and row starts past 16 bits; for K4's backtrace failures
 on the path, K = 1 and 12, S of 45, 700 and 120,000 (rows too wide to
@@ -880,40 +882,92 @@ def test_backtrace_best_edges(cuda, case):
         assert bool(((ends > 0) & (ends < w)).any()) and bool((ends <= 0).any())
 
 
-@pytest.mark.parametrize("b", [1, 5, 128, 130])
-@pytest.mark.parametrize("t", [1, 3, 1000])
-def test_backtrace_nbest_matches_plain(cuda, b, t):
-    """``backtrace_nbest`` against its plain version on random provenance
-    in K7's lane-minor tables, read through [T, B, S, K] views: equal arcs,
-    start states and ok flags; some walks fail (arc -1), lanes end before
-    T and one has no frames."""
-    rng = np.random.default_rng(b * t)
-    g = synth_decode_graph(60, arcs_per_state=4, num_pdfs=10, seed=b)
-    s, k = g.num_states, 4
-    by_dst = [np.flatnonzero(g.arc_dst == x) for x in range(s)]
-    arc = np.stack([rng.choice(by_dst[x], size=(t, b, k)) for x in range(s)], axis=1)
-    arc[rng.random(arc.shape) < 0.5 / t] = -1  # about 40 % of the lanes' walks fail
-    slot = rng.integers(0, k, arc.shape).astype(np.int8)
-    bp_arc = torch.from_numpy(arc.astype(np.int32)).to(cuda).permute(0, 2, 1, 3)
-    bp_slot = torch.from_numpy(slot).to(cuda).permute(0, 2, 1, 3)
+def _hub_nbest_graph(seed, extra=40):
+    """A 60-state synthetic graph with ``extra`` more arcs into state 5 (44
+    in-arcs by default, past the 32 slots a warp of the N-best walk reads),
+    arc ids shuffled so that the hub's arcs interleave with the others."""
+    g = synth_decode_graph(60, arcs_per_state=4, num_pdfs=10, seed=seed)
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([g.arc_src, rng.integers(0, 60, extra).astype(np.int32)])
+    dst = np.concatenate([g.arc_dst, np.full(extra, 5, np.int32)])
+    perm = rng.permutation(src.shape[0])
+    zeros = np.zeros(src.shape[0], np.int32)
+    return g._replace(arc_src=src[perm], arc_dst=dst[perm], arc_tid=zeros, arc_pdf=zeros,
+                      arc_score=np.zeros(src.shape[0], np.float32), arc_oseq=zeros)
+
+
+def _nbest_walk_inputs(tables, b, t, device):
+    """(plan, bp_arc, bp_slot, num_frames, state, slot) for the N-best walk
+    over K7's lane-minor tables, read through [T, B, S, K] views, 16 walks a
+    lane.  ``random``: random provenance (about 40 % of the lanes' walks
+    meet arc -1), lanes ending before T and one with no frames; ``hub``:
+    the same on ``_hub_nbest_graph``, the hub's backpointers drawn from its
+    in-arcs past the 32nd, every walk starting there, and one backpointer
+    in four an arc of another state (hand-made: K7 writes none);
+    ``wide_hub``: the same with 66,000 arcs into the hub, so that the row
+    starts have no 16-bit compact form and the walk reads them from global
+    memory; ``k7``: the
+    tables K7 writes from random logliks at beam 4, walked from the 16 best
+    end entries of each lane, as ``backtrace_nbest_device`` walks them."""
+    rng = np.random.default_rng(b * t + len(tables))
+    c, k = 16, 4
+    if tables in ("hub", "wide_hub"):
+        g = _hub_nbest_graph(b, 66_000 if tables == "wide_hub" else 40)
+    else:
+        g = synth_decode_graph(60, arcs_per_state=4, num_pdfs=10, seed=b)
+    s = g.num_states
+    plan = V.build_nbest_plan(g, device)
+    assert (plan.in_off.numel() == 0) == (tables == "wide_hub")
     nf_np = rng.integers(0, t + 1, b).astype(np.int32)
     nf_np[0] = t
     if b > 1:
         nf_np[1] = 0
-    nf = torch.from_numpy(nf_np).to(cuda)
-    c = 16
-    state = torch.from_numpy(rng.integers(0, s, (b, c)).astype(np.int32)).to(cuda)
-    start = torch.from_numpy(rng.integers(0, k, (b, c)).astype(np.int32)).to(cuda)
-    arc_src = torch.from_numpy(g.arc_src).to(cuda)
+    nf = torch.from_numpy(nf_np).to(device)
+    if tables == "k7":
+        ll = torch.from_numpy(rng.standard_normal((b, t, 10)).astype(np.float32) * 3)
+        ae, bp_arc, bp_slot = V.viterbi_nbest_forward(plan, g.alpha0, ll.to(device), nf_np, 0.7,
+                                                      4.0, k)
+        fidx = (ae + plan.final[None, :, None]).reshape(b, s * k).sort(
+            dim=1, descending=True, stable=True)[1][:, :c]
+        return (plan, bp_arc, bp_slot, nf, (fidx // k).to(torch.int32),
+                (fidx % k).to(torch.int32))
+    by_dst = [np.flatnonzero(g.arc_dst == x) for x in range(s)]
+    arc = np.stack([rng.choice(by_dst[x], size=(t, b, k)) for x in range(s)], axis=1)
+    state = rng.integers(0, s, (b, c)).astype(np.int32)
+    if tables in ("hub", "wide_hub"):
+        assert by_dst[5].shape[0] > 32
+        arc[:, 5] = rng.choice(by_dst[5][32:], size=(t, b, k))
+        foreign = rng.random(arc.shape) < 0.25
+        arc[foreign] = rng.integers(0, g.num_arcs, int(foreign.sum()))
+        state[:] = 5
+    arc[rng.random(arc.shape) < 0.5 / t] = -1
+    slot = rng.integers(0, k, arc.shape).astype(np.int8)
+    return (plan, torch.from_numpy(arc.astype(np.int32)).to(device).permute(0, 2, 1, 3),
+            torch.from_numpy(slot).to(device).permute(0, 2, 1, 3), nf,
+            torch.from_numpy(state).to(device),
+            torch.from_numpy(rng.integers(0, k, (b, c)).astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("tables", ["random", "hub", "wide_hub", "k7"])
+@pytest.mark.parametrize("b", [1, 5, 32, 128, 130])
+@pytest.mark.parametrize("t", [1, 3, 1000])
+def test_backtrace_nbest_matches_plain(cuda, tables, b, t):
+    """``backtrace_nbest`` against its plain version (see
+    ``_nbest_walk_inputs``): equal arcs, start states and ok flags, one
+    launch a call; the hub's walks take the exact step past the warp's 32
+    slots and through arcs no slot holds, with the row starts staged in
+    shared memory and (``wide_hub``) read from global memory."""
+    plan, bp_arc, bp_slot, nf, state, slot = _nbest_walk_inputs(tables, b, t, cuda)
     before = _build.launches["backtrace_nbest"]
-    got = V.nbest_walk(bp_arc, bp_slot, arc_src, nf, state, start)
-    ref = V.nbest_walk_plain(bp_arc, bp_slot, arc_src, nf, state, start)
+    got = V.nbest_walk(plan, bp_arc, bp_slot, nf, state, slot)
+    ref = V.nbest_walk_plain(bp_arc, bp_slot, plan.arc_src, nf, state, slot)
     torch.cuda.synchronize()
     assert _build.launches["backtrace_nbest"] - before == 1
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
-    if t > 1 and b > 1:  # a lane's walks soon merge, so they fail or pass together
-        assert not bool(got[2].all()) and bool(got[2].any())
+    assert bool(got[2].any())
+    if tables == "random" and t > 1 and b > 1:  # a lane's walks soon merge: all fail or none
+        assert not bool(got[2].all())
 
 
 def test_decode_nbest_cuda_matches_cpu(cuda):

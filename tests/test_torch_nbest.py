@@ -1,8 +1,10 @@
 """N-best decoding and the windowed decode of the port against the JAX
 package on the CPU: the plain version of K7 (``viterbi_nbest_forward``) on
 random graphs and against a brute-force enumeration, the N-best walk (the
-``backtrace_nbest`` plain version, through ``backtrace_nbest_device``)
-against JAX ``backtrace_nbest`` on random backpointer tables, ``decode_nbest``
+``backtrace_nbest`` plain version, through ``backtrace_nbest_device`` with and
+without the graph's plan) against JAX ``backtrace_nbest`` on random
+backpointer tables, a state of more than 32 in-arcs among them, the walk's
+compact row starts, ``decode_nbest``
 on the Yes-No fixture, and ``viterbi_decode_windowed`` against
 ``decode_batch``.
 
@@ -136,33 +138,99 @@ def _random_nbest_tables(g, rng, t, b, k):
     return alpha_end, arc, slot
 
 
-@pytest.mark.parametrize("nbest,seed", [(2, 1), (4, 2), (5, 3)])
-def test_nbest_walk_matches_jax_backtrace(nbest, seed):
+def _hub_graph(seed):
+    """``random_graph`` of 12 states with 40 more arcs into state 3 (past the
+    32 in-arcs a warp of the card's walk reads), arc ids shuffled."""
+    g = random_graph(num_states=12, arcs_per_state=3, num_pdfs=4, seed=seed)
+    rng = np.random.default_rng(seed)
+    extra = 40
+    src = np.concatenate([g.arc_src, rng.integers(0, 12, extra).astype(np.int32)])
+    dst = np.concatenate([g.arc_dst, np.full(extra, 3, np.int32)])
+    perm = rng.permutation(src.shape[0])
+    more = lambda x, fill: np.concatenate([x, np.full(extra, fill, x.dtype)])[perm]  # noqa: E731
+    return g._replace(arc_src=src[perm], arc_dst=dst[perm], arc_tid=more(g.arc_tid, 1),
+                      arc_pdf=more(g.arc_pdf, 0), arc_score=more(g.arc_score, -1.0),
+                      arc_oseq=more(g.arc_oseq, 0))
+
+
+def _walk_against_jax(nbest, seed, graph, with_plan, monkeypatch=None):
     """``backtrace_nbest_device`` (its walk's plain version on the CPU) on
     views of K7's lane-minor tables against JAX ``backtrace_nbest`` on
     contiguous [T, B, S, K] copies: the same hypotheses (arcs, words, tids,
     scores), failed walks (arc -1) and duplicate arc sequences dropped
-    alike; lanes of T, fewer and no frames."""
+    alike; lanes of T, fewer and no frames.  ``with_plan``: the graph's
+    ``NbestPlan`` is passed, and the graph the call sees has no final
+    scores or arc sources (the plan's tables are read) and no plan is
+    built."""
     rng = np.random.default_rng(seed)
-    g = random_graph(num_states=12, arcs_per_state=3, num_pdfs=4, seed=seed)
+    g = _hub_graph(seed) if graph == "hub" else random_graph(
+        num_states=12, arcs_per_state=3, num_pdfs=4, seed=seed)
     g = g._replace(arc_oseq=rng.integers(0, 3, g.num_arcs).astype(np.int32),
                    oseqs=[(), (5,), (6, 7)], start_oseq=np.full(g.num_states, 1, np.int32),
                    final_oseq=rng.integers(0, 3, g.num_states).astype(np.int32))
     t, b = 6, 4
     nf = np.array([t, 3, 0, t - 1], np.int32)
     ae, arc, slot = _random_nbest_tables(g, rng, t, b, nbest)
+    if graph == "hub":
+        assert np.bincount(g.arc_dst)[3] > 32
+        hub_in = np.flatnonzero(g.arc_dst == 3)
+        arc[:, 3] = rng.choice(hub_in[32:], size=arc[:, 3].shape)
+        ae[3] += 50.0  # the hub's entries lead each lane's list
     want = JV.backtrace_nbest(g, ae.transpose(1, 0, 2), arc.transpose(0, 2, 1, 3),
                               slot.transpose(0, 2, 1, 3), nf, nbest)
+    port = _port_graph(g)
+    kwargs = {}
+    if with_plan:
+        kwargs["plan"] = V.build_nbest_plan(port, "cpu")
+        port = port._replace(final_score=None, arc_src=None)
+        monkeypatch.setattr(V, "build_nbest_plan", None)
     got = V.backtrace_nbest_device(
-        _port_graph(g), torch.from_numpy(ae).permute(1, 0, 2),
-        torch.from_numpy(arc).permute(0, 2, 1, 3), torch.from_numpy(slot).permute(0, 2, 1, 3),
-        nf, nbest)
+        port, torch.from_numpy(ae).permute(1, 0, 2), torch.from_numpy(arc).permute(0, 2, 1, 3),
+        torch.from_numpy(slot).permute(0, 2, 1, 3), nf, nbest, **kwargs)
     assert sum(len(h) for h in want) > b
     for w_i, g_i in zip(want, got):
         assert [h["arcs"] for h in g_i] == [h["arcs"] for h in w_i]
         assert [h["words"] for h in g_i] == [h["words"] for h in w_i]
         assert [h["tids"] for h in g_i] == [h["tids"] for h in w_i]
         assert [h["score"] for h in g_i] == [h["score"] for h in w_i]
+    return want
+
+
+@pytest.mark.parametrize("nbest,seed", [(2, 1), (4, 2), (5, 3)])
+def test_nbest_walk_matches_jax_backtrace(nbest, seed):
+    """``backtrace_nbest_device`` without a plan (one built for the call)
+    against JAX ``backtrace_nbest`` (see ``_walk_against_jax``)."""
+    _walk_against_jax(nbest, seed, "random", with_plan=False)
+
+
+@pytest.mark.parametrize("nbest,seed", [(2, 1), (4, 2), (5, 3)])
+def test_nbest_walk_with_plan_matches_jax_backtrace(monkeypatch, nbest, seed):
+    """The same with the graph's ``NbestPlan`` passed: the call reads the
+    plan's final scores and walk tables, not the graph's arrays."""
+    _walk_against_jax(nbest, seed, "random", with_plan=True, monkeypatch=monkeypatch)
+
+
+@pytest.mark.parametrize("with_plan", [False, True])
+def test_nbest_walk_hub_state_matches_jax(monkeypatch, with_plan):
+    """A state of 40-odd in-arcs whose backpointers all lie past its first
+    32 (the card's walk takes its exact step there), walked from the hub's
+    entries, with and without the plan, against JAX ``backtrace_nbest``."""
+    want = _walk_against_jax(4, 7, "hub", with_plan, monkeypatch)
+    assert any(h["arcs"] for hyps in want for h in hyps)
+
+
+def test_compact_row_starts():
+    """The walk's compact row starts give back ``in_start``; a group of
+    states with 65536 in-arcs or more has no compact form."""
+    rng = np.random.default_rng(0)
+    for n in (1, 63, 64, 65, 1000):
+        in_start = np.concatenate([[0], np.cumsum(rng.integers(0, 40, n - 1))]).astype(np.int32)
+        base, off = V.compact_row_starts(in_start)
+        assert base.shape[0] % 4 == 0 and off.shape[0] % 8 == 0 and off.shape[0] >= n
+        got = base[np.arange(n) // V.WALK_GROUP] + off.view(np.uint16)[:n].astype(np.int64)
+        np.testing.assert_array_equal(got, in_start)
+    wide = np.array([0, 10, 70_000, 70_001], np.int32)
+    assert V.compact_row_starts(wide)[1].shape == (0,)
 
 
 def test_nbest_forward_layout():

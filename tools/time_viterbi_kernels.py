@@ -1,10 +1,13 @@
 """Time the Viterbi relaxation (K3), the lattice recompute-and-test step (K5),
-the N-best relaxation (K7) and the best-path backtrace (``backtrace_best``)
-of voicebridge_tpu_torch at full width on one NVIDIA GPU, for the checkout's
-kernel sources and for other versions of them side by side.
+the N-best relaxation (K7), the best-path backtrace (``backtrace_best``) and
+the N-best walk (``backtrace_nbest``) of voicebridge_tpu_torch at full width
+on one NVIDIA GPU, for the checkout's kernel sources and for other versions
+of them side by side.
 
     python tools/time_viterbi_kernels.py [--lanes 128] [--frames 16]
+                                         [--cases all|nbest]
                                          [--variant NAME=DIR ...]
+                                         [--tree DIR] [--label NAME]
 
 The full-width decode graph (60k states, 480k arcs, forward plan D = 8, the
 backward plan's D derived, 2) and random inputs from numpy seeds.  Cases, in
@@ -19,37 +22,66 @@ and for one lane alone (ms per call, as the decode launches it once a
 block) over a 1000-frame table that K3 wrote, as the smoke times it (the
 same walk repeated: the table's lines it reads stay in L2) and with the L2
 cache flushed before each run and the plan's arrays read back into it (as
-the decode finds it after K3).  Each ``--variant`` names a
-directory holding other versions of ``viterbi_step.cu``, ``lattice_fb.cu``,
-``viterbi_nbest.cu`` and/or ``backtrace.cu`` (same C interface); every
-version is built with the package's nvcc flags into its own library under
+the decode finds it after K3).  ``--cases nbest`` times only the N-best
+walk at the full-width N-best decode's shape: K7's tables over 1000 frames
+of 32 lanes x 4 slots at exact search (38 GB), walked from each lane's 16
+best end entries as ``backtrace_nbest_device`` takes them, all walks and
+one walk alone, in L2 and flushed (``backtrace_nbest*``, ms per call), and
+``backtrace_nbest_device`` itself (wall ms per call, device time and
+activities under torch.profiler; with the decoder's plan where the
+checkout's wrapper takes one).  Each ``--variant`` names a directory
+holding other versions of ``viterbi_step.cu``, ``lattice_fb.cu``,
+``viterbi_nbest.cu`` and/or ``backtrace.cu`` (same C interface, or the
+thread-per-walk N-best walk's ``vbt_backtrace_nbest_thread`` of
+``tools/kernel_variants/backtrace_nbest_thread``); every version is built
+with the package's nvcc flags into its own library under
 ``_archive/kernel_variants/`` and timed in turns (all in order, then in
-reverse).  Prints one JSON object with the card's name and power limit.
+reverse).  ``--tree`` imports the package (and its kernel sources) from
+another checkout, e.g. the parent commit unpacked under ``_archive/`` with
+``git archive``, so that the parent's wrapper is timed too: run the two
+trees in turns in one call.  Prints one JSON object with the card's name
+and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 
-import numpy as np  # noqa: E402
-import torch  # noqa: E402
+import numpy as np
+import torch
 
-from voicebridge_tpu_torch import _build  # noqa: E402
-from voicebridge_tpu_torch.ops import decode_core as DC  # noqa: E402
-from voicebridge_tpu_torch.ops import lattice as LAT  # noqa: E402
-from voicebridge_tpu_torch.ops import viterbi as V  # noqa: E402
-from voicebridge_tpu_torch.testing import synth_decode_graph  # noqa: E402
+_build = DC = LAT = V = synth_decode_graph = C = None  # the tree's modules (``load``)
+
+
+def load(tree: Path) -> None:
+    """Import the package (and its chip_smoke) from ``tree``."""
+    global _build, DC, LAT, V, synth_decode_graph, C
+    sys.path[:0] = [str(tree), str(tree / "tests")]
+    import chip_smoke
+    from voicebridge_tpu_torch import _build as build_mod
+    from voicebridge_tpu_torch.ops import decode_core, lattice, viterbi
+    from voicebridge_tpu_torch.testing import synth_decode_graph as graph_fn
+
+    _build, DC, LAT, V, synth_decode_graph, C = (build_mod, decode_core, lattice, viterbi,
+                                                 graph_fn, chip_smoke)
+
 
 OUT = ROOT / "_archive" / "kernel_variants"
 KERNEL_SOURCES = ("viterbi_step.cu", "lattice_fb.cu", "viterbi_nbest.cu", "backtrace.cu")
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# bp_arc, bp_slot, stride t, b, s, k, arc_src, num_frames, state, slot, b,
+# c, t, arcs, state_out, ok, stream
+THREAD_WALK_SIGNATURE = (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                         _P)
 
 
 def build(name: str, src_dir: Path | None) -> tuple[ctypes.CDLL, str]:
@@ -74,9 +106,14 @@ def build(name: str, src_dir: Path | None) -> tuple[ctypes.CDLL, str]:
     lib_path = out / "libvariant.so"
     subprocess.run([nvcc, "-shared", "-o", str(lib_path), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    for fn in ("vbt_viterbi_step", "vbt_lattice_fb", "vbt_viterbi_nbest", "vbt_backtrace_best"):
-        getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
-        getattr(lib, fn).restype = ctypes.c_int
+    for fn in ("vbt_viterbi_step", "vbt_lattice_fb", "vbt_viterbi_nbest", "vbt_backtrace_best",
+               "vbt_backtrace_nbest"):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
+            getattr(lib, fn).restype = ctypes.c_int
+    if hasattr(lib, "vbt_backtrace_nbest_thread"):
+        lib.vbt_backtrace_nbest_thread.argtypes = THREAD_WALK_SIGNATURE
+        lib.vbt_backtrace_nbest_thread.restype = ctypes.c_int
     lib.vbt_error_string.argtypes = (ctypes.c_int,)
     lib.vbt_error_string.restype = ctypes.c_char_p
     return lib, report
@@ -181,28 +218,123 @@ def cases(lanes: int, frames: int) -> tuple:
     }, (fwd_dev.row_start, fwd_dev.row_src)
 
 
+def nbest_walk(plan, arc_src, bp_arc, bp_slot, nf, state, slot):
+    """The N-best walk through the current library: the thread-per-walk
+    variant's C entry where the library has it, else the tree's wrapper
+    (with the plan where it takes one)."""
+    lib = _build._lib
+    if hasattr(lib, "vbt_backtrace_nbest_thread"):
+        t, b = bp_arc.shape[:2]
+        c = state.shape[1]
+        dev = bp_arc.device
+        arcs = torch.empty((t, b, c), dtype=torch.int32, device=dev)
+        start = torch.empty((b, c), dtype=torch.int32, device=dev)
+        ok = torch.empty((b, c), dtype=torch.uint8, device=dev)
+        err = lib.vbt_backtrace_nbest_thread(
+            bp_arc.data_ptr(), bp_slot.data_ptr(), *bp_arc.stride(), arc_src.data_ptr(),
+            nf.data_ptr(), state.data_ptr(), slot.data_ptr(), b, c, t, arcs.data_ptr(),
+            start.data_ptr(), ok.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"backtrace_nbest_thread: CUDA error {err}")
+        return arcs, start, ok.bool()
+    if "arc_src" in V.NbestPlan._fields:
+        return V.nbest_walk(plan, bp_arc, bp_slot, nf, state, slot)
+    return V.nbest_walk(bp_arc, bp_slot, arc_src, nf, state, slot)
+
+
+def nbest_cases() -> tuple:
+    """The N-best walk at the full-width N-best decode's shape: returns the
+    kernel cases, the wrapper's call and the arrays a caller keeps in L2."""
+    dev = torch.device("cuda", 0)
+    graph = synth_decode_graph(60_000, num_pdfs=2000)
+    plan = V.build_nbest_plan(graph, dev)
+    arc_src = torch.from_numpy(graph.arc_src).to(dev)
+    b, k, c, t = 32, 4, 16, 1000
+    rng = np.random.default_rng(0)
+    ll = torch.from_numpy((rng.standard_normal((b, t, 2000)) * 5 - 60).astype(np.float32)).to(dev)
+    nf_np = np.full(b, t, np.int32)
+    ae, bp_arc, bp_slot = V.viterbi_nbest_forward(plan, graph.alpha0, ll, nf_np, 0.077, 1e9, k)
+    del ll
+    final = torch.from_numpy(graph.final_score).to(dev)
+    s = graph.num_states
+    fidx = (ae + final[None, :, None]).reshape(b, s * k).sort(dim=1, descending=True,
+                                                             stable=True)[1][:, :c]
+    nf = torch.from_numpy(nf_np).to(dev)
+    walk = (plan, arc_src, bp_arc, bp_slot, nf, (fidx // k).to(torch.int32),
+            (fidx % k).to(torch.int32))
+    one = (plan, arc_src, bp_arc[:, :1], bp_slot[:, :1], nf[:1].contiguous(),
+           walk[5][:1, :1].contiguous(), walk[6][:1, :1].contiguous())
+    ref = nbest_walk(*walk)
+    given = {"plan": plan} if "plan" in inspect.signature(V.backtrace_nbest_device).parameters \
+        else {}
+
+    def wrapper():
+        return V.backtrace_nbest_device(graph, ae, bp_arc, bp_slot, nf_np, k, **given)
+
+    warm = tuple(x for x in plan) + (arc_src, nf, walk[5], walk[6])
+    todo = {
+        "backtrace_nbest": (lambda: nbest_walk(*walk), 1),
+        "backtrace_nbest_one_walk": (lambda: nbest_walk(*one), 1),
+        "backtrace_nbest_cold": (lambda: nbest_walk(*walk), 1),
+        "backtrace_nbest_one_walk_cold": (lambda: nbest_walk(*one), 1),
+    }
+    return todo, warm, wrapper, (walk, ref)
+
+
+def time_wrapper(fn, reps: int = 5) -> dict:
+    """Wall ms per call of a wrapper that ends in a synchronisation, and
+    its device time and activities a call (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    wall = 1e3 * (time.perf_counter() - t0) / reps
+    prof = C.device_profile(torch, fn)
+    return {"wall_ms": wall, "device_ms": prof["device_ms"],
+            "activities_per_call": prof["activities_per_call"],
+            "device_ms_by_name": prof["device_ms_by_name"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lanes", type=int, default=128)
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--variant", action="append", default=[], metavar="NAME=DIR")
+    ap.add_argument("--cases", choices=("all", "nbest"), default="all")
+    ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--label", default="change")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_viterbi_kernels: CUDA is not available", file=sys.stderr)
         return 1
+    load(Path(args.tree).resolve())
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     sources = {"checkout": None}
     sources.update((n, Path(d)) for n, d in (v.split("=", 1) for v in args.variant))
-    libs = {name: build(name, d) for name, d in sources.items()}
-    todo, warm = cases(args.lanes, args.frames)
-    res: dict = {"card": card, "lanes": args.lanes, "frames": args.frames, "ms_per_frame": {}}
+    libs = {name: build(f"{args.label}_{name}", d) for name, d in sources.items()}
+    todo, warm, wrappers = {}, {}, {}
+    if args.cases == "all":
+        cases_k, warm_k = cases(args.lanes, args.frames)
+        todo.update(cases_k)
+        warm.update((case, warm_k) for case in cases_k)
+    cases_n, warm_n, wrapper, (walk, ref) = nbest_cases()
+    todo.update(cases_n)
+    warm.update((case, warm_n) for case in cases_n)
+    res: dict = {"card": card, "tree": args.tree, "label": args.label, "lanes": args.lanes,
+                 "frames": args.frames, "ms_per_frame": {}, "wrapper": []}
     for order in (list(libs), list(libs)[::-1]):
         for name in order:
             _build._lib = libs[name][0]
+            got = nbest_walk(*walk)
+            if not all(bool(torch.equal(x, y)) for x, y in zip(got, ref)):
+                raise RuntimeError(f"{name}: the N-best walk differs from the package's")
             for case, (fn, frames) in todo.items():
-                t = ms_cold(fn, warm) if case.endswith("_cold") else ms(fn)
+                t = ms_cold(fn, warm[case]) if case.endswith("_cold") else ms(fn)
                 res["ms_per_frame"].setdefault(name, {}).setdefault(case, []).append(t / frames)
+            if name == "checkout":
+                res["wrapper"].append(time_wrapper(wrapper))
     res["spills"] = {name: sorted({ln.split(":")[-1].strip() for ln in rep.splitlines()
                                    if "spill stores" in ln and "0 bytes spill stores" not in ln})
                      for name, (_lib, rep) in libs.items()}

@@ -85,10 +85,11 @@ _SIGNATURES = {
     # bps, bp_bytes, row_start, row_src, row_arc, end_state, num_frames, t0, w,
     # s1, b, d, codes, arcs, state, stream
     "vbt_backtrace_best": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # bp_arc, bp_slot, stride t, b, s, k, arc_src, num_frames, state, slot, b,
-    # c, t, arcs, state_out, ok, stream
-    "vbt_backtrace_nbest": (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _I, _I, _I, _P, _P,
-                            _P, _P),
+    # bp_arc, bp_slot, stride t, b, s, k, in_start, in_off, in_base, arc, src,
+    # arc_src, s, a, num_frames, state, slot, b, c, t, arcs, state_out, ok,
+    # stream
+    "vbt_backtrace_nbest": (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                            _P, _P, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lib = None

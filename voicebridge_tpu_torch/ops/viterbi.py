@@ -24,8 +24,9 @@ list, which is the lowest arc id among equals.
   launch runs a window of frames (``nbest_window``; ``nbest_step`` is W = 1).
   ``backtrace_nbest`` is the JAX package's numpy code;
   ``backtrace_nbest_device`` walks the same backpointers where they lie, in
-  one launch of ``backtrace_nbest`` (``csrc/backtrace.cu``) through
-  ``nbest_walk``.
+  one launch of ``backtrace_nbest`` (``csrc/backtrace.cu``, a warp a walk)
+  through ``nbest_walk``, over the walk's tables of the ``NbestPlan`` built
+  once per graph.
 * **Windowed decode** (``viterbi_decode_windowed``): alpha snapshots per
   window, then each window re-run with backpointers in reverse, over the emit
   plan and K3 (``ops/decode_core.py``).
@@ -56,6 +57,7 @@ __all__ = ["NEG_INF", "DenseGraph", "compile_dense_graph", "pad_graphs", "Generi
 
 NBEST_MAX = 16  # K7 keeps a state's list in registers
 ARC_ID_LIMIT = 1 << 27  # K7 packs (arc id, slot) into one int: arc << 4 | slot
+WALK_GROUP = 64  # states per 32-bit base of the N-best walk's compact row starts
 
 
 def pad_graphs(graphs: list[DenseGraph], pad_states: Optional[int] = None,
@@ -523,7 +525,9 @@ def assemble_batched_results(graphs: list[DenseGraph], arcs: np.ndarray,
 class NbestPlan(NamedTuple):
     """A shared graph's arcs grouped by destination, on one device: the arcs
     entering state s are ``in_start[s] : in_start[s + 1]`` of the other
-    arrays, in ascending arc id."""
+    arrays, in ascending arc id.  K7 reads the first five; the N-best walk
+    reads ``in_start`` (as ``in_base`` + ``in_off`` where that compact form
+    exists), ``arc``, ``src``, ``arc_src`` and ``final``."""
 
     in_start: torch.Tensor  # [S+1] int32
     src: torch.Tensor  # [A] int32 source state
@@ -531,16 +535,42 @@ class NbestPlan(NamedTuple):
     score: torch.Tensor  # [A] f32 graph score
     arc: torch.Tensor  # [A] int32 original arc id
     dst: torch.Tensor  # [A] int64 destination (plain version only)
+    arc_src: torch.Tensor  # [A] int32 source state by original arc id
+    final: torch.Tensor  # [S] f32 final scores
+    # the row starts compact: in_start of every WALK_GROUP-th state (padded
+    # to a multiple of 4) and in_start[x] - in_base[x // WALK_GROUP] as
+    # uint16 bits (padded to a multiple of 8); in_off is empty where a group
+    # of states has 65536 in-arcs or more
+    in_base: torch.Tensor  # [4 * ceil(ceil((S+1) / WALK_GROUP) / 4)] int32
+    in_off: torch.Tensor  # [8 * ceil((S+1) / 8)] int16, or [0]
 
     @property
     def num_states(self) -> int:
         return self.in_start.shape[0] - 1
 
 
+def compact_row_starts(in_start: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``in_start`` [S+1] as (in_base, in_off): the start of every
+    ``WALK_GROUP``-th row, padded to a multiple of 4, and each row's start
+    less its group's base as uint16 bits in int16, padded to a multiple of
+    8 (empty where an offset needs more than 16 bits)."""
+    n = in_start.shape[0]
+    n_base = -(-n // WALK_GROUP)
+    base = np.zeros(-(-n_base // 4) * 4, np.int32)
+    base[:n_base] = in_start[::WALK_GROUP]
+    off = in_start.astype(np.int64) - np.repeat(base[:n_base], WALK_GROUP)[:n]
+    if off.max(initial=0) >= 1 << 16:
+        return base, np.zeros(0, np.int16)
+    padded = np.zeros(-(-n // 8) * 8, np.uint16)
+    padded[:n] = off
+    return base, padded.view(np.int16)
+
+
 def build_nbest_plan(graph: DenseGraph, device) -> NbestPlan:
     order = np.argsort(graph.arc_dst, kind="stable")
     counts = np.bincount(graph.arc_dst, minlength=graph.num_states)
     in_start = np.concatenate([[0], np.cumsum(counts)])
+    in_base, in_off = compact_row_starts(in_start)
 
     def dev(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
@@ -548,7 +578,10 @@ def build_nbest_plan(graph: DenseGraph, device) -> NbestPlan:
     return NbestPlan(in_start=dev(in_start, np.int32), src=dev(graph.arc_src[order], np.int32),
                      pdf=dev(graph.arc_pdf[order], np.int32),
                      score=dev(graph.arc_score[order], np.float32),
-                     arc=dev(order, np.int32), dst=dev(graph.arc_dst[order], np.int64))
+                     arc=dev(order, np.int32), dst=dev(graph.arc_dst[order], np.int64),
+                     arc_src=dev(graph.arc_src, np.int32),
+                     final=dev(graph.final_score, np.float32), in_base=dev(in_base, np.int32),
+                     in_off=dev(in_off, np.int16))
 
 
 def nbest_step_plain(plan: NbestPlan, alpha, alpha_end, ll_t, num_frames, t: int,
@@ -787,26 +820,27 @@ def nbest_walk_plain(bp_arc, bp_slot, arc_src, num_frames, state, slot):
     return arcs, si.to(torch.int32), ok
 
 
-def nbest_walk(bp_arc: torch.Tensor, bp_slot: torch.Tensor, arc_src: torch.Tensor,
+def nbest_walk(plan: NbestPlan, bp_arc: torch.Tensor, bp_slot: torch.Tensor,
                num_frames: torch.Tensor, state: torch.Tensor, slot: torch.Tensor):
     """Walk every (lane, candidate) back from its end entry (``state``,
     ``slot``) [B, C] int32 through the N-best backpointers bp_arc [T, B, S,
     K] int32 / bp_slot [T, B, S, K] int8 (any strides, the same for both),
-    from frame ``num_frames[b] - 1`` down to 0.  arc_src [A] int32, by
-    original arc id; num_frames [B] int32.
+    from frame ``num_frames[b] - 1`` down to 0, over the graph of ``plan``
+    (on the tables' device).  num_frames [B] int32.
 
     Returns (arcs [T, B, C] int32 in forward frame order, -1 at frames past
     the lane's end and below a failure; the start state [B, C] int32; ok [B,
     C] bool, False where a walk met arc -1).  On CUDA it is one launch of
-    ``backtrace_nbest`` (``csrc/backtrace.cu``), a thread per (lane,
-    candidate)."""
+    ``backtrace_nbest`` (``csrc/backtrace.cu``), a warp per (lane,
+    candidate) reading each frame's in-arcs beside its backpointer."""
     dev = bp_arc.device
     if dev.type == "cpu":
-        return nbest_walk_plain(bp_arc, bp_slot, arc_src, num_frames, state, slot)
+        return nbest_walk_plain(bp_arc, bp_slot, plan.arc_src, num_frames, state, slot)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     t_total, b, s, k = bp_arc.shape
     c = state.shape[1] if state.dim() == 2 else -1
+    a = plan.arc.shape[0]
     if (bp_arc.dtype != torch.int32 or bp_slot.dtype != torch.int8 or bp_slot.device != dev
             or bp_slot.shape != bp_arc.shape or bp_slot.stride() != bp_arc.stride()):
         raise ValueError("nbest_walk: need int32 bp_arc and int8 bp_slot of one shape and "
@@ -814,42 +848,55 @@ def nbest_walk(bp_arc: torch.Tensor, bp_slot: torch.Tensor, arc_src: torch.Tenso
     _check("num_frames", num_frames, torch.int32, dev, (b,))
     _check("state", state, torch.int32, dev, (b, c))
     _check("slot", slot, torch.int32, dev, (b, c))
-    _check("arc_src", arc_src, torch.int32, dev)
+    _check("in_start", plan.in_start, torch.int32, dev, (s + 1,))
+    for name in ("arc", "src", "arc_src"):
+        _check(name, getattr(plan, name), torch.int32, dev, (a,))
+    n_base = -(-(s + 1) // WALK_GROUP)
+    _check("in_base", plan.in_base, torch.int32, dev, (-(-n_base // 4) * 4,))
+    if plan.in_off.numel():
+        _check("in_off", plan.in_off, torch.int16, dev, (-(-(s + 1) // 8) * 8,))
     arcs = torch.empty((t_total, b, c), dtype=torch.int32, device=dev)
     start = torch.empty((b, c), dtype=torch.int32, device=dev)
     ok = torch.empty((b, c), dtype=torch.uint8, device=dev)
     _build.launch("backtrace_nbest", bp_arc.data_ptr(), bp_slot.data_ptr(), *bp_arc.stride(),
-                  arc_src.data_ptr(), num_frames.data_ptr(), state.data_ptr(), slot.data_ptr(),
-                  b, c, t_total, arcs.data_ptr(), start.data_ptr(), ok.data_ptr(),
-                  stream_handle(dev))
+                  plan.in_start.data_ptr(), plan.in_off.data_ptr() if plan.in_off.numel() else None,
+                  plan.in_base.data_ptr(), plan.arc.data_ptr(), plan.src.data_ptr(),
+                  plan.arc_src.data_ptr(), s, a, num_frames.data_ptr(), state.data_ptr(),
+                  slot.data_ptr(), b, c, t_total, arcs.data_ptr(), start.data_ptr(),
+                  ok.data_ptr(), stream_handle(dev))
     return arcs, start, ok.bool()
 
 
 def backtrace_nbest_device(graph: DenseGraph, alpha_end: torch.Tensor, bp_arc: torch.Tensor,
-                           bp_slot: torch.Tensor, num_frames, nbest: int):
+                           bp_slot: torch.Tensor, num_frames, nbest: int,
+                           plan: Optional[NbestPlan] = None):
     """``backtrace_nbest`` without a host copy of the tables: the ``4 * nbest``
     best end entries of every utterance are walked back together on the
-    tables' device (``nbest_walk``), and only their arcs ``[T, B, C]`` come
-    to the host, where hypotheses are assembled and duplicate arc sequences
-    dropped as ``backtrace_nbest`` does."""
+    tables' device (``nbest_walk``), and only their arcs ``[T, B, C]``, end
+    and start states, flags and scores come to the host, in one transfer,
+    where hypotheses are assembled and duplicate arc sequences dropped as
+    ``backtrace_nbest`` does.  ``plan`` is ``graph``'s ``NbestPlan`` on the
+    tables' device (its final scores and walk tables; the call then copies
+    no graph array to the device); without it one is built for the call."""
     dev = alpha_end.device
+    if plan is None:
+        plan = build_nbest_plan(graph, dev)
     b, s, k = alpha_end.shape
+    t_total = bp_arc.shape[0]
     nf_np = np.asarray(num_frames).astype(np.int32)
     nf = torch.from_numpy(nf_np).to(dev)
-    final = torch.from_numpy(np.asarray(graph.final_score, np.float32)).to(dev)
-    arc_src = torch.from_numpy(np.asarray(graph.arc_src, np.int32)).to(dev)
-    total = (alpha_end + final[None, :, None]).reshape(b, s * k)
+    total = (alpha_end + plan.final[None, :, None]).reshape(b, s * k)
     c = min(nbest * 4, s * k)
     score, fidx = total.sort(dim=1, descending=True, stable=True)
     score, fidx = score[:, :c], fidx[:, :c]
     end_state = (fidx // k).to(torch.int32)
-    arcs, start, ok = nbest_walk(bp_arc, bp_slot, arc_src, nf, end_state,
+    arcs, start, ok = nbest_walk(plan, bp_arc, bp_slot, nf, end_state,
                                  (fidx % k).to(torch.int32))
-    arcs_np = arcs.cpu().numpy()
-    score_np = score.cpu().numpy()
-    ok_np = ok.cpu().numpy()
-    start_np = start.cpu().numpy()
-    end_np = end_state.cpu().numpy()
+    host = torch.cat([arcs.view(t_total * b, c), start, end_state, ok.to(torch.int32),
+                      score.view(torch.int32)]).cpu().numpy()
+    arcs_np = host[: t_total * b].reshape(t_total, b, c)
+    start_np, end_np, ok_np, score_np = host[t_total * b:].reshape(4, b, c)
+    score_np = score_np.view(np.float32)
     nonempty = DC.oseq_nonempty(graph)
     out = []
     for i in range(b):

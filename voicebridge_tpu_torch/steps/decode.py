@@ -168,11 +168,12 @@ class Decoder:
         """Utterances per N-best sub-batch so its features, its logliks in
         both layouts ([B, T, P] and K7's [T, P, B]), the [T, S, B, K]
         backpointer tables (5 bytes per entry), four [S, B, K] score tables
-        and the walk's [T, B, 4K] arcs take at most half of the free device
+        and the walk's [T, B, 4K] arcs, twice (the walk's output and the
+        copy gathered for the host), take at most half of the free device
         memory."""
         s = self.graph.num_states
         per_utt = (4 * t * (2 * self.gmm_w.shape[0] + d) + 5 * t * s * nbest + 16 * s * nbest
-                   + 16 * t * nbest)
+                   + 32 * t * nbest)
         return max(1, free_bytes(self.device) // (2 * per_utt))
 
     def decode_nbest(self, utts: list[str], feats, num_frames, nbest: int = 4,
@@ -200,7 +201,7 @@ class Decoder:
                 self._nbest_plan, self.graph.alpha0, ll, num_frames[lo:hi], acwt,
                 self.opts.beam, nbest)
             hyps = V.backtrace_nbest_device(self.graph, alpha_end, bp_arc, bp_slot,
-                                            num_frames[lo:hi], nbest)
+                                            num_frames[lo:hi], nbest, plan=self._nbest_plan)
             del bp_arc, bp_slot  # before the next sub-batch allocates its own
             for u, hs in zip(utts[lo:hi], hyps):
                 out[u] = [(h["words"], h["score"]) + ((h["arcs"],) if keep_arcs else ())
