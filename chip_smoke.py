@@ -176,14 +176,41 @@ Phases, each of which must pass (any failure exits nonzero):
    -> ``make_features(deltas=None)`` -> ``lda_decode_feats`` (phase 15's
    matrix) -> ``decode_fmllr`` over the 60k-state graph with an AM and an
    ``alimdl`` of 2000 x 5 x 40 drawn on the features' scale, each stage's
-   wall time, the launch counts and the device busy share of a profiled
-   run.  ``acc_fmllr_stats`` (at both shapes; two runs bit-equal) and
+   wall time, the launch counts and the device busy share of a second,
+   profiled run (two decodes in all).  ``acc_fmllr_stats`` (at both shapes; two runs bit-equal) and
    ``apply_fmllr_batch`` are held to float64 plain versions on the card,
    K6's two-feature path (x_post != x_acc) to its plain version; every
    speaker's objective improvement must be >= 0, every transform finite,
    every utterance must get a T-frame best path with a finite score, and
    stage 4's gathered costs must equal a float64 recompute of the same
    arcs; each with its card time and bound.
+17. ``Project`` through the examples: ``examples/yesno_synthetic_torch.main``
+   (WER <= 10 %) and ``examples/full_pipeline_synthetic_torch.main`` (mono,
+   tri1, tri2b and DELTA+SAT with ``decode_fmllr``: each WER <= 10 % and no
+   more than 2 points above the JAX package's on the same sequence,
+   ``JAX_FULL_PIPELINE_WER``) on the card, waves on disk to WER; then the
+   Yes-No project reopened (each stage loads what the example wrote) and
+   decoded with ``out_name``: the same WER, every artifact written, every
+   CTM row of positive duration, no overlap within an utterance, the CTM's
+   words those of ``transcription.txt``.
+18. ``Project`` at LibriSpeech-shaped width: ``examples/librispeech_shaped_torch.py``
+   with ``--speakers 24 --utts 8 --test-per 2`` (240 utterances, about 700 s
+   of 16 kHz audio) and its defaults otherwise, the whole ladder (mono,
+   tri1, tri2b, tri3b with LDA+MLLT+SAT, tri3c with DELTA+SAT; each decode
+   over the full LMWT 7-17 x WIP {0, 0.5, 1} grid).  Each stage's wall time,
+   audio-s/s and launch counts, the HCLGs' states and arcs, the aligner
+   each stage took and the device busy share of a profiled decode are
+   printed; each WER must be no more than 2 points above the JAX package's
+   on the same arguments (``JAX_LIBRISPEECH_WER``), and the decode
+   artifacts are checked as in phase 17.  Then the project is reopened:
+   over the mono and tri1 HCLGs that ``mkgraph`` built (hub states of
+   thousands of plan rows), the lattice forward-backward (K3 forward and
+   backward, K5) and the best path (K3, ``backtrace_best``) of the 4
+   longest test utterances must be bit-equal on the card and in the plain
+   versions on the CPU, from the same loglikes; so must one generic-aligner
+   sub-batch over the tri1 training graphs of the 4 utterances with the
+   most states; both plans' rows and D are printed, and every test
+   utterance must get a finite best path over the tri1 graph.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
@@ -196,6 +223,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -227,6 +255,13 @@ FULL = Width(batch=128, frames=1000, samp_freq=16000.0, num_states=60_000,
              train_states=384, back_arcs=2, nbest_batch=32, nbest=4, nbest_warm=60, sweep_batch=16)
 
 REPEATS = 5  # timed full-width runs after the counted one
+# phase 18's corpus: speakers, train and test utterances per speaker
+LS_SPEAKERS, LS_UTTS, LS_TEST_PER = 24, 8, 2
+LS_PARITY_UTTS = 4  # utterances of phase 18's card-against-plain checks
+# The JAX package's WERs (%) on phases 17 and 18's sequences, run on the CPU
+# by tools/project_reference_wer.py (full_pipeline; librispeech)
+JAX_FULL_PIPELINE_WER = {"mono": 0.0, "tri1": 0.0, "tri2b": 3.125, "tri3b": 0.0}
+JAX_LIBRISPEECH_WER = {"mono": 4.32, "tri1": 4.9, "tri2b": 4.61, "tri3b": 1.73, "tri3c": 2.88}
 EXACT_BEAM = 1e9  # the full-width N-best path's beam: exact search
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores, published
@@ -276,6 +311,10 @@ LATTICE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step", "viterbi_step_
                    "lattice_fb")
 NBEST_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_nbest", "backtrace_nbest")
 GENERIC_KERNELS = ("gmm_loglikes", "generic_forward", "generic_backtrace")
+# what a Project sequence launches, besides its aligner (K1-K6: features,
+# training, lattice decode)
+PROJECT_KERNELS = ("mfcc_frames", "gmm_loglikes", "gmm_stats", "viterbi_step",
+                   "viterbi_step_backward", "lattice_fb")
 
 
 class SmokeFailure(Exception):
@@ -285,6 +324,19 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def reset_launches() -> None:
+    from voicebridge_tpu_torch import _build
+
+    for k in _build.launches:
+        _build.launches[k] = 0
+
+
+def launch_counts() -> dict:
+    from voicebridge_tpu_torch import _build
+
+    return dict(_build.launches)
 
 
 def synth_waves(width: Width, seed: int = 0):
@@ -1253,8 +1305,7 @@ def decode_full_width(torch, device, width: Width, log) -> dict:
 
     from voicebridge_tpu_torch import _build
 
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     res, shape, feat_s, dec_s = run()
     launches = dict(_build.launches)
     check(tuple(shape) == (width.batch, width.frames, 39), f"feature batch shape {shape}")
@@ -1276,15 +1327,11 @@ def decode_full_width(torch, device, width: Width, log) -> dict:
     return facts
 
 
-def profile_run(torch, run, log, what: str, host_profile: bool = True) -> dict:
-    """Three more runs of ``run``: two under torch.profiler, the second of
-    them marked and read (device time by kernel and the device busy share of
-    that run's wall time), and, with ``host_profile``, one under cProfile
-    (host time by function, into the log)."""
-    import cProfile
-    import io
-    import pstats
-
+def device_busy(torch, run, warm: bool = True) -> tuple:
+    """Two runs of ``run()`` under torch.profiler, the second marked and
+    read (with ``warm`` false, the marked run alone): returns its result and
+    the device time by kernel and the device busy share of that run's wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1293,11 +1340,12 @@ def profile_run(torch, run, log, what: str, host_profile: bool = True) -> dict:
         # after earlier large traces in one process, a trace was seen to miss
         # the device work of its first milliseconds: a run that is not read
         # goes first, and only what starts inside the marked run counts
-        run()
+        if warm:
+            run()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with record_function(mark):
-            run()
+            out = run()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
@@ -1312,6 +1360,22 @@ def profile_run(torch, run, log, what: str, host_profile: bool = True) -> dict:
             total[1] += 1
     busy_us = sum(us for us, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return out, {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+                 "device_busy_share": busy_us / 1e6 / wall,
+                 "top_device_ms": [[name[:60], us / 1e3, count]
+                                   for name, (us, count) in top]}
+
+
+def profile_run(torch, run, log, what: str, host_profile: bool = True,
+                warm: bool = True) -> dict:
+    """Three more runs of ``run``: ``device_busy``'s two (one with ``warm``
+    false), and, with ``host_profile``, one under cProfile (host time by
+    function, into the log)."""
+    import cProfile
+    import io
+    import pstats
+
+    _, facts = device_busy(torch, run, warm)
     if host_profile:
         host = cProfile.Profile()
         host.enable()
@@ -1320,9 +1384,7 @@ def profile_run(torch, run, log, what: str, host_profile: bool = True) -> dict:
         text = io.StringIO()
         pstats.Stats(host, stream=text).sort_stats("cumulative").print_stats(30)
         log(f"host profile of one {what} run (cProfile):\n" + text.getvalue())
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_busy_share": busy_us / 1e6 / wall,
-            "top_device_ms": [[name[:60], us / 1e3, count] for name, (us, count) in top]}
+    return facts
 
 
 def train_yesno(torch, device, log) -> dict:
@@ -1349,8 +1411,7 @@ def train_yesno(torch, device, log) -> dict:
                                  {u: u for u in corpus}, opts, device=device)
              for name, corpus in (("train", train), ("test", test))}
     transcripts = {u: [lang.words.id(w) for w in words] for u, (_, words) in train.items()}
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     t0 = time.perf_counter()
     model = train_mono(feats["train"], transcripts, lang,
                        MonoTrainOptions(num_iters=14, totgauss=200, max_iter_inc=10,
@@ -1417,8 +1478,7 @@ def train_full_width(torch, device, width: Width, log) -> dict:
     last_pdf: list = []  # the pdfs of the last iteration's alignment
     sub_batches = math.ceil(b / aset._batch_chunk(t, width.num_pdfs, dim,
                                                   width.train_states + 1))
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     walls = [em_iter()]
     launches = dict(_build.launches)
     if device.type == "cuda":
@@ -1490,8 +1550,7 @@ def lattice_full_width(torch, device, width: Width, log) -> dict:
         lats = dec.decode_lattice(utts, batch, nf)
         return lats, utts, batch, nf, t_feats - t_start, time.perf_counter() - t_feats
 
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     lats, utts, batch, nf, feat_s, lat_s = run()
     launches = dict(_build.launches)
     check(len(lats) == width.batch, f"{len(lats)} lattices for {width.batch} utterances")
@@ -1634,8 +1693,7 @@ def nbest_full_width(torch, device, width: Width, log) -> dict:
         hyps = dec.decode_nbest(utts, batch, nf, nbest=width.nbest, keep_arcs=True)
         return hyps, utts, batch, nf, chunk, t_feats - t_start, time.perf_counter() - t_feats
 
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     hyps, utts, batch, nf, chunk, feat_s, nbest_s = run()
     launches = dict(_build.launches)
     sub_batches = math.ceil(len(utts) / chunk)
@@ -1778,8 +1836,7 @@ def generic_full_width(torch, device, width: Width, log) -> dict:
     chunks: list = []  # the sub-batch size align_feats takes from the free memory
     batch_chunk = aset._batch_chunk
     aset._batch_chunk = lambda *args: chunks.append(batch_chunk(*args)) or chunks[-1]
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     alis, wall = run()
     launches = dict(_build.launches)
     del aset._batch_chunk
@@ -1843,8 +1900,7 @@ def features_other_rates(torch, device, width: Width, log) -> dict:
         utt2spk = {u: f"spk{i % 4}" for i, u in enumerate(sorted(waves))}
         opts = MfccOptions(frame_opts=FrameOptions(samp_freq=sr, dither=0.0),
                            mel_opts=MelOptions(num_bins=23))
-        for k in _build.launches:
-            _build.launches[k] = 0
+        reset_launches()
         t0 = time.perf_counter()
         feats = make_features(waves, utt2spk, opts, device=device)
         if device.type == "cuda":
@@ -1898,10 +1954,6 @@ def tri_yesno(torch, device, log) -> dict:
     from voicebridge_tpu_torch.steps.train_tri import train_tri
     from voicebridge_tpu_torch.testing import compute_wer_set, load_synth_sat, load_synth_tri2b
 
-    def reset():
-        for k in _build.launches:
-            _build.launches[k] = 0
-
     def decode(dec, feats, corpus, words):
         utts = sorted(feats)
         res = dec.decode_batch(utts, *pad_features(feats, utts))
@@ -1915,7 +1967,7 @@ def tri_yesno(torch, device, log) -> dict:
     train, test, utt2spk = make_speaker_corpus(**m.corpus)
     opts = MfccOptions(frame_opts=FrameOptions(samp_freq=m.samp_freq, dither=0.0))
     waves = {u: w for u, (w, _) in {**train, **test}.items()}
-    reset()
+    reset_launches()
     base = make_features(waves, utt2spk, opts, deltas=None, device=device)
     feats = lda_decode_feats({u: base[u] for u in test}, m.final_mat, device=device)
     check(all(tuple(f.shape[1:]) == (40,) for f in feats.values()), "LDA features not 40-dim")
@@ -1955,7 +2007,7 @@ def tri_yesno(torch, device, log) -> dict:
     transcripts1 = {u: [lang.words.id(w) for w in ws] for u, (_, ws) in tr1.items()}
     t0 = time.perf_counter()
     mono, ali = mono_and_alignments(feats1["train"], transcripts1)
-    reset()
+    reset_launches()
     opts1 = TriTrainOptions(num_iters=10, num_leaves=120, totgauss=300, max_iter_inc=8,
                             realign_iters=(2, 4, 6, 8))
     tri1 = train_tri(feats1["train"], transcripts1, ali, lang, opts1,
@@ -1975,7 +2027,7 @@ def tri_yesno(torch, device, log) -> dict:
     transcripts = {u: [lang.words.id(w) for w in ws] for u, (_, ws) in train.items()}
     t0 = time.perf_counter()
     mono, ali = mono_and_alignments({u: delta[u] for u in train}, transcripts)
-    reset()
+    reset_launches()
     opts2 = TriTrainOptions(num_iters=8, num_leaves=100, totgauss=300, max_iter_inc=6,
                             realign_iters=(2, 4, 6), mllt_iters=(2, 4))
     tri2b, final_mat = train_lda_mllt({u: base[u] for u in train}, transcripts, ali, lang,
@@ -2008,7 +2060,7 @@ def tri_yesno(torch, device, log) -> dict:
 
     ms = load_synth_sat()
     check(ms.corpus == m.corpus, "the SAT fixture's corpus is not the tri2b fixture's")
-    reset()
+    reset_launches()
     feats = lda_decode_feats({u: base[u] for u in test}, ms.final_mat, device=device)
     hyps, stats, _, trans = sat_decode(ms.hclg, ms, ms.alimdl, feats, ms.words)
     launches = dict(_build.launches)
@@ -2028,7 +2080,7 @@ def tri_yesno(torch, device, log) -> dict:
                 "lda_sat": (lda_train, lda_test, tri2b, ali2, (2, 4, 6))}
     for name, (tr_feats, te_feats, prev, prev_ali, realign_iters) in variants.items():
         t0 = time.perf_counter()
-        reset()
+        reset_launches()
         sat = train_sat(tr_feats, utt2spk, transcripts, prev_ali, prev.am, lang,
                         TriTrainOptions(**sat_opts, realign_iters=realign_iters),
                         prev_trans_model=prev.trans_model, device=device)
@@ -2475,10 +2527,6 @@ def sat_full_width(torch, device, width: Width, record, results: dict, final_mat
     from voicebridge_tpu_torch.testing import feature_scaled_am, synth_decode_graph
     from voicebridge_tpu_torch.transforms import fmllr as F
 
-    def reset():
-        for key in _build.launches:
-            _build.launches[key] = 0
-
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -2551,13 +2599,13 @@ def sat_full_width(torch, device, width: Width, record, results: dict, final_mat
               f"{imprs_i}")
         return time.perf_counter() - t_start, am, feats, tids_i, w_i
 
-    reset()
+    reset_launches()
     wall, trained, adapted, tids_1, w_1 = em_iter()
     train_launches = dict(_build.launches)
     walls = [wall] + [em_iter()[0] for _ in range(REPEATS)]
     # the speaker-independent alignment model: K6's two-feature path
     x_adapted = adapted.reshape(n, d)
-    reset()
+    reset_launches()
     sync()
     t0 = time.perf_counter()
     alimdl = alignment_model(trained, x_adapted, base_flat, tids_1.reshape(-1),
@@ -2660,7 +2708,7 @@ def sat_full_width(torch, device, width: Width, record, results: dict, final_mat
     acc_fmllr_stats, rescore_lattices = DF.acc_fmllr_stats, DF.rescore_lattices
     DF.acc_fmllr_stats, DF.rescore_lattices = keep_stats, keep_rescore
     try:
-        reset()
+        reset_launches()
         res, trans, batch, nfd, stages, feat_s, dec_s = run()
         launches = dict(_build.launches)
     finally:
@@ -2695,14 +2743,299 @@ def sat_full_width(torch, device, width: Width, record, results: dict, final_mat
               "arcs_per_lattice": [int(min(lats[u].num_arcs for u in utts)),
                                    len(j) / len(utts), int(max(lats[u].num_arcs for u in utts))]}
     if device.type == "cuda":
+        # stage_s splits the host's part; two runs in all (the marked run
+        # alone: a trace that misses the first milliseconds of a 130 s run
+        # moves its busy share by less than its run-to-run spread)
         decode["profile"] = profile_run(torch, run, log, "full-width fMLLR decode",
-                                        host_profile=False)  # stage_s splits the host's part
+                                        host_profile=False, warm=False)
     log(f"full-width fMLLR decode: {json.dumps(decode)}")
     return {"train": train, "decode": decode, "device_functions": fns}
 
 
+def aligner_of(launches: dict) -> str:
+    """Which aligner a run's launches show (none on the CPU)."""
+    took = [name for name, k in (("banded", "align_forward"), ("generic", "generic_forward"))
+            if launches.get(k)]
+    return "+".join(took) or "none launched"
+
+
+def check_decode_artifacts(out: Path, utts: list) -> int:
+    """A ``Project.decode(..., out_name=)`` directory: every file there,
+    every CTM row of positive duration, no two rows of an utterance
+    overlapping, and the CTM's words those of ``transcription.txt`` for
+    every utterance of ``utts``.  Returns the CTM's rows."""
+    for f in ("transcription.txt", "wer_table.txt", "per_utt_details.txt",
+              "lattice_depth.txt", "ctm"):
+        check((out / f).exists(), f"{out}: no {f}")
+    ctm: dict = {}
+    last_end: dict = {}
+    rows = (out / "ctm").read_text().splitlines()
+    for line in rows:
+        utt, _chan, start, dur, word = line.split()
+        start, dur = float(start), float(dur)
+        check(dur > 0, f"{out}/ctm: a row of duration {dur}: {line}")
+        check(start >= last_end.get(utt, 0.0) - 1e-6, f"{out}/ctm: overlapping rows at {line}")
+        last_end[utt] = start + dur
+        ctm.setdefault(utt, []).append(word)
+    trans = {}
+    for line in (out / "transcription.txt").read_text().splitlines():
+        utt, *words = line.split()
+        trans[utt] = words
+    check(sorted(trans) == sorted(utts), f"{out}: transcription.txt lacks utterances")
+    bad = [u for u in utts if ctm.get(u, []) != trans[u]]
+    check(not bad, f"{out}: the CTM's words differ from transcription.txt for {bad}")
+    return len(rows)
+
+
+def project_examples(torch, device, work: Path, log) -> dict:
+    """Phase 17: ``examples/yesno_synthetic_torch.main`` and
+    ``examples/full_pipeline_synthetic_torch.main`` on the device, then the
+    Yes-No project reopened and decoded with ``out_name``.  Returns, per
+    example, its WERs, wall time and launch counts."""
+    import importlib
+
+    from voicebridge_tpu_torch.config import DecodeOptions, FrameOptions, MfccOptions
+    from voicebridge_tpu_torch.project import Project
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    facts: dict = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    res = importlib.import_module("yesno_synthetic_torch").main(str(work / "yesno"),
+                                                                device=device)
+    facts["yesno"] = {"wer": res.best_wer.wer, "wall_s": time.perf_counter() - t0,
+                      "launches": launch_counts()}
+    check(res.best_wer.wer <= 10.0, f"the Yes-No example: WER {res.best_wer.wer} > 10")
+    # the same project reopened: each stage loads what the example wrote
+    reset_launches()
+    proj = Project(work / "yesno", waves_dir=work / "yesno" / "waves", name="yesno",
+                   device=device)
+    proj.prepare_data(percentage_train=75, order_ngram=2, idtype=1)
+    proj.make_features(MfccOptions(frame_opts=FrameOptions(samp_freq=8000.0, dither=0.0)))
+    mono = proj.load_model("mono")
+    again = proj.decode(mono, proj.mkgraph(mono, "mono"), opts=DecodeOptions(beam=1e9),
+                        out_name="mono")
+    check(again.best_wer.wer == res.best_wer.wer,
+          f"the reopened Yes-No project decodes to {again.best_wer}, not {res.best_wer}")
+    facts["yesno"]["ctm_rows"] = check_decode_artifacts(proj.exp_dir / "mono" / "decode",
+                                                        proj.test_data.utts)
+    facts["yesno_reopened"] = {"launches": launch_counts()}
+    log(f"phase 17, Yes-No example on {device}: {json.dumps(facts['yesno'])}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = importlib.import_module("full_pipeline_synthetic_torch").main(str(work / "full"),
+                                                                        device=device)
+    facts["full_pipeline"] = {"wer": {k: r.best_wer.wer for k, r in res.items()},
+                              "jax_wer": JAX_FULL_PIPELINE_WER,
+                              "wall_s": time.perf_counter() - t0,
+                              "launches": launch_counts()}
+    log(f"phase 17, full-pipeline example on {device}: {json.dumps(facts['full_pipeline'])}")
+    for stage, wer in facts["full_pipeline"]["wer"].items():
+        check(wer <= 10.0, f"the full-pipeline example: {stage} WER {wer} > 10")
+        # tri2b's LDA keeps 40 rows from 30 live classes: the rows past the
+        # between-class rank are arbitrary null directions, which the CPU's
+        # plain versions draw otherwise (9.375 %, PERF.md section 6); on the
+        # CPU that comparison is reported, not applied
+        if stage == "tri2b" and device.type != "cuda":
+            continue
+        check(wer <= JAX_FULL_PIPELINE_WER[stage] + 2.0,
+              f"the full-pipeline example: {stage} WER {wer} is more than 2 points "
+              f"above the JAX package's {JAX_FULL_PIPELINE_WER[stage]}")
+    return facts
+
+
+def graph_facts(hclg, dec, bwd) -> dict:
+    """States, arcs and both decode plans' rows, row width D and most rows
+    of one state (a warp of K3 or K5 walks a state's rows) of an HCLG, from
+    its decoder's graph and forward plan and the lattice's backward plan."""
+    import numpy as np
+
+    fwd = dec.plan
+    return {"states": hclg.num_states, "arcs": hclg.num_arcs,
+            "eps_free_arcs": dec.graph.num_arcs,
+            "max_in_degree": int(np.bincount(dec.graph.arc_dst).max()),
+            "plan_rows": fwd.num_rows, "plan_d": fwd.d,
+            "plan_max_rows_per_state": int(np.diff(fwd.row_start).max()),
+            "backward_plan_rows": bwd.num_rows, "backward_plan_d": bwd.d,
+            "backward_plan_max_rows_per_state": int(np.diff(bwd.row_start).max())}
+
+
+def hclg_parity(torch, device, hclg, model, feats_by_utt: dict, log) -> dict:
+    """Phase 18: over an HCLG that ``mkgraph`` built, the lattice
+    forward-backward (K3 forward and backward, K5) and the best path (K3,
+    ``backtrace_best``) on ``device`` and on the CPU (the plain versions),
+    from the same loglikes (K2 on ``device``), for the test utterances of
+    ``feats_by_utt``: survivors, totals, end scores and best paths must be
+    bit-equal.  Returns the graph's facts."""
+    import numpy as np
+
+    from voicebridge_tpu_torch.ops import decode_core as DC
+    from voicebridge_tpu_torch.ops import lattice as LAT
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.steps.make_feats import pad_features
+
+    utts = sorted(feats_by_utt)
+    feats, nf = pad_features(feats_by_utt, utts)
+    nf = np.asarray(nf.cpu())
+    out: dict = {}
+    for dev in (device, torch.device("cpu")):
+        dec = Decoder(hclg, model.trans_model, model.am, device=dev)
+        if "ll" not in out:
+            out["ll"] = dec._loglikes(feats.to(dev).contiguous())
+        ll = out["ll"].to(dev)
+        acwt = dec.opts.acoustic_scale
+        _f, _fd, bwd_plan, bwd_dev, row_dst = LAT.build_lattice_plans(dec.graph,
+                                                                     fwd_plan=dec.plan, device=dev)
+        surv, best, end, use_final = LAT.lattice_forward_backward_rows(
+            dec.graph, dec.plan, dec.plan_dev, bwd_plan, bwd_dev,
+            torch.from_numpy(row_dst).to(dev), ll, nf, acoustic_scale=acwt,
+            lattice_beam=dec.opts.lattice_beam)
+        paths = DC.decode_best_path(dec.graph, dec.plan, dec.plan_dev, ll, nf, acwt)
+        out[dev.type] = ([x.cpu() for x in (surv.utt, surv.t, surv.arc, best, end)],
+                         [np.asarray(torch.as_tensor(use_final).cpu()), surv.counts],
+                         [(list(p["arcs"]), p["score"]) for p in paths])
+        if dev == device:
+            facts = graph_facts(hclg, dec, bwd_plan)
+    (dev_t, dev_np, dev_paths), (cpu_t, cpu_np, cpu_paths) = out[device.type], out["cpu"]
+    names = ("survivor lanes", "survivor frames", "survivor arcs", "totals", "end scores")
+    differ = [n for n, a, b in zip(names, dev_t, cpu_t) if not torch.equal(a, b)]
+    differ += [n for n, a, b in zip(("use_final", "survivor counts"), dev_np, cpu_np)
+               if not np.array_equal(a, b)]
+    differ += [f"best path of {u}" for u, a, b in zip(utts, dev_paths, cpu_paths) if a != b]
+    check(not differ, f"phase 18: over the {hclg.num_states}-state HCLG the card and the "
+          f"plain versions differ in {differ[:8]}")
+    facts["parity"] = {"utts": len(utts), "frames": int(nf.sum()),
+                       "survivors": int(cpu_np[1].sum())}
+    return facts
+
+
+def generic_parity(torch, device, proj, model, n_utts: int, log) -> dict:
+    """Phase 18: one generic-aligner sub-batch (forward and backtrace) over
+    ``model``'s training graphs of the ``n_utts`` training utterances with
+    the most graph states, on ``device`` and on the CPU (the plain
+    versions) from the same loglikes: alignments and scores bit-equal."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import convert
+    from voicebridge_tpu_torch.config import TriTrainOptions
+    from voicebridge_tpu_torch.ops import gmm_kernel
+    from voicebridge_tpu_torch.ops.gmm_kernels import pack_gmm
+    from voicebridge_tpu_torch.steps import align as A
+    from voicebridge_tpu_torch.steps.make_feats import pad_features
+    from voicebridge_tpu_torch.steps.train_tri import training_graphs
+
+    opts = TriTrainOptions()
+    feats_by_utt = proj.feats("train", "delta")
+    utts = sorted(feats_by_utt)
+    aset = training_graphs(proj.lang, model.tree, model.trans_model, proj.transcripts(),
+                           utts, opts, device, "phase 18")
+    pick = sorted(np.argsort([-g.num_states for g in aset.graphs], kind="stable")[:n_utts])
+    graphs = [aset.graphs[i] for i in pick]
+    feats, nf = pad_features(feats_by_utt, [utts[i] for i in pick])
+    ll = gmm_kernel.loglikes_batch(feats.to(device).contiguous(), convert.kernel_params_from_twin(
+        pack_gmm(model.am, device)))
+    got = {}
+    for dev in (device, torch.device("cpu")):
+        sub = A.AlignmentSet(graphs, device=dev)
+        got[dev.type] = [(list(r["arcs"]), r["score"]) for r in A._align_generic(
+            sub.generic_dev, graphs, ll.to(dev), np.asarray(nf.cpu()), opts.acoustic_scale, 1e9)]
+    differ = [utts[i] for i, a, b in zip(pick, got[device.type], got["cpu"]) if a != b]
+    check(not differ, f"phase 18: the generic aligner on the card and its plain version align "
+          f"{differ[:8]} differently over the tri1 training graphs")
+    return {"utts": len(graphs), "frames": int(nf.sum()),
+            "states": [min(g.num_states for g in graphs), max(g.num_states for g in graphs)],
+            "band_refusal": None if aset.band is not None else aset.band_refusal}
+
+
+def project_librispeech(torch, device, work: Path, log) -> dict:
+    """Phase 18: ``examples/librispeech_shaped_torch.py`` on ``LS_SPEAKERS``
+    x (``LS_UTTS`` + ``LS_TEST_PER``) utterances, then the project reopened
+    for the card-against-plain checks over its graphs.  Returns the
+    example's report with each stage's launch counts, the graphs' facts, the
+    aligner each stage took and a profiled decode's device busy share."""
+    import contextlib
+    import importlib
+
+    import numpy as np
+
+    from voicebridge_tpu_torch.config import FrameOptions, MfccOptions
+    from voicebridge_tpu_torch.project import Project
+    from voicebridge_tpu_torch.steps.decode import Decoder
+    from voicebridge_tpu_torch.utils.profiling import StageTimer
+
+    launches: dict = {}
+
+    class LaunchTimer(StageTimer):
+        """A StageTimer that also sums each stage's launch counts."""
+
+        @contextlib.contextmanager
+        def stage(self, name: str, audio_s: float = 0.0):
+            reset_launches()
+            with super().stage(name, audio_s):
+                yield
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+            total = launches.setdefault(name, {})
+            for k, n in launch_counts().items():
+                if n:
+                    total[k] = total.get(k, 0) + n
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    importlib.import_module("librispeech_shaped_torch").main(
+        [str(work), "--speakers", str(LS_SPEAKERS), "--utts", str(LS_UTTS),
+         "--test-per", str(LS_TEST_PER), "--device", str(device)], timer=LaunchTimer())
+    facts = json.loads((work / "report.json").read_text())
+    facts["launches"] = launches
+    facts["aligner"] = {name: aligner_of(n) for name, n in launches.items()
+                        if name.startswith(("train_", "align_"))}
+    # the same project reopened: each stage loads what the example wrote
+    proj = Project(work, waves_dir=work / "waves", ref_dict=work / "ref_dict.txt",
+                   name="librispeech_shaped", device=device)
+    proj.prepare_data(percentage_train=round(100 * LS_UTTS / (LS_UTTS + LS_TEST_PER)),
+                      order_ngram=3, idtype=0)
+    proj.prepare_dict_and_lang()
+    proj.make_features(MfccOptions(frame_opts=FrameOptions(samp_freq=16000.0, dither=1.0)))
+    for name in ("mono", "tri1", "tri2b"):
+        facts[f"ctm_rows_{name}"] = check_decode_artifacts(
+            proj.exp_dir / name / "decode", proj.test_data.utts)
+    models = {name: proj.load_model(name) for name in ("mono", "tri1")}
+    graphs = {name: proj.mkgraph(m, name) for name, m in models.items()}
+    test = proj.feats("test", "delta")
+    few = sorted(test, key=lambda u: -test[u].shape[0])[:LS_PARITY_UTTS]
+    t0 = time.perf_counter()
+    facts["graphs"] = {name: hclg_parity(torch, device, graphs[name], m,
+                                         {u: test[u] for u in few}, log)
+                       for name, m in models.items()}
+    facts["generic_parity"] = generic_parity(torch, device, proj, models["tri1"],
+                                             LS_PARITY_UTTS, log)
+    facts["parity_s"] = time.perf_counter() - t0
+    # every test utterance gets a finite best path over the tri1 graph
+    tri1, hclg1 = models["tri1"], graphs["tri1"]
+    utts, feats, nf = proj._test_batch(test)
+    paths = Decoder(hclg1, tri1.trans_model, tri1.am, device=device).decode_batch(utts, feats,
+                                                                                  nf)
+    check(len(paths) == len(utts) and all(np.isfinite(r.score) for r in paths),
+          "phase 18: a test utterance has no finite best path over the tri1 graph")
+    facts["test_frames"] = [int(nf.max()), int(nf.sum())]
+    if device.type == "cuda":  # more decodes, profiled
+        again, facts["decode_profile"] = device_busy(torch, lambda: proj.decode(tri1, hclg1))
+        check(round(again.best_wer.wer, 2) == facts["wer"]["tri1"]["wer"],
+              f"phase 18: the profiled tri1 decode gives {again.best_wer}, not "
+              f"{facts['wer']['tri1']}")
+    log(f"phase 18, Project at LibriSpeech-shaped width on {device}: {json.dumps(facts)}")
+    # the card runs LS_SPEAKERS, where the JAX package's WERs are known; a
+    # rehearsal on the CPU may run fewer speakers, and does not compare
+    if device.type == "cuda":
+        for name, w in facts["wer"].items():
+            check(w["wer"] <= JAX_LIBRISPEECH_WER[name] + 2.0,
+                  f"phase 18: {name} WER {w['wer']} is more than 2 points above the JAX "
+                  f"package's {JAX_LIBRISPEECH_WER[name]}")
+    return facts
+
+
 def run(device, width: Width, log=print) -> dict:
-    """Phases 2-16 on ``device``; returns the kernels report.  On a CPU
+    """Phases 2-18 on ``device``; returns the kernels report.  On a CPU
     device the wrappers take their plain versions, so this rehearses the
     control flow without kernels."""
     import torch
@@ -2723,12 +3056,10 @@ def run(device, width: Width, log=print) -> dict:
     kernels: dict = {}
     record = make_record(torch, kernels, log, device.type == "cuda")
     compare_kernels(torch, device, width, kernels, record, log)
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     kernels["gmm_loglikes"]["max_abs_err_yesno"] = decode_yesno(torch, device, log)
     launched(_build.launches, DECODE_KERNELS, "yes-no decode")
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     lattice_yesno(torch, device, log)
     launched(_build.launches, LATTICE_KERNELS, "yes-no lattice decode")
     launched(train_yesno(torch, device, log), TRAIN_KERNELS, "yes-no training")
@@ -2744,8 +3075,7 @@ def run(device, width: Width, log=print) -> dict:
     lattice = lattice_full_width(torch, device, width, log)
     launched(lattice["launches"], LATTICE_KERNELS, "the full-width lattice decode")
     kernels["gmm_loglikes"]["max_abs_err_lattice_features"] = lattice["k2_max_abs_err"]
-    for k in _build.launches:
-        _build.launches[k] = 0
+    reset_launches()
     nbest_yesno(torch, device, log)
     launched(_build.launches, NBEST_KERNELS, "yes-no N-best decode")
     nbest = nbest_full_width(torch, device, width, log)
@@ -2781,10 +3111,24 @@ def run(device, width: Width, log=print) -> dict:
     launched(sat["train"]["launches"], TRAIN_KERNELS, "the full-width SAT EM iteration")
     launched(sat["train"]["alimdl_launches"], ("gmm_stats",), "the full-width alimdl")
     launched(sat["decode"]["launches"], LATTICE_KERNELS, "the full-width fMLLR decode")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_project_") as work:
+        examples = project_examples(torch, device, Path(work), log)
+    for name in ("yesno", "full_pipeline"):
+        launched(examples[name]["launches"], PROJECT_KERNELS, f"the {name} example")
+        check(device.type != "cuda" or aligner_of(examples[name]["launches"]) != "none launched",
+              f"the {name} example launched no aligner")
+    launched(examples["yesno_reopened"]["launches"], LATTICE_KERNELS[1:],  # features loaded
+             "the reopened Yes-No project's decode")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_librispeech_") as work:
+        ls = project_librispeech(torch, device, Path(work), log)
+    ls_all = {k: sum(n.get(k, 0) for n in ls["launches"].values()) for k in _build.launches}
+    launched(ls_all, PROJECT_KERNELS, "phase 18's Project sequence")
     runs = (decode, train, lattice, nbest, generic, *rates.values(), tri["fixture"],
             tri["tri1"], tri["tri2b"], lda["train"], lda["decode"], tri["sat_fixture"],
             tri["delta_sat"], tri["lda_sat"], sat["train"],
-            {"launches": sat["train"]["alimdl_launches"]}, sat["decode"])
+            {"launches": sat["train"]["alimdl_launches"]}, sat["decode"], examples["yesno"],
+            examples["yesno_reopened"], examples["full_pipeline"],
+            {"launches": ls_all})
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -2793,6 +3137,7 @@ def run(device, width: Width, log=print) -> dict:
         "full_width": decode, "train": train, "lattice": lattice, "nbest": nbest,
         "generic": generic, "rates": rates, "tri": tri, "lda_train": lda["train"],
         "lda_decode": lda["decode"], "sat_train": sat["train"], "sat_decode": sat["decode"],
+        "examples": examples, "librispeech": ls,
         "device_functions": {**lda["device_functions"], **sat["device_functions"]}}
 
 
@@ -2860,6 +3205,36 @@ def main() -> int:
           f"({tri['tri2b']['aligner']}); SAT fixture words = the JAX package's for "
           f"{tri['sat_fixture']['utts']} test utterances; delta+SAT test WER "
           f"{tri['delta_sat']['wer']:.2f} %, LDA+MLLT+SAT {tri['lda_sat']['wer']:.2f} %")
+    ex = report.pop("examples")
+    print(f"Project examples on {card}: Yes-No WER {ex['yesno']['wer']:.2f} % in "
+          f"{ex['yesno']['wall_s']:.1f} s ({ex['yesno']['ctm_rows']} CTM rows checked); full "
+          f"pipeline WER " + ", ".join(f"{k} {w:.2f} % (JAX {ex['full_pipeline']['jax_wer'][k]:.2f})"
+                                       for k, w in ex["full_pipeline"]["wer"].items())
+          + f" in {ex['full_pipeline']['wall_s']:.1f} s")
+    ls = report.pop("librispeech")
+    corpus = ls["corpus"]
+    print(f"Project at LibriSpeech-shaped width on {card} (examples/librispeech_shaped_torch.py): "
+          f"{corpus['speakers']} speakers x ({LS_UTTS} + {LS_TEST_PER}) utterances, "
+          f"{corpus['audio_s']} audio s; WER "
+          + ", ".join(f"{k} {w['wer']:.2f} % (JAX {JAX_LIBRISPEECH_WER[k]})"
+                      for k, w in ls["wer"].items())
+          + f"; aligners {ls['aligner']}; device busy "
+          f"{100 * ls['decode_profile']['device_busy_share']:.1f} % of the profiled tri1 decode; "
+          f"card = plain versions over the mono and tri1 HCLGs "
+          f"({ls['graphs']['tri1']['parity']}) and the tri1 training graphs "
+          f"({ls['generic_parity']}) in {ls['parity_s']:.1f} s")
+    for name, g in ls["graphs"].items():
+        print(f"  HCLG({name}): {g['states']} states, {g['arcs']} arcs ({g['eps_free_arcs']} "
+              f"epsilon-free, in-degree up to {g['max_in_degree']}); forward plan "
+              f"{g['plan_rows']} rows of D = {g['plan_d']} (up to "
+              f"{g['plan_max_rows_per_state']} a state), backward plan "
+              f"{g['backward_plan_rows']} rows of D = {g['backward_plan_d']} (up to "
+              f"{g['backward_plan_max_rows_per_state']})")
+    print(f"  HCLGs of the ladder: {ls['hclg']}")
+    for name, st in ls["stages"].items():
+        rate = f", {st['audio_s_per_s']} audio-s/s" if "audio_s_per_s" in st else ""
+        print(f"  {name}: {st['wall_s']} s in {st['calls']} calls{rate}; launches "
+              f"{ls['launches'][name]}")
     for name, f in report.pop("device_functions").items():
         print(f"{name} on {card}: {f['ms']:.4f} ms device, {f['wall_ms']:.3f} ms wall, "
               f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}), max abs err {f['max_abs_err']:.3g}")

@@ -20,7 +20,9 @@ HOST_MODULES = [
     "fst.compose", "fst.context", "fst.determinize", "fst.epsilon", "fst.hmm_graph",
     "fst.lexicon", "fst.minimize", "fst.push", "fst.shortest", "fst.misc", "fst.hclg",
     "fst.native_bridge", "data.lang", "lm.arpa", "lm.ngram", "steps.score", "steps.mbr",
-    "models.treebuild",
+    "models.treebuild", "utils.wave", "data.prepare", "data.dict", "g2p.joint",
+    "lat.word_align", "steps.diagnostic", "testing.corpus", "testing.synthesis",
+    "utils.profiling",
 ]
 
 SENTENCES = [["YES", "NO", "YES"], ["NO", "NO"], ["YES"], ["NO", "YES", "YES", "NO"]]

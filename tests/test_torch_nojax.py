@@ -1,5 +1,5 @@
-"""The port and its chip smoke script import with jax and the JAX package
-unavailable, and the device checks refuse what they must."""
+"""The port, its chip smoke script and its examples import with jax and the
+JAX package unavailable, and the device checks refuse what they must."""
 
 import subprocess
 import sys
@@ -29,9 +29,14 @@ names = [m.name for m in pkgutil.walk_packages(voicebridge_tpu_torch.__path__,
                                                 "voicebridge_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-for name in ("transforms.fmllr", "steps.train_sat", "steps.decode_fmllr"):
+for name in ("transforms.fmllr", "steps.train_sat", "steps.decode_fmllr", "project",
+             "testing.corpus", "testing.synthesis", "utils.profiling"):
     assert "voicebridge_tpu_torch." + name in names, name
 import chip_smoke
+sys.path.insert(0, "examples")
+for name in ("yesno_synthetic_torch", "full_pipeline_synthetic_torch",
+             "librispeech_shaped_torch"):
+    importlib.import_module(name)
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 assert not (voicebridge_tpu_torch._build._lib), "importing must not build"
 print(len(names), "modules")
@@ -42,7 +47,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=False)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 66
+    assert int(res.stdout.split()[0]) >= 77
 
 
 def test_resolve_device():

@@ -28,6 +28,9 @@
   JAX package, or the card against the CPU) held to each other.
 * ``fmllr_stats_float64``: the fMLLR statistics' plain version in float64,
   which ``transforms/fmllr.acc_fmllr_stats`` is held to on the card.
+* ``synthesis`` / ``corpus`` (copies of ``voicebridge_tpu/testing``'s): the
+  formant-synthesized LibriSpeech-shaped corpus, ``make_corpus`` and
+  ``write_corpus``, with its lexicon ``LEXICON``.
 """
 
 from __future__ import annotations
@@ -38,25 +41,27 @@ from pathlib import Path
 
 import numpy as np
 
-from . import convert
-from .fst.core import Fst
-from .models.gmm import AmDiagGmm
-from .models.topology import HmmTopology
-from .models.transition import TransitionModel
-from .models.tree import load_tree
-from .steps.score import compute_wer_set
-from .utils.text import SymbolTable
+from .. import convert
+from ..fst.core import Fst
+from ..models.gmm import AmDiagGmm
+from ..models.topology import HmmTopology
+from ..models.transition import TransitionModel
+from ..models.tree import load_tree
+from ..steps.score import compute_wer_set
+from ..utils.text import SymbolTable
 
-from .ops.graph import NEG_INF, DenseGraph
+from ..ops.graph import NEG_INF, DenseGraph
+from .corpus import LEXICON, make_corpus, sample_sentence
+from .synthesis import Speaker, synth_utterance
 
-ASSET_DIR = Path(__file__).parent / "assets" / "yesno_mono"
-TRI2B_DIR = Path(__file__).parent / "assets" / "synth_tri2b"
-SAT_DIR = Path(__file__).parent / "assets" / "synth_sat"
+ASSET_DIR = Path(__file__).parent.parent / "assets" / "yesno_mono"
+TRI2B_DIR = Path(__file__).parent.parent / "assets" / "synth_tri2b"
+SAT_DIR = Path(__file__).parent.parent / "assets" / "synth_sat"
 
-__all__ = ["ASSET_DIR", "SAT_DIR", "TRI2B_DIR", "YesNoModel", "assert_models_close",
-           "compute_wer_set", "feature_scaled_am", "fmllr_stats_float64", "load_synth_sat",
-           "load_synth_tri2b", "load_yesno_mono", "random_am", "synth_decode_graph",
-           "synth_train_graph"]
+__all__ = ["ASSET_DIR", "LEXICON", "SAT_DIR", "Speaker", "TRI2B_DIR", "YesNoModel",
+           "assert_models_close", "compute_wer_set", "feature_scaled_am", "fmllr_stats_float64",
+           "load_synth_sat", "load_synth_tri2b", "load_yesno_mono", "make_corpus", "random_am",
+           "sample_sentence", "synth_decode_graph", "synth_train_graph", "synth_utterance"]
 
 
 @dataclass
