@@ -211,6 +211,29 @@ Phases, each of which must pass (any failure exits nonzero):
    sub-batch over the tri1 training graphs of the 4 utterances with the
    most states; both plans' rows and D are printed, and every test
    utterance must get a finite best path over the tri1 graph.
+19. The remaining frontends and speaker adaptation, each run counted (its
+   launch counts read just after it).  Silence probabilities: phase 18's
+   project reopened, its training split aligned with the tri1 model, then
+   ``get_prons``, ``estimate_silence_probs``, ``prepare_lang(silprobs=...)``,
+   ``mkgraph`` and one lattice decode of the test split: WER no more than 2
+   points above phase 18's tri1 WER.  Features: phase 7's waves through
+   ``PlpExtractor`` (K1 in ``mel_power`` mode, then the PLP tail),
+   ``FbankExtractor`` at 40 bins and ``SpectrogramExtractor``; K1's
+   ``mel_power`` rows (its own kernel entry, ``mfcc_mel_power``: the mel
+   energies as logs floored at FLT_EPS, and the log energy) and its
+   ``fbank`` rows are held to the plain version in float64 with the MFCC
+   tolerance and timed against their bytes bound, the PLP tail and the
+   spectrogram to float64 versions; ``make_features(pitch=True)`` on the
+   first ``PITCH_UTTS`` waves against the CPU.  Adaptation at phase 16's
+   shape (the 2000 x 5 x 40 GMM, 8 speakers, 76,800 frames): a regression
+   tree of 8 base classes, per speaker ``acc_regtree_fmllr_stats``,
+   ``estimate_regtree_fmllr`` and ``regtree_fmllr_loglikes`` (K2 once per
+   regression class), ``acc_regtree_mllr_stats`` (K6), a basis trained from
+   the speakers' fMLLR statistics, and a 1 x 512 x 40 full-covariance GMM
+   (``FullGmm.from_diag``) through ``loglikes_full`` and ``acc_full_stats``
+   over all frames; then each held to a float64 version and timed against
+   its bound (K2's per-class launches each to K2's plain version in
+   float64).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
@@ -271,7 +294,8 @@ K1_SIZES = {256: (8000.0, True), 400: (16000.0, False), 512: (16000.0, True),
             1024: (22050.0, True), 2048: (48000.0, True)}
 K1_RATES = (22050.0, 48000.0)  # make_features on the card at these rates (phase 13)
 # (rtol, atol); K6's atol is scaled by each accumulator's largest magnitude
-TOL = {"mfcc_frames": (2e-4, 2e-3), "gmm_loglikes": (2e-5, 2e-4),
+TOL = {"mfcc_frames": (2e-4, 2e-3), "mfcc_mel_power": (2e-4, 2e-3),
+       "gmm_loglikes": (2e-5, 2e-4),
        "viterbi_step": (0.0, 0.0), "viterbi_step_backward": (0.0, 0.0),
        "align_forward": (0.0, 0.0),
        "align_backtrace": (0.0, 0.0), "gmm_stats": (1e-5, 1e-5), "lattice_fb": (0.0, 0.0),
@@ -280,6 +304,9 @@ TOL = {"mfcc_frames": (2e-4, 2e-3), "gmm_loglikes": (2e-5, 2e-4),
        "backtrace_nbest": (0.0, 0.0)}
 SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
                            "voicebridge_tpu/ops/pallas_mfcc.py:57"),
+           # K1 in mel_power mode, PLP's front half (counted apart)
+           "mfcc_mel_power": ("voicebridge_tpu_torch/csrc/mfcc.cu",
+                              "voicebridge_tpu/ops/pallas_mfcc.py:57"),
            "gmm_loglikes": ("voicebridge_tpu_torch/csrc/gmm_loglik.cu",
                             "voicebridge_tpu/ops/pallas_gmm.py:81"),
            "viterbi_step": ("voicebridge_tpu_torch/csrc/viterbi_step.cu",
@@ -404,11 +431,13 @@ def nbytes(*tensors) -> int:
 def k1_ops(frames: int, ws: int, n_fft: int, tables) -> float:
     """K1's operations, counted from the work the chain needs: per frame the
     window chain, a real FFT (an N/2-point complex FFT and its split) and
-    the power spectrum, the mel's nonzeros, the DCT and the lifter."""
+    the power spectrum, the mel's nonzeros, and in ``mfcc`` mode the DCT
+    and the lifter."""
     bins, ceps = tables.dct_t.shape
     half = n_fft // 2
+    dct = 2 * bins * ceps + ceps if tables.mode == "mfcc" else 0
     return frames * (5 * ws + 5 * half * math.log2(half) + 13 * half
-                     + 2 * int(tables.mel_len.sum()) + 2 * bins * ceps + ceps)
+                     + 2 * int(tables.mel_len.sum()) + dct)
 
 
 def k2_plain64(x, w):
@@ -2118,12 +2147,14 @@ class IdentityTransitions:
         """The synthetic graphs' arc scores stay as drawn."""
 
 
-def device_function(torch, name: str, pairs, fn, work, log) -> dict:
-    """One device function of the LDA or SAT path held to its float64 plain
-    version: each (got, ref, rtol, atol) of ``pairs`` within its tolerance
-    (0, 0: bit-equal; ``atol`` a number or a tensor of one per entry), with
-    its wall time of one call, its device time (CUDA events) and its bound
-    from ``work`` = (bytes, operations at the float32 rate)."""
+def device_function(torch, name: str, pairs, fn, work, log,
+                    ops_per_s: float = FP32_OPS_PER_S) -> dict:
+    """One device function of a slice held to its float64 plain version:
+    each (got, ref, rtol, atol) of ``pairs`` within its tolerance (0, 0:
+    bit-equal; ``atol`` a number or a tensor of one per entry), with its
+    wall time of one call, its device time (CUDA events) and its bound from
+    ``work`` = (bytes, operations at ``ops_per_s``, by default the float32
+    rate)."""
     err, ok, errs = 0.0, True, []
     for g, r, rtol, atol in pairs:
         g = torch.as_tensor(g).double()
@@ -2141,7 +2172,7 @@ def device_function(torch, name: str, pairs, fn, work, log) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    byte_ms, op_ms = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / FP32_OPS_PER_S
+    byte_ms, op_ms = 1e3 * work[0] / HBM_BYTES_PER_S, 1e3 * work[1] / ops_per_s
     entry = {"max_abs_err": err, "max_abs_errs": errs,
              "tolerances": [[p[2], float(torch.as_tensor(p[3]).max())] for p in pairs],
              "wall_ms": wall_ms, "ms": cuda_ms(torch, fn) if timed else None,
@@ -2948,6 +2979,20 @@ def generic_parity(torch, device, proj, model, n_utts: int, log) -> dict:
             "band_refusal": None if aset.band is not None else aset.band_refusal}
 
 
+def reopen_librispeech(work: Path, device):
+    """Phase 18's project reopened: each stage loads what the example wrote."""
+    from voicebridge_tpu_torch.config import FrameOptions, MfccOptions
+    from voicebridge_tpu_torch.project import Project
+
+    proj = Project(work, waves_dir=work / "waves", ref_dict=work / "ref_dict.txt",
+                   name="librispeech_shaped", device=device)
+    proj.prepare_data(percentage_train=round(100 * LS_UTTS / (LS_UTTS + LS_TEST_PER)),
+                      order_ngram=3, idtype=0)
+    proj.prepare_dict_and_lang()
+    proj.make_features(MfccOptions(frame_opts=FrameOptions(samp_freq=16000.0, dither=1.0)))
+    return proj
+
+
 def project_librispeech(torch, device, work: Path, log) -> dict:
     """Phase 18: ``examples/librispeech_shaped_torch.py`` on ``LS_SPEAKERS``
     x (``LS_UTTS`` + ``LS_TEST_PER``) utterances, then the project reopened
@@ -2959,8 +3004,6 @@ def project_librispeech(torch, device, work: Path, log) -> dict:
 
     import numpy as np
 
-    from voicebridge_tpu_torch.config import FrameOptions, MfccOptions
-    from voicebridge_tpu_torch.project import Project
     from voicebridge_tpu_torch.steps.decode import Decoder
     from voicebridge_tpu_torch.utils.profiling import StageTimer
 
@@ -2989,13 +3032,7 @@ def project_librispeech(torch, device, work: Path, log) -> dict:
     facts["launches"] = launches
     facts["aligner"] = {name: aligner_of(n) for name, n in launches.items()
                         if name.startswith(("train_", "align_"))}
-    # the same project reopened: each stage loads what the example wrote
-    proj = Project(work, waves_dir=work / "waves", ref_dict=work / "ref_dict.txt",
-                   name="librispeech_shaped", device=device)
-    proj.prepare_data(percentage_train=round(100 * LS_UTTS / (LS_UTTS + LS_TEST_PER)),
-                      order_ngram=3, idtype=0)
-    proj.prepare_dict_and_lang()
-    proj.make_features(MfccOptions(frame_opts=FrameOptions(samp_freq=16000.0, dither=1.0)))
+    proj = reopen_librispeech(work, device)
     for name in ("mono", "tri1", "tri2b"):
         facts[f"ctm_rows_{name}"] = check_decode_artifacts(
             proj.exp_dir / name / "decode", proj.test_data.utts)
@@ -3034,8 +3071,406 @@ def project_librispeech(torch, device, work: Path, log) -> dict:
     return facts
 
 
+PITCH_UTTS = 32  # phase 19's make_features(pitch=True) utterances (pitch is host work)
+REGTREE_CLASSES = 8  # base classes of phase 19's regression tree
+FULL_UBM = (1, 512)  # phase 19's full-covariance GMM, pdfs x Gaussians (train_full_ubm.sh)
+
+
+def float64_tables(tables):
+    """K1's tables with the plain version's float arrays in float64."""
+    return dataclasses.replace(tables, **{f: getattr(tables, f).double()
+                                          for f in ("window", "mel_t", "dct_t", "lifter")})
+
+
+def frontends_full_width(torch, device, width: Width, record, results: dict, log) -> dict:
+    """Phase 19, features: phase 7's waves through ``PlpExtractor`` (its
+    defaults: K1 in ``mel_power`` mode, then the PLP tail in torch),
+    ``FbankExtractor`` at 40 bins (K1 in ``fbank`` mode) and
+    ``SpectrogramExtractor``, counted; then K1's ``mel_power`` rows (as logs
+    floored at FLT_EPS, and the log energy) and ``fbank`` rows held to
+    their plain versions in float64, the PLP tail and the spectrogram to
+    float64 versions, each timed against its bound.  Then
+    ``make_features(pitch=True)`` on the first ``PITCH_UTTS`` waves against
+    the CPU.  Returns the launch counts, walls and device functions."""
+    import numpy as np
+
+    from voicebridge_tpu_torch.config import FrameOptions, MelOptions, MfccOptions, PlpOptions
+    from voicebridge_tpu_torch.ops import features, mfcc_kernel
+    from voicebridge_tpu_torch.steps.make_feats import make_features
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    waves = synth_waves(width)
+    wave_t = torch.from_numpy(np.stack(list(waves.values()))).to(device)
+    ns = torch.full((width.batch,), wave_t.shape[1])
+    fo = FrameOptions(samp_freq=width.samp_freq, dither=0.0)
+    exts = {"plp": features.PlpExtractor(PlpOptions(frame_opts=fo), device=device),
+            "fbank": features.FbankExtractor(MfccOptions(frame_opts=fo,
+                                                         mel_opts=MelOptions(num_bins=40)),
+                                             device=device),
+            "spectrogram": features.SpectrogramExtractor(MfccOptions(frame_opts=fo),
+                                                         device=device)}
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = {name: ext.batched(wave_t, ns, width.frames) for name, ext in exts.items()}
+    sync()
+    facts = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+             "audio_s": width.batch * width.frames * 0.01}
+    for name, (f, c) in outs.items():
+        check(tuple(f.shape) == (width.batch, width.frames, exts[name].dim)
+              and bool((c == width.frames).all()) and bool(torch.isfinite(f).all()),
+              f"phase 19: {name} features of shape {tuple(f.shape)} or not finite")
+    del outs
+    # the card against float64, one call each outside the counted run
+    frames = features.extract_frames(wave_t, width.frames, fo).reshape(-1, fo.window_size)
+    frames = frames.contiguous()
+    n, ws, n_fft = frames.shape[0], fo.window_size, fo.padded_window_size
+    eps = features.FLT_EPS
+
+    def logs(rows):
+        return torch.cat([torch.log(rows[:, :-1].double().clamp_min(eps)),
+                          rows[:, -1:].double()], dim=1)
+
+    plp = exts["plp"].tables
+    got = mfcc_kernel.mfcc_frames(frames, plp.k1)
+    ref64 = features.mfcc_from_frames(frames.double(), float64_tables(plp.k1))
+    record("mfcc_mel_power", [(logs(got), logs(ref64))],
+           lambda: mfcc_kernel.mfcc_frames(frames, plp.k1),
+           lambda: features.mfcc_from_frames(frames, plp.k1),
+           (nbytes(frames, got), k1_ops(n, ws, n_fft, plp.k1)))
+    p64 = features.PlpTables(plp.opts, float64_tables(plp.k1), plp.eql.double(),
+                             plp.idft.double(), plp.lifter.double())
+    nb, nc = plp.opts.mel_opts.num_bins, plp.opts.num_ceps
+    order = plp.opts.lpc_order
+    fns = {"plp_tail": device_function(
+        torch, "plp_tail", [(features.plp_tail(got, plp), features.plp_tail(ref64, p64),
+                             *TOL["mfcc_frames"])],
+        lambda: features.plp_tail(got, plp),
+        # rows in, features out; per frame the weights and compression, the
+        # IDFT product, Levinson-Durbin and the cepstrum recursion
+        (nbytes(got) + 4 * n * nc, n * (3 * nb + 2 * (order + 1) * (nb + 2)
+                                        + 6 * order * order + 2 * nc)), log)}
+    del got, ref64
+    fb = exts["fbank"].tables
+    got = mfcc_kernel.mfcc_frames(frames, fb)
+    ref64 = features.mfcc_from_frames(frames.double(), float64_tables(fb))
+    results["mfcc_frames"]["modes"] = {"fbank_40_bins": record(
+        "mfcc_frames", [(got, ref64)], lambda: mfcc_kernel.mfcc_frames(frames, fb),
+        lambda: features.mfcc_from_frames(frames, fb),
+        (nbytes(frames, got), k1_ops(n, ws, n_fft, fb)), what=" in fbank mode, 40 bins")}
+    del got, ref64
+    spec = exts["spectrogram"]
+    # as powers, rtol 2e-4 plus 1e-5 of the frame's largest bin: a float32
+    # FFT rounds on the scale of the frame's power, so the log of a bin far
+    # below it (the DC bin after DC removal) is ill-conditioned
+    got = features.spectrogram_from_frames(frames, spec.opts, spec.window)
+    ref = features.spectrogram_from_frames(frames.double(), spec.opts,
+                                           spec.window.double()).exp()
+    fns["spectrogram"] = device_function(
+        torch, "spectrogram", [(got.double().exp(), ref, 2e-4, 1e-5 * ref.amax(1, keepdim=True))],
+        lambda: features.spectrogram_from_frames(frames, spec.opts, spec.window),
+        (nbytes(frames, got), n * (5 * ws + 5 * n_fft * math.log2(n_fft) + 4 * (n_fft // 2))),
+        log)
+    del got, ref, frames, wave_t
+    # pitch: host work per utterance, pasted onto the card's MFCC before CMVN
+    sub = {u: waves[u] for u in sorted(waves)[:PITCH_UTTS]}
+    utt2spk = {u: f"spk{i % SAT_SPEAKERS}" for i, u in enumerate(sub)}
+    opts = MfccOptions(frame_opts=fo)
+    reset_launches()
+    t0 = time.perf_counter()
+    pitched = make_features(sub, utt2spk, opts, device=device, pitch=True)
+    sync()
+    facts["pitch"] = {"utts": len(sub), "wall_s": time.perf_counter() - t0,
+                      "launches": launch_counts(), "audio_s": len(sub) * width.frames * 0.01}
+    cpu = make_features(sub, utt2spk, opts, device="cpu", pitch=True)
+    err = 0.0
+    for u, f in pitched.items():
+        got, want = f.double().cpu(), cpu[u].double()
+        # the pitch track ends before the MFCC frames do (its window is
+        # longer): paste-feats keeps the shorter
+        check(got.shape == want.shape and got.shape[1] == 48 and got.shape[0] > 0,
+              f"phase 19: make_features(pitch=True) gives {tuple(got.shape)} for {u}")
+        err = max(err, float((got - want).abs().max()))
+        check(bool(torch.allclose(got, want, rtol=2e-4, atol=2e-3)),
+              f"phase 19: make_features(pitch=True) differs from the CPU by {err} on {u}")
+    facts["pitch"]["max_abs_err_vs_cpu"] = err
+    facts["device_functions"] = fns
+    shown = {k: v for k, v in facts.items() if k != "device_functions"}
+    log(f"phase 19, features on {device}: {json.dumps(shown)}")
+    return facts
+
+
+def regtree_stats_float64(torch, am, x, pdf, w, bclass_of, num_classes: int):
+    """``acc_regtree_fmllr_stats``'s float64 version: per class c, the
+    posteriors of each row's pdf's Gaussians in c, then beta, K and G as one
+    product each over the rows; with each entry's sum of the terms'
+    magnitudes (the scale of a float32 sum's rounding)."""
+    import numpy as np
+
+    dev = x.device
+    x = x.double()
+    pdf = torch.as_tensor(pdf).to(dev, torch.int64)
+    w = torch.as_tensor(w).to(dev, torch.float64)
+    miv = torch.from_numpy(am.means_invvars).to(dev, torch.float64)[pdf]
+    iv = torch.from_numpy(am.inv_vars).to(dev, torch.float64)[pdf]
+    gc = torch.from_numpy(np.where(np.isfinite(am.gconsts), am.gconsts, -np.inf)).to(
+        dev, torch.float64)[pdf]
+    gamma = torch.softmax(gc + (miv * x[:, None]).sum(-1) - 0.5 * (iv * x[:, None] ** 2).sum(-1),
+                          dim=1) * w[:, None]
+    cls = torch.from_numpy(np.asarray(bclass_of)).to(dev, torch.int64)[pdf]
+    xhat = torch.cat([x, x.new_ones((len(x), 1))], dim=1)
+    n, d = x.shape
+    out = [x.new_zeros(num_classes), x.new_zeros((num_classes, d, d + 1)),
+           x.new_zeros((num_classes, d, d + 1, d + 1)), x.new_zeros((num_classes, d, d + 1)),
+           x.new_zeros((num_classes, d, d + 1, d + 1))]
+    for c in range(num_classes):
+        gq = torch.where(cls == c, gamma, 0.0)
+        w_miv, w_iv = (gq[:, :, None] * miv).sum(1), (gq[:, :, None] * iv).sum(1)
+        out[0][c] = gq.sum()
+        for i, f in ((1, lambda a: a), (3, torch.abs)):
+            out[i][c] = f(w_miv).T @ f(xhat)
+            out[i + 1][c] = ((w_iv[:, :, None] * f(xhat)[:, None, :]).reshape(n, -1).T
+                             @ f(xhat)).view(d, d + 1, d + 1)
+    return out
+
+
+def adaptation_full_width(torch, device, width: Width, log) -> dict:
+    """Phase 19, adaptation at phase 16's shape: a 2000 x 5 x 40 GMM,
+    ``SAT_SPEAKERS`` speakers of phase 8's utterances (76,800 frames) drawn
+    from it on aligned pdfs and warped per speaker by a known affine
+    transform.  Counted: the regression tree (``REGTREE_CLASSES`` base
+    classes), per speaker ``acc_regtree_fmllr_stats``,
+    ``estimate_regtree_fmllr`` and ``regtree_fmllr_loglikes`` (K2 a class),
+    ``acc_regtree_mllr_stats`` over all frames (K6) and its estimate, the
+    speakers' fMLLR statistics and a basis trained from them with one
+    speaker's coefficients, and a ``FULL_UBM`` full-covariance GMM made by
+    ``FullGmm.from_diag`` with ``loglikes_full`` and ``acc_full_stats`` over
+    all frames.  Then each device function held to a float64 version and
+    timed against its bound: the regression-tree fMLLR statistics of one
+    speaker; ``regtree_fmllr_loglikes`` over all frames with one speaker's
+    transforms, each class's K2 launch against K2's plain version in
+    float64 and the whole against the JAX formulation in float64; the MLLR
+    statistics; both full-covariance functions."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import convert
+    from voicebridge_tpu_torch.models.full_gmm import (FullGmm, acc_full_stats, loglikes_full,
+                                                       pack_full_gmm)
+    from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels
+    from voicebridge_tpu_torch.testing import feature_scaled_am
+    from voicebridge_tpu_torch.transforms import basis_fmllr as B
+    from voicebridge_tpu_torch.transforms import fmllr as F
+    from voicebridge_tpu_torch.transforms import regtree as R
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    b, t, d = width.train_batch, width.train_frames, 40
+    n, p, m = b * t, width.num_pdfs, width.max_mix
+    rng = np.random.default_rng(19)
+    am = feature_scaled_am(np.zeros(d), np.ones(d), p, m, seed=19)
+    pdf = rng.integers(0, p, n).astype(np.int32)
+    mix = rng.integers(0, m, n)
+    clean = am.means()[pdf, mix] + rng.standard_normal((n, d)) * np.sqrt(
+        am.variances()[pdf, mix])
+    spk = np.repeat(np.arange(b) % SAT_SPEAKERS, t)
+    eye = np.concatenate([np.eye(d), np.zeros((d, 1))], axis=1)
+    warp = eye + 0.05 * rng.standard_normal((SAT_SPEAKERS, d, d + 1))
+    x_np = (np.einsum("nde,ne->nd", warp[spk, :, :d], clean) + warp[spk, :, d]).astype(np.float32)
+    x = torch.from_numpy(x_np).to(device)
+    w = np.ones(n, np.float32)
+    params = gmm_kernels.pack_gmm(am, device)
+    rows = [np.flatnonzero(spk == s) for s in range(SAT_SPEAKERS)]
+    facts: dict = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    tree = R.build_regression_tree(am.means(), am.weights, REGTREE_CLASSES)
+    facts["tree_s"] = time.perf_counter() - t0
+    per_spk, host_s = [], 0.0
+    for s, r in enumerate(rows):
+        stats = R.acc_regtree_fmllr_stats(params, am.means(), am.inv_vars, x[r], pdf[r], w[r],
+                                          tree.bclass_of, tree.num_leaves, device=device)
+        t1 = time.perf_counter()
+        trans, l2c, imprs = R.estimate_regtree_fmllr(tree, *[a.cpu().numpy() for a in stats])
+        host_s += time.perf_counter() - t1
+        ll = R.regtree_fmllr_loglikes(params, x[r], trans, l2c, tree.bclass_of)
+        check(np.isfinite(trans).all() and all(i >= 0 for i in imprs)
+              and bool(torch.isfinite(ll[:, :p]).all()),
+              f"phase 19: speaker {s}'s regression-tree fMLLR is not finite or worsens "
+              f"({imprs})")
+        per_spk.append((trans, l2c, imprs))
+    occ, xbar = R.acc_regtree_mllr_stats(params, x, pdf, w)
+    mllr, mllr_l2c = R.estimate_regtree_mllr(tree, occ, xbar, am.means(), am.inv_vars)
+    check(np.isfinite(mllr).all(), "phase 19: an MLLR transform is not finite")
+    beta, k, g = F.acc_fmllr_stats(params, am.means(), am.inv_vars, x, pdf, w, spk,
+                                   SAT_SPEAKERS, device=device)
+    t1 = time.perf_counter()
+    basis = B.train_fmllr_basis(*[a.cpu().numpy() for a in (beta, k, g)])
+    basis_s = time.perf_counter() - t1
+    wb, impr_b, n_b = B.estimate_fmllr_basis(basis, float(beta[0]), k[0].cpu().numpy(),
+                                             g[0].cpu().numpy())
+    check(np.isfinite(wb).all() and impr_b >= 0, f"phase 19: basis fMLLR worsens ({impr_b})")
+    ubm = FullGmm.from_diag(feature_scaled_am(np.zeros(d), np.ones(d), *FULL_UBM, seed=20))
+    packed = pack_full_gmm(ubm, device)
+    ll_full = loglikes_full(packed, x)
+    zeros = np.zeros(n, np.int32)
+    full_stats = acc_full_stats(packed, x, zeros, FULL_UBM[0])
+    sync()
+    facts.update(wall_s=time.perf_counter() - t0, launches=launch_counts(),
+                 regtree_estimate_host_s=host_s, basis_train_host_s=basis_s,
+                 classes=[len(tr) for tr, _, _ in per_spk],
+                 imprs=[list(map(float, im)) for _, _, im in per_spk],
+                 basis={"size": basis.size, "coefficients": n_b, "impr": impr_b},
+                 mllr_classes=int(mllr.shape[0]))
+    check(bool(torch.isfinite(ll_full).all()), "phase 19: full-covariance loglikes not finite")
+    del ll_full, full_stats
+    # ---- the card against float64 ----
+    fns: dict = {}
+    r0 = rows[0]
+    x0, e = x[r0], d + 1
+    got = R.acc_regtree_fmllr_stats(params, am.means(), am.inv_vars, x0, pdf[r0], w[r0],
+                                    tree.bclass_of, tree.num_leaves, device=device)
+    ref = regtree_stats_float64(torch, am, x0, pdf[r0], w[r0], tree.bclass_of,
+                                tree.num_leaves)
+    c, n0 = tree.num_leaves, len(r0)
+    fns["acc_regtree_fmllr_stats"] = device_function(
+        torch, "acc_regtree_fmllr_stats (one speaker)",
+        [(got[0], ref[0], 1e-6, 0.0), (got[1], ref[1], 1e-4, 1e-4 * ref[3]),
+         (got[2], ref[2], 1e-4, 1e-4 * ref[4])],
+        lambda: R.acc_regtree_fmllr_stats(params, am.means(), am.inv_vars, x0, pdf[r0],
+                                          w[r0], tree.bclass_of, tree.num_leaves,
+                                          device=device),
+        # rows, their pdfs' parameters and the statistics; per class the
+        # collapsed statistics and the K and G products, the posteriors once
+        (n0 * (4 * d + 8) + 4 * p * m * (2 * d + 1) + 4 * c * (1 + d * e + d * e * e),
+         c * (2 * n0 * d * e * e + 2 * n0 * d * e + 4 * n0 * m * d) + 10 * n0 * m * d), log)
+    del got, ref
+    trans, l2c, _ = per_spk[0]
+    wk = convert.kernel_params_from_am(am, device)
+    cls = torch.from_numpy(R.class_of_gaussians(tree.bclass_of, l2c)).to(device)
+    tr = torch.from_numpy(trans).to(device)
+    k2_err = 0.0
+    for q in range(len(trans)):  # each class's K2 launch against K2 in float64
+        w_q, active = R.class_weights(wk, cls, q)
+        x_q = torch.addmm(tr[q, :, -1], x, tr[q, :, :-1].T).contiguous()
+        got_q, ref_q = gmm_kernel.loglikes(x_q, w_q)[:, active], k2_plain64(x_q, w_q)[:, active]
+        k2_err = max(k2_err, float((got_q.double() - ref_q).abs().max()))
+        check(bool(torch.allclose(got_q.double(), ref_q, rtol=TOL["gmm_loglikes"][0],
+                                  atol=TOL["gmm_loglikes"][1])),
+              f"phase 19: K2 on regression class {q} disagrees with its float64 plain "
+              f"version ({k2_err})")
+        del w_q, x_q, got_q, ref_q
+    got = R.regtree_fmllr_loglikes(params, x, trans, l2c, tree.bclass_of)
+    p64 = gmm_kernels.GmmParams(params.w_matrix.double(), params.gconsts.double())
+    ref = torch.cat([R.regtree_fmllr_loglikes_plain(p64, x[lo:lo + 2048].double(), trans, l2c,
+                                                    tree.bclass_of)
+                     for lo in range(0, n, 2048)])
+    kp = gmm_kernel.pack_weights(wk)[0].shape[1]
+    entry = device_function(
+        torch, "regtree_fmllr_loglikes", [(got, ref, *TOL["gmm_loglikes"])],
+        lambda: R.regtree_fmllr_loglikes(params, x, trans, l2c, tree.bclass_of),
+        # per class K2's bytes and 3xTF32 products (the transforms' own
+        # products, 2 n D E a class in float32, are a thousandth of these)
+        (len(trans) * (nbytes(x, wk) + 8 * n * p), len(trans) * 3 * 2 * n * p * m * kp), log,
+        ops_per_s=TF32_OPS_PER_S)
+    entry.update(classes=len(trans), k2_per_class_max_abs_err=k2_err)
+    fns["regtree_fmllr_loglikes"] = entry
+    del got, ref, wk
+    pdf_t = torch.from_numpy(pdf).to(device)
+    ref = gmm_kernels.acc_gmm_stats_aligned(p64, x.double(), pdf_t, p,
+                                            torch.ones(n, dtype=torch.float64, device=device))
+    fns["acc_regtree_mllr_stats"] = device_function(
+        torch, "acc_regtree_mllr_stats (K6)",
+        [(torch.from_numpy(occ).to(device), ref[0], 1e-5, 1e-5 * float(ref[0].abs().max())),
+         (torch.from_numpy(xbar).to(device), ref[1], 1e-5, 1e-5 * float(ref[1].abs().max()))],
+        lambda: R.acc_regtree_mllr_stats(params, x, pdf, w),
+        (nbytes(x) * 2 + 8 * n + 4 * p * m * (2 * d + 1) * 2, 8 * n * m * d), log)
+    del ref
+    f64 = {key: val.double() for key, val in packed.items()}
+    pu, mu = FULL_UBM
+    x64 = x.double()
+    fns["loglikes_full"] = device_function(
+        torch, "loglikes_full", [(loglikes_full(packed, x), loglikes_full(f64, x64),
+                                  *TOL["gmm_loglikes"])],
+        lambda: loglikes_full(packed, x),
+        # frames in, loglikes out, the precisions; the quadratic form and
+        # the linear term per (frame, Gaussian)
+        (nbytes(x, packed["ic"], packed["ic_mu"]) + 4 * n * pu,
+         n * pu * mu * (2 * d * d + 4 * d + 4)), log)
+    got = acc_full_stats(packed, x, zeros, pu)
+    ref = acc_full_stats(f64, x64, zeros, pu)
+    # float32 sums over all frames: rtol 1e-5, atol 1e-5 of the largest entry
+    fns["acc_full_stats"] = device_function(
+        torch, "acc_full_stats",
+        [(a, r, 1e-5, 1e-5 * float(r.abs().max())) for a, r in zip(got, ref)],
+        lambda: acc_full_stats(packed, x, zeros, pu),
+        (nbytes(x, packed["ic"], *got), n * mu * (4 * d * d + 6 * d + 8)), log)
+    del got, ref, x64
+    facts["device_functions"] = fns
+    log(f"phase 19, adaptation at phase 16's shape on {device}: "
+        f"{json.dumps({k: v for k, v in facts.items() if k != 'device_functions'})}")
+    return facts
+
+
+def silprob_full_width(torch, device, work: Path, ls: dict, log) -> dict:
+    """Phase 19, silence probabilities: phase 18's project reopened, its
+    training split aligned again with its tri1 model (the recipe keeps its
+    alignments in memory; the same call, whose aligners are deterministic,
+    gives them back), then ``get_prons``, ``estimate_silence_probs``,
+    ``prepare_lang(silprobs=...)``, ``mkgraph`` and one lattice decode of the
+    test split with the sweep (``Project.decode``), counted: its WER within
+    2 points of phase 18's tri1 WER."""
+    from voicebridge_tpu_torch.config import LangOptions
+    from voicebridge_tpu_torch.data.dict import prepare_dict, read_ref_dict
+    from voicebridge_tpu_torch.data.lang import prepare_lang, validate_lang
+    from voicebridge_tpu_torch.fst.hclg import mkgraph
+    from voicebridge_tpu_torch.fst.lexicon import silprobs_from_stats
+    from voicebridge_tpu_torch.lm.arpa import arpa_to_fst
+    from voicebridge_tpu_torch.steps.get_prons import estimate_silence_probs, get_prons
+
+    proj = reopen_librispeech(work, device)
+    tri1, lang = proj.load_model("tri1"), proj.lang
+    train = proj.train_data
+    vocab = sorted({w for data in (train, proj.test_data) for u in data.utts
+                    for w in data.text[u]})
+    lexicon, _ = prepare_dict(vocab, read_ref_dict(work / "ref_dict.txt"), ["SIL"], "SIL",
+                              proj.oov_word)
+    reset_launches()
+    t0 = time.perf_counter()
+    ali = proj.align(tri1)
+    pron_counts, sil_stats = get_prons(ali, {u: list(train.text[u]) for u in train.utts},
+                                       tri1.trans_model, lang, lexicon)
+    sp = estimate_silence_probs(sil_stats)
+    lang2 = prepare_lang(lexicon, ["SIL"], "SIL", LangOptions(oov_word=proj.oov_word),
+                         silprobs=silprobs_from_stats(sil_stats, sp["overall"]))
+    hclg = mkgraph(lang2, tri1.tree, tri1.trans_model,
+                   arpa_to_fst(proj.arpa, lang2.words.id, lang2.word_disambig_id))
+    res = proj.decode(tri1, hclg)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    facts = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+             "wer": res.best_wer.wer, "tri1_wer": ls["wer"]["tri1"]["wer"],
+             "overall_sil_prob": sp["overall"], "prons": sum(pron_counts.values()),
+             "hclg_states": hclg.num_states}
+    log(f"phase 19, silence probabilities on {device}: {json.dumps(facts)}")
+    check(list(lang2.words.items()) == list(lang.words.items())
+          and list(lang2.phones.items()) == list(lang.phones.items()) and not validate_lang(lang2),
+          "phase 19: the silprob lang's tables differ from the project's, or it is not valid")
+    check(pron_counts and 0.0 < sp["overall"] < 1.0,
+          f"phase 19: no pronunciations counted or silence probability {sp['overall']}")
+    check(facts["wer"] <= facts["tri1_wer"] + 2.0,
+          f"phase 19: the silprob decode's WER {facts['wer']} is more than 2 points above "
+          f"phase 18's tri1 WER {facts['tri1_wer']}")
+    return facts
+
+
 def run(device, width: Width, log=print) -> dict:
-    """Phases 2-18 on ``device``; returns the kernels report.  On a CPU
+    """Phases 2-19 on ``device``; returns the kernels report.  On a CPU
     device the wrappers take their plain versions, so this rehearses the
     control flow without kernels."""
     import torch
@@ -3121,14 +3556,24 @@ def run(device, width: Width, log=print) -> dict:
              "the reopened Yes-No project's decode")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_librispeech_") as work:
         ls = project_librispeech(torch, device, Path(work), log)
+        t19 = time.perf_counter()
+        silprob = silprob_full_width(torch, device, Path(work), ls, log)
     ls_all = {k: sum(n.get(k, 0) for n in ls["launches"].values()) for k in _build.launches}
     launched(ls_all, PROJECT_KERNELS, "phase 18's Project sequence")
+    launched(silprob["launches"], LATTICE_KERNELS[1:], "phase 19's silprob decode")
+    fronts = frontends_full_width(torch, device, width, record, kernels, log)
+    launched(fronts["launches"], ("mfcc_frames", "mfcc_mel_power"), "phase 19's extractors")
+    launched(fronts["pitch"]["launches"], ("mfcc_frames",), "phase 19's make_features(pitch)")
+    adapt = adaptation_full_width(torch, device, width, log)
+    launched(adapt["launches"], ("gmm_loglikes", "gmm_stats"), "phase 19's adaptation")
+    phase19_s = time.perf_counter() - t19
+    log(f"phase 19 on {device}: {phase19_s:.1f} s")
     runs = (decode, train, lattice, nbest, generic, *rates.values(), tri["fixture"],
             tri["tri1"], tri["tri2b"], lda["train"], lda["decode"], tri["sat_fixture"],
             tri["delta_sat"], tri["lda_sat"], sat["train"],
             {"launches": sat["train"]["alimdl_launches"]}, sat["decode"], examples["yesno"],
             examples["yesno_reopened"], examples["full_pipeline"],
-            {"launches": ls_all})
+            {"launches": ls_all}, silprob, fronts, fronts["pitch"], adapt)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -3138,7 +3583,11 @@ def run(device, width: Width, log=print) -> dict:
         "generic": generic, "rates": rates, "tri": tri, "lda_train": lda["train"],
         "lda_decode": lda["decode"], "sat_train": sat["train"], "sat_decode": sat["decode"],
         "examples": examples, "librispeech": ls,
-        "device_functions": {**lda["device_functions"], **sat["device_functions"]}}
+        "phase19": {"wall_s": phase19_s, "silprob": silprob,
+                    "features": {k: v for k, v in fronts.items() if k != "device_functions"},
+                    "adaptation": {k: v for k, v in adapt.items() if k != "device_functions"}},
+        "device_functions": {**lda["device_functions"], **sat["device_functions"],
+                             **fronts["device_functions"], **adapt["device_functions"]}}
 
 
 def main() -> int:
@@ -3235,6 +3684,16 @@ def main() -> int:
         rate = f", {st['audio_s_per_s']} audio-s/s" if "audio_s_per_s" in st else ""
         print(f"  {name}: {st['wall_s']} s in {st['calls']} calls{rate}; launches "
               f"{ls['launches'][name]}")
+    p19 = report.pop("phase19")
+    fr, ad, sil = p19["features"], p19["adaptation"], p19["silprob"]
+    print(f"phase 19 on {card} in {p19['wall_s']:.1f} s: PLP + fbank + spectrogram of "
+          f"{fr['audio_s']:.0f} audio s in {fr['wall_s']:.3f} s (launches "
+          f"{ {k: n for k, n in fr['launches'].items() if n} }); make_features(pitch=True) of "
+          f"{fr['pitch']['utts']} utterances in {fr['pitch']['wall_s']:.2f} s, max abs difference "
+          f"from the CPU {fr['pitch']['max_abs_err_vs_cpu']:.3g}; adaptation in "
+          f"{ad['wall_s']:.2f} s (regression classes per speaker {ad['classes']}, launches "
+          f"{ {k: n for k, n in ad['launches'].items() if n} }); silprob decode WER "
+          f"{sil['wer']:.2f} % (tri1 {sil['tri1_wer']:.2f} %) in {sil['wall_s']:.1f} s")
     for name, f in report.pop("device_functions").items():
         print(f"{name} on {card}: {f['ms']:.4f} ms device, {f['wall_ms']:.3f} ms wall, "
               f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}), max abs err {f['max_abs_err']:.3g}")

@@ -41,7 +41,14 @@ over 1 and 1000 frames, no host synchronisation given a plan, and
 ``max_active``, which its kernel refuses; for the fMLLR statistics D = 40
 on uneven mixtures in one chunk and in chunks against float64, and two runs
 bit-equal; ``apply_fmllr_batch`` against float64; ``decode_fmllr`` of the
-JAX-trained SAT fixture to the JAX package's words).  They need an NVIDIA
+JAX-trained SAT fixture to the JAX package's words; K1's ``mel_power`` mode
+at 256, 400, 512 and 1024 points with HTK mode on and off, and PLP through
+it, against float64; the PLP, fbank and spectrogram extractors and
+``make_features(pitch=True)`` against the CPU; ``regtree_fmllr_loglikes``
+through K2 with 1, 2 and 8 classes and a pdf with no active Gaussian;
+``acc_regtree_mllr_stats`` through K6 and the regression-tree fMLLR
+statistics; ``loglikes_full`` and ``acc_full_stats`` across chunk
+boundaries against float64).  They need an NVIDIA
 GPU and nvcc, and skip without one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -1470,3 +1477,184 @@ def test_decode_fmllr_cuda_gives_the_jax_words(cuda):
     np.testing.assert_allclose([r.score for r in res], [m.scores[u] for u in utts], rtol=1e-4)
     want = np.stack([m.transforms[s] for s in sorted(m.transforms)])
     np.testing.assert_allclose(trans, want, rtol=0, atol=1e-2 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# The remaining frontends and speaker adaptation
+# ---------------------------------------------------------------------------
+
+
+def _float64_tables(tables):
+    return dataclasses.replace(tables, **{f: getattr(tables, f).double()
+                                          for f in ("window", "mel_t", "dct_t", "lifter")})
+
+
+@pytest.mark.parametrize("n_fft", [256, 400, 512, 1024])
+@pytest.mark.parametrize("htk_mode", [False, True])
+def test_mfcc_mel_power_matches_float64(cuda, n_fft, htk_mode):
+    """K1's ``mel_power`` rows (mel energies, floored at 1.0 in HTK mode
+    only, then the log energy) against the plain version in float64, the
+    energies compared as logs floored at FLT_EPS with the MFCC tolerance (a
+    mel bin far below the frame's power carries the FFT's rounding of the
+    whole frame); counted as ``mfcc_mel_power``, not ``mfcc_frames``.  PLP
+    through the kernel against its plain version in float64, same
+    tolerance."""
+    from voicebridge_tpu_torch.config import PlpOptions
+
+    opts = _mfcc_opts(n_fft, "htk_mode" if htk_mode else "default")
+    fo = opts.frame_opts
+    tables = TF.MfccTables.build(opts, "mel_power", cuda)
+    frames = torch.from_numpy(_frames(fo.samp_freq, fo.window_size, 333, seed=3)).to(cuda)
+    frames[7] = 0.0  # a silent frame: zero energies, or 1.0 in HTK mode
+    before = dict(_build.launches)
+    got = mfcc_kernel.mfcc_frames(frames, tables)
+    torch.cuda.synchronize()
+    assert _build.launches["mfcc_mel_power"] == before["mfcc_mel_power"] + 1
+    assert _build.launches["mfcc_frames"] == before["mfcc_frames"]
+    ref = TF.mfcc_from_frames(frames.double(), _float64_tables(tables))
+    assert got.shape == ref.shape == (333, 24)
+    eps = float(np.finfo(np.float32).eps)
+    torch.testing.assert_close(torch.log(got[:, :-1].double().clamp_min(eps)),
+                               torch.log(ref[:, :-1].clamp_min(eps)), rtol=2e-4, atol=2e-3)
+    torch.testing.assert_close(got[:, -1].double(), ref[:, -1], rtol=2e-4, atol=2e-3)
+    assert float(got[7, :-1].min()) == (1.0 if htk_mode else 0.0)
+    plp_opts = PlpOptions(frame_opts=fo, mel_opts=opts.mel_opts)
+    ptab = TF.PlpTables.build(plp_opts, cuda)
+    p64 = TF.PlpTables(plp_opts, _float64_tables(ptab.k1), ptab.eql.double(),
+                       ptab.idft.double(), ptab.lifter.double())
+    torch.testing.assert_close(TF.plp_tail(mfcc_kernel.mfcc_frames(frames, ptab.k1), ptab)
+                               .double(), TF.plp_from_frames(frames.double(), p64),
+                               rtol=2e-4, atol=2e-3)
+
+
+def test_frontend_extractors_cuda_match_cpu(cuda):
+    """``PlpExtractor``, ``FbankExtractor`` (with its own energy column) and
+    ``make_features(pitch=True)`` on the card against the CPU's plain
+    versions with the MFCC tolerance; ``SpectrogramExtractor`` as powers,
+    rtol 2e-4 plus 1e-5 of the frame's largest bin: a float32 FFT's rounding
+    is on the scale of the whole frame's power, so the log of a bin far
+    below it (the DC bin after DC removal) is ill-conditioned."""
+    from voicebridge_tpu_torch.config import PlpOptions
+
+    rng = np.random.default_rng(4)
+    waves = np.stack([_frames(16000.0, 16000, 1, seed=s)[0] for s in range(3)])
+    lens = np.array([16000, 12000, 9000])
+    fo = FrameOptions(dither=0.0)
+    nf = fo.num_frames(16000)
+    for ext_cls, kw in ((TF.PlpExtractor, dict(opts=PlpOptions(frame_opts=fo))),
+                        (TF.FbankExtractor, dict(opts=MfccOptions(frame_opts=fo),
+                                                 use_energy=True)),
+                        (TF.SpectrogramExtractor, dict(opts=MfccOptions(frame_opts=fo)))):
+        got, cg = ext_cls(**kw, device=cuda).batched(waves, lens, nf)
+        want, cw = ext_cls(**kw, device="cpu").batched(waves, lens, nf)
+        assert torch.equal(cg.cpu(), cw)
+        for i, n in enumerate(cw.tolist()):
+            g, w = got[i, :n].cpu().double(), want[i, :n].double()
+            if ext_cls is TF.SpectrogramExtractor:
+                g, w = g.exp(), w.exp()
+                assert ((g - w).abs() <= 2e-4 * w + 1e-5 * w.amax(1, keepdim=True)).all()
+            else:
+                torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-3)
+    utts = {f"u{i}": (rng.standard_normal(8000) * 300 + 4000 * np.sin(
+        2 * np.pi * 140 * np.arange(8000) / 8000.0)).astype(np.float32) for i in range(2)}
+    opts = MfccOptions(frame_opts=FrameOptions(samp_freq=8000.0, dither=0.0))
+    got = make_features(utts, {u: "s" for u in utts}, opts, device=cuda, pitch=True)
+    want = make_features(utts, {u: "s" for u in utts}, opts, device="cpu", pitch=True)
+    for u in utts:
+        assert got[u].shape == want[u].shape == (want[u].shape[0], 48)
+        torch.testing.assert_close(got[u].cpu(), want[u], rtol=2e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("num_classes", [1, 2, 8])
+def test_regtree_fmllr_loglikes_k2_per_class(cuda, num_classes):
+    """``regtree_fmllr_loglikes`` on the card: one K2 launch per regression
+    class holding Gaussians, against the JAX formulation
+    (``regtree_fmllr_loglikes_plain``) in float64 with the GMM tolerance;
+    a pdf with no active Gaussian comes out -inf, not about -1e30."""
+    from voicebridge_tpu_torch.transforms import regtree as TR
+
+    rng = np.random.default_rng(num_classes)
+    am = _am(40, 5, 13, seed=3, ragged=True)
+    tree = TR.build_regression_tree(am.means(), am.weights, 8)
+    bclass = tree.bclass_of.copy()
+    bclass[5] = -1
+    eye = np.concatenate([np.eye(13), np.zeros((13, 1))], axis=1)
+    trans = (eye + 0.05 * rng.standard_normal((num_classes, 13, 14))).astype(np.float32)
+    l2c = rng.integers(0, num_classes, 8).astype(np.int32)
+    l2c[:num_classes] = np.arange(num_classes)
+    x = torch.from_numpy((am.means()[rng.integers(0, 40, 700), 0]
+                          + rng.standard_normal((700, 13))).astype(np.float32))
+    params = gmm_kernels.pack_gmm(am, cuda)
+    before = _build.launches["gmm_loglikes"]
+    got = TR.regtree_fmllr_loglikes(params, x.to(cuda), trans, l2c, bclass)
+    torch.cuda.synchronize()
+    assert _build.launches["gmm_loglikes"] == before + num_classes
+    ref = TR.regtree_fmllr_loglikes_plain(params, x.to(cuda).double(), trans, l2c, bclass)
+    assert torch.isneginf(got[:, 5]).all() and torch.isneginf(ref[:, 5]).all()
+    keep = torch.arange(40, device=cuda) != 5
+    torch.testing.assert_close(got[:, keep].double(), ref[:, keep], rtol=2e-5, atol=2e-4)
+
+
+def test_acc_regtree_stats_cuda_match_float64(cuda):
+    """``acc_regtree_mllr_stats`` through K6 against the plain version in
+    float64 (rtol 1e-5, atol 1e-5 times the largest entry), and
+    ``acc_regtree_fmllr_stats`` on the card against the CPU's (1e-6 of the
+    largest entry), in one chunk and in chunks of 512 rows."""
+    from voicebridge_tpu_torch.transforms import regtree as TR
+
+    rng = np.random.default_rng(12)
+    am = _am(30, 4, 13, seed=5, ragged=False)
+    tree = TR.build_regression_tree(am.means(), am.weights, 4)
+    n = 3000
+    pdf = rng.integers(0, 30, n).astype(np.int32)
+    x = (am.means()[pdf, 0] + rng.standard_normal((n, 13))).astype(np.float32)
+    w = rng.choice([0.0, 0.5, 1.0], size=n).astype(np.float32)
+    params = gmm_kernels.pack_gmm(am, cuda)
+    before = _build.launches["gmm_stats"]
+    occ, xbar = TR.acc_regtree_mllr_stats(params, x, pdf, w)
+    assert _build.launches["gmm_stats"] == before + 1
+    p64 = gmm_kernels.GmmParams(params.w_matrix.double(), params.gconsts.double())
+    ref = gmm_kernels.acc_gmm_stats_aligned(p64, torch.from_numpy(x).to(cuda).double(),
+                                            torch.from_numpy(pdf).to(cuda), 30,
+                                            torch.from_numpy(w).to(cuda).double())
+    for g, r in ((occ, ref[0]), (xbar, ref[1])):
+        torch.testing.assert_close(torch.from_numpy(g).double(), r.cpu(), rtol=1e-5,
+                                   atol=1e-5 * float(r.abs().max()))
+    cpu = TR.acc_regtree_fmllr_stats(gmm_kernels.pack_gmm(am, "cpu"), am.means(), am.inv_vars,
+                                     x, pdf, w, tree.bclass_of, 4, device="cpu")
+    for chunk in (None, 512):
+        got = TR.acc_regtree_fmllr_stats(params, am.means(), am.inv_vars, x, pdf, w,
+                                         tree.bclass_of, 4, chunk=chunk, device=cuda)
+        for g, r in zip(got, cpu):
+            torch.testing.assert_close(g.cpu(), r, rtol=0, atol=1e-6 * float(r.abs().max()))
+
+
+def test_full_gmm_cuda_matches_float64(cuda):
+    """``loglikes_full`` across chunk boundaries (None, 100 and 1 frames a
+    chunk) and ``acc_full_stats`` (a chunk smaller than a pdf's frames)
+    against float64 versions of the same functions: the GMM tolerance for
+    log-likelihoods, rtol 1e-5 with 1e-5 of the largest entry for
+    statistics."""
+    from voicebridge_tpu_torch.models import full_gmm as TG
+
+    rng = np.random.default_rng(13)
+    p, m, d = 3, 16, 8
+    w = rng.random((p, m)) + 0.2
+    w[2, 5] = 0.0
+    a = rng.standard_normal((p, m, d, d)) * 0.3
+    ic = np.linalg.inv(np.einsum("pmde,pmfe->pmdf", a, a) + np.eye(d))
+    g = TG.FullGmm(w / w.sum(1, keepdims=True), rng.standard_normal((p, m, d)), ic)
+    x = torch.from_numpy(rng.standard_normal((517, d)).astype(np.float32))
+    pdf = rng.integers(0, p, 517)
+    packed = TG.pack_full_gmm(g, cuda)
+    p64 = {k: v.double() for k, v in packed.items()}
+    ref = TG.loglikes_full(p64, x.to(cuda).double())
+    for chunk in (None, 100, 1):
+        got = TG.loglikes_full(packed, x.to(cuda), chunk=chunk)
+        torch.testing.assert_close(got.double(), ref, rtol=2e-5, atol=2e-4)
+    ref = TG.acc_full_stats(p64, x.to(cuda).double(), pdf, p)
+    for chunk in (None, 64):
+        got = TG.acc_full_stats(packed, x.to(cuda), pdf, p, chunk=chunk)
+        for a_, r in zip(got, ref):
+            torch.testing.assert_close(a_.double(), r, rtol=1e-5,
+                                       atol=1e-5 * float(r.abs().max()))

@@ -22,8 +22,18 @@ HOST_MODULES = [
     "fst.native_bridge", "data.lang", "lm.arpa", "lm.ngram", "steps.score", "steps.mbr",
     "models.treebuild", "utils.wave", "data.prepare", "data.dict", "g2p.joint",
     "lat.word_align", "steps.diagnostic", "testing.corpus", "testing.synthesis",
-    "utils.profiling",
+    "utils.profiling", "ops.pitch", "steps.get_prons", "lm.interp", "transforms.basis_fmllr",
 ]
+# modules of which the port copies the host half (numpy) and ports the rest
+HOST_HALVES = {
+    "models.full_gmm": ["M_LOG_2PI", "FullGmm"],
+    "transforms.regtree": ["RegressionTree", "build_regression_tree",
+                           "choose_regression_classes", "_pool_by_class",
+                           "estimate_regtree_fmllr", "estimate_regtree_mllr",
+                           "apply_regtree_mllr"],
+    "transforms.cmvn": ["acc_cmvn_stats", "fake_cmvn_stats", "acc_cmvn_stats_two_channel",
+                        "utterance_pairs", "modify_cmvn_stats"],
+}
 
 SENTENCES = [["YES", "NO", "YES"], ["NO", "NO"], ["YES"], ["NO", "YES", "YES", "NO"]]
 
@@ -57,9 +67,50 @@ def test_host_module_is_a_copy_with_the_same_names(name):
     public = {n for n in vars(jax_mod) if not n.startswith("_")}
     if name == "fst.hclg":  # the port always takes the native library
         public -= {"remove_eps_local"}
-    if name == "fst.native_bridge":  # built at first use or raises: nothing to ask
-        public -= {"available", "Path"}
+    if name == "fst.native_bridge":  # built at first use (``_build``) or raises
+        public -= {"available", "Path", "subprocess"}
     assert public <= set(vars(port))
+
+
+@pytest.mark.parametrize("name", sorted(HOST_HALVES))
+def test_host_half_is_a_copy(name):
+    """The numpy half of a partly ported module: the same names, and the
+    same source text apart from the package's own docstrings."""
+    import inspect
+
+    port, jax_mod = _both(name)
+    for attr in HOST_HALVES[name]:
+        a, b = getattr(port, attr), getattr(jax_mod, attr)
+        if callable(a):
+            assert inspect.getsource(a) == inspect.getsource(b), attr
+        else:
+            assert a == b, attr
+
+
+def test_npz_files_are_interchangeable(tmp_path):
+    """``FullGmm`` and ``FmllrBasis`` written by one package load in the
+    other to the same arrays."""
+    rng = np.random.default_rng(6)
+    p, m, d = 2, 3, 4
+    a = rng.standard_normal((p, m, d, d))
+    args = (rng.random((p, m)) + 0.1, rng.standard_normal((p, m, d)),
+            np.einsum("pmde,pmfe->pmdf", a, a) + np.eye(d))
+    basis = (rng.standard_normal((5, d, d + 1)), rng.standard_normal((d, d + 1, d + 1)))
+    for writer, reader in (("voicebridge_tpu_torch", "voicebridge_tpu"),
+                           ("voicebridge_tpu", "voicebridge_tpu_torch")):
+        wg = importlib.import_module(writer + ".models.full_gmm").FullGmm(*args)
+        wb = importlib.import_module(writer + ".transforms.basis_fmllr").FmllrBasis(*basis)
+        wg.save(tmp_path / f"{writer}_full.npz")
+        wb.save(tmp_path / f"{writer}_basis.npz")
+        rg = importlib.import_module(reader + ".models.full_gmm").FullGmm.load(
+            tmp_path / f"{writer}_full.npz")
+        rb = importlib.import_module(reader + ".transforms.basis_fmllr").FmllrBasis.load(
+            tmp_path / f"{writer}_basis.npz")
+        assert type(rg) is not type(wg) and type(rb) is not type(wb)
+        for name in ("weights", "means", "inv_covars", "gconsts"):
+            np.testing.assert_array_equal(getattr(rg, name), getattr(wg, name))
+        np.testing.assert_array_equal(rb.bases, wb.bases)
+        np.testing.assert_array_equal(rb.precond, wb.precond)
 
 
 def _build_hclg(pkg: str):

@@ -30,7 +30,9 @@ names = [m.name for m in pkgutil.walk_packages(voicebridge_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("transforms.fmllr", "steps.train_sat", "steps.decode_fmllr", "project",
-             "testing.corpus", "testing.synthesis", "utils.profiling"):
+             "testing.corpus", "testing.synthesis", "utils.profiling", "ops.pitch",
+             "steps.get_prons", "lm.interp", "models.full_gmm", "transforms.regtree",
+             "transforms.basis_fmllr"):
     assert "voicebridge_tpu_torch." + name in names, name
 import chip_smoke
 sys.path.insert(0, "examples")
@@ -47,7 +49,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=False)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 77
+    assert int(res.stdout.split()[0]) >= 83
 
 
 def test_resolve_device():

@@ -5,6 +5,7 @@ versions of them side by side.
 
     python tools/time_frontend_kernels.py [--parent DIR] [--variant NAME=DIR ...]
                                           [--sizes 256,400,512,1024,2048] [--cuts]
+                                          [--bits NAME]
 
 Shapes: K2 at 128,000 frames x 2000 pdfs x 5 Gaussians x 39 dims
 (``testing.random_am``, standard normal features), K1 at 128,000 frames of
@@ -21,6 +22,10 @@ reverse.
   interface (K2 weights as ``[P, M, 2D+1]``, K1 at 256 and 512 points with a
   dense mel table); ``git archive`` the commit before the redesign to get
   them.
+* ``--bits NAME``: K1's rows of the variant ``NAME`` and of the checkout,
+  in ``mfcc`` and in ``fbank`` mode at every size, must be the same bits
+  (``bit_equal`` in the output; a difference exits 1): a change to
+  ``mfcc.cu`` that keeps those two modes as they were.
 * ``--cuts``: versions of the checkout's (and the parent's) sources with
   one stage cut out, to see where their time goes: K2 without the
   logsumexp, the operand split, the FADD of each k-step, two of the three
@@ -215,14 +220,16 @@ def k1_case(dev, n_fft: int, frames: int):
     return (x, tables, opts), ref, work
 
 
-def call_k1(iface, lib, args, out):
+def call_k1(iface, lib, args, out, mode: int = 0):
+    """K1 through ``lib``: ``mode`` 0 cepstra, 1 log-mel rows (``out`` of
+    the rows' width)."""
     x, tables, opts = args
     fo = opts.frame_opts
     common = (x.data_ptr(), x.shape[0], fo.window_size, fo.padded_window_size,
               tables.window.data_ptr())
     tail = (opts.mel_opts.num_bins, tables.dct_t.data_ptr(), tables.lifter.data_ptr(),
             opts.num_ceps, int(fo.remove_dc_offset), fo.preemph_coeff, int(opts.raw_energy),
-            tables.mel_floor, 0, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            tables.mel_floor, mode, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if iface == "parent":
         half = tables.twiddle[: fo.padded_window_size // 2].contiguous()
         check(lib.vbt_mfcc_frames(*common, half.data_ptr(), tables.mel_t.data_ptr(), *tail),
@@ -252,6 +259,7 @@ def main() -> int:
     ap.add_argument("--sizes", default="256,400,512,1024,2048")
     ap.add_argument("--frames", type=int, default=128_000)
     ap.add_argument("--cuts", action="store_true")
+    ap.add_argument("--bits", metavar="NAME")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_frontend_kernels: CUDA is not available", file=sys.stderr)
@@ -331,8 +339,20 @@ def main() -> int:
     res["spills"] = {name: sorted({ln.split(":")[-1].strip() for ln in rep.splitlines()
                                    if "spill stores" in ln and "0 bytes spill stores" not in ln})
                      for name, (_i, _l, rep) in libs.items()}
+    if args.bits:
+        res["bit_equal"] = {}
+        for n, (a, ref, _w) in k1.items():
+            for mode, cols in ((0, ref.shape[1]), (1, a[2].mel_opts.num_bins + 1)):
+                outs = []
+                for name in (args.bits, "checkout"):
+                    iface, lib, _rep = libs[name]
+                    outs.append(torch.empty((ref.shape[0], cols), device=dev))
+                    call_k1(iface, lib, a, outs[-1], mode)
+                torch.cuda.synchronize()
+                res["bit_equal"][f"k1_{n}_{('mfcc', 'fbank')[mode]}"] = bool(
+                    torch.equal(*outs))
     print(json.dumps(res, indent=1))
-    return 0
+    return 0 if all(res.get("bit_equal", {}).values()) else 1
 
 
 if __name__ == "__main__":

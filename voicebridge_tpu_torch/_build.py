@@ -3,14 +3,16 @@
 The sources under ``csrc/`` are compiled at first use with ``nvcc``, one
 process per source, all started together, and linked into one shared library
 with a plain C interface, ``_build/libvbt_kernels_<hash>.so``, keyed by a
-hash of the sources and flags, and loaded with ``ctypes``.  A failed build or
-load raises: there is no fallback.  ``nvcc`` is taken from
+hash of the sources and flags, and loaded with ``ctypes``; host C++
+libraries are built with ``g++`` the same way (``build_host_library``).  A
+failed build or load raises: there is no fallback.  ``nvcc`` is taken from
 ``$CUDA_HOME/bin``, else ``/usr/local/cuda/bin``, else ``PATH``.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a wrapper
 adds one only after its kernel launched (``launch`` below).  K3 counts its
 launches over the lattice's backward plan apart, as
-``viterbi_step_backward``.
+``viterbi_step_backward``, and K1 its launches in ``mel_power`` mode, as
+``mfcc_mel_power``.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ SOURCES = ("mfcc.cu", "gmm_loglik.cu", "viterbi_step.cu", "align_band.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-launches = {"mfcc_frames": 0, "gmm_loglikes": 0, "viterbi_step": 0,
+launches = {"mfcc_frames": 0, "mfcc_mel_power": 0, "gmm_loglikes": 0, "viterbi_step": 0,
             "viterbi_step_backward": 0, "align_forward": 0, "align_backtrace": 0,
             "gmm_stats": 0, "lattice_fb": 0, "viterbi_nbest": 0, "generic_forward": 0,
             "generic_backtrace": 0, "backtrace_best": 0, "backtrace_nbest": 0}
@@ -39,7 +41,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # frames, num_frames, ws, n_fft, window, twiddle, mel_lo, mel_len,
     # mel_band, num_bins, dct_t, lifter, num_ceps, remove_dc, preemph,
-    # raw_energy, mel_floor, fbank_only, out, stream
+    # raw_energy, mel_floor, mode (0 mfcc, 1 fbank, 2 mel_power), out, stream
     "vbt_mfcc_frames": (_P, _I64, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F,
                         _I, _F, _I, _P, _P),
     # x, n, d, wt, p, m_pad, mc, out, stream
@@ -145,6 +147,33 @@ def build() -> Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     out.with_suffix(".log").write_text("".join(report))
+    os.replace(tmp, out)
+    return out
+
+
+# host libraries: no -march=native and no fused multiply-add, the same floats
+# on every host
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-ffp-contract=off", "-shared")
+
+
+def build_host_library(source: Path, stem: str) -> Path:
+    """Compile the C++ ``source`` with ``g++`` (``$CXX``) into
+    ``_build/<stem>_<hash>.so``, keyed by a hash of the source and flags,
+    unless it is there; a failed build raises."""
+    h = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    h.update(source.read_bytes())
+    out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [os.environ.get("CXX", "g++"), *HOST_CXX_FLAGS, "-o", str(tmp), str(source)]
+    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, check=False)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"building {source.name} failed ({res.returncode}): "
+                           f"{' '.join(cmd)}\n{res.stdout}")
     os.replace(tmp, out)
     return out
 

@@ -22,7 +22,13 @@ this module imports nothing of the JAX package:
 * a JAX ``EmitPlan`` -> the port's ``EmitPlan`` (then
   ``ops.decode_core.plan_to_device``);
 * a JAX ``BandPlan`` -> the port's ``BandPlan`` (then
-  ``ops.align_band.plan_to_device``).
+  ``ops.align_band.plan_to_device``);
+* a full-covariance GMM (``weights, means, inv_covars``), a regression tree
+  (``bclass_of, parent, num_leaves``) and an fMLLR basis (``bases,
+  precond``) -> the port's ``FullGmm``, ``RegressionTree`` and
+  ``FmllrBasis`` (``full_gmm_from_arrays``, ``regression_tree_from_arrays``,
+  ``fmllr_basis_from_arrays``); the two packages' npz files of a
+  ``FullGmm`` and an ``FmllrBasis`` are the same.
 """
 
 from __future__ import annotations
@@ -179,3 +185,29 @@ def emit_plan_from_jax(plan) -> EmitPlan:
 def band_plan_from_jax(plan) -> BandPlan:
     """A JAX ``BandPlan`` (a NamedTuple of numpy arrays) -> the port's."""
     return BandPlan(**{f: getattr(plan, f) for f in BandPlan._fields})
+
+
+def full_gmm_from_arrays(weights, means, inv_covars):
+    """A full-covariance GMM's arrays (``[P, M]``, ``[P, M, D]``, ``[P, M, D,
+    D]``; what its npz holds) -> the port's ``FullGmm``."""
+    from .models.full_gmm import FullGmm
+
+    return FullGmm(np.array(weights, np.float64), np.array(means, np.float64),
+                   np.array(inv_covars, np.float64))
+
+
+def regression_tree_from_arrays(bclass_of, parent, num_leaves: int):
+    """A regression tree's arrays (``bclass_of [P, M]``, ``parent [nodes]``)
+    and leaf count -> the port's ``RegressionTree``."""
+    from .transforms.regtree import RegressionTree
+
+    return RegressionTree(np.array(bclass_of, np.int32), np.array(parent, np.int32),
+                          int(num_leaves))
+
+
+def fmllr_basis_from_arrays(bases, precond):
+    """An fMLLR basis' arrays (``bases [N, D, D+1]``, ``precond [D, D+1,
+    D+1]``; what its npz holds) -> the port's ``FmllrBasis``."""
+    from .transforms.basis_fmllr import FmllrBasis
+
+    return FmllrBasis(bases=np.array(bases, np.float64), precond=np.array(precond, np.float64))

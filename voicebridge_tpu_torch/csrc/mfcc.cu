@@ -5,7 +5,9 @@
 // (_mfcc_kernel, launched by MfccPallas._run).  Per frame, in order: remove
 // DC; raw log energy; preemphasis; window; real FFT; power spectrum; mel
 // filterbank; log with floor; DCT; lifter.  Output row: the cepstra (or the
-// log-mel bins with fbank_only), then the log energy.
+// log-mel bins in fbank mode, or the mel energies in mel_power mode: no log,
+// no DCT, floored at mel_floor, which is -inf unless in HTK mode; PLP's front
+// half), then the log energy.
 //
 // What bounds it on the H100: at 512 points a frame needs about 18k fp32
 // operations (the FFT, the mel's nonzeros, the DCT) against 1.6 KB read, so
@@ -55,6 +57,8 @@ struct Chain {  // the window chain's options
   int raw_energy;
 };
 
+enum Mode { kMfcc = 0, kFbank = 1, kMelPower = 2 };
+
 struct Tail {  // mel, log, DCT, lifter and the output row
   const int* mel_lo;
   const int* mel_len;
@@ -64,7 +68,7 @@ struct Tail {  // mel, log, DCT, lifter and the output row
   const float* lifter;
   int num_ceps;
   float mel_floor;
-  int fbank_only;
+  int mode;  // Mode
   float* out;
 };
 
@@ -216,14 +220,15 @@ __device__ __forceinline__ void mel_dct_tail(const float* pw, float* logmel, con
     float acc = 0.f;
 #pragma unroll 8
     for (int i = 0; i < len; ++i) acc = fmaf(pw[lo + i], tl.mel_band[i * nb + b], acc);
-    const float lm = logf(fmaxf(acc, tl.mel_floor));
-    if (tl.fbank_only) {
+    const float v = fmaxf(acc, tl.mel_floor);
+    const float lm = tl.mode == kMelPower ? v : logf(v);
+    if (tl.mode != kMfcc) {
       tl.out[f * (nb + 1) + b] = lm;
     } else {
       logmel[b] = lm;
     }
   }
-  if (tl.fbank_only) {
+  if (tl.mode != kMfcc) {
     if (j == 0) tl.out[f * (nb + 1) + nb] = energy;
     return;
   }
@@ -239,7 +244,7 @@ __device__ __forceinline__ void mel_dct_tail(const float* pw, float* logmel, con
 }
 
 __device__ __forceinline__ int dct_floats(const Tail& tl) {
-  return tl.fbank_only ? 0 : tl.num_bins * tl.num_ceps;
+  return tl.mode != kMfcc ? 0 : tl.num_bins * tl.num_ceps;
 }
 
 template <int N>
@@ -468,7 +473,7 @@ cudaError_t launch_fft(const float* frames, int64_t num_frames, const Chain& ch,
                        const float* twiddle, const Tail& tl, cudaStream_t stream) {
   using S = FftShape<N>;
   const size_t smem = sizeof(float) * (2 * N + S::FPB * 2 * S::ZLEN +
-                                       (tl.fbank_only ? 0 : tl.num_bins * tl.num_ceps) +
+                                       (tl.mode != kMfcc ? 0 : tl.num_bins * tl.num_ceps) +
                                        S::FPB * (S::T / 32));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -487,7 +492,7 @@ cudaError_t launch_dft(const float* frames, int64_t num_frames, const Chain& ch,
                        const float* twiddle, const Tail& tl, cudaStream_t stream) {
   const int ld = (ch.ws + 3) & ~3;
   const size_t smem = sizeof(float) * (static_cast<size_t>(F) * (ld + n_fft / 2) +
-                                       (tl.fbank_only ? 0 : tl.num_bins * tl.num_ceps));
+                                       (tl.mode != kMfcc ? 0 : tl.num_bins * tl.num_ceps));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         mfcc_dft_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -509,14 +514,15 @@ extern "C" int vbt_mfcc_frames(const float* frames, int64_t num_frames, int ws, 
                                const int* mel_len, const float* mel_band, int num_bins,
                                const float* dct_t, const float* lifter, int num_ceps,
                                int remove_dc, float preemph, int raw_energy, float mel_floor,
-                               int fbank_only, float* out, void* stream) {
+                               int mode, float* out, void* stream) {
   if (num_frames == 0) return 0;
   if (ws < 1 || ws > n_fft || n_fft > kMaxFft || num_bins < 1 || num_bins > n_fft / 2 ||
-      (!fbank_only && (num_ceps < 1 || num_ceps > num_bins)))
+      mode < kMfcc || mode > kMelPower ||
+      (mode == kMfcc && (num_ceps < 1 || num_ceps > num_bins)))
     return cudaErrorInvalidValue;
   const Chain ch{window, ws, remove_dc, preemph, raw_energy};
   const Tail tl{mel_lo, mel_len, mel_band, num_bins, dct_t, lifter, num_ceps, mel_floor,
-                fbank_only, out};
+                mode, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_fft) {
     case 64: return launch_fft<64>(frames, num_frames, ch, twiddle, tl, s);

@@ -12,18 +12,13 @@ build raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 
 import numpy as np
 
-from .._build import BUILD_DIR, CSRC
+from .._build import CSRC, build_host_library
 from .core import Arc, Fst, NO_STATE_ID, ZERO
 
 _SOURCE = CSRC / "wfst.cpp"
-# no -march=native and no fused multiply-add: the same floats on every host
-_CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-ffp-contract=off", "-shared")
 _LIB = None
 
 
@@ -42,22 +37,7 @@ class _CGraph(ctypes.Structure):
 
 
 def _build():
-    h = hashlib.sha256(" ".join(_CXX_FLAGS).encode())
-    h.update(_SOURCE.read_bytes())
-    out = BUILD_DIR / f"libvbt_wfst_{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [os.environ.get("CXX", "g++"), *_CXX_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True, check=False)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the WFST library failed ({res.returncode}): "
-                           f"{' '.join(cmd)}\n{res.stdout}")
-    os.replace(tmp, out)
-    return out
+    return build_host_library(_SOURCE, "libvbt_wfst")
 
 
 def _load():

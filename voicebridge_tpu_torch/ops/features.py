@@ -11,7 +11,10 @@ package's numpy code, copied so both packages build bit-identical tables:
 (``ops/mfcc_kernel.py``, K1) and uses ``torch.fft.rfft``.
 ``MfccExtractor.batched`` frames a padded batch of waves and sends every
 frame through the kernel wrapper, which picks the kernel or the plain version
-from the tensor's device.
+from the tensor's device.  The other extractors: ``FbankExtractor`` (K1's
+log-mel rows), ``PlpExtractor`` (K1's mel energies, then the PLP tail in
+torch, ``plp_tail``) and ``SpectrogramExtractor`` (``torch.fft.rfft``, as the
+JAX package's XLA one); ``mel_bank_matrix`` takes a VTLN warp.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..config import DeltaOptions, FrameOptions, MfccOptions, SpliceOptions
+from ..config import DeltaOptions, FrameOptions, MfccOptions, PlpOptions, SpliceOptions
 
 from ..device import resolve_device
 from . import mfcc_kernel
@@ -62,10 +65,36 @@ def mel_scale(freq):
     return 1127.0 * np.log(1.0 + freq / 700.0)
 
 
+def inverse_mel_scale(mel):
+    return 700.0 * (np.exp(mel / 1127.0) - 1.0)
+
+
+def vtln_warp_freq(vtln_low: float, vtln_high: float, low_freq: float,
+                   high_freq: float, warp: float, freq):
+    """Kaldi's piecewise-linear VTLN warp (mel-computations.cc VtlnWarpFreq):
+    slope 1/warp in the middle, linear interpolation to the edges."""
+    freq = np.asarray(freq, np.float64)
+    if warp == 1.0:
+        return freq
+    scale = 1.0 / warp
+    f_low = vtln_low * max(1.0, warp)
+    f_high = vtln_high * min(1.0, warp)
+    scale_left = (scale * f_low - low_freq) / (f_low - low_freq)
+    scale_right = (high_freq - scale * f_high) / (high_freq - f_high)
+    out = np.where(
+        freq < f_low, low_freq + scale_left * (freq - low_freq),
+        np.where(freq <= f_high, scale * freq,
+                 high_freq + scale_right * (freq - high_freq)))
+    return np.where((freq < low_freq) | (freq > high_freq), freq, out)
+
+
 def mel_bank_matrix(num_bins: int, frame_opts: FrameOptions, low_freq: float = 20.0,
-                    high_freq: float = 0.0) -> np.ndarray:
+                    high_freq: float = 0.0, vtln_warp: float = 1.0,
+                    vtln_low: float = 100.0, vtln_high: float = -500.0) -> np.ndarray:
     """Triangular mel filterbank as a dense ``[num_bins, num_fft_bins]`` matrix
-    (reference: ``MelBanks`` ctor, mel-computations.cc:46-120); no VTLN."""
+    (reference: ``MelBanks`` ctor, mel-computations.cc:46-120), with optional
+    VTLN warping of the bin edges.  Warped triangles stay contiguous, so
+    ``mel_bands`` and K1's tables take them as they are."""
     padded = frame_opts.padded_window_size
     num_fft_bins = padded // 2
     nyquist = 0.5 * frame_opts.samp_freq
@@ -73,18 +102,27 @@ def mel_bank_matrix(num_bins: int, frame_opts: FrameOptions, low_freq: float = 2
         high_freq = nyquist + high_freq
     if not (0.0 <= low_freq < nyquist and low_freq < high_freq <= nyquist):
         raise ValueError(f"bad frequency range [{low_freq}, {high_freq}]")
+    if vtln_high < 0.0:
+        vtln_high += nyquist
     fft_bin_width = frame_opts.samp_freq / padded
     mel_low = mel_scale(low_freq)
     mel_high = mel_scale(high_freq)
     mel_delta = (mel_high - mel_low) / (num_bins + 1)
 
+    def warp_mel(mel):
+        if vtln_warp == 1.0:
+            return mel
+        f = inverse_mel_scale(mel)
+        return mel_scale(vtln_warp_freq(vtln_low, vtln_high, low_freq,
+                                        high_freq, vtln_warp, f))
+
     bins = np.zeros((num_bins, num_fft_bins), dtype=np.float64)
     freqs = fft_bin_width * np.arange(num_fft_bins)
     mels = mel_scale(freqs)
     for b in range(num_bins):
-        left = mel_low + b * mel_delta
-        center = mel_low + (b + 1) * mel_delta
-        right = mel_low + (b + 2) * mel_delta
+        left = warp_mel(mel_low + b * mel_delta)
+        center = warp_mel(mel_low + (b + 1) * mel_delta)
+        right = warp_mel(mel_low + (b + 2) * mel_delta)
         up = (mels - left) / (center - left)
         down = (right - mels) / (right - center)
         w = np.where(mels <= center, up, down)
@@ -147,13 +185,19 @@ def mel_bands(mel: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     return lo, length, band
 
 
+# K1's output modes: cepstra, log-mel bins, or the mel energies themselves
+# (PLP's input; no log, no DCT).  The kernel takes their index.
+MODES = ("mfcc", "fbank", "mel_power")
+
+
 @dataclass(frozen=True)
 class MfccTables:
     """Per-option constants on one device, shared by the kernel and its
-    plain version.  ``fbank=True`` gives log-mel rows instead of cepstra."""
+    plain version.  ``mode`` (one of ``MODES``) picks the rows: cepstra,
+    log-mel bins (``fbank``) or mel energies (``mel_power``)."""
 
     opts: MfccOptions
-    fbank: bool
+    mode: str
     window: torch.Tensor  # [ws]
     mel_t: torch.Tensor  # [N/2, num_bins] (plain version)
     dct_t: torch.Tensor  # [num_bins, num_ceps]
@@ -164,7 +208,13 @@ class MfccTables:
     mel_band: torch.Tensor  # [max width, num_bins]: its weights (kernel only)
 
     @classmethod
-    def build(cls, opts: MfccOptions, fbank: bool, device) -> "MfccTables":
+    def build(cls, opts: MfccOptions, mode, device) -> "MfccTables":
+        """``mode``: one of ``MODES``, or a bool (True: ``fbank``, False:
+        ``mfcc``)."""
+        if isinstance(mode, bool):
+            mode = "fbank" if mode else "mfcc"
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
         fo, mo = opts.frame_opts, opts.mel_opts
         n = fo.padded_window_size
         ang = -2.0 * math.pi * np.arange(n) / n
@@ -175,7 +225,7 @@ class MfccTables:
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        return cls(opts=opts, fbank=fbank, window=dev(feature_window(fo)),
+        return cls(opts=opts, mode=mode, window=dev(feature_window(fo)),
                    mel_t=dev(mel.T), dct_t=dev(dct_matrix(opts.num_ceps, mo.num_bins).T),
                    lifter=dev(lifter_coeffs(opts.num_ceps, opts.cepstral_lifter)),
                    twiddle=dev(twiddle), mel_lo=dev(lo), mel_len=dev(length),
@@ -183,13 +233,17 @@ class MfccTables:
 
     @property
     def mel_floor(self) -> float:
-        # htk_mode floors mel energies at 1.0 like HTK (mel-computations.cc:238)
-        return 1.0 if self.opts.mel_opts.htk_mode else FLT_EPS
+        # htk_mode floors mel energies at 1.0 like HTK (mel-computations.cc:238);
+        # otherwise the log's floor, and none for the mel energies (PLP takes
+        # them unfloored before its equal-loudness weights)
+        if self.opts.mel_opts.htk_mode:
+            return 1.0
+        return -math.inf if self.mode == "mel_power" else FLT_EPS
 
     @property
     def out_cols(self) -> int:
         """Kernel output width: cepstra (or mel bins) plus the energy column."""
-        return (self.opts.mel_opts.num_bins if self.fbank else self.opts.num_ceps) + 1
+        return (self.opts.num_ceps if self.mode == "mfcc" else self.opts.mel_opts.num_bins) + 1
 
 
 # ---------------------------------------------------------------------------
@@ -228,16 +282,20 @@ def _process_window(frames: torch.Tensor, opts: MfccOptions,
 
 def mfcc_from_frames(frames: torch.Tensor, tables: MfccTables) -> torch.Tensor:
     """Plain version of K1: ``[N, ws]`` dithered frames ->
-    ``[N, tables.out_cols]``: cepstra (log-mel bins with ``tables.fbank``),
-    then the log energy.  ``assemble`` turns this into features."""
+    ``[N, tables.out_cols]``: cepstra (log-mel bins with ``fbank``, mel
+    energies with ``mel_power``), then the log energy.  ``assemble`` turns
+    MFCC and fbank rows into features, ``plp_tail`` mel energies into PLP."""
     opts = tables.opts
     padded = opts.frame_opts.padded_window_size
     frames, energy = _process_window(frames, opts, tables.window)
     frames = F.pad(frames, (0, padded - frames.shape[1]))
     spec = torch.fft.rfft(frames, dim=-1)
     power = (spec.real ** 2 + spec.imag ** 2)[:, : padded // 2]
-    logmel = torch.log(torch.clamp_min(power @ tables.mel_t, tables.mel_floor))
-    if tables.fbank:
+    mel = torch.clamp_min(power @ tables.mel_t, tables.mel_floor)
+    if tables.mode == "mel_power":
+        return torch.cat([mel, energy[:, None]], dim=1)
+    logmel = torch.log(mel)
+    if tables.mode == "fbank":
         return torch.cat([logmel, energy[:, None]], dim=1)
     ceps = (logmel @ tables.dct_t) * tables.lifter[None, :]
     return torch.cat([ceps, energy[:, None]], dim=1)
@@ -247,22 +305,51 @@ def assemble(raw: torch.Tensor, tables: MfccTables) -> torch.Tensor:
     """use_energy / htk_compat assembly of ``[N, out_cols]`` kernel rows
     (``MfccPallas._assemble``)."""
     opts = tables.opts
+    fbank = tables.mode == "fbank"
     nc = tables.out_cols - 1
     feats, energy = raw[:, :nc], raw[:, nc]
     if opts.use_energy:
         if opts.energy_floor > 0.0:
             energy = torch.clamp_min(energy, math.log(opts.energy_floor))
-        if tables.fbank:
+        if fbank:
             # fbank prepends energy (FbankExtractor: dim = num_bins + 1)
             feats = torch.cat([energy[:, None], feats], dim=1)
         else:
             feats = torch.cat([energy[:, None], feats[:, 1:]], dim=1)
-    if opts.htk_compat and not tables.fbank:
+    if opts.htk_compat and not fbank:
         # energy/C0 moves last; C0 regains the sqrt(2) DCT scale when it is a
         # true cepstral coefficient (feature-mfcc.cc:70-80)
         first = feats[:, 0] * (1.0 if opts.use_energy else math.sqrt(2.0))
         feats = torch.cat([feats[:, 1:], first[:, None]], dim=1)
     return feats
+
+
+def frame_batch(waves, num_samples, max_frames: int, fo: FrameOptions, device,
+                generator: torch.Generator | None = None):
+    """``[B, S]`` waves (array or tensor) and ``[B]`` sample counts ->
+    (``[B * max_frames, ws]`` contiguous frames on ``device``, ``[B]`` frame
+    counts).  With ``fo.dither`` set and a ``generator`` given, each frame
+    gets ``dither * N(0, 1)`` noise drawn from it."""
+    waves = torch.as_tensor(waves).to(device, torch.float32)
+    b = waves.shape[0]
+    frames = extract_frames(waves, max_frames, fo).reshape(b * max_frames, -1)
+    if fo.dither != 0.0 and generator is not None:
+        frames = frames + fo.dither * torch.randn(
+            frames.shape, generator=generator, device=frames.device)
+    num_samples = torch.as_tensor(num_samples).to(device)
+    counts = torch.where(num_samples >= fo.window_size,
+                         1 + (num_samples - fo.window_size) // fo.window_shift, 0)
+    return frames.contiguous(), counts
+
+
+def _single(extractor, wave, generator=None) -> torch.Tensor:
+    """One utterance ``[S] -> [num_frames, dim]`` through ``batched``."""
+    wave = torch.as_tensor(wave, dtype=torch.float32)
+    nf = extractor.opts.frame_opts.num_frames(wave.shape[0])
+    if nf == 0:
+        return torch.zeros((0, extractor.dim), device=extractor.device)
+    feats, _ = extractor.batched(wave[None], torch.tensor([wave.shape[0]]), nf, generator)
+    return feats[0]
 
 
 class MfccExtractor:
@@ -283,19 +370,248 @@ class MfccExtractor:
         frame gets ``dither * N(0, 1)`` noise drawn from it.  Frames beyond an
         utterance's frame count are garbage from padding; callers mask by the
         returned counts."""
-        fo = self.opts.frame_opts
-        waves = waves.to(self.device, torch.float32)
-        b = waves.shape[0]
-        frames = extract_frames(waves, max_frames, fo).reshape(b * max_frames, -1)
-        if fo.dither != 0.0 and generator is not None:
-            frames = frames + fo.dither * torch.randn(
-                frames.shape, generator=generator, device=frames.device)
-        raw = mfcc_kernel.mfcc_frames(frames.contiguous(), self.tables)
-        feats = assemble(raw, self.tables).reshape(b, max_frames, -1)
-        num_samples = num_samples.to(self.device)
-        counts = torch.where(num_samples >= fo.window_size,
-                             1 + (num_samples - fo.window_size) // fo.window_shift, 0)
-        return feats, counts
+        frames, counts = frame_batch(waves, num_samples, max_frames, self.opts.frame_opts,
+                                     self.device, generator)
+        raw = mfcc_kernel.mfcc_frames(frames, self.tables)
+        return assemble(raw, self.tables).reshape(counts.shape[0], max_frames, -1), counts
+
+
+class FbankExtractor:
+    """Log-mel filterbank features (reference: ``FbankComputer``,
+    feat/feature-fbank.h), K1 in ``fbank`` mode.  As the JAX package's
+    ``FbankExtractor``: its own ``use_energy`` flag (the raw log energy
+    first, no ``energy_floor``), not ``MfccOptions.use_energy``."""
+
+    def __init__(self, opts: MfccOptions = MfccOptions(), use_energy: bool = False, *,
+                 device=None):
+        self.opts = opts
+        self.use_energy = use_energy
+        self.device = resolve_device(device)
+        self.tables = MfccTables.build(opts, "fbank", self.device)
+
+    @property
+    def dim(self) -> int:
+        return self.opts.mel_opts.num_bins + (1 if self.use_energy else 0)
+
+    def __call__(self, wave) -> torch.Tensor:
+        """``[S] -> [num_frames, dim]`` on the extractor's device (no dither)."""
+        return _single(self, wave)
+
+    def batched(self, waves, num_samples, max_frames: int,
+                generator: torch.Generator | None = None):
+        """``[B, S], [B] -> ([B, max_frames, dim], [B] frame counts)``."""
+        frames, counts = frame_batch(waves, num_samples, max_frames, self.opts.frame_opts,
+                                     self.device, generator)
+        raw = mfcc_kernel.mfcc_frames(frames, self.tables)
+        nb = self.opts.mel_opts.num_bins
+        feats = torch.cat([raw[:, nb:], raw[:, :nb]], dim=1) if self.use_energy else raw[:, :nb]
+        return feats.reshape(counts.shape[0], max_frames, -1), counts
+
+
+class SpectrogramExtractor:
+    """Log power-spectrogram features (feat/feature-spectrogram.h):
+    ``padded // 2 + 1`` bins, Nyquist included, floored at ``FLT_EPS``.
+    ``torch.fft.rfft``, as the JAX package's is an XLA ``jnp.fft.rfft``
+    with no Pallas counterpart."""
+
+    def __init__(self, opts: MfccOptions = MfccOptions(), *, device=None):
+        self.opts = opts
+        self.device = resolve_device(device)
+        self.window = torch.from_numpy(feature_window(opts.frame_opts)).to(self.device)
+
+    @property
+    def dim(self) -> int:
+        return self.opts.frame_opts.padded_window_size // 2 + 1
+
+    def __call__(self, wave) -> torch.Tensor:
+        return _single(self, wave)
+
+    def batched(self, waves, num_samples, max_frames: int,
+                generator: torch.Generator | None = None):
+        frames, counts = frame_batch(waves, num_samples, max_frames, self.opts.frame_opts,
+                                     self.device, generator)
+        feats = spectrogram_from_frames(frames, self.opts, self.window)
+        return feats.reshape(counts.shape[0], max_frames, -1), counts
+
+
+def spectrogram_from_frames(frames: torch.Tensor, opts: MfccOptions,
+                            window: torch.Tensor) -> torch.Tensor:
+    """``[N, ws]`` frames -> ``[N, padded // 2 + 1]`` log power spectra, in
+    the frames' dtype."""
+    frames, _ = _process_window(frames, opts, window)
+    frames = F.pad(frames, (0, opts.frame_opts.padded_window_size - frames.shape[1]))
+    spec = torch.fft.rfft(frames, dim=-1)
+    return torch.log(torch.clamp_min(spec.real ** 2 + spec.imag ** 2, FLT_EPS))
+
+
+# ---------------------------------------------------------------------------
+# PLP (perceptual linear prediction)
+# ---------------------------------------------------------------------------
+
+
+def mel_center_freqs(num_bins: int, frame_opts: FrameOptions,
+                     low_freq: float = 20.0, high_freq: float = 0.0) -> np.ndarray:
+    """Center frequency (Hz) of each mel bin (reference: MelBanks ctor
+    center_freqs_, mel-computations.cc:89-104)."""
+    nyquist = 0.5 * frame_opts.samp_freq
+    if high_freq <= 0.0:
+        high_freq = nyquist + high_freq
+    mel_low = mel_scale(low_freq)
+    mel_high = mel_scale(high_freq)
+    mel_delta = (mel_high - mel_low) / (num_bins + 1)
+    centers = inverse_mel_scale(mel_low + (np.arange(num_bins) + 1) * mel_delta)
+    return centers.astype(np.float64)
+
+
+def equal_loudness_vector(center_freqs: np.ndarray) -> np.ndarray:
+    """Equal-loudness preemphasis curve per mel bin
+    (reference: ``GetEqualLoudnessVector``, mel-computations.cc:313-324)."""
+    fsq = center_freqs * center_freqs
+    fsub = fsq / (fsq + 1.6e5)
+    return (fsub * fsub * ((fsq + 1.44e6) / (fsq + 9.61e6))).astype(np.float32)
+
+
+def idft_bases(n_bases: int, dimension: int) -> np.ndarray:
+    """Inverse-DFT basis matrix ``[n_bases, dimension]`` mapping the
+    (end-duplicated) compressed mel spectrum to autocorrelations
+    (reference: ``InitIdftBases``, feat/feature-functions.cc:188-203)."""
+    angle = math.pi / (dimension - 1)
+    scale = 1.0 / (2.0 * (dimension - 1))
+    i = np.arange(n_bases, dtype=np.float64)[:, None]
+    j = np.arange(dimension, dtype=np.float64)[None, :]
+    m = 2.0 * scale * np.cos(angle * i * j)
+    m[:, 0] = scale
+    m[:, -1] = scale * np.cos(angle * i[:, 0] * (dimension - 1))
+    return m.astype(np.float32)
+
+
+def durbin_lpc(autocorr: torch.Tensor, order: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Levinson-Durbin recursion, vectorized over frames:
+    ``autocorr [N, order+1] -> (lpc [N, order], residual energy [N])``
+    (reference: ``Durbin``, mel-computations.cc:269-299), in the JAX
+    package's order of operations."""
+    e = autocorr[:, 0]
+    lp: list = []  # the coefficients' columns
+    for i in range(order):
+        ki = autocorr[:, i + 1]
+        for j in range(i):
+            ki = ki + lp[j] * autocorr[:, i - j]
+        ki = ki / e
+        e = e * torch.clamp_min(1.0 - ki * ki, 1.0e-5)
+        lp = [lp[j] - ki * lp[i - j - 1] for j in range(i)] + [-ki]
+    return torch.stack(lp, dim=1), e
+
+
+def lpc_to_cepstrum(lpc: torch.Tensor, order: int) -> torch.Tensor:
+    """LPC -> cepstrum recursion, vectorized over frames
+    (reference: ``Lpc2Cepstrum``, mel-computations.cc:302-311)."""
+    ceps: list = []
+    for i in range(order):
+        s = torch.zeros_like(lpc[:, 0])
+        for j in range(i):
+            s = s + float(i - j) * lpc[:, j] * ceps[i - j - 1]
+        ceps.append(-lpc[:, i] - s / float(i + 1))
+    return torch.stack(ceps, dim=1)
+
+
+@dataclass(frozen=True)
+class PlpTables:
+    """K1's ``mel_power`` tables and the PLP tail's constants on one device."""
+
+    opts: PlpOptions
+    k1: MfccTables
+    eql: torch.Tensor  # [num_bins] equal-loudness weights
+    idft: torch.Tensor  # [lpc_order + 1, num_bins + 2]
+    lifter: torch.Tensor  # [num_ceps]
+
+    @classmethod
+    def build(cls, opts: PlpOptions, device) -> "PlpTables":
+        if opts.num_ceps > opts.lpc_order + 1:
+            raise ValueError("num_ceps must be <= lpc_order + 1")
+        mo = opts.mel_opts
+        centers = mel_center_freqs(mo.num_bins, opts.frame_opts, mo.low_freq, mo.high_freq)
+        lifter = (lifter_coeffs(opts.num_ceps, opts.cepstral_lifter)
+                  if opts.cepstral_lifter != 0.0 else np.ones(opts.num_ceps, np.float32))
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        # K1's front half: the frame chain of ``opts`` and PLP's own mel bank,
+        # ``opts.mel_opts`` (not a default ``MelOptions``)
+        k1_opts = MfccOptions(frame_opts=opts.frame_opts, mel_opts=mo,
+                              use_energy=opts.use_energy, energy_floor=opts.energy_floor,
+                              raw_energy=opts.raw_energy)
+        return cls(opts=opts, k1=MfccTables.build(k1_opts, "mel_power", device),
+                   eql=dev(equal_loudness_vector(centers)),
+                   idft=dev(idft_bases(opts.lpc_order + 1, mo.num_bins + 2)),
+                   lifter=dev(lifter))
+
+
+def plp_tail(raw: torch.Tensor, tables: PlpTables) -> torch.Tensor:
+    """K1's ``mel_power`` rows ``[N, num_bins + 1]`` (mel energies, then the
+    log energy) -> ``[N, num_ceps]`` PLP features (reference:
+    ``PlpComputer::Compute``, feat/feature-plp.cc:112-188): equal loudness,
+    compression, the end-duplicated IDFT product, Levinson-Durbin, the
+    cepstrum, lifter, ``cepstral_scale``, ``use_energy`` and
+    ``htk_compat``.  In the rows' dtype."""
+    opts = tables.opts
+    nb = opts.mel_opts.num_bins
+    dt = raw.dtype
+    mel, log_energy = raw[:, :nb] * tables.eql.to(dt)[None, :], raw[:, nb]
+    mel = torch.pow(torch.clamp_min(mel, FLT_EPS), opts.compress_factor)
+    dup = torch.cat([mel[:, :1], mel, mel[:, -1:]], dim=1)  # feature-plp.cc:152-154
+    autocorr = dup @ tables.idft.to(dt).T
+    lpc, resid_e = durbin_lpc(autocorr, opts.lpc_order)
+    # residual_log_energy = log(E), floored like the reference (flt-min clamp)
+    tiny = float(np.finfo(np.float32).tiny)
+    resid_log_e = torch.clamp_min(torch.log(torch.clamp_min(resid_e, tiny)), tiny)
+    raw_ceps = lpc_to_cepstrum(lpc, opts.lpc_order)
+    feat = torch.cat([resid_log_e[:, None], raw_ceps[:, : opts.num_ceps - 1]], dim=1)
+    feat = feat * tables.lifter.to(dt)[None, :]
+    if opts.cepstral_scale != 1.0:
+        feat = feat * opts.cepstral_scale
+    if opts.use_energy:
+        if opts.energy_floor > 0.0:
+            log_energy = torch.clamp_min(log_energy, math.log(opts.energy_floor))
+        feat = torch.cat([log_energy[:, None], feat[:, 1:]], dim=1)
+    if opts.htk_compat:  # reorder only: energy/C0 last (feature-plp.cc:182-187)
+        feat = torch.cat([feat[:, 1:], feat[:, :1]], dim=1)
+    return feat
+
+
+def plp_from_frames(frames: torch.Tensor, tables: PlpTables) -> torch.Tensor:
+    """Plain version of the PLP chain: ``[N, ws]`` dithered frames ->
+    ``[N, num_ceps]``, K1's plain version in ``mel_power`` mode, then the
+    tail."""
+    return plp_tail(mfcc_from_frames(frames, tables.k1), tables)
+
+
+class PlpExtractor:
+    """PLP features (reference: ``PlpComputer``/``Plp``,
+    feat/feature-plp.h:99-167).  The front half (DC, preemphasis, window,
+    FFT, power, mel) is K1 in ``mel_power`` mode; the tail runs in torch on
+    its rows."""
+
+    def __init__(self, opts: PlpOptions = PlpOptions(), *, device=None):
+        self.opts = opts
+        self.device = resolve_device(device)
+        self.tables = PlpTables.build(opts, self.device)
+
+    @property
+    def dim(self) -> int:
+        return self.opts.num_ceps
+
+    def __call__(self, wave, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``[S] -> [num_frames, num_ceps]`` on the extractor's device."""
+        return _single(self, wave, generator)
+
+    def batched(self, waves, num_samples, max_frames: int,
+                generator: torch.Generator | None = None):
+        """``[B, S], [B] -> ([B, max_frames, num_ceps], [B] frame counts)``."""
+        frames, counts = frame_batch(waves, num_samples, max_frames, self.opts.frame_opts,
+                                     self.device, generator)
+        raw = mfcc_kernel.mfcc_frames(frames, self.tables.k1)
+        return plp_tail(raw, self.tables).reshape(counts.shape[0], max_frames, -1), counts
 
 
 # ---------------------------------------------------------------------------

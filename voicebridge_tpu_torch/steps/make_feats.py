@@ -1,4 +1,4 @@
-"""Feature pipeline step: batched MFCC + per-speaker CMVN (+ deltas/splice).
+"""Feature pipeline step: batched MFCC [+ pitch] + per-speaker CMVN (+ deltas/splice).
 
 Port of ``voicebridge_tpu/steps/make_feats.py`` (the reference's MakeMfcc +
 ComputeCmvnStats + apply-cmvn | add-deltas | splice-feats chain).  Utterances are padded
@@ -99,13 +99,35 @@ def apply_feature_chain(feats: dict[str, torch.Tensor], utt2spk: dict[str, str],
     return {u: out[i, : feats[u].shape[0]] for i, u in enumerate(utts)}
 
 
+def paste_pitch(mfcc: dict[str, torch.Tensor], waves: dict[str, np.ndarray],
+                mfcc_opts: MfccOptions) -> dict[str, torch.Tensor]:
+    """MakeMfccPitch's side chain: each utterance's 3-dim pitch features
+    (``ops.pitch.compute_pitch_feats``, on the host) pasted onto its MFCC on
+    the MFCC's device, both cut to the shorter length (paste-feats)."""
+    from ..ops.pitch import PitchOptions, compute_pitch_feats
+
+    fo = mfcc_opts.frame_opts
+    popts = PitchOptions(samp_freq=fo.samp_freq, frame_shift_ms=fo.frame_shift_ms,
+                         frame_length_ms=fo.frame_length_ms)
+    out = {}
+    for u, f in mfcc.items():
+        pitch = torch.from_numpy(compute_pitch_feats(waves[u], popts)).to(f.device)
+        t = min(f.shape[0], pitch.shape[0])
+        out[u] = torch.cat([f[:t], pitch[:t]], dim=1)
+    return out
+
+
 def make_features(waves: dict[str, np.ndarray], utt2spk: dict[str, str],
                   mfcc_opts: MfccOptions,
                   deltas: DeltaOptions | None = DeltaOptions(),
                   splice: SpliceOptions | None = None, *, device=None,
-                  dither_seed: int | None = 0) -> dict[str, torch.Tensor]:
-    """Full frontend on ``device``: MFCC -> per-speaker CMVN -> deltas or
-    splice (neither: the CMVN'd MFCC that the LDA path takes)."""
+                  dither_seed: int | None = 0, pitch: bool = False) -> dict[str, torch.Tensor]:
+    """Full frontend on ``device``: MFCC [+ pitch] -> per-speaker CMVN ->
+    deltas or splice (neither: the CMVN'd MFCC that the LDA path takes).
+    ``pitch=True`` pastes the 3-dim pitch features (MakeMfccPitch role)
+    before CMVN."""
     mfcc = compute_mfcc(waves, mfcc_opts, device=device, dither_seed=dither_seed)
+    if pitch:
+        mfcc = paste_pitch(mfcc, waves, mfcc_opts)
     cmvn = compute_cmvn(mfcc, utt2spk)
     return apply_feature_chain(mfcc, utt2spk, cmvn, deltas, splice)
