@@ -235,6 +235,31 @@ Phases, each of which must pass (any failure exits nonzero):
    its bound (K2's per-class launches each to K2's plain version in
    float64).
 
+20. The last slice (PR 16), about 150 s.  The TF32 repair: with
+   ``torch.set_float32_matmul_precision("high")`` set for the phase, the
+   deltas of phase 9's base features, their LDA decode features under phase
+   15's matrix and ``acc_fmllr_stats`` at phase 16's shape equal, bit for
+   bit, the same calls with TF32 off, and the flag reads ``"tf32"`` after
+   each.  Multi-device statistics (``parallel/``): at world size 1 over
+   NCCL in this process (a file store, the group destroyed after),
+   ``em_estep_sharded_banded`` at phase 8's shape (its K4 alignment as the
+   given one), ``em_estep_sharded`` over phase 12's generic graphs, the LDA,
+   MLLT, fMLLR (8 speakers) and tree accumulators at phases 15, 16 and 8's
+   shapes and ``decode_forward_sharded`` at phase 7's shape (phase 9's
+   graph and features), each held to the port's unsharded function
+   (alignments, K3's scores and codes bit-equal, float64 statistics within
+   rtol 1e-9, MLLT's and fMLLR's, which add fp32 posteriors, within
+   ``POSTERIOR_RTOL``, K6's sums within rtol 1e-5) and timed with its all-reduce
+   beside it and its bound; then world size 2 over ``gloo``, both ranks on
+   ``cuda:0`` started with ``spawn`` and a join limit, the banded E-step and
+   the four accumulators held to world size 1 (each rank's ``alpha_end``
+   block = world size 1's rows).  The lane-major lattice FB
+   (``csrc/lattice_lane.cu``) at phase 9's shape at exact search: packed
+   survivor bytes equal the plain version's on the card, ``total_best`` =
+   ``decode_batch``'s exact best-path scores within 1e-2 or relative 1e-5;
+   16 lanes at beam 13 and max_active 2000 byte for byte; timed against its
+   bound, its launches counted.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
 """
@@ -301,7 +326,7 @@ TOL = {"mfcc_frames": (2e-4, 2e-3), "mfcc_mel_power": (2e-4, 2e-3),
        "align_backtrace": (0.0, 0.0), "gmm_stats": (1e-5, 1e-5), "lattice_fb": (0.0, 0.0),
        "viterbi_nbest": (0.0, 0.0), "generic_forward": (0.0, 0.0),
        "generic_backtrace": (0.0, 0.0), "backtrace_best": (0.0, 0.0),
-       "backtrace_nbest": (0.0, 0.0)}
+       "backtrace_nbest": (0.0, 0.0), "lattice_lane": (0.0, 0.0)}
 SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
                            "voicebridge_tpu/ops/pallas_mfcc.py:57"),
            # K1 in mel_power mode, PLP's front half (counted apart)
@@ -331,7 +356,10 @@ SOURCES = {"mfcc_frames": ("voicebridge_tpu_torch/csrc/mfcc.cu",
                               "voicebridge_tpu/ops/decode_core.py:351"),
            # no TPU kernel: the JAX package walks the N-best tables on the host
            "backtrace_nbest": ("voicebridge_tpu_torch/csrc/backtrace.cu",
-                               "voicebridge_tpu/ops/viterbi.py:561")}
+                               "voicebridge_tpu/ops/viterbi.py:561"),
+           # the lane-major lattice FB (with _window_fb, lattice.py:44)
+           "lattice_lane": ("voicebridge_tpu_torch/csrc/lattice_lane.cu",
+                            "voicebridge_tpu/ops/lattice.py:99")}
 DECODE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step", "backtrace_best")
 TRAIN_KERNELS = ("gmm_loglikes", "align_forward", "align_backtrace", "gmm_stats")
 LATTICE_KERNELS = ("mfcc_frames", "gmm_loglikes", "viterbi_step", "viterbi_step_backward",
@@ -1634,6 +1662,10 @@ def lattice_full_width(torch, device, width: Width, log) -> dict:
     if device.type == "cuda":
         facts["profile"] = profile_run(torch, run, log, "full-width lattice decode")
     log(f"full-width lattice decode: {json.dumps(facts)}")
+    # phase 20's lane-major FB and sharded decode reuse the graph, features
+    # and exact best-path scores
+    facts["lane"] = {"dec": dec, "batch": batch, "nf": np.asarray(nf.cpu(), np.int32),
+                     "exact": exact}
     return facts
 
 
@@ -3469,8 +3501,590 @@ def silprob_full_width(torch, device, work: Path, ls: dict, log) -> dict:
     return facts
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the TF32 repair, multi-device statistics, the lane-major lattice FB
+# ---------------------------------------------------------------------------
+
+WS2_JOIN_S = 300.0  # the world-size-2 ranks' join limit
+LANE_BEAM_RUN = (16, 13.0, 2000)  # the second lane-major run: lanes, beam, max_active
+LANE_WINDOW = 64  # the lane-major FB's window (the JAX package's default)
+LANE_PLAIN_LANES = 128  # lanes the plain version is held on (all of phase 9's)
+FP64_OPS_PER_S = 67e12  # H100 SXM, float64 on the tensor cores, published
+# MLLT's and fMLLR's float64 sums add fp32 posteriors (cuBLAS products): on
+# the card MLLT's beta came out 1.5e-9 of its size apart between the sharded
+# and the unsharded call on the same frames (the cause was not traced; world
+# size 2 against 1 was equal).  LDA, tree and transition sums add exact
+# terms and are held within 1e-9.
+POSTERIOR_RTOL = 1e-7
+
+
+def _precision(torch) -> str:
+    m = torch.backends.cuda.matmul
+    if hasattr(m, "fp32_precision"):
+        return m.fp32_precision
+    return "tf32" if m.allow_tf32 else "ieee"
+
+
+def tf32_guard(torch, device, lane: dict, final_mat, acc: dict, log) -> dict:
+    """Phase 20, the TF32 repair: with ``"high"`` set by the caller, the
+    deltas of phase 9's base features, their LDA decode features under phase
+    15's matrix and ``acc_fmllr_stats`` at phase 16's shape equal, bit for
+    bit, the same calls with TF32 off, and the caller's setting reads again
+    after each call."""
+    from voicebridge_tpu_torch.ops.features import add_deltas_batch
+    from voicebridge_tpu_torch.ops.gmm_kernels import GmmParams
+    from voicebridge_tpu_torch.steps.train_lda_mllt import lda_decode_feats
+    from voicebridge_tpu_torch.transforms.fmllr import acc_fmllr_stats
+
+    base = lane["batch"][:, :, :13].contiguous()
+    nf = torch.from_numpy(lane["nf"])
+    by_utt = {f"u{i:04d}": base[i, : int(n)] for i, n in enumerate(lane["nf"])}
+    g = acc["gmm40"]
+    params = GmmParams(torch.from_numpy(g["w_matrix"]).to(device),
+                       torch.from_numpy(g["gconsts"]).to(device))
+    calls = {
+        "add_deltas_batch": lambda: add_deltas_batch(base, nf),
+        "lda_decode_feats": lambda: torch.cat(list(lda_decode_feats(by_utt, final_mat,
+                                                                    device=device).values())),
+        "acc_fmllr_stats": lambda: torch.cat([t.reshape(-1) for t in acc_fmllr_stats(
+            params, g["means"], g["inv_vars"], acc["x40"], acc["pdf40"], acc["w40"],
+            acc["spk40"], SAT_SPEAKERS, device=device)])}
+    facts = {}
+    for name, call in calls.items():
+        torch.set_float32_matmul_precision("high")
+        try:
+            check(_precision(torch) == "tf32", f"phase 20: 'high' reads {_precision(torch)}")
+            under = call()
+            check(_precision(torch) == "tf32",
+                  f"phase 20: {name} left the caller's precision at {_precision(torch)}")
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        off = call()
+        same = bool(torch.equal(under, off))
+        facts[name] = {"bit_equal": same, "elements": under.numel(),
+                       "max_abs_diff": float((under.double() - off.double()).abs().max())}
+        check(same, f"phase 20: {name} under the caller's TF32 differs from TF32 off: "
+                    f"{facts[name]}")
+    log(f"phase 20, TF32 guard on {device}: {json.dumps(facts)}")
+    return facts
+
+
+def phase20_arrays(torch, device, width: Width) -> dict:
+    """The numpy inputs of phase 20's sharded programs, from seeds: phase
+    8's training shape with its K4 alignment (the E-steps' given alignment),
+    phase 12's generic graphs, and at phase 15 and 16's shapes spliced
+    features for LDA and 40-dim features of ``SAT_SPEAKERS`` speakers under
+    a 2000 x 5 x 40 GMM for MLLT and fMLLR; the tree statistics' events are
+    phase 8's aligned pdfs."""
+    import numpy as np
+
+    from voicebridge_tpu_torch.ops import gmm_kernels as K
+    from voicebridge_tpu_torch.ops import viterbi as V
+    from voicebridge_tpu_torch.testing import random_am
+
+    graphs, aset, feats, nf = train_shape(width, device)
+    am = random_am(width.num_pdfs, width.max_mix, 39, seed=4)
+    params = K.pack_gmm(am, device)
+    alis = aset.align_feats(params, feats, nf, acoustic_scale=0.1)
+    check(all(len(r["arcs"]) == n for r, n in zip(alis, nf)), "phase 20: an utterance did not align")
+    pdf = np.stack([g.arc_pdf[r["arcs"]] for g, r in zip(graphs, alis)]).astype(np.int32)
+    band = aset.band
+    gen_graphs, _aset, _f, _n = train_shape(width, "cpu", width.back_arcs)
+    padded = V.pad_graphs(gen_graphs)
+    b, t, _d = feats.shape
+    n = b * t
+    rng = np.random.default_rng(20)
+    am40 = random_am(width.num_pdfs, width.max_mix, 40, seed=9)
+    p40 = K.pack_gmm(am40, "cpu")
+    w_lda = np.ones(n, np.float32)
+    w_lda[::7] = 0.25
+    out = dict(
+        feats=feats.cpu().numpy(), nf=nf, tids=pdf, pdf_ids=pdf,
+        weights=np.ones((b, t), np.float32), gmm=dict(w_matrix=params.w_matrix.cpu().numpy(),
+                                                      gconsts=params.gconsts.cpu().numpy()),
+        band_W=band.W, band_pdf=band.pdf, band_alpha0=band.alpha0,
+        band_offsets=np.asarray(band.offsets, np.int32),
+        gen={k: padded[k] for k in ("arc_src", "arc_dst", "arc_pdf", "arc_score", "alpha0")},
+        gen_states=padded["num_states"],
+        lda_x=rng.standard_normal((n, 13 * 7), dtype=np.float32),
+        lda_pdf=rng.integers(0, width.num_pdfs, n).astype(np.int32), lda_w=w_lda,
+        x40=rng.standard_normal((n, 40), dtype=np.float32),
+        pdf40=rng.integers(0, width.num_pdfs, n).astype(np.int32),
+        w40=np.ones(n, np.float32),
+        spk40=np.repeat(np.arange(b, dtype=np.int32) % SAT_SPEAKERS, t),
+        gmm40=dict(w_matrix=p40.w_matrix.numpy(), gconsts=p40.gconsts.numpy(),
+                   means=am40.means().astype(np.float32),
+                   inv_vars=am40.inv_vars.astype(np.float32)))
+    return out
+
+
+def sharded_programs(torch, mesh, a: dict, width: Width, timed: bool) -> dict:
+    """The sharded E-step (banded) and the four accumulators over ``mesh``
+    on the arrays of ``phase20_arrays``; each result as host tensors, with
+    its wall time (synchronized) when ``timed``."""
+    from voicebridge_tpu_torch.ops.gmm_kernels import GmmParams
+    from voicebridge_tpu_torch.parallel import mesh as M
+    from voicebridge_tpu_torch.transforms.fmllr import acc_fmllr_stats
+
+    dev = mesh.device
+    params = GmmParams(torch.from_numpy(a["gmm"]["w_matrix"]).to(dev),
+                       torch.from_numpy(a["gmm"]["gconsts"]).to(dev))
+    g40 = a["gmm40"]
+    p40 = GmmParams(torch.from_numpy(g40["w_matrix"]).to(dev),
+                    torch.from_numpy(g40["gconsts"]).to(dev))
+    feats = torch.from_numpy(a["feats"]).to(dev)
+    data = (feats, a["nf"], a["tids"], a["pdf_ids"], a["weights"])
+    b, t, d = a["feats"].shape
+    num_tids = width.num_pdfs - 1  # IdentityTransitions: a tid is its pdf
+    calls = {
+        "em_estep_sharded_banded": lambda: M.em_estep_sharded_banded(
+            mesh, width.num_pdfs, num_tids, a["band_offsets"])(
+            params, a["band_W"], a["band_pdf"], a["band_alpha0"], *data, 0.1),
+        "acc_lda_stats_sharded": lambda: M.acc_lda_stats_sharded(mesh, width.num_pdfs)(
+            a["lda_x"], a["lda_pdf"], a["lda_w"]),
+        "acc_mllt_stats_sharded": lambda: M.acc_mllt_stats_sharded(mesh)(
+            p40, g40["means"], g40["inv_vars"], a["x40"], a["pdf40"], a["w40"]),
+        "acc_fmllr_stats_sharded": lambda: acc_fmllr_stats(
+            p40, g40["means"], g40["inv_vars"], a["x40"], a["pdf40"], a["w40"], a["spk40"],
+            SAT_SPEAKERS, mesh=mesh),
+        "acc_tree_stats_sharded": lambda: M.acc_tree_stats_sharded(mesh, width.num_pdfs)(
+            feats.reshape(b * t, d), a["pdf_ids"].reshape(-1), a["weights"].reshape(-1)),
+    }
+    out = {}
+    for name, call in calls.items():
+        t0 = time.perf_counter()
+        res = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        if timed:  # again, now that everything is built and warm
+            t0 = time.perf_counter()
+            res = call()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        out[name] = {"result": [x.cpu() for x in res], "wall_ms": 1e3 * wall}
+    return out
+
+
+def _ws2_rank(rank: int, world: int, store: str, arrays: str, out: str, device: str) -> None:
+    """One rank of phase 20's world size 2 (``gloo``, both ranks on
+    ``cuda:0``): the sharded programs on the saved arrays; writes its
+    results or its error to ``out/rank<rank>.pt``."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path[:0] = [str(ROOT)]
+    res: dict
+    try:
+        from voicebridge_tpu_torch.parallel import mesh as M
+
+        with open(arrays, "rb") as f:
+            a, width = pickle.load(f)
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world)
+        mesh = M.make_mesh(devices=device)
+        res = {k: v["result"] for k, v in sharded_programs(torch, mesh, a, width,
+                                                            False).items()}
+        dist.barrier()
+        dist.destroy_process_group()
+    except Exception:  # reported by the parent
+        res = {"error": traceback.format_exc()}
+    torch.save(res, f"{out}/rank{rank}.pt")
+
+
+def world_size_two(torch, device, arrays: dict, width: Width, log) -> list:
+    """Start phase 20's two ``gloo`` ranks with ``spawn`` (on the card: both
+    on ``cuda:0``; NCCL refuses two ranks on one device), wait at most
+    ``WS2_JOIN_S``, kill what is left and fail; returns each rank's
+    results."""
+    import multiprocessing as mp
+    import pickle
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ws2_") as tmp:
+        path = f"{tmp}/arrays.pkl"
+        with open(path, "wb") as f:
+            pickle.dump((arrays, width), f)
+        ctx = mp.get_context("spawn")
+        dev = "cuda:0" if device.type == "cuda" else "cpu"
+        procs = [ctx.Process(target=_ws2_rank, args=(r, 2, f"{tmp}/store", path, tmp, dev),
+                             daemon=True) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + WS2_JOIN_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(10)
+        check(not hung, f"phase 20: {len(hung)} world-size-2 rank(s) did not finish in "
+                        f"{WS2_JOIN_S} s")
+        res = []
+        for r in range(2):
+            got = torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+            check("error" not in got, f"phase 20: world-size-2 rank {r}: {got.get('error')}")
+            res.append(got)
+    log(f"phase 20: world size 2 over gloo on {device} in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def _close(torch, got, ref, rtol: float, what: str, atol: float = 0.0) -> float:
+    got, ref = torch.as_tensor(got).double(), torch.as_tensor(ref).double()
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    check(got.shape == ref.shape and bool(torch.allclose(got, ref, rtol=rtol, atol=atol)),
+          f"phase 20: {what} differs (max abs {err}, rtol {rtol})")
+    return err
+
+
+def sharded_bounds(a: dict, width: Width) -> dict:
+    """Each sharded program's least time, the larger of its bytes (inputs
+    once, outputs once) over the memory rate and its operations over the
+    rate of their type: the E-step's K2 products (3xTF32), K4's relaxations
+    and K6's sums (float32); LDA's second moment and fMLLR's block products
+    (float64); MLLT's block products (float32); the tree sums (float64)."""
+    b, t, d = a["feats"].shape
+    n, p, m = b * t, width.num_pdfs, width.max_mix
+    s, k = a["band_W"].shape[1:]
+    e = 40
+    stats_bytes = 8 * p * m * (2 * d + 1)
+    estep = (4 * n * d + 4 * b * s * k * 2 + 12 * n + n * s + 4 * b * s + stats_bytes,
+             3 * 2 * n * (2 * d + 1) * p * m / TF32_OPS_PER_S + (4 * n * s * k + 6 * n * m * d)
+             / FP32_OPS_PER_S)
+    sd = a["lda_x"].shape[1]
+    lda = (4 * n * (sd + 2) + 8 * p * (sd + 1) + 8 * sd * sd, 2 * n * sd * sd / FP64_OPS_PER_S)
+    mllt = (4 * n * (e + 2) + 8 * p * m * (2 * e + 1) + 8 * e ** 3,
+            2 * n * m * e ** 3 / FP32_OPS_PER_S)
+    fmllr = (4 * n * (e + 3) + 8 * p * m * (2 * e + 1) + 8 * SAT_SPEAKERS * e * (e + 1) ** 2,
+             2 * n * e * (e + 1) ** 2 / FP64_OPS_PER_S)
+    tree = (4 * n * (d + 2) + 8 * p * (2 * d + 1), 3 * n * d / FP64_OPS_PER_S)
+    arcs = a["gen"]["arc_src"].size  # the generic E-step: K2, the forward over every arc, K6
+    s_gen = a["gen"]["alpha0"].shape[1]
+    generic = (4 * n * d + 16 * arcs + 4 * b * s_gen + 4 * t * b * s_gen + 12 * n + stats_bytes,
+               estep[1] - 4 * n * s * k / FP32_OPS_PER_S + 4 * t * arcs / FP32_OPS_PER_S)
+    out = {}
+    for name, (byts, op_s) in (("em_estep_sharded_banded", estep), ("em_estep_sharded", generic),
+                               ("acc_lda_stats_sharded", lda),
+                               ("acc_mllt_stats_sharded", mllt),
+                               ("acc_fmllr_stats_sharded", fmllr),
+                               ("acc_tree_stats_sharded", tree)):
+        byte_ms, op_ms = 1e3 * byts / HBM_BYTES_PER_S, 1e3 * op_s
+        out[name] = {"bound_ms": max(byte_ms, op_ms),
+                     "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+    return out
+
+
+def parallel_full_width(torch, device, width: Width, a: dict, lane: dict, log) -> dict:
+    """Phase 20, multi-device statistics: world size 1 in this process (NCCL
+    on a card, gloo on the CPU; a file store, the group destroyed after) at
+    phase 8, 12, 15 and 16's shapes and phase 7's decode shape, each program
+    held to the port's unsharded functions and timed with its all-reduce
+    beside it; then world size 2 over gloo, held to world size 1."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from voicebridge_tpu_torch import convert
+    from voicebridge_tpu_torch.ops import align_band as AB
+    from voicebridge_tpu_torch.ops import decode_core as DC
+    from voicebridge_tpu_torch.ops import gmm_kernel
+    from voicebridge_tpu_torch.ops import gmm_kernels as K
+    from voicebridge_tpu_torch.ops import viterbi as V
+    from voicebridge_tpu_torch.ops.gmm_kernels import GmmParams
+    from voicebridge_tpu_torch.parallel import mesh as M
+    from voicebridge_tpu_torch.transforms.fmllr import fmllr_sums
+    from voicebridge_tpu_torch.transforms.lda import lda_sums
+    from voicebridge_tpu_torch.transforms.mllt import acc_mllt_stats
+
+    t_start = time.perf_counter()
+    cuda = device.type == "cuda"
+    facts: dict = {"programs": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ws1_") as tmp:
+        dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = M.make_mesh(devices=device)
+            reset_launches()
+            one = sharded_programs(torch, mesh, a, width, cuda)
+            from voicebridge_tpu_torch import _build
+            launches = dict(_build.launches)
+            # the generic E-step over phase 12's graphs, and the decode forward
+            gen = a["gen"]
+            params = GmmParams(torch.from_numpy(a["gmm"]["w_matrix"]).to(device),
+                               torch.from_numpy(a["gmm"]["gconsts"]).to(device))
+            feats = torch.from_numpy(a["feats"]).to(device)
+            data = (feats, a["nf"], a["tids"], a["pdf_ids"], a["weights"])
+            t0 = time.perf_counter()
+            g_res = M.em_estep_sharded(mesh, a["gen_states"], width.num_pdfs, width.num_pdfs - 1)(
+                params, gen["arc_src"], gen["arc_dst"], gen["arc_pdf"], gen["arc_score"],
+                gen["alpha0"], *data, 0.1)
+            if cuda:
+                torch.cuda.synchronize()
+            one["em_estep_sharded"] = {"result": [x.cpu() for x in g_res],
+                                       "wall_ms": 1e3 * (time.perf_counter() - t0)}
+            dec = lane["dec"]
+            ll = dec._loglikes(lane["batch"].contiguous())
+            s1 = dec.plan.row_start.shape[0] - 1
+            alpha = torch.full((s1, width.batch), DC.NEG_INF, device=device)
+            alpha[torch.from_numpy(dec.plan.sperm[np.flatnonzero(
+                dec.graph.alpha0 > DC.NEG_INF / 2)]).long().to(device)] = 0.0
+            alpha_end = torch.full_like(alpha, DC.NEG_INF)
+            acwt = float(np.float32(1.0 / 13.0))
+            step = M.decode_forward_sharded(mesh, dec.plan.packed, dec.plan.rspec)
+            t0 = time.perf_counter()
+            d_res = step(dec.plan_dev, alpha, alpha_end, ll, lane["nf"], acwt)
+            if cuda:
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            r, d_w = dec.plan_dev.row_w.shape
+            byts = (nbytes(ll) + d_res[2].numel() * d_res[2].element_size()
+                    + k3_plan_bytes(dec.plan_dev) + 3 * nbytes(alpha))
+            byte_ms = 1e3 * byts / HBM_BYTES_PER_S
+            op_ms = 1e3 * 3 * width.batch * r * d_w * ll.shape[1] / FP32_OPS_PER_S
+            one["decode_forward_sharded"] = {
+                "wall_ms": 1e3 * wall, "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+            (ra, rae), rbps = DC.viterbi_scan(dec.plan_dev, alpha.clone(), alpha_end.clone(),
+                                              ll.permute(1, 2, 0).contiguous(),
+                                              torch.from_numpy(lane["nf"]).to(device), 0, acwt,
+                                              dec.plan.rspec, dec.plan.packed)
+            for got, ref, what in zip(d_res, (ra, rae, rbps),
+                                      ("K3's alpha", "K3's alpha_end", "K3's codes")):
+                check(bool(torch.equal(got, ref)),
+                      f"phase 20: decode_forward_sharded's {what} differ from viterbi_scan's")
+            del d_res, rbps, ra, rae, ll
+            # the all-reduce alone, on float64 tensors of each program's statistics
+            for name, entry in one.items():
+                stats = [x.to(device).double() for x in entry.get("result", [])[2:]
+                         if x.dtype.is_floating_point] if name.startswith("em_") else \
+                    [x.to(device).double() for x in entry.get("result", [])]
+                if stats:
+                    entry["all_reduce_ms"] = (cuda_ms(torch, lambda: M.all_reduce_stats(
+                        mesh, stats), reps=3) if cuda else None)
+                    entry["all_reduce_bytes"] = 8 * sum(x.numel() for x in stats)
+        finally:
+            dist.destroy_process_group()
+    # ---- held to the port's unsharded functions ----
+    b, t, d = a["feats"].shape
+    n = b * t
+    w_k = convert.kernel_params_from_twin(params)
+    ll = gmm_kernel.loglikes_batch(feats, w_k)
+    nf_t = torch.from_numpy(a["nf"]).to(device)
+    ae, bps = AB.viterbi_forward_banded(
+        torch.from_numpy(a["band_W"]).to(device), torch.from_numpy(a["band_pdf"]).to(device),
+        torch.from_numpy(a["band_alpha0"]).to(device), ll, nf_t, 0.1,
+        torch.from_numpy(a["band_offsets"]).to(device))
+    x = feats.reshape(n, d)
+    wt = torch.ones(n, device=device)
+    sums = K.acc_gmm_stats_sums(params, x, x, a["pdf_ids"].reshape(-1), width.num_pdfs, wt)
+    tst = K.transition_sums(torch.from_numpy(a["tids"].reshape(-1)).to(device),
+                            width.num_pdfs - 1, wt)
+    errs = {}
+    res = one["em_estep_sharded_banded"]["result"]
+    check(bool(torch.equal(res[0], ae.cpu())) and bool(torch.equal(res[1], bps.cpu())),
+          "phase 20: the sharded banded E-step's alignment differs from K4's")
+    errs["em_estep_sharded_banded"] = max(
+        [_close(torch, g, r.cpu(), 1e-5, f"K6 sums ({i})", 1e-6 * float(r.abs().max()))
+         for i, (g, r) in enumerate(zip(res[2:5], sums[:3]))]
+        + [_close(torch, res[5], tst.cpu(), 1e-9, "transition sums"),
+           _close(torch, res[6], sums[3].cpu(), 1e-5, "the E-step ll")])
+    gen = a["gen"]
+    ae_g, bps_g = V.viterbi_forward_batched(gen["arc_src"], gen["arc_dst"], gen["arc_pdf"],
+                                            gen["arc_score"], gen["alpha0"], ll, a["nf"], 0.1,
+                                            1e9, a["gen_states"])
+    res_g = one["em_estep_sharded"]["result"]
+    check(bool(torch.equal(res_g[0], ae_g.cpu())) and bool(torch.equal(res_g[1], bps_g.cpu())),
+          "phase 20: the sharded generic E-step's alignment differs from the generic aligner's")
+    errs["em_estep_sharded"] = max(_close(torch, g, r, 1e-9, "generic E-step statistics")
+                                   for g, r in zip(res_g[2:], res[2:]))
+    del ll, bps, bps_g
+    g40 = a["gmm40"]
+    p40 = GmmParams(torch.from_numpy(g40["w_matrix"]).to(device),
+                    torch.from_numpy(g40["gconsts"]).to(device))
+    lda = lda_sums(torch.from_numpy(a["lda_x"]).to(device), a["lda_pdf"], a["lda_w"],
+                   width.num_pdfs)
+    errs["acc_lda_stats_sharded"] = max(
+        _close(torch, g, r.cpu(), 1e-9, "LDA statistics")
+        for g, r in zip(one["acc_lda_stats_sharded"]["result"], lda))
+    # one chunk, the frames world size 1 gives its one rank
+    mllt = acc_mllt_stats(p40, g40["means"], g40["inv_vars"], a["x40"], a["pdf40"], a["w40"],
+                          chunk=n)
+    got = one["acc_mllt_stats_sharded"]["result"]
+    errs["acc_mllt_stats_sharded"] = max(
+        _close(torch, got[0].float(), mllt[0].cpu(), POSTERIOR_RTOL, "MLLT G",
+               POSTERIOR_RTOL * float(mllt[0].abs().max())),
+        _close(torch, got[1], mllt[1], POSTERIOR_RTOL, "MLLT beta"))
+    fm = fmllr_sums(p40, g40["means"], g40["inv_vars"], a["x40"], a["pdf40"], a["w40"],
+                    a["spk40"], SAT_SPEAKERS)
+    errs["acc_fmllr_stats_sharded"] = max(
+        _close(torch, g, r.float().cpu(), POSTERIOR_RTOL, "fMLLR statistics",
+               POSTERIOR_RTOL * float(r.abs().max()))
+        for g, r in zip(one["acc_fmllr_stats_sharded"]["result"], fm))
+    ids = a["pdf_ids"].reshape(-1)
+    xf = a["feats"].reshape(n, d)
+    ref_tree = [np.zeros(width.num_pdfs), np.zeros((width.num_pdfs, d)),
+                np.zeros((width.num_pdfs, d))]
+    np.add.at(ref_tree[0], ids, 1.0)
+    np.add.at(ref_tree[1], ids, xf)
+    np.add.at(ref_tree[2], ids, xf * xf)
+    errs["acc_tree_stats_sharded"] = max(
+        _close(torch, g, torch.from_numpy(r), 1e-9, "tree statistics")
+        for g, r in zip(one["acc_tree_stats_sharded"]["result"], ref_tree))
+    # ---- world size 2 over gloo, held to world size 1 ----
+    two = world_size_two(torch, device, a, width, log)
+    ws2 = {}
+    for name, entry in one.items():
+        if name not in two[0]:
+            continue
+        ref = entry["result"]
+        for rank, res in enumerate(two):
+            check(all(bool(torch.equal(x, y)) for x, y in zip(res[name][2:] if name.startswith(
+                "em_") else res[name], two[0][name][2:] if name.startswith("em_")
+                else two[0][name])), f"phase 20: the two ranks' {name} differ")
+        got = two[0][name]
+        if name.startswith("em_"):
+            half = ref[0].shape[0] // 2
+            for rank, res in enumerate(two):
+                check(bool(torch.equal(res[name][0], ref[0][rank * half:(rank + 1) * half])),
+                      f"phase 20: rank {rank}'s alpha_end block differs from world size 1's rows")
+            ws2[name] = max([_close(torch, g, r, 1e-5, f"{name} K6 sums at world size 2",
+                                    1e-6 * float(r.abs().max()))
+                             for g, r in zip(got[2:5], ref[2:5])]
+                            + [_close(torch, got[5], ref[5], 1e-9, "transition sums, ws 2")])
+        else:
+            rtol = POSTERIOR_RTOL if name in ("acc_mllt_stats_sharded",
+                                              "acc_fmllr_stats_sharded") else 1e-9
+            ws2[name] = max(_close(torch, g, r, rtol, f"{name} at world size 2",
+                                   rtol * float(r.abs().max()) if rtol > 1e-9 else 0.0)
+                            for g, r in zip(got, ref))
+    bounds = sharded_bounds(a, width)
+    for name, entry in one.items():
+        entry.pop("result", None)
+        entry.update(bounds.get(name, {}))
+        entry["max_abs_err_vs_unsharded"] = errs.get(name)
+        entry["max_abs_err_ws2_vs_ws1"] = ws2.get(name)
+        facts["programs"][name] = entry
+    facts["launches"] = launches
+    facts["wall_s"] = time.perf_counter() - t_start
+    log(f"phase 20, multi-device statistics on {device}: {json.dumps(facts)}")
+    return facts
+
+
+def bytes_differ(a, b, frames: int = 16) -> int:
+    """Entries where two equal-shaped ``[T, ...]`` tensors differ, counted
+    ``frames`` frames at a time (a whole-tensor sum of the comparison would
+    widen it to int64 at once)."""
+    return sum(int((a[lo:lo + frames] != b[lo:lo + frames]).sum())
+               for lo in range(0, a.shape[0], frames))
+
+
+def lane_fb_full_width(torch, device, width: Width, lane: dict, results: dict, log) -> dict:
+    """Phase 20, the lane-major lattice FB at phase 9's shape (its graph, GMM
+    and features; acoustic scale 1/13, lattice beam 6) through
+    ``lattice_forward_backward_packed``: at exact search the kernel's packed
+    survivor bytes equal the plain version's on the card, and total_best
+    equals decode_batch's exact best-path scores; a second run of
+    ``LANE_BEAM_RUN`` lanes at a finite beam and max_active, byte for byte.
+    The reference's survivor test drops whole frames at large totals, so
+    the full-width check is kernel against plain version, not the beam
+    invariant."""
+    import numpy as np
+
+    from voicebridge_tpu_torch import _build
+    from voicebridge_tpu_torch.ops import lattice as LAT
+
+    dec = lane["dec"]
+    g = dec.graph
+    plan = LAT.lane_plan_to_device(g, LAT.build_dst_plan(g), LAT.build_src_plan(g), device)
+    ll = dec._loglikes(lane["batch"].contiguous())
+    nf = lane["nf"]
+    acwt, lbeam = 1.0 / 13.0, 6.0
+    cuda = device.type == "cuda"
+
+    def kernel(lanes=None, beam=1e9, max_active=0):
+        x = ll if lanes is None else ll[:lanes].contiguous()
+        k = nf if lanes is None else nf[:lanes]
+        return LAT.lattice_forward_backward_packed(plan, x, k, acwt, beam, lbeam, max_active,
+                                                   LANE_WINDOW)
+
+    def plain(lanes=None, beam=1e9, max_active=0):
+        """The plain version on the same device and inputs."""
+        x = ll if lanes is None else ll[:lanes].contiguous()
+        k = nf if lanes is None else nf[:lanes]
+        return LAT.lattice_forward_backward_packed(
+            plan, x, k, acwt, beam, lbeam, max_active, LANE_WINDOW,
+            steps=(LAT.lane_forward_plain, LAT.lane_backward_plain))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    bits, best, at_end, use_final = kernel()
+    if cuda:
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    windows = -(-int(ll.shape[1]) // LANE_WINDOW)  # phase 1 forward, phase 2 forward + backward
+    check(not cuda or launches["lattice_lane"] == 3 * windows,
+          f"phase 20: the lane-major FB launched {launches['lattice_lane']} times for "
+          f"{windows} windows")
+    exact = lane["exact"]
+    got = best.double().cpu().numpy()
+    worst = float(np.max(np.abs(got - exact) / np.maximum(np.abs(exact), 1.0)))
+    check(bool(use_final.all()) and all(abs(x - e) <= max(1e-2, 1e-5 * abs(e))
+                                        for x, e in zip(got, exact)),
+          f"phase 20: lane-major total_best against decode_batch's best paths: rel err {worst}")
+    t0 = time.perf_counter()
+    pb, pbest, pend, puse = plain(LANE_PLAIN_LANES)
+    if cuda:
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    lanes = pb.shape[1]
+    diff = bytes_differ(bits[:, :lanes], pb)
+    check(diff == 0 and bool(torch.equal(best[:lanes], pbest)) and bool(torch.equal(
+        at_end[:lanes], pend)) and bool(torch.equal(use_final[:lanes], puse)),
+          f"phase 20: the lane-major kernel's packed survivors differ from the plain "
+          f"version's in {diff} bytes")
+    ones = torch.tensor([bin(i).count("1") for i in range(256)], device=device)
+    survivors = sum(int(ones[bits[lo:lo + 16].long()].sum()) for lo in range(0, bits.shape[0], 16))
+    ms_cut = cuda_ms(torch, lambda: kernel(lanes), reps=2) if cuda and lanes < ll.shape[0] \
+        else None
+    del pb, pend
+    n2, beam2, ma2 = LANE_BEAM_RUN
+    kb = kernel(n2, beam2, ma2)
+    pbb = plain(n2, beam2, ma2)
+    diff2 = bytes_differ(kb[0], pbb[0])
+    check(diff2 == 0 and bool(torch.equal(kb[1], pbb[1])),
+          f"phase 20: at beam {beam2}, max_active {ma2} the lane-major kernel differs from its "
+          f"plain version in {diff2} bytes")
+    del kb, pbb
+    ms = cuda_ms(torch, kernel, reps=2) if cuda else None
+    # the bound (tools/lane_major_fb_bound.py's count at this run's sizes):
+    # bytes of the inputs once and the outputs once; operations per (lane,
+    # arc, frame) 4 forward and 6 backward, per (lane, state, frame) 4
+    b, t, p = ll.shape
+    s, a = g.num_states, g.num_arcs
+    byts = 4 * b * t * p + 16 * a + 4 * s + 8 * (s + 1) + 8 * a + t * b * ((a + 7) // 8) \
+        + 4 * b * s + 5 * b
+    ops = 10 * b * a * t + 4 * b * s * t
+    byte_ms, op_ms = 1e3 * byts / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    results["lattice_lane"] = {
+        "max_abs_err": float((best[:lanes] - pbest).abs().max()), "ms": ms,
+        "plain_ms": 1e3 * plain_s if cuda else None, "ms_at_plain_lanes": ms_cut,
+        "bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": None, "plain_lanes": lanes, "packed_bytes": bits.numel()}
+    facts = {"launches": launches, "first_run_s": first_s, "plain_s": plain_s,
+             "plain_lanes": lanes, "total_best_rel_err_max": worst, "survivors": survivors,
+             "packed_bytes": bits.numel(), "beam_run": {"lanes": n2, "beam": beam2,
+                                                       "max_active": ma2, "bytes_differ": diff2},
+             "bound_ms": results["lattice_lane"]["bound_ms"], "ms": ms}
+    log(f"phase 20, lane-major lattice FB on {device}: {json.dumps(facts)}")
+    return facts
+
+
 def run(device, width: Width, log=print) -> dict:
-    """Phases 2-19 on ``device``; returns the kernels report.  On a CPU
+    """Phases 2-20 on ``device``; returns the kernels report.  On a CPU
     device the wrappers take their plain versions, so this rehearses the
     control flow without kernels."""
     import torch
@@ -3508,6 +4122,7 @@ def run(device, width: Width, log=print) -> dict:
     train = train_full_width(torch, device, width, log)
     launched(train["launches"], TRAIN_KERNELS, "the full-width EM iteration")
     lattice = lattice_full_width(torch, device, width, log)
+    lane = lattice.pop("lane")
     launched(lattice["launches"], LATTICE_KERNELS, "the full-width lattice decode")
     kernels["gmm_loglikes"]["max_abs_err_lattice_features"] = lattice["k2_max_abs_err"]
     reset_launches()
@@ -3542,7 +4157,8 @@ def run(device, width: Width, log=print) -> dict:
                  f"{part} training")
     launched(tri["sat_fixture"]["launches"], LATTICE_KERNELS[1:],  # features made before
              "the SAT fixture's fMLLR decode")
-    sat = sat_full_width(torch, device, width, record, kernels, lda.pop("final_mat"), log)
+    final_mat = lda.pop("final_mat")
+    sat = sat_full_width(torch, device, width, record, kernels, final_mat, log)
     launched(sat["train"]["launches"], TRAIN_KERNELS, "the full-width SAT EM iteration")
     launched(sat["train"]["alimdl_launches"], ("gmm_stats",), "the full-width alimdl")
     launched(sat["decode"]["launches"], LATTICE_KERNELS, "the full-width fMLLR decode")
@@ -3568,12 +4184,23 @@ def run(device, width: Width, log=print) -> dict:
     launched(adapt["launches"], ("gmm_loglikes", "gmm_stats"), "phase 19's adaptation")
     phase19_s = time.perf_counter() - t19
     log(f"phase 19 on {device}: {phase19_s:.1f} s")
+    t20 = time.perf_counter()
+    arrays = phase20_arrays(torch, device, width)
+    tf32 = tf32_guard(torch, device, lane, final_mat, arrays, log)
+    par = parallel_full_width(torch, device, width, arrays, lane, log)
+    launched(par["launches"], ("gmm_loglikes", "align_forward", "gmm_stats"),
+             "phase 20's sharded programs")
+    lanefb = lane_fb_full_width(torch, device, width, lane, kernels, log)
+    launched(lanefb["launches"], ("lattice_lane",), "phase 20's lane-major FB")
+    del lane, arrays
+    phase20_s = time.perf_counter() - t20
+    log(f"phase 20 on {device}: {phase20_s:.1f} s")
     runs = (decode, train, lattice, nbest, generic, *rates.values(), tri["fixture"],
             tri["tri1"], tri["tri2b"], lda["train"], lda["decode"], tri["sat_fixture"],
             tri["delta_sat"], tri["lda_sat"], sat["train"],
             {"launches": sat["train"]["alimdl_launches"]}, sat["decode"], examples["yesno"],
             examples["yesno_reopened"], examples["full_pipeline"],
-            {"launches": ls_all}, silprob, fronts, fronts["pitch"], adapt)
+            {"launches": ls_all}, silprob, fronts, fronts["pitch"], adapt, par, lanefb)
     return {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -3586,6 +4213,7 @@ def run(device, width: Width, log=print) -> dict:
         "phase19": {"wall_s": phase19_s, "silprob": silprob,
                     "features": {k: v for k, v in fronts.items() if k != "device_functions"},
                     "adaptation": {k: v for k, v in adapt.items() if k != "device_functions"}},
+        "phase20": {"wall_s": phase20_s, "tf32": tf32, "parallel": par, "lane_fb": lanefb},
         "device_functions": {**lda["device_functions"], **sat["device_functions"],
                              **fronts["device_functions"], **adapt["device_functions"]}}
 
@@ -3694,6 +4322,18 @@ def main() -> int:
           f"{ad['wall_s']:.2f} s (regression classes per speaker {ad['classes']}, launches "
           f"{ {k: n for k, n in ad['launches'].items() if n} }); silprob decode WER "
           f"{sil['wer']:.2f} % (tri1 {sil['tri1_wer']:.2f} %) in {sil['wall_s']:.1f} s")
+    p20 = report.pop("phase20")
+    par, lfb = p20["parallel"], p20["lane_fb"]
+    print(f"phase 20 on {card} in {p20['wall_s']:.1f} s: TF32 guard bit-equal "
+          f"{ {k: v['bit_equal'] for k, v in p20['tf32'].items()} }; lane-major lattice FB "
+          f"{lfb['ms']} ms (bound {lfb['bound_ms']:.4g} ms), {lfb['launches']['lattice_lane']} "
+          f"launches, {lfb['packed_bytes']} packed bytes = the plain version's on "
+          f"{lfb['plain_lanes']} lanes (plain {lfb['plain_s']:.2f} s)")
+    for name, f in par["programs"].items():
+        print(f"  {name} at world size 1 on {card}: {f['wall_ms']:.3f} ms wall, all-reduce "
+              f"{f.get('all_reduce_ms')} ms, bound {f.get('bound_ms')} ms ({f.get('bound_by')}); "
+              f"max abs err against the unsharded function {f['max_abs_err_vs_unsharded']}, "
+              f"world size 2 against 1 {f['max_abs_err_ws2_vs_ws1']}")
     for name, f in report.pop("device_functions").items():
         print(f"{name} on {card}: {f['ms']:.4f} ms device, {f['wall_ms']:.3f} ms wall, "
               f"bound {f['bound_ms']:.4f} ms ({f['bound_by']}), max abs err {f['max_abs_err']:.3g}")

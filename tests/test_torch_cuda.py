@@ -1658,3 +1658,128 @@ def test_full_gmm_cuda_matches_float64(cuda):
         for a_, r in zip(got, ref):
             torch.testing.assert_close(a_.double(), r, rtol=1e-5,
                                        atol=1e-5 * float(r.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The last slice: TF32 guard, lane-major lattice FB, sharded E-step
+# ---------------------------------------------------------------------------
+
+
+def test_tf32_high_gives_the_ieee_results(cuda):
+    """With ``torch.set_float32_matmul_precision("high")`` set by the caller
+    the deltas, the LDA decode features and the fMLLR statistics equal,
+    bit for bit, the same calls with TF32 off; the caller's setting reads
+    again after each call."""
+    from voicebridge_tpu_torch.steps.train_lda_mllt import lda_decode_feats
+    from voicebridge_tpu_torch.transforms import fmllr as TFM
+
+    rng = np.random.default_rng(11)
+    base = torch.from_numpy(rng.standard_normal((6, 300, 13)).astype(np.float32)).to(cuda)
+    nf = torch.tensor([300, 250, 1, 300, 120, 299])
+    by_utt = {f"u{i}": base[i, : int(n)] for i, n in enumerate(nf)}
+    mat = rng.standard_normal((40, 92)).astype(np.float32)
+    am = _am(30, 4, 40, seed=3, ragged=False)
+    n = 4000
+    x = torch.from_numpy(rng.standard_normal((n, 40)).astype(np.float32))
+    pdf, spk = rng.integers(0, 30, n), rng.integers(0, 3, n)
+    params = gmm_kernels.pack_gmm(am, cuda)
+    calls = [lambda: TF.add_deltas_batch(base, nf),
+             lambda: torch.cat(list(lda_decode_feats(by_utt, mat, device=cuda).values())),
+             lambda: torch.cat([t.reshape(-1) for t in TFM.acc_fmllr_stats(
+                 params, am.means(), am.inv_vars, x, pdf, np.ones(n, np.float32), spk, 3,
+                 device=cuda)])]
+    for call in calls:
+        try:
+            torch.set_float32_matmul_precision("high")
+            under = call()
+            assert torch.get_float32_matmul_precision() == "high"
+        finally:
+            torch.set_float32_matmul_precision("highest")
+        assert torch.equal(under, call())
+
+
+def _lane_inputs(num_states, lanes, frames, seed, ties=False):
+    g = synth_decode_graph(num_states, arcs_per_state=8, num_pdfs=20, seed=seed)
+    ll = np.random.default_rng(seed).standard_normal((lanes, frames, 20)) * 3 - 10
+    if ties:  # whole-number scores: many states tie, at the k-th value too
+        g = g._replace(arc_score=np.round(g.arc_score).astype(np.float32))
+        ll = np.round(ll)
+    return g, torch.from_numpy(ll.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["exact", "beam", "max_active", "max_active_ties", "window_t",
+                                  "window_1", "big"])
+def test_lattice_lane_kernel_matches_plain(cuda, case):
+    """``lattice_lane.cu`` against its plain version on the card: the packed
+    survivor bytes, total_best, alpha_at_end and use_final equal, at exact
+    search, a finite beam, max_active (with ties at the k-th score), windows
+    of 1 frame and longer than T, lanes of no frame and of one, and 3,000
+    states (a radix select over more states than a CTA's threads)."""
+    states, lanes, frames, beam, max_active, window, ties = {
+        "exact": (300, 5, 40, 1e9, 0, 16, False), "beam": (300, 5, 40, 9.0, 0, 16, False),
+        "max_active": (300, 5, 40, 1e9, 37, 16, False),
+        "max_active_ties": (300, 5, 40, 1e9, 37, 16, True),
+        "window_t": (300, 5, 40, 12.0, 20, 64, False), "window_1": (200, 3, 12, 1e9, 0, 1, False),
+        "big": (3000, 4, 30, 14.0, 500, 8, True)}[case]
+    g, ll = _lane_inputs(states, lanes, frames, seed=len(case), ties=ties)
+    nf = np.array([frames, frames - 7, 0, 1, frames][:lanes], np.int32)
+    plan = LAT.lane_plan_to_device(g, LAT.build_dst_plan(g), LAT.build_src_plan(g), cuda)
+    x = ll.to(cuda)
+    _build.launches["lattice_lane"] = 0
+    got = LAT.lattice_forward_backward_packed(plan, x, nf, 1 / 13, beam, 6.0, max_active, window)
+    assert _build.launches["lattice_lane"] == 3 * -(-frames // window)
+    want = LAT.lattice_forward_backward_packed(
+        plan, x, nf, 1 / 13, beam, 6.0, max_active, window,
+        steps=(LAT.lane_forward_plain, LAT.lane_backward_plain))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got[0].sum()) > 0
+
+
+def test_sharded_estep_nccl_world1_matches_unsharded(cuda):
+    """``em_estep_sharded`` and ``em_estep_sharded_banded`` at world size 1
+    over NCCL (a group on an in-process store) against the unsharded
+    aligners and E-step sums on the card: alignments bit-equal, K6's sums
+    within rtol 1e-5, the transition counts within rtol 1e-9."""
+    import torch.distributed as dist
+
+    import torch_parallel_worker as W
+    from voicebridge_tpu_torch.parallel import mesh as M
+
+    s = W.build_setup()
+    p = s["padded"]
+    params = gmm_kernels.pack_gmm(s["am"], cuda)
+    data = (s["feats"], s["nf"], s["tids"], s["pdf_ids"], s["weights"])
+    ll = gmm_kernel.loglikes_batch(torch.from_numpy(s["feats"]).to(cuda),
+                                   convert.kernel_params_from_twin(params))
+    x = torch.from_numpy(s["feats"].reshape(-1, W.DIM)).to(cuda)
+    w = torch.ones(x.shape[0], device=cuda)
+    sums = gmm_kernels.acc_gmm_stats_sums(params, x, x, s["pdf_ids"].reshape(-1),
+                                          s["tree"].num_pdfs, w)
+    tst = gmm_kernels.transition_sums(torch.from_numpy(s["tids"].reshape(-1)).to(cuda),
+                                      s["tm"].num_transition_ids, w)
+    band = AB.build_band_plan(s["graphs"])
+    try:
+        mesh = M.make_mesh(devices=cuda)
+        assert mesh.backend == "nccl" and mesh.shape[M.DATA_AXIS] == 1
+        res = M.em_estep_sharded(mesh, p["num_states"], s["tree"].num_pdfs,
+                                 s["tm"].num_transition_ids)(
+            params, p["arc_src"], p["arc_dst"], p["arc_pdf"], p["arc_score"], p["alpha0"],
+            *data, 0.1)
+        res_b = M.em_estep_sharded_banded(mesh, s["tree"].num_pdfs,
+                                          s["tm"].num_transition_ids, band.offsets)(
+            params, band.W, band.pdf, band.alpha0, *data, 0.1)
+    finally:
+        dist.destroy_process_group()
+    ae, bps = V.viterbi_forward_batched(p["arc_src"], p["arc_dst"], p["arc_pdf"], p["arc_score"],
+                                        p["alpha0"], ll, s["nf"], 0.1, 1e9, p["num_states"])
+    bdev = AB.plan_to_device(band, cuda)
+    ae_b, bps_b = AB.viterbi_forward_banded(bdev.W, bdev.pdf, bdev.alpha0, ll,
+                                            torch.from_numpy(s["nf"]).to(cuda), 0.1, bdev.offsets)
+    assert torch.equal(res[0], ae) and torch.equal(res[1], bps)
+    assert torch.equal(res_b[0], ae_b) and torch.equal(res_b[1], bps_b)
+    for r in (res, res_b):
+        for got, want in zip(r[2:5], sums[:3]):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+        torch.testing.assert_close(r[5], tst, rtol=1e-9, atol=0.0)
+        torch.testing.assert_close(r[6], sums[3], rtol=1e-5, atol=0.0)

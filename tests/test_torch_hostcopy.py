@@ -342,3 +342,37 @@ def test_convert_builds_the_ports_objects_from_arrays(graphs, tmp_path):
     assert tm.tuples == j["tm"].tuples
     np.testing.assert_array_equal(tm.log_probs, j["tm"].log_probs)
     np.testing.assert_array_equal(tm.tid2pdf, j["tm"].tid2pdf)
+
+
+@pytest.mark.parametrize("pad_multiple", [1, 4])
+def test_parallel_data_gives_identical_batches(tmp_path, pad_multiple):
+    """``parallel/data.py``'s numpy copies give the JAX package's shards,
+    padded arrays and batches on the same inputs, streamed from an archive
+    each package wrote."""
+    port, jax_mod = _both("parallel.data")
+    port_io, jax_io = _both("utils.io")
+    rng = np.random.default_rng(3)
+    data = {f"u{i:02d}": rng.standard_normal((int(rng.integers(3, 60)), 5)).astype(np.float32)
+            for i in range(41)}
+    nf = {u: v.shape[0] for u, v in data.items()}
+    for pc in (1, 3, 8):
+        for pi in range(pc):
+            assert port.host_shard(list(data), pi, pc) == jax_mod.host_shard(list(data), pi, pc)
+    arrays = {"feats": rng.standard_normal((7, 4, 3)), "nf": np.arange(7, dtype=np.int32)}
+    got, want = (m.pad_to_multiple(arrays, pad_multiple) for m in (port, jax_mod))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    for ratio, seed in ((0.2, 0), (0.05, 4)):
+        assert (port.bucket_by_length(nf, 6, ratio, seed)
+                == jax_mod.bucket_by_length(nf, 6, ratio, seed))
+    got = list(port.stream_batches(port_io.write_archive(tmp_path / "p", data), nf, 6,
+                                   pad_multiple=pad_multiple))
+    want = list(jax_mod.stream_batches(jax_io.write_archive(tmp_path / "j", data), nf, 6,
+                                       pad_multiple=pad_multiple))
+    assert len(got) == len(want)
+    for (u, f, k), (ru, rf, rk) in zip(got, want):
+        assert u == ru
+        assert f.dtype == rf.dtype and k.dtype == rk.dtype
+        np.testing.assert_array_equal(f, rf)
+        np.testing.assert_array_equal(k, rk)

@@ -32,7 +32,7 @@ for name in names:
 for name in ("transforms.fmllr", "steps.train_sat", "steps.decode_fmllr", "project",
              "testing.corpus", "testing.synthesis", "utils.profiling", "ops.pitch",
              "steps.get_prons", "lm.interp", "models.full_gmm", "transforms.regtree",
-             "transforms.basis_fmllr"):
+             "transforms.basis_fmllr", "parallel", "parallel.mesh", "parallel.data"):
     assert "voicebridge_tpu_torch." + name in names, name
 import chip_smoke
 sys.path.insert(0, "examples")
@@ -49,7 +49,7 @@ def test_imports_without_jax():
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=False)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[0]) >= 83
+    assert int(res.stdout.split()[0]) >= 86
 
 
 def test_resolve_device():
@@ -67,3 +67,14 @@ def test_cuda_without_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         D.resolve_device("cuda")
+
+
+def test_every_cuda_source_is_built():
+    """Each ``csrc/*.cu`` is in ``_build.SOURCES`` (``lattice_lane.cu``
+    among them), so the library the smoke builds holds every kernel."""
+    from voicebridge_tpu_torch import _build
+
+    cu = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    assert "lattice_lane.cu" in cu
+    assert sorted(_build.SOURCES) == cu
+    assert set(_build._SIGNATURES) >= {"vbt_lattice_lane_forward", "vbt_lattice_lane_backward"}

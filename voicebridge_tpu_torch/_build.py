@@ -12,7 +12,9 @@ failed build or load raises: there is no fallback.  ``nvcc`` is taken from
 adds one only after its kernel launched (``launch`` below).  K3 counts its
 launches over the lattice's backward plan apart, as
 ``viterbi_step_backward``, and K1 its launches in ``mel_power`` mode, as
-``mfcc_mel_power``.
+``mfcc_mel_power``.  The lane-major lattice forward-backward counts one
+launch per window and pass (``lattice_lane``), each running two kernels a
+frame.
 """
 
 from __future__ import annotations
@@ -28,14 +30,15 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 SOURCES = ("mfcc.cu", "gmm_loglik.cu", "viterbi_step.cu", "align_band.cu",
            "gmm_stats.cu", "lattice_fb.cu", "viterbi_nbest.cu", "viterbi_generic.cu",
-           "backtrace.cu")
+           "backtrace.cu", "lattice_lane.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 launches = {"mfcc_frames": 0, "mfcc_mel_power": 0, "gmm_loglikes": 0, "viterbi_step": 0,
             "viterbi_step_backward": 0, "align_forward": 0, "align_backtrace": 0,
             "gmm_stats": 0, "lattice_fb": 0, "viterbi_nbest": 0, "generic_forward": 0,
-            "generic_backtrace": 0, "backtrace_best": 0, "backtrace_nbest": 0}
+            "generic_backtrace": 0, "backtrace_best": 0, "backtrace_nbest": 0,
+            "lattice_lane": 0}
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -92,6 +95,15 @@ _SIGNATURES = {
     # stream
     "vbt_backtrace_nbest": (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                             _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # seq, at_end, relax, ll, t, p, in_start, in_src, in_score, in_pdf,
+    # num_frames, t0, w, acwt, beam, max_active, b, s, stream
+    "vbt_lattice_lane_forward": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
+                                 _I, _I, _P),
+    # seq, beta, beta_tmp, ll, t, p, final_eff, thresh, arc_src, arc_dst,
+    # arc_pdf, arc_score, out_start, out_dst, out_score, out_pdf, num_frames,
+    # t0, w, acwt, b, s, a, bits, stream
+    "vbt_lattice_lane_backward": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _I, _F, _I, _I, _I, _P, _P),
 }
 
 _lib = None

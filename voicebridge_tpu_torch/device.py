@@ -3,6 +3,8 @@ the caller asks for the CPU, and nothing falls back from CUDA to the CPU."""
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 
 import torch
@@ -36,3 +38,57 @@ def free_bytes(device: torch.device) -> int:
 def stream_handle(device: torch.device) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Run fp32 products in IEEE fp32 whatever the caller set, and give the
+    caller's settings back on exit.
+
+    ``torch.set_float32_matmul_precision("high")`` or ``allow_tf32`` let
+    cuBLAS round fp32 inputs to TF32 (10 mantissa bits); the port's
+    statistics, transforms and features are held to float64 and to the JAX
+    package's HIGHEST-precision products, so its entry points enter this
+    context.  It switches through the API the caller's state reads in: the
+    legacy setters (``set_float32_matmul_precision``, cuDNN's
+    ``allow_tf32``), which keep the legacy and the per-backend
+    ``fp32_precision`` settings in step, unless the caller set the
+    per-backend settings alone (torch then refuses the legacy getters), and
+    then those.  Torch refuses a matmul whose two settings disagree, so the
+    context never sets one without the other.  The flags are process-wide;
+    setting them for the span of a call and restoring them is enough
+    because the port never runs these products from several threads at
+    once.  The hand kernels do not read the flags (K2 does its own
+    3xTF32)."""
+    try:
+        legacy = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+    except RuntimeError:  # the caller set the per-backend settings alone: keep to them
+        backends = [b for b in (torch.backends.cuda.matmul, torch.backends.cudnn)
+                    if hasattr(b, "fp32_precision")]
+        saved = [b.fp32_precision for b in backends]
+        try:
+            for b in backends:
+                b.fp32_precision = "ieee"
+            yield
+        finally:
+            for b, value in zip(backends, saved):
+                b.fp32_precision = value
+        return
+    try:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = False
+        yield
+    finally:
+        torch.set_float32_matmul_precision(legacy[0])
+        torch.backends.cudnn.allow_tf32 = legacy[1]
+
+
+def ieee_fp32_entry(fn):
+    """Decorator: ``fn`` runs inside ``ieee_fp32()``."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with ieee_fp32():
+            return fn(*args, **kwargs)
+
+    return wrapper

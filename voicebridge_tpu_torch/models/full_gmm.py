@@ -36,7 +36,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..device import free_bytes
+from ..device import free_bytes, ieee_fp32_entry
 
 M_LOG_2PI = math.log(2.0 * math.pi)
 
@@ -192,6 +192,7 @@ def _component_scores(x: torch.Tensor, gconsts, ic_mu, ic) -> torch.Tensor:
     return gconsts[None] + x @ ic_mu.T - 0.5 * quad
 
 
+@ieee_fp32_entry
 def loglikes_full(packed: dict, x: torch.Tensor, chunk: int | None = None) -> torch.Tensor:
     """``x [N, D]`` (on the parameters' device) -> per-pdf loglikes
     ``[N, P]``, over frame chunks (``chunk`` frames; default: what a quarter
@@ -208,6 +209,7 @@ def loglikes_full(packed: dict, x: torch.Tensor, chunk: int | None = None) -> to
     return out
 
 
+@ieee_fp32_entry
 def acc_full_stats(packed: dict, x, pdf_ids, num_pdfs: int, weights=None,
                    chunk: int | None = None):
     """E-step statistics for hard alignments: component posteriors within

@@ -13,9 +13,10 @@ sum x^2); the objective is the standard ML criterion
 and both phone clustering (questions) and top-down splitting greedily maximize
 objf gain.  Host-side: the tree is built once per training stage.
 
-Numpy copy of ``voicebridge_tpu/models/treebuild.py`` without its mesh
-branch (multi-device statistics are not ported yet): the same stats and the
-same tree from the same alignments and features.
+Numpy copy of ``voicebridge_tpu/models/treebuild.py``: the same stats and
+the same tree from the same alignments and features.  Its mesh branch
+(``acc_tree_stats(..., mesh=)``) sums the statistics on the ranks' devices
+through ``parallel/mesh.acc_tree_stats_sharded``.
 """
 
 from __future__ import annotations
@@ -148,10 +149,14 @@ def stats_from_arrays(events: list, count: np.ndarray, sum_x: np.ndarray,
 
 def acc_tree_stats(alignments: dict, feats_by_utt: dict, trans_model,
                    context_width: int = 3, central_position: int = 1,
-                   ci_phones: set | None = None) -> dict:
+                   ci_phones: set | None = None, mesh=None) -> dict:
     """Accumulate per-event Gaussian stats from alignments (acc-tree-stats +
     sum-tree-stats roles) as a vectorized per-event scatter-add in float64.
-    ``feats_by_utt`` holds float32 arrays.  Returns dict event -> GaussStats.
+    ``feats_by_utt`` holds float32 arrays.  With ``mesh`` set
+    (``parallel/mesh.make_mesh``) the frames are sharded over the data axis,
+    summed by ``index_add_`` in float64 on each rank's device and reduced
+    over the axis (the reference sums per-job .treeacc files,
+    ``train_deltas.cpp:294``).  Returns dict event -> GaussStats.
     """
     events, feats, event_ids = frame_event_ids(
         alignments, feats_by_utt, trans_model, context_width,
@@ -159,6 +164,13 @@ def acc_tree_stats(alignments: dict, feats_by_utt: dict, trans_model,
     if not events:
         return {}
     ne = len(events)
+    if mesh is not None:
+        from ..parallel.mesh import acc_tree_stats_sharded, pad_to_mesh
+
+        feats_p, ids_p, w_p = pad_to_mesh(mesh, feats, event_ids)
+        count, sx, sx2 = (a.cpu().numpy() for a in
+                          acc_tree_stats_sharded(mesh, ne)(feats_p, ids_p, w_p))
+        return stats_from_arrays(events, count, sx, sx2)
     d = feats.shape[1]
     count = np.zeros(ne, np.float64)
     sx = np.zeros((ne, d), np.float64)

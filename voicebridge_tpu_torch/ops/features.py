@@ -28,7 +28,7 @@ import torch.nn.functional as F
 
 from ..config import DeltaOptions, FrameOptions, MfccOptions, PlpOptions, SpliceOptions
 
-from ..device import resolve_device
+from ..device import ieee_fp32_entry, resolve_device
 from . import mfcc_kernel
 
 FLT_EPS = float(np.finfo(np.float32).eps)
@@ -280,6 +280,7 @@ def _process_window(frames: torch.Tensor, opts: MfccOptions,
     return frames, energy
 
 
+@ieee_fp32_entry
 def mfcc_from_frames(frames: torch.Tensor, tables: MfccTables) -> torch.Tensor:
     """Plain version of K1: ``[N, ws]`` dithered frames ->
     ``[N, tables.out_cols]``: cepstra (log-mel bins with ``fbank``, mel
@@ -301,6 +302,7 @@ def mfcc_from_frames(frames: torch.Tensor, tables: MfccTables) -> torch.Tensor:
     return torch.cat([ceps, energy[:, None]], dim=1)
 
 
+@ieee_fp32_entry
 def assemble(raw: torch.Tensor, tables: MfccTables) -> torch.Tensor:
     """use_energy / htk_compat assembly of ``[N, out_cols]`` kernel rows
     (``MfccPallas._assemble``)."""
@@ -362,6 +364,7 @@ class MfccExtractor:
         self.device = resolve_device(device)
         self.tables = MfccTables.build(opts, fbank, self.device)
 
+    @ieee_fp32_entry
     def batched(self, waves: torch.Tensor, num_samples: torch.Tensor, max_frames: int,
                 generator: torch.Generator | None = None):
         """``[B, S], [B] -> ([B, max_frames, dim], [B] frame counts)``.
@@ -397,6 +400,7 @@ class FbankExtractor:
         """``[S] -> [num_frames, dim]`` on the extractor's device (no dither)."""
         return _single(self, wave)
 
+    @ieee_fp32_entry
     def batched(self, waves, num_samples, max_frames: int,
                 generator: torch.Generator | None = None):
         """``[B, S], [B] -> ([B, max_frames, dim], [B] frame counts)``."""
@@ -426,6 +430,7 @@ class SpectrogramExtractor:
     def __call__(self, wave) -> torch.Tensor:
         return _single(self, wave)
 
+    @ieee_fp32_entry
     def batched(self, waves, num_samples, max_frames: int,
                 generator: torch.Generator | None = None):
         frames, counts = frame_batch(waves, num_samples, max_frames, self.opts.frame_opts,
@@ -434,6 +439,7 @@ class SpectrogramExtractor:
         return feats.reshape(counts.shape[0], max_frames, -1), counts
 
 
+@ieee_fp32_entry
 def spectrogram_from_frames(frames: torch.Tensor, opts: MfccOptions,
                             window: torch.Tensor) -> torch.Tensor:
     """``[N, ws]`` frames -> ``[N, padded // 2 + 1]`` log power spectra, in
@@ -547,6 +553,7 @@ class PlpTables:
                    lifter=dev(lifter))
 
 
+@ieee_fp32_entry
 def plp_tail(raw: torch.Tensor, tables: PlpTables) -> torch.Tensor:
     """K1's ``mel_power`` rows ``[N, num_bins + 1]`` (mel energies, then the
     log energy) -> ``[N, num_ceps]`` PLP features (reference:
@@ -605,6 +612,7 @@ class PlpExtractor:
         """``[S] -> [num_frames, num_ceps]`` on the extractor's device."""
         return _single(self, wave, generator)
 
+    @ieee_fp32_entry
     def batched(self, waves, num_samples, max_frames: int,
                 generator: torch.Generator | None = None):
         """``[B, S], [B] -> ([B, max_frames, num_ceps], [B] frame counts)``."""
@@ -619,6 +627,7 @@ class PlpExtractor:
 # ---------------------------------------------------------------------------
 
 
+@ieee_fp32_entry
 def add_deltas_batch(feats: torch.Tensor, num_frames: torch.Tensor,
                      opts: DeltaOptions = DeltaOptions()) -> torch.Tensor:
     """``[B, T, D] -> [B, T, D*(order+1)]`` (reference: add-deltas /

@@ -25,7 +25,7 @@ import torch
 
 from ..models.gmm import AmDiagGmm
 
-from ..device import free_bytes
+from ..device import free_bytes, ieee_fp32_entry
 
 
 class GmmParams(NamedTuple):
@@ -56,17 +56,20 @@ def pack_gmm(am: AmDiagGmm, device) -> GmmParams:
                      torch.from_numpy(gc).to(device))
 
 
+@ieee_fp32_entry
 def component_logliks(params: GmmParams, x: torch.Tensor) -> torch.Tensor:
     """``[N, D] -> [N, P, M]`` per-component log-likelihoods."""
     scores = torch.cat([x, x * x], dim=-1) @ params.w_matrix  # [N, P*M]
     return scores.view(x.shape[0], params.num_pdfs, params.max_mix) + params.gconsts[None]
 
 
+@ieee_fp32_entry
 def loglikes(params: GmmParams, x: torch.Tensor) -> torch.Tensor:
     """``[N, D] -> [N, P]`` total per-pdf log-likelihoods (the decoder input)."""
     return torch.logsumexp(component_logliks(params, x), dim=2)
 
 
+@ieee_fp32_entry
 def loglikes_batch(params: GmmParams, feats: torch.Tensor) -> torch.Tensor:
     """``[B, T, D] -> [B, T, P]``."""
     b, t, d = feats.shape
@@ -89,6 +92,7 @@ def _segment_stats(gamma, x_acc, pdf, num_pdfs: int):
     return occ, mean_acc, var_acc
 
 
+@ieee_fp32_entry
 def acc_gmm_stats(params: GmmParams, x: torch.Tensor, pdf_ids: torch.Tensor,
                   num_pdfs: int, frame_weights: torch.Tensor | None = None):
     """GMM sufficient statistics for aligned frames from the all-pdf
@@ -102,6 +106,7 @@ def acc_gmm_stats(params: GmmParams, x: torch.Tensor, pdf_ids: torch.Tensor,
     return _segment_stats(gamma, x, pdf, num_pdfs)
 
 
+@ieee_fp32_entry
 def aligned_mixture_logliks(params: GmmParams, x: torch.Tensor,
                             pdf_ids: torch.Tensor) -> torch.Tensor:
     """Component log-likelihoods of each frame's ALIGNED pdf only:
@@ -114,6 +119,7 @@ def aligned_mixture_logliks(params: GmmParams, x: torch.Tensor,
             + params.gconsts[pdf])
 
 
+@ieee_fp32_entry
 def acc_gmm_stats_aligned_twofeats(params: GmmParams, x_post: torch.Tensor,
                                    x_acc: torch.Tensor, pdf_ids: torch.Tensor,
                                    num_pdfs: int, frame_weights: torch.Tensor):
@@ -142,15 +148,16 @@ def _stats_chunk(device: torch.device, m: int, d: int) -> int:
     return max(1 << 12, free_bytes(device) // (4 * per_frame))
 
 
-def acc_gmm_stats_twofeats_chunked(params: GmmParams, x_post, x_acc, pdf_ids,
-                                   num_pdfs: int, frame_weights=None,
-                                   chunk: int | None = None):
+@ieee_fp32_entry
+def acc_gmm_stats_sums(params: GmmParams, x_post, x_acc, pdf_ids, num_pdfs: int,
+                       frame_weights=None, chunk: int | None = None):
     """E-step statistics over frame chunks through the K6 wrapper
-    (``ops/gmm_stats_kernel.acc_stats``); chunks are summed in float64 (one
-    chunk, the usual case, is returned as it is).
-    Inputs may be arrays or tensors; they go to the device of ``params``.
-    ``chunk`` (frames) defaults to what the device's free memory holds.
-    Returns numpy float32 (occ, mean_acc, var_acc) and a float ll."""
+    (``ops/gmm_stats_kernel.acc_stats``), as float64 tensors on the device
+    of ``params``: (occ [P, M], mean_acc [P, M, D], var_acc [P, M, D], ll
+    0-d).  Chunks are summed in float64 (one chunk, the usual case, is
+    returned as it is).  Inputs may be arrays or tensors; they go to the
+    device of ``params``.  ``chunk`` (frames) defaults to what the device's
+    free memory holds."""
     from .. import convert  # imported here: both modules import this one
     from .gmm_stats_kernel import acc_stats
 
@@ -175,7 +182,16 @@ def acc_gmm_stats_twofeats_chunked(params: GmmParams, x_post, x_acc, pdf_ids,
                              pdf_ids[lo:lo + c].contiguous(), w[lo:lo + c].contiguous(),
                              num_pdfs)
             sums = [a + b for a, b in zip(sums, part)]
-    occ, macc, vacc, ll = sums
+    return tuple(sums)
+
+
+def acc_gmm_stats_twofeats_chunked(params: GmmParams, x_post, x_acc, pdf_ids,
+                                   num_pdfs: int, frame_weights=None,
+                                   chunk: int | None = None):
+    """``acc_gmm_stats_sums`` handed to the host: numpy float32 (occ,
+    mean_acc, var_acc) and a float ll."""
+    occ, macc, vacc, ll = acc_gmm_stats_sums(params, x_post, x_acc, pdf_ids, num_pdfs,
+                                             frame_weights, chunk)
     return (occ.float().cpu().numpy(), macc.float().cpu().numpy(),
             vacc.float().cpu().numpy(), float(ll))
 
@@ -187,10 +203,10 @@ def acc_gmm_stats_chunked(params: GmmParams, x, pdf_ids, num_pdfs: int,
                                           frame_weights, chunk)
 
 
-def acc_transition_stats(tids: torch.Tensor, num_tids: int,
-                         frame_weights: torch.Tensor | None = None) -> torch.Tensor:
+def transition_sums(tids: torch.Tensor, num_tids: int,
+                    frame_weights: torch.Tensor | None = None) -> torch.Tensor:
     """Transition-id occupancies from an alignment (``[N]`` ->
-    ``[num_tids+1]`` float32).  A stable sort by transition id, then one
+    ``[num_tids+1]`` float64).  A stable sort by transition id, then one
     float64 sum per id over its run of frames (``segment_reduce``, in frame
     order): no float atomics, so the same bits in every run on the card."""
     tids = tids.long()
@@ -198,9 +214,16 @@ def acc_transition_stats(tids: torch.Tensor, num_tids: int,
          if frame_weights is None else frame_weights.to(torch.float64))
     order = torch.sort(tids, stable=True).indices
     counts = torch.bincount(tids, minlength=num_tids + 1)
-    return torch.segment_reduce(w[order], "sum", lengths=counts).float()
+    return torch.segment_reduce(w[order], "sum", lengths=counts)
 
 
+def acc_transition_stats(tids: torch.Tensor, num_tids: int,
+                         frame_weights: torch.Tensor | None = None) -> torch.Tensor:
+    """``transition_sums`` as float32."""
+    return transition_sums(tids, num_tids, frame_weights).float()
+
+
+@ieee_fp32_entry
 def aligned_loglike(params: GmmParams, x: torch.Tensor, pdf_ids: torch.Tensor,
                     frame_weights: torch.Tensor | None = None) -> torch.Tensor:
     """Total data log-likelihood of an alignment (for EM monitoring)."""

@@ -27,6 +27,13 @@ the utterance ends), which it stores per frame in a slab; then K5
 writes one survivor byte per (row, lane), bit k for slot k.  The survivors
 are compacted with torch ops on the device, and only they reach the host.
 The forward is exact: no beam or max-active pruning.
+
+The lane-major FB of the JAX package's first round
+(``lattice_forward_backward``, at the end of this module; hand kernels in
+``csrc/lattice_lane.cu``) keeps scores lane-major ``[B, S]``, relaxes arcs
+through CSRs by destination and by source, prunes the forward with the
+decoder's beam and ``max_active``, and writes survivors packed
+``[T, B, ceil(A/8)]`` on the device.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..device import free_bytes, stream_handle
+from ..device import free_bytes, resolve_device, stream_handle
 from ..lat.lattice import Lattice
 from . import decode_core
 from .decode_core import (EmitPlan, EmitPlanDev, build_emit_plan, launch_k3, plan_to_device,
@@ -47,7 +54,10 @@ from .graph import NEG_INF, DenseGraph
 
 __all__ = ["Survivors", "build_lattice_plans", "bwd_window", "bwd_window_plain", "fb_frame",
            "fb_frame_plain", "fb_frames", "fb_frames_plain", "fb_window",
-           "lattice_forward_backward_rows", "lattice_window", "survivor_lattices"]
+           "lattice_forward_backward_rows", "lattice_window", "survivor_lattices",
+           "LaneCsr", "LanePlanDev", "build_dst_plan", "build_src_plan", "lane_plan_to_device",
+           "lane_forward", "lane_forward_plain", "lane_backward", "lane_backward_plain",
+           "packbits_plain", "lattice_forward_backward_packed", "lattice_forward_backward"]
 
 WORD_SLOTS = 8  # row slots one survivor byte holds
 
@@ -341,3 +351,304 @@ def survivor_lattices(graph: DenseGraph, surv: Survivors, num_frames, use_final,
     return [Lattice(graph=graph, nf=int(nf_np[i]), arc_t=ts[lo:hi], arc_id=arcs[lo:hi],
                     acoustic_cost=ac[lo:hi], use_final=bool(uf[i]))
             for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))]
+
+
+# ---------------------------------------------------------------------------
+# Lane-major windowed forward-backward (``lattice_lane.cu``)
+# ---------------------------------------------------------------------------
+# The JAX package's first lattice FB (``lattice_forward_backward`` with
+# ``_window_fb``): scores lane-major [B, S], arc-parallel max-plus over the
+# arcs of a shared graph, with the decoder's beam and max-active prune in the
+# forward pass.  It is on no decode path of either package; it is the
+# reference its tests hold lattices to.  The JAX package reduces arcs through
+# reduction trees (``levels``, ``rev_levels``); here the arcs are grouped
+# into CSRs by destination and by source, built once per graph.
+
+
+class LaneCsr(NamedTuple):
+    """Arcs of a graph grouped by one of their end states."""
+
+    start: np.ndarray  # [S+1] int32 row starts
+    arc: np.ndarray  # [A] int32 arc ids, a state's arcs in arc order
+
+
+def _lane_csr(key: np.ndarray, num_states: int) -> LaneCsr:
+    start = np.zeros(num_states + 1, np.int32)
+    start[1:] = np.cumsum(np.bincount(key, minlength=num_states))
+    return LaneCsr(start, np.argsort(key, kind="stable").astype(np.int32))
+
+
+def build_dst_plan(graph: DenseGraph) -> LaneCsr:
+    """The CSR by destination the forward pass reads (in place of the JAX
+    package's reduction ``levels``)."""
+    return _lane_csr(graph.arc_dst, graph.num_states)
+
+
+def build_src_plan(graph: DenseGraph) -> LaneCsr:
+    """The CSR by source the backward pass reads (the JAX package's
+    ``build_src_plan`` returns reduction-tree levels grouping arcs by
+    source)."""
+    return _lane_csr(graph.arc_src, graph.num_states)
+
+
+class LanePlanDev(NamedTuple):
+    """A graph and its two CSRs on a device, int32 and f32."""
+
+    arc_src: torch.Tensor  # [A], arc order
+    arc_dst: torch.Tensor
+    arc_pdf: torch.Tensor
+    arc_score: torch.Tensor
+    in_start: torch.Tensor  # [S+1], CSR by destination
+    in_src: torch.Tensor  # [A]
+    in_score: torch.Tensor
+    in_pdf: torch.Tensor
+    out_start: torch.Tensor  # [S+1], CSR by source
+    out_dst: torch.Tensor  # [A]
+    out_score: torch.Tensor
+    out_pdf: torch.Tensor
+    alpha0: torch.Tensor  # [S]
+    final: torch.Tensor  # [S]
+    num_pdfs_used: int  # 1 + the largest pdf of an arc (0 without arcs)
+
+    @property
+    def num_states(self) -> int:
+        return self.alpha0.shape[0]
+
+    @property
+    def num_arcs(self) -> int:
+        return self.arc_src.shape[0]
+
+
+def lane_plan_to_device(graph: DenseGraph, dst_plan: LaneCsr, src_plan: LaneCsr,
+                        device) -> LanePlanDev:
+    def dev(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    i, o = dst_plan.arc, src_plan.arc
+    return LanePlanDev(
+        arc_src=dev(graph.arc_src, np.int32), arc_dst=dev(graph.arc_dst, np.int32),
+        arc_pdf=dev(graph.arc_pdf, np.int32), arc_score=dev(graph.arc_score, np.float32),
+        in_start=dev(dst_plan.start, np.int32), in_src=dev(graph.arc_src[i], np.int32),
+        in_score=dev(graph.arc_score[i], np.float32), in_pdf=dev(graph.arc_pdf[i], np.int32),
+        out_start=dev(src_plan.start, np.int32), out_dst=dev(graph.arc_dst[o], np.int32),
+        out_score=dev(graph.arc_score[o], np.float32), out_pdf=dev(graph.arc_pdf[o], np.int32),
+        alpha0=dev(graph.alpha0, np.float32), final=dev(graph.final_score, np.float32),
+        num_pdfs_used=int(graph.arc_pdf.max()) + 1 if graph.num_arcs else 0)
+
+
+def packbits_plain(keep: torch.Tensor) -> torch.Tensor:
+    """``[..., A]`` bool -> ``[..., ceil(A/8)]`` uint8 in ``np.packbits``
+    order (arc 8j + k is bit 7 - k of byte j)."""
+    a = keep.shape[-1]
+    pad = -a % 8
+    if pad:
+        keep = torch.nn.functional.pad(keep, (0, pad))
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                           device=keep.device)
+    groups = keep.reshape(*keep.shape[:-1], -1, 8).to(torch.int32)
+    return (groups * weights).sum(dim=-1).to(torch.uint8)
+
+
+def lane_forward_plain(plan: LanePlanDev, seq: torch.Tensor, at_end: torch.Tensor,
+                       ll: torch.Tensor, num_frames: torch.Tensor, t0: int, w: int,
+                       acwt: float, beam: float, max_active: int, relax=None) -> None:
+    """Plain version of ``lane_forward`` (``relax``, the kernel's scratch,
+    is not used): per frame a gather of the arcs' scores, a scatter-max by
+    destination, ``decode_core.prune``."""
+    b, s = at_end.shape
+    src, dst = plan.arc_src.long(), plan.arc_dst.long().expand(b, -1)
+    pdf = plan.arc_pdf.long()
+    for i in range(w):
+        t = t0 + i
+        alpha = seq[i]
+        am = ll[:, t].index_select(1, pdf) * acwt
+        score = (alpha.index_select(1, src) + plan.arc_score) + am
+        na = torch.full_like(alpha, NEG_INF).scatter_reduce_(1, dst, score, reduce="amax",
+                                                             include_self=True)
+        na = decode_core.prune(na, beam, max_active)
+        seq[i + 1] = torch.where((t < num_frames)[:, None], na, alpha)
+        at_end.copy_(torch.where((t + 1 == num_frames)[:, None], seq[i + 1], at_end))
+
+
+def lane_backward_plain(plan: LanePlanDev, seq: torch.Tensor, beta: torch.Tensor,
+                        ll: torch.Tensor, num_frames: torch.Tensor, t0: int, w: int,
+                        final_eff: torch.Tensor, thresh: torch.Tensor, acwt: float,
+                        bits: torch.Tensor, beta_tmp=None) -> None:
+    """Plain version of ``lane_backward`` (``beta_tmp``, the kernel's
+    scratch, is not used): per frame, last first, the arcs' tails and
+    survivor test, ``packbits_plain``, a scatter-max by source."""
+    b, s = beta.shape
+    src, dst = plan.arc_src.long(), plan.arc_dst.long()
+    pdf = plan.arc_pdf.long()
+    for i in range(w - 1, -1, -1):
+        t = t0 + i
+        active = (t < num_frames)[:, None]
+        beta_eff = torch.where((t + 1 == num_frames)[:, None], final_eff, beta)
+        am = ll[:, t].index_select(1, pdf) * acwt
+        tail = (am + plan.arc_score) + beta_eff.index_select(1, dst)
+        gamma = seq[i].index_select(1, src) + tail
+        bits[i] = packbits_plain((gamma >= thresh[:, None]) & active)
+        bt = torch.full_like(beta, NEG_INF).scatter_reduce_(1, src.expand(b, -1), tail,
+                                                            reduce="amax", include_self=True)
+        beta.copy_(torch.where(active, bt, beta))
+
+
+def _lane_check(plan: LanePlanDev, ll: torch.Tensor, num_frames: torch.Tensor, *tensors):
+    dev = ll.device
+    f32, i32 = torch.float32, torch.int32
+    require(dev, ("ll", ll, f32), ("num_frames", num_frames, i32),
+            *((name, getattr(plan, name), f32 if "score" in name else i32)
+              for name in ("arc_src", "arc_dst", "arc_pdf", "arc_score", "in_start", "in_src",
+                           "in_score", "in_pdf", "out_start", "out_dst", "out_score",
+                           "out_pdf")), *tensors)
+    if plan.num_pdfs_used > ll.shape[2]:
+        raise ValueError(f"the graph uses pdfs up to {plan.num_pdfs_used - 1}, "
+                         f"loglikes have only {ll.shape[2]}")
+
+
+def lane_forward(plan: LanePlanDev, seq: torch.Tensor, at_end: torch.Tensor,
+                 ll: torch.Tensor, num_frames: torch.Tensor, t0: int, w: int, acwt: float,
+                 beam: float, max_active: int, relax: Optional[torch.Tensor] = None) -> None:
+    """Frames t0 .. t0+w-1 of the forward pass: ``seq`` [w+1, B, S] holds
+    alpha before frame t0 in ``seq[0]`` and receives alpha before each later
+    frame (``seq[w]``: after the window); ``at_end`` [B, S] is updated in
+    place; ``ll`` [B, T, P], num_frames [B] int32.  On CUDA one launch of
+    ``lattice_lane_forward`` (two kernels a frame; ``relax`` [B, S] is its
+    scratch); a CPU tensor goes to ``lane_forward_plain``."""
+    if ll.device.type == "cpu":
+        return lane_forward_plain(plan, seq, at_end, ll, num_frames, t0, w, acwt, beam,
+                                  max_active)
+    if ll.device.type != "cuda":
+        raise ValueError(f"unsupported device {ll.device}")
+    b, t_total, p = ll.shape
+    s = plan.num_states
+    relax = torch.empty((b, s), device=ll.device) if relax is None else relax
+    f32 = torch.float32
+    _lane_check(plan, ll, num_frames, ("seq", seq, f32), ("at_end", at_end, f32),
+                ("relax", relax, f32))
+    if seq.shape[0] < w + 1 or seq.shape[1:] != (b, s) or at_end.shape != (b, s) \
+            or relax.shape != (b, s) or not 0 <= t0 <= t0 + w <= t_total:
+        raise ValueError("lane_forward: inconsistent shapes")
+    _build.launch("lattice_lane_forward", seq.data_ptr(), at_end.data_ptr(), relax.data_ptr(),
+                  ll.data_ptr(), t_total, p, plan.in_start.data_ptr(), plan.in_src.data_ptr(),
+                  plan.in_score.data_ptr(), plan.in_pdf.data_ptr(), num_frames.data_ptr(), t0,
+                  w, float(np.float32(acwt)), float(np.float32(beam)), int(max_active), b, s,
+                  stream_handle(ll.device), count="lattice_lane")
+
+
+def lane_backward(plan: LanePlanDev, seq: torch.Tensor, beta: torch.Tensor, ll: torch.Tensor,
+                  num_frames: torch.Tensor, t0: int, w: int, final_eff: torch.Tensor,
+                  thresh: torch.Tensor, acwt: float, bits: torch.Tensor,
+                  beta_tmp: Optional[torch.Tensor] = None) -> None:
+    """Frames t0+w-1 .. t0 of the backward pass: ``seq[i]`` is alpha before
+    frame t0 + i; ``beta`` [B, S] holds beta above the window and receives
+    beta at t0; ``final_eff`` [B, S]; ``thresh`` [B] = total_best -
+    lattice_beam; ``bits`` [w, B, ceil(A/8)] uint8 receives the window's
+    packed survivors.  On CUDA one launch of ``lattice_lane_backward`` (two
+    kernels a frame; ``beta_tmp`` [B, S] is its scratch); a CPU tensor goes
+    to ``lane_backward_plain``."""
+    if ll.device.type == "cpu":
+        return lane_backward_plain(plan, seq, beta, ll, num_frames, t0, w, final_eff, thresh,
+                                   acwt, bits)
+    if ll.device.type != "cuda":
+        raise ValueError(f"unsupported device {ll.device}")
+    b, t_total, p = ll.shape
+    s, a = plan.num_states, plan.num_arcs
+    beta_tmp = torch.empty_like(beta) if beta_tmp is None else beta_tmp
+    f32 = torch.float32
+    _lane_check(plan, ll, num_frames, ("seq", seq, f32), ("beta", beta, f32),
+                ("beta_tmp", beta_tmp, f32), ("final_eff", final_eff, f32),
+                ("thresh", thresh, f32), ("bits", bits, torch.uint8))
+    if seq.shape[0] < w or seq.shape[1:] != (b, s) or beta.shape != (b, s) \
+            or beta_tmp.shape != (b, s) or final_eff.shape != (b, s) or thresh.shape != (b,) \
+            or bits.shape != (w, b, (a + 7) // 8) or not 0 <= t0 <= t0 + w <= t_total:
+        raise ValueError("lane_backward: inconsistent shapes")
+    _build.launch("lattice_lane_backward", seq.data_ptr(), beta.data_ptr(), beta_tmp.data_ptr(),
+                  ll.data_ptr(), t_total, p, final_eff.data_ptr(), thresh.data_ptr(),
+                  plan.arc_src.data_ptr(), plan.arc_dst.data_ptr(), plan.arc_pdf.data_ptr(),
+                  plan.arc_score.data_ptr(), plan.out_start.data_ptr(), plan.out_dst.data_ptr(),
+                  plan.out_score.data_ptr(), plan.out_pdf.data_ptr(), num_frames.data_ptr(), t0,
+                  w, float(np.float32(acwt)), b, s, a, bits.data_ptr(),
+                  stream_handle(ll.device), count="lattice_lane")
+
+
+def lattice_forward_backward_packed(plan: LanePlanDev, loglikes: torch.Tensor, num_frames,
+                                    acoustic_scale: float, beam: float, lattice_beam: float,
+                                    max_active: int = 0, window: int = 64, steps=None):
+    """The lane-major windowed FB on the device of ``loglikes`` [B, T, P].
+
+    Phase 1 runs the forward window by window (``lane_forward``), keeping
+    one alpha snapshot per window and ``alpha_at_end``; the best complete
+    score prefers final states (``use_final``), else the best partial path
+    with every state final at cost 0.  Phase 2 walks the windows from last
+    to first, recomputing the window's alphas from its snapshot and running
+    the backward pass (``lane_backward``).  Returns (packed survivors
+    [T, B, ceil(A/8)] uint8, total_best [B], alpha_at_end [B, S], use_final
+    [B]), tensors on the device.  ``steps`` replaces the (forward, backward)
+    pair ``(lane_forward, lane_backward)``: ``(lane_forward_plain,
+    lane_backward_plain)`` runs the plain versions on any device, which is
+    how the card's kernels are held to them."""
+    fwd_step, bwd_step = steps or (lane_forward, lane_backward)
+    device = loglikes.device
+    b, t_total, _p = loglikes.shape
+    s, a = plan.num_states, plan.num_arcs
+    nf = torch.as_tensor(num_frames).to(device=device, dtype=torch.int32)
+    if b and int(nf.max()) > t_total:
+        raise ValueError(f"num_frames up to {int(nf.max())}, loglikes have {t_total} frames")
+    acwt, beam = float(np.float32(acoustic_scale)), float(np.float32(beam))
+    nw = max(1, -(-t_total // window))
+    t_pad = nw * window
+    ll = loglikes.to(torch.float32)
+    if t_pad != t_total:
+        ll = torch.nn.functional.pad(ll, (0, 0, 0, t_pad - t_total))
+    ll = ll.contiguous()
+    seq = torch.empty((window + 1, b, s), device=device)
+    relax = torch.empty((b, s), device=device)
+    seq[0] = plan.alpha0[None, :]
+    at_end = torch.where((nf == 0)[:, None], seq[0], torch.full((b, s), NEG_INF, device=device))
+    snaps = []
+    for w in range(nw):  # phase 1
+        snaps.append(seq[0].clone())
+        fwd_step(plan, seq, at_end, ll, nf, w * window, window, acwt, beam, max_active, relax)
+        seq[0] = seq[window]
+    with_final = (at_end + plan.final[None, :]).amax(dim=1)
+    use_final = with_final > NEG_INF / 2
+    total_best = torch.where(use_final, with_final, at_end.amax(dim=1))
+    final_eff = torch.where(use_final[:, None], plan.final[None, :],
+                            torch.zeros((b, s), device=device)).contiguous()
+    thresh = (total_best - float(np.float32(lattice_beam))).contiguous()
+    bits = torch.empty((t_pad, b, (a + 7) // 8), dtype=torch.uint8, device=device)
+    beta = torch.full((b, s), NEG_INF, device=device)
+    beta_tmp = torch.empty_like(beta)
+    for w in range(nw - 1, -1, -1):  # phase 2
+        lo = w * window
+        seq[0] = snaps[w]
+        snaps[w] = None
+        fwd_step(plan, seq, torch.empty_like(at_end), ll, nf, lo, window, acwt, beam,
+                 max_active, relax)
+        bwd_step(plan, seq, beta, ll, nf, lo, window, final_eff, thresh, acwt,
+                 bits[lo:lo + window], beta_tmp)
+    return bits[:t_total], total_best, at_end, use_final
+
+
+def lattice_forward_backward(graph: DenseGraph, dst_plan: LaneCsr, src_plan: LaneCsr,
+                             loglikes, num_frames, acoustic_scale: float, beam: float,
+                             lattice_beam: float, max_active: int = 0, window: int = 64, *,
+                             device=None):
+    """Full windowed lattice FB over a shared graph, as the JAX package's
+    ``lattice_forward_backward`` (which takes reduction ``levels`` and
+    ``rev_levels`` where this takes ``build_dst_plan`` and
+    ``build_src_plan``).  ``loglikes`` [B, T, P]: a tensor runs on its
+    device, an array on ``device`` (``None``: the card).  Returns (survivor
+    mask [T, B, A] bool, total_best [B], alpha_at_end [B, S], use_final
+    [B]), numpy."""
+    if isinstance(loglikes, torch.Tensor):
+        dev = loglikes.device
+    else:
+        dev = resolve_device(device)
+        loglikes = torch.as_tensor(np.asarray(loglikes, np.float32)).to(dev)
+    plan = lane_plan_to_device(graph, dst_plan, src_plan, dev)
+    bits, total_best, at_end, use_final = lattice_forward_backward_packed(
+        plan, loglikes, num_frames, acoustic_scale, beam, lattice_beam, max_active, window)
+    mask = np.unpackbits(bits.cpu().numpy(), axis=-1, count=graph.num_arcs).astype(bool)
+    return (mask, total_best.cpu().numpy(), at_end.cpu().numpy(), use_final.cpu().numpy())

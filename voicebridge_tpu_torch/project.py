@@ -45,7 +45,7 @@ from .config import (DecodeOptions, DeltaOptions, FmllrDecodeOptions,
 from .data.dict import prepare_dict as _prepare_dict, read_ref_dict
 from .data.lang import Lang, prepare_lang as _prepare_lang
 from .data.prepare import DataDir, prepare_data as _prepare_data
-from .device import resolve_device
+from .device import ieee_fp32_entry, resolve_device
 from .fst.core import Fst
 from .fst.hclg import mkgraph as _mkgraph
 from .lm.arpa import ArpaModel, arpa_to_fst
@@ -191,6 +191,7 @@ class Project:
         return self._lang
 
     # --------------------------------------------------------------- features
+    @ieee_fp32_entry
     def make_features(self, mfcc_opts: MfccOptions | None = None,
                       force: bool = False):
         """MFCC + per-speaker CMVN for train and test on the project's
@@ -237,6 +238,7 @@ class Project:
                 for u in data.utts}
 
     # --------------------------------------------------------------- training
+    @ieee_fp32_entry
     def train_mono(self, opts: MonoTrainOptions | None = None,
                    name: str = "mono", force: bool = False) -> TrainedModel:
         out = self.exp_dir / name
@@ -257,6 +259,7 @@ class Project:
                                     device=self.device)
         return self.feats("train", "delta")
 
+    @ieee_fp32_entry
     def align(self, model: TrainedModel, boost_silence: float = 1.0,
               final_mat: np.ndarray | None = None) -> dict:
         silence_pdfs = sorted({pdf for p in self.lang.silence_phone_ids
@@ -268,6 +271,7 @@ class Project:
                                 boost_silence=boost_silence,
                                 silence_pdfs=silence_pdfs, device=self.device)
 
+    @ieee_fp32_entry
     def train_tri(self, prev: TrainedModel, alignments: dict,
                   opts: TriTrainOptions | None = None, name: str = "tri1",
                   force: bool = False) -> TrainedModel:
@@ -279,6 +283,7 @@ class Project:
                           prev_trans_model=prev.trans_model, out_dir=out,
                           device=self.device)
 
+    @ieee_fp32_entry
     def train_lda_mllt(self, prev: TrainedModel, alignments: dict,
                        opts: TriTrainOptions | None = None,
                        name: str = "tri2b", force: bool = False):
@@ -293,6 +298,7 @@ class Project:
                                prev_trans_model=prev.trans_model, out_dir=out,
                                device=self.device)
 
+    @ieee_fp32_entry
     def train_sat(self, prev: TrainedModel, alignments: dict,
                   opts: TriTrainOptions | None = None, name: str = "tri3b",
                   force: bool = False,
@@ -347,6 +353,7 @@ class Project:
         utts = sorted(feats_by_utt)
         return (utts, *pad_features(feats_by_utt, utts))
 
+    @ieee_fp32_entry
     def decode(self, model: TrainedModel, hclg: Fst, feat_kind: str = "delta",
                final_mat: np.ndarray | None = None,
                opts: DecodeOptions | None = None,
@@ -432,6 +439,7 @@ class Project:
         out.mkdir(parents=True, exist_ok=True)
         (out / "ctm").write_text("\n".join(rows) + ("\n" if rows else ""))
 
+    @ieee_fp32_entry
     def decode_mbr(self, model: TrainedModel, hclg: Fst,
                    feat_kind: str = "delta", nbest: int = 4,
                    opts: DecodeOptions | None = None) -> SweepResult:
@@ -451,6 +459,7 @@ class Project:
         log.info("decode_mbr: %s", stats)
         return out
 
+    @ieee_fp32_entry
     def train_full_chain(self, mono_opts: MonoTrainOptions | None = None,
                          tri_opts: TriTrainOptions | None = None) -> dict:
         """The reference's TestLibriSpeech sequence as one call, with the
@@ -472,6 +481,7 @@ class Project:
         return {"mono": mono, "tri1": tri1, "tri2b": tri2b,
                 "final_mat": final_mat, "tri3b": tri3b, "tri3c": tri3c}
 
+    @ieee_fp32_entry
     def decode_fmllr(self, sat: SatModel, hclg: Fst,
                      opts: FmllrDecodeOptions | None = None,
                      final_mat: np.ndarray | None = None) -> SweepResult:

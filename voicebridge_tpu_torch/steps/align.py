@@ -24,7 +24,7 @@ from ..models.transition import TransitionModel
 from ..utils.logging import get_logger
 
 from .. import convert
-from ..device import free_bytes, resolve_device
+from ..device import free_bytes, ieee_fp32_entry, resolve_device
 from ..ops import align_band as AB
 from ..ops import gmm_kernel
 from ..ops import viterbi as V
@@ -299,6 +299,7 @@ def alignment_to_tids(graph: V.DenseGraph, arc_frames: list[int]) -> list[int]:
     return [int(graph.arc_tid[a]) for a in arc_frames]
 
 
+@ieee_fp32_entry
 def align_utterances(am, trans_model, lang, feats_by_utt: dict, transcripts: dict,
                      acoustic_scale: float = 1.0, boost_silence: float = 1.0,
                      transition_scale: float = 1.0, self_loop_scale: float = 0.1,

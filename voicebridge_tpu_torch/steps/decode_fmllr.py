@@ -39,7 +39,7 @@ from ..models.gmm import AmDiagGmm
 from ..models.transition import TransitionModel
 from ..utils.logging import get_logger
 
-from ..device import resolve_device
+from ..device import ieee_fp32_entry, resolve_device
 from ..lat import determinize_lattice_pruned_safe, lattice_to_post
 from ..ops import gmm_kernels as K
 from ..ops.graph import DenseGraph, compile_dense_graph
@@ -118,10 +118,11 @@ def rescore_lattices(dec: Decoder, feats: torch.Tensor, utts: list, lats: dict) 
     return out
 
 
+@ieee_fp32_entry
 def decode_fmllr(hclg: Fst | DenseGraph, trans_model: TransitionModel, am: AmDiagGmm,
                  alimdl: AmDiagGmm, lang: Lang, utts: list, feats, num_frames, utt2spk: dict,
-                 opts: FmllrDecodeOptions = FmllrDecodeOptions(), *, device=None,
-                 stage_s: dict | None = None):
+                 opts: FmllrDecodeOptions = FmllrDecodeOptions(), mesh=None, *,
+                 device=None, stage_s: dict | None = None):
     """feats [B, T, D] padded base features (array or tensor) of ``utts``
     -> (results list[DecodeResult], final transforms ``[S, D, D+1]`` of the
     speakers in sorted order).
@@ -130,7 +131,8 @@ def decode_fmllr(hclg: Fst | DenseGraph, trans_model: TransitionModel, am: AmDia
     already compiled (``ops/graph.compile_dense_graph``); ``trans_model``
     gives the phones of transition ids (silence down-weighting) and
     ``lang`` the silence phones.  ``stage_s``, when given, receives each
-    stage's wall seconds."""
+    stage's wall seconds.  ``mesh`` (``parallel/mesh.make_mesh``) routes
+    both fMLLR statistics passes through the data-axis-sharded reduction."""
     device = resolve_device(device)
     feats = torch.as_tensor(feats, dtype=torch.float32).to(device)
     num_frames = np.asarray(torch.as_tensor(num_frames).cpu())
@@ -156,7 +158,7 @@ def decode_fmllr(hclg: Fst | DenseGraph, trans_model: TransitionModel, am: AmDia
     def estimate(pdf_flat, wflat):
         beta, k, g = acc_fmllr_stats(K.pack_gmm(am, device), am.means(), am.inv_vars,
                                      base_rep, pdf_flat, wflat, spk_rep, len(speakers),
-                                     device=device)
+                                     mesh=mesh, device=device)
         trans, _imprs = estimate_fmllr_batch(beta.cpu().numpy(), k.cpu().numpy(),
                                              g.cpu().numpy(), min_count=opts.fmllr_min_count)
         return trans

@@ -14,7 +14,7 @@ import torch
 
 from ..config import DeltaOptions, MfccOptions, SpliceOptions
 
-from ..device import resolve_device
+from ..device import ieee_fp32_entry, resolve_device
 from ..ops.features import MfccExtractor, add_deltas_batch, splice_frames_batch
 from ..transforms.cmvn import acc_cmvn_stats_batch, apply_cmvn_batch
 
@@ -39,6 +39,7 @@ def pad_features(feats: dict[str, torch.Tensor], utts: list[str]):
     return batch, nf
 
 
+@ieee_fp32_entry
 def compute_mfcc(waves: dict[str, np.ndarray], opts: MfccOptions, *, device=None,
                  dither_seed: int | None = 0) -> dict[str, torch.Tensor]:
     """utt -> samples  =>  utt -> [T, num_ceps] MFCC on ``device``, batched
@@ -79,6 +80,7 @@ def compute_cmvn(feats: dict[str, torch.Tensor],
     return {s: stats[spk_idx[s]] for s in speakers}
 
 
+@ieee_fp32_entry
 def apply_feature_chain(feats: dict[str, torch.Tensor], utt2spk: dict[str, str],
                         cmvn_stats: dict[str, torch.Tensor],
                         deltas: DeltaOptions | None = DeltaOptions(),
@@ -117,6 +119,7 @@ def paste_pitch(mfcc: dict[str, torch.Tensor], waves: dict[str, np.ndarray],
     return out
 
 
+@ieee_fp32_entry
 def make_features(waves: dict[str, np.ndarray], utt2spk: dict[str, str],
                   mfcc_opts: MfccOptions,
                   deltas: DeltaOptions | None = DeltaOptions(),

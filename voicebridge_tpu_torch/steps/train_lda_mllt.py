@@ -31,7 +31,7 @@ from ..models.transition import TransitionModel
 from ..models.treebuild import acc_tree_stats, build_tree
 from ..utils.logging import get_logger
 
-from ..device import resolve_device
+from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernels as K
 from ..ops.features import splice_frames_batch
 from ..transforms.lda import acc_lda_stats, apply_affine_transform, estimate_lda
@@ -53,41 +53,46 @@ def silence_frame_weights(tids, weights, trans_model, silence_phones: set,
     return np.where(sil & (weights > 0), silence_weight * weights, weights)
 
 
+@ieee_fp32_entry
 def estimate_lda_from_alignment(spliced: torch.Tensor, pdf_ids: np.ndarray,
                                 weights: np.ndarray, num_pdfs: int,
-                                lda_opts: LdaOptions = LdaOptions()) -> np.ndarray:
+                                lda_opts: LdaOptions = LdaOptions(), mesh=None) -> np.ndarray:
     """acc-lda + est-lda: statistics of the spliced frames ``[N, D]`` per
-    aligned pdf on the device, the projection on the host -> the affine LDA
-    matrix ``[lda_opts.dim, D + 1]``."""
-    counts, mean_acc, scatter = acc_lda_stats(spliced, pdf_ids, weights, num_pdfs)
+    aligned pdf on the device (or sharded over ``mesh``), the projection on
+    the host -> the affine LDA matrix ``[lda_opts.dim, D + 1]``."""
+    counts, mean_acc, scatter = acc_lda_stats(spliced, pdf_ids, weights, num_pdfs, mesh=mesh)
     return estimate_lda(counts.cpu().numpy(), mean_acc.cpu().numpy(),
                         scatter.cpu().numpy(), lda_opts.dim, lda_opts.within_class_factor)
 
 
+@ieee_fp32_entry
 def mllt_update(am: AmDiagGmm, feats: torch.Tensor, spliced: torch.Tensor,
-                cur_mat: np.ndarray, pdf_ids: np.ndarray, weights: np.ndarray):
+                cur_mat: np.ndarray, pdf_ids: np.ndarray, weights: np.ndarray, mesh=None):
     """One MLLT update: statistics of the projected features ``feats [B, T,
     E]`` under the aligned pdfs ``pdf_ids [B*T]`` with frame weights
-    ``weights [B*T]`` on the device -> ``est_mllt`` ->
+    ``weights [B*T]`` on the device (or sharded over ``mesh``) -> ``est_mllt`` ->
     ``transform_model_means`` (``am`` in place) -> ``compose_transforms`` ->
     the spliced features ``[B, T, D]`` re-projected on the device.  Returns
     (new final matrix, new features, objf improvement per frame)."""
     b, t, dim = feats.shape
     g, beta = acc_mllt_stats(K.pack_gmm(am, feats.device), am.means(), am.inv_vars,
-                             feats.reshape(b * t, dim), pdf_ids, weights)
+                             feats.reshape(b * t, dim), pdf_ids, weights, mesh=mesh)
     m, impr = est_mllt(g.cpu().numpy(), beta)
     transform_model_means(am, m)
     cur_mat = compose_transforms(m, cur_mat)
     return cur_mat, apply_affine_transform(spliced, cur_mat), impr
 
 
+@ieee_fp32_entry
 def train_lda_mllt(base_feats: dict, transcripts: dict, prev_alignments: dict,
                    lang: Lang, opts: TriTrainOptions = TriTrainOptions(),
                    lda_opts: LdaOptions = LdaOptions(),
                    splice_opts: SpliceOptions = SpliceOptions(),
                    prev_trans_model: TransitionModel | None = None,
-                   out_dir: str | Path | None = None, *, device=None):
-    """Returns (TrainedModel, final_mat [40, spliced_dim+1])."""
+                   out_dir: str | Path | None = None, mesh=None, *, device=None):
+    """Returns (TrainedModel, final_mat [40, spliced_dim+1]).  ``mesh``
+    (``parallel/mesh.make_mesh``) routes the LDA, MLLT and tree statistics
+    through the data-axis-sharded reductions."""
     if prev_trans_model is None:
         raise ValueError("prev_trans_model: the model of prev_alignments is needed")
     device = resolve_device(device)
@@ -112,7 +117,7 @@ def train_lda_mllt(base_feats: dict, transcripts: dict, prev_alignments: dict,
     # ---- LDA estimation ----------------------------------------------------
     cur_mat = estimate_lda_from_alignment(
         spliced.reshape(b * t_max, sdim), prev_trans_model.tid2pdf[tids0.reshape(-1)],
-        w_lda, prev_trans_model.num_pdfs, lda_opts)  # final.mat so far: [40, sdim+1]
+        w_lda, prev_trans_model.num_pdfs, lda_opts, mesh)  # final.mat so far: [40, sdim+1]
     feats = apply_affine_transform(spliced, cur_mat)
     dim = feats.shape[2]
     log.info("train_lda_mllt: LDA %d -> %d estimated", sdim, dim)
@@ -122,7 +127,7 @@ def train_lda_mllt(base_feats: dict, transcripts: dict, prev_alignments: dict,
                   for i, u in enumerate(utts) if w0[i].sum() > 0}
     tree_stats = acc_tree_stats(ali_by_utt, dict(zip(utts, host_feats(feats, num_frames))),
                                 prev_trans_model, opts.context_width,
-                                opts.central_position, ci_phones=sil_set)
+                                opts.central_position, ci_phones=sil_set, mesh=mesh)
     tree = build_tree(tree_stats, lang, opts.context_width, opts.central_position,
                       num_leaves=opts.num_leaves)
     trans_model = TransitionModel(lang.topo, tree)
@@ -146,7 +151,8 @@ def train_lda_mllt(base_feats: dict, transcripts: dict, prev_alignments: dict,
             w_m = silence_frame_weights(tids.reshape(-1), weights.reshape(-1), trans_model,
                                         sil_set, opts.silence_weight)
             cur_mat, feats, impr = mllt_update(am, feats, spliced, cur_mat,
-                                               trans_model.tid2pdf[tids.reshape(-1)], w_m)
+                                               trans_model.tid2pdf[tids.reshape(-1)], w_m,
+                                               mesh)
             log.info("train_lda_mllt iter %d: MLLT impr/frame %.5f", it, impr)
         stats = e_step(am, trans_model, feats.reshape(b * t_max, dim), tids, weights)
         if it <= opts.max_iter_inc:
@@ -164,6 +170,7 @@ def train_lda_mllt(base_feats: dict, transcripts: dict, prev_alignments: dict,
     return model, cur_mat
 
 
+@ieee_fp32_entry
 def lda_decode_feats(base_feats: dict, final_mat: np.ndarray,
                      splice_opts: SpliceOptions = SpliceOptions(), *,
                      device=None) -> dict:

@@ -32,7 +32,7 @@ from ..models.transition import TransitionModel
 from ..models.tree import MonophoneTree
 from ..utils.logging import get_logger
 
-from ..device import resolve_device
+from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernels as K
 from .align import AlignmentSet, apply_alignments, equal_align
 
@@ -63,6 +63,7 @@ def _batchify(feats_list: list, device) -> tuple[torch.Tensor, np.ndarray]:
     return torch.nn.utils.rnn.pad_sequence(rows, batch_first=True), nf
 
 
+@ieee_fp32_entry
 def train_mono(feats_by_utt: dict, transcripts: dict[str, list[int]], lang: Lang,
                opts: MonoTrainOptions = MonoTrainOptions(),
                out_dir: str | Path | None = None, checkpoint_every: int = 0,

@@ -35,7 +35,7 @@ from ..models.transition import TransitionModel
 from ..models.treebuild import acc_tree_stats, build_tree
 from ..utils.logging import get_logger
 
-from ..device import resolve_device
+from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernels as K
 from ..transforms.fmllr import acc_fmllr_stats, apply_fmllr_batch, estimate_fmllr_batch
 from .train_lda_mllt import silence_frame_weights
@@ -53,18 +53,22 @@ class SatModel:
     transforms: dict  # speaker -> [D, D+1] (training speakers)
 
 
+@ieee_fp32_entry
 def estimate_transforms(am: AmDiagGmm, base_flat: torch.Tensor, pdf_ids, weights, spk_ids,
-                        num_speakers: int, min_count: float = 500.0):
+                        num_speakers: int, min_count: float = 500.0, mesh=None):
     """fMLLR statistics of the base features ``[N, D]`` under the aligned
-    pdfs on their device, then the row solves on the host -> (transforms
-    ``[S, D, D+1]``, objective improvement per frame of each speaker)."""
+    pdfs on their device (or sharded over ``mesh``), then the row solves on
+    the host -> (transforms ``[S, D, D+1]``, objective improvement per frame
+    of each speaker)."""
     dev = base_flat.device
     beta, k, g = acc_fmllr_stats(K.pack_gmm(am, dev), am.means(), am.inv_vars, base_flat,
-                                 pdf_ids, weights, spk_ids, num_speakers, device=dev)
+                                 pdf_ids, weights, spk_ids, num_speakers, mesh=mesh,
+                                 device=dev)
     return estimate_fmllr_batch(beta.cpu().numpy(), k.cpu().numpy(), g.cpu().numpy(),
                                 min_count=min_count)
 
 
+@ieee_fp32_entry
 def alignment_model(am: AmDiagGmm, x_adapted: torch.Tensor, base_flat: torch.Tensor,
                     pdf_ids, weights, num_pdfs: int, opts: TriTrainOptions) -> AmDiagGmm:
     """gmm-acc-stats-twofeats + gmm-est: posteriors of ``am`` on the adapted
@@ -77,14 +81,17 @@ def alignment_model(am: AmDiagGmm, x_adapted: torch.Tensor, base_flat: torch.Ten
     return alimdl
 
 
+@ieee_fp32_entry
 def train_sat(base_feats: dict, utt2spk: dict, transcripts: dict, prev_alignments: dict,
               prev_am: AmDiagGmm, lang: Lang, opts: TriTrainOptions = TriTrainOptions(),
               prev_trans_model: TransitionModel | None = None,
-              out_dir: str | Path | None = None, *, device=None) -> SatModel:
+              out_dir: str | Path | None = None, mesh=None, *, device=None) -> SatModel:
     """``base_feats``: utt -> [T, D] features the transforms act on (delta
     or LDA+MLLT features; tensors or arrays); ``prev_alignments``: utt ->
     tids of ``prev_am`` / ``prev_trans_model``.  Writes ``save_model``'s
-    files and ``final.alimdl.npz`` into ``out_dir``."""
+    files and ``final.alimdl.npz`` into ``out_dir``.  ``mesh``
+    (``parallel/mesh.make_mesh``) routes the fMLLR and tree statistics
+    through the data-axis-sharded reductions."""
     if prev_trans_model is None:
         raise ValueError("prev_trans_model: the model of prev_alignments is needed")
     device = resolve_device(device)
@@ -111,7 +118,7 @@ def train_sat(base_feats: dict, utt2spk: dict, transcripts: dict, prev_alignment
         w = silence_frame_weights(tids.reshape(-1), weights.reshape(-1), tm, sil_set,
                                   opts.silence_weight)
         trans, imprs = estimate_transforms(am, base_flat, tm.tid2pdf[tids.reshape(-1)], w,
-                                           spk_flat, num_spk)
+                                           spk_flat, num_spk, mesh=mesh)
         mean_impr = float(np.mean([i for i in imprs if i] or [0.0]))  # over estimated speakers
         return trans, mean_impr, apply_fmllr_batch(raw, trans, spk_of_utt, device=device)
 
@@ -124,7 +131,7 @@ def train_sat(base_feats: dict, utt2spk: dict, transcripts: dict, prev_alignment
                   for i, u in enumerate(utts) if weights[i].sum() > 0}
     tree_stats = acc_tree_stats(ali_by_utt, dict(zip(utts, host_feats(feats, num_frames))),
                                 prev_trans_model, opts.context_width, opts.central_position,
-                                ci_phones=sil_set)
+                                ci_phones=sil_set, mesh=mesh)
     tree = build_tree(tree_stats, lang, opts.context_width, opts.central_position,
                       num_leaves=opts.num_leaves)
     trans_model = TransitionModel(lang.topo, tree)

@@ -31,7 +31,7 @@ from ..models.transition import TransitionModel
 from ..models.treebuild import GaussStats, acc_tree_stats, build_tree
 from ..utils.logging import get_logger
 
-from ..device import resolve_device
+from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernels as K
 from .align import AlignmentSet, apply_alignments
 from .train_mono import TrainedModel, _batchify, save_model
@@ -108,6 +108,7 @@ def silence_pdfs_of(lang: Lang, tree) -> list[int]:
                    for pdf in tree.possible_pdfs(p, c)})
 
 
+@ieee_fp32_entry
 def realign(aset: AlignmentSet, am: AmDiagGmm, feats: torch.Tensor, num_frames,
             tids: np.ndarray, weights: np.ndarray, silence_pdfs: list,
             opts: TriTrainOptions, stage: str, names: list) -> None:
@@ -120,6 +121,7 @@ def realign(aset: AlignmentSet, am: AmDiagGmm, feats: torch.Tensor, num_frames,
     apply_alignments(results, tids, weights, num_frames, stage, names=names)
 
 
+@ieee_fp32_entry
 def e_step(am: AmDiagGmm, trans_model: TransitionModel, x: torch.Tensor,
            tids: np.ndarray, weights: np.ndarray):
     """E-step statistics of an alignment over features ``x [N, D]`` on the
@@ -144,6 +146,7 @@ def m_step(am: AmDiagGmm, trans_model: TransitionModel, stats, num_gauss: int,
     trans_model.mle_update(tstats)
 
 
+@ieee_fp32_entry
 def train_tri(feats_by_utt: dict, transcripts: dict, prev_alignments: dict,
               lang: Lang, opts: TriTrainOptions = TriTrainOptions(),
               prev_trans_model: TransitionModel | None = None,

@@ -12,11 +12,12 @@ Per-speaker sufficient statistics (device):
 
 The rows with a nonzero weight are grouped by speaker with a stable sort (in
 row order within a speaker), each speaker's run is padded to whole blocks of
-``SUB_FRAMES`` rows with weight 0, and each block's K and G are one IEEE-fp32
-product (G as ``[D*E, n] x [n, E]``, never an ``[N, D, E, E]``
-intermediate).  The blocks' partial sums go to their speakers as float64
-segment sums: no float atomics, so two runs on the card give the same bits,
-and the rounding is that of a short sum whatever the chunk's size.
+``SUB_FRAMES`` rows with weight 0, and each block's K and G are one float64
+product of the rows' fp32 posterior sums (G as ``[D*E, n] x [n, E]``, never
+an ``[N, D, E, E]`` intermediate).  The blocks' sums go to their speakers as
+float64 segment sums: no float atomics, so two runs on the card give the same
+bits, and the sums do not depend on how the rows are cut into chunks or
+spread over ranks (``parallel/``).
 
 Estimation (host numpy, a copy of the JAX package's): iterative row update
 of the affine transform W [D, D+1] maximizing
@@ -28,11 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import free_bytes, resolve_device
+from ..device import free_bytes, ieee_fp32_entry, resolve_device
 from ..ops.gmm_kernels import GmmParams, aligned_mixture_logliks
 
-# rows per partial sum of the K and G products; the partial sums are added
-# in float64
+# rows per block of the float64 K and G products
 SUB_FRAMES = 256
 
 
@@ -49,25 +49,25 @@ def _fmllr_frame_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, weigh
 
 
 def _fmllr_blocks(gmass, w_miv, w_iv, feats):
-    """Blocks of ``SUB_FRAMES`` rows -> per block (beta float64 [nb],
-    K [nb, D, E], G [nb, D*E, E]) in the features' precision."""
+    """Blocks of ``SUB_FRAMES`` rows -> per block (beta [nb], K [nb, D, E],
+    G [nb, D*E, E]), float64."""
     n, d = feats.shape
     nb = n // SUB_FRAMES
-    xhat = torch.cat([feats, feats.new_ones((n, 1))], dim=1)  # [N, E]
+    xhat = torch.cat([feats, feats.new_ones((n, 1))], dim=1).double()  # [N, E]
     xb = xhat.view(nb, SUB_FRAMES, d + 1)
     beta = gmass.view(nb, SUB_FRAMES).sum(dim=1, dtype=torch.float64)
-    k = torch.bmm(w_miv.view(nb, SUB_FRAMES, d).transpose(1, 2), xb)
-    y = (w_iv[:, :, None] * xhat[:, None, :]).view(nb, SUB_FRAMES, d * (d + 1))
+    k = torch.bmm(w_miv.double().view(nb, SUB_FRAMES, d).transpose(1, 2), xb)
+    y = (w_iv.double()[:, :, None] * xhat[:, None, :]).view(nb, SUB_FRAMES, d * (d + 1))
     return beta, k, torch.bmm(y.transpose(1, 2), xb)
 
 
 def fmllr_chunk_rows(device: torch.device, max_mix: int, dim: int) -> int:
     """Rows per chunk, a whole number of blocks: the chunk's per-row
-    intermediates (gathered means and inverse variances, the ``[D, E]``
-    products, the blocks' G in fp32 and float64) in a quarter of the memory
+    intermediates (gathered means and inverse variances, the float64
+    ``[D, E]`` products, the blocks' G in float64) in a quarter of the memory
     free on ``device``."""
     e = dim + 1
-    per_row = 4 * (2 * max_mix * dim + 2 * dim * e + 6 * dim) + 12 * dim * e * e // SUB_FRAMES
+    per_row = 4 * (2 * max_mix * dim + 4 * dim * e + 8 * dim) + 16 * dim * e * e // SUB_FRAMES
     rows = free_bytes(device) // (4 * per_row)
     return max(8, rows // SUB_FRAMES) * SUB_FRAMES
 
@@ -92,20 +92,13 @@ def _speaker_blocks(weights: torch.Tensor, spk_ids: torch.Tensor, num_speakers: 
     return idx, torch.repeat_interleave(torch.arange(num_speakers, device=dev), blocks)
 
 
-def acc_fmllr_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, weights, spk_ids,
-                    num_speakers: int, chunk: int | None = None, *, device=None):
-    """feats [N, D]; pdf_ids, weights, spk_ids [N] (arrays or tensors) ->
-    (beta [S], K [S, D, D+1], G [S, D, D+1, D+1]), float32 tensors on
-    ``device`` (``None``: the card), where everything is computed.
-
-    ``chunk`` (rows, rounded down to whole blocks) defaults to what the
-    device's free memory holds; the chunks are summed in float64, and the
-    sums are handed back as float32, as the JAX package hands them to
-    ``estimate_fmllr_batch``.  Rows of weight 0 (padding, unused posterior
-    slots) and rows of a speaker outside ``[0, num_speakers)`` add nothing
-    and are left out before any product."""
-    dev = resolve_device(device)
-    params = GmmParams(params.w_matrix.to(dev), params.gconsts.to(dev))
+@ieee_fp32_entry
+def fmllr_sums(params: GmmParams, means, inv_vars, feats, pdf_ids, weights, spk_ids,
+               num_speakers: int, chunk: int | None = None):
+    """The float64 sums of ``acc_fmllr_stats`` on the device of ``params``,
+    where the other inputs (arrays or tensors) go: (beta [S], K [S, D, D+1],
+    G [S, D, D+1, D+1])."""
+    dev = params.gconsts.device
     means = torch.as_tensor(means, dtype=torch.float32).to(dev)
     inv_vars = torch.as_tensor(inv_vars, dtype=torch.float32).to(dev)
     feats = torch.as_tensor(feats, dtype=torch.float32).to(dev)
@@ -129,12 +122,83 @@ def acc_fmllr_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, weights,
         b_blk, k_blk, g_blk = _fmllr_blocks(gmass, w_miv, w_iv, x)
         lengths = torch.bincount(block_spk[lo:lo + c], minlength=num_speakers)
         beta += torch.segment_reduce(b_blk, "sum", lengths=lengths)
-        k += torch.segment_reduce(k_blk.reshape(len(b_blk), -1).double(), "sum",
+        k += torch.segment_reduce(k_blk.reshape(len(b_blk), -1), "sum",
                                   lengths=lengths, axis=0)
-        g += torch.segment_reduce(g_blk.reshape(len(b_blk), -1).double(), "sum",
+        g += torch.segment_reduce(g_blk.reshape(len(b_blk), -1), "sum",
                                   lengths=lengths, axis=0)
-    return (beta.float(), k.view(num_speakers, d, e).float(),
-            g.view(num_speakers, d, e, e).float())
+    return beta, k.view(num_speakers, d, e), g.view(num_speakers, d, e, e)
+
+
+@ieee_fp32_entry
+def acc_fmllr_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, weights, spk_ids,
+                    num_speakers: int, chunk: int | None = None, mesh=None, *, device=None):
+    """feats [N, D]; pdf_ids, weights, spk_ids [N] (arrays or tensors) ->
+    (beta [S], K [S, D, D+1], G [S, D, D+1, D+1]), float32 tensors on
+    ``device`` (``None``: the card), where everything is computed.
+
+    ``chunk`` (rows, rounded down to whole blocks) defaults to what the
+    device's free memory holds; the chunks are summed in float64, and the
+    sums are handed back as float32, as the JAX package hands them to
+    ``estimate_fmllr_batch``.  Rows of weight 0 (padding, unused posterior
+    slots) and rows of a speaker outside ``[0, num_speakers)`` add nothing
+    and are left out before any product.
+
+    With ``mesh`` set, speaker-major slabs of frames are sharded over the
+    data axis and the per-speaker sums reduced over it
+    (``_acc_fmllr_stats_mesh``; the reference's per-job fMLLR accs composed
+    per speaker, ``train_sat.cpp:906-954``, as one collective); the result
+    lies on the mesh's device and ``device`` is not read."""
+    if mesh is not None:
+        sums = _acc_fmllr_stats_mesh(params, means, inv_vars, feats, pdf_ids, weights,
+                                     spk_ids, num_speakers, mesh)
+    else:
+        dev = resolve_device(device)
+        params = GmmParams(params.w_matrix.to(dev), params.gconsts.to(dev))
+        sums = fmllr_sums(params, means, inv_vars, feats, pdf_ids, weights, spk_ids,
+                          num_speakers, chunk)
+    return tuple(x.float() for x in sums)
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _acc_fmllr_stats_mesh(params, means, inv_vars, feats, pdf_ids, weights, spk_ids,
+                          num_speakers: int, mesh, t_slab: int = 1024):
+    """Speaker-major slab packing for the mesh-sharded fMLLR accumulator
+    (on the host, as the JAX package packs): each speaker's frames (stably
+    sorted by speaker) are cut into rows of ``t_slab`` frames (weight 0 on
+    padding), the rows padded to a multiple of the data axis and tagged
+    with their speaker slot; the sharded program sums its rows into their
+    speakers' slots in float64 before the reduction.  The JAX package pads
+    the row count to a power of two so that XLA compiles few shapes; the
+    port has no compile cache to protect and pads only to the data axis."""
+    from ..parallel.mesh import DATA_AXIS, acc_fmllr_stats_sharded
+
+    feats = _host(feats).astype(np.float32)
+    pdf_ids, weights = _host(pdf_ids).astype(np.int32), _host(weights).astype(np.float32)
+    spk_ids = _host(spk_ids).astype(np.int64)
+    d = feats.shape[1]
+    order = np.argsort(spk_ids, kind="stable")
+    starts = np.searchsorted(spk_ids[order], np.arange(num_speakers + 1))
+    rows = []
+    for s in range(num_speakers):
+        span = order[starts[s]: starts[s + 1]]
+        for lo in range(0, max(len(span), 1), t_slab):
+            rows.append((s, span[lo: lo + t_slab]))
+    nd = mesh.shape[DATA_AXIS]
+    n_rows = -(-len(rows) // nd) * nd
+    f_r = np.zeros((n_rows, t_slab, d), np.float32)
+    p_r = np.zeros((n_rows, t_slab), np.int32)
+    w_r = np.zeros((n_rows, t_slab), np.float32)
+    slot_r = np.zeros(n_rows, np.int32)
+    for i, (s, idx) in enumerate(rows):
+        f_r[i, : len(idx)] = feats[idx]
+        p_r[i, : len(idx)] = pdf_ids[idx]
+        w_r[i, : len(idx)] = weights[idx]
+        slot_r[i] = s
+    acc = acc_fmllr_stats_sharded(mesh, num_speakers)
+    return acc(params, means, inv_vars, f_r, p_r, w_r, slot_r)
 
 
 def estimate_fmllr(beta: float, k: np.ndarray, g: np.ndarray,
@@ -206,6 +270,7 @@ def estimate_fmllr_batch(beta: np.ndarray, k: np.ndarray, g: np.ndarray,
     return w.astype(np.float32), imprs
 
 
+@ieee_fp32_entry
 def apply_fmllr_batch(feats, transforms, spk_ids, *, device=None) -> torch.Tensor:
     """feats [B, T, D] (array or tensor) with per-speaker affine transforms
     ``[S, D, D+1]`` gathered by ``spk_ids [B]`` -> ``[B, T, D]`` on

@@ -9,8 +9,9 @@ Statistics (device): per-class count and mean accumulator, global second
 moment.  The JAX package's ``segment_sum`` over the class ids becomes a
 stable sort by class followed by one float64 sum per class over its run of
 frames (``segment_reduce``, in frame order): no float atomics, so the same
-bits in every run on the card.  The second moment is an IEEE-fp32 product
-``(x*w)ᵀ·x``.  Estimation (host numpy, a copy of the JAX package's):
+bits in every run on the card.  The second moment is a float64 product
+``(x*w)ᵀ·x``, so that no statistic depends on how the frames are spread
+over ranks (``parallel/``, ``mesh=``).  Estimation (host numpy, a copy of the JAX package's):
 within/between scatter, whiten within, top-k eigenvectors.  Output is affine
 ``[dim_out, dim_in + 1]``.
 """
@@ -20,12 +21,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import ieee_fp32_entry
 
-def acc_lda_stats(feats: torch.Tensor, pdf_ids, weights, num_pdfs: int):
-    """feats [N, D] (spliced), pdf_ids [N], weights [N] -> (counts [C],
-    mean_acc [C, D], scatter [D, D]), float32 on the features' device.
-    Frames whose id lies outside ``[0, num_pdfs)`` are left out of counts
-    and means, as the JAX package's segment sums leave them."""
+
+@ieee_fp32_entry
+def lda_sums(feats: torch.Tensor, pdf_ids, weights, num_pdfs: int):
+    """feats [N, D] (spliced), pdf_ids [N], weights [N] -> float64 (counts
+    [C], mean_acc [C, D], scatter [D, D]) on the features' device.  Frames
+    whose id lies outside ``[0, num_pdfs)`` are left out of counts and
+    means, as the JAX package's segment sums leave them."""
     dev = feats.device
     ids = torch.as_tensor(pdf_ids).to(dev, torch.int64)
     w = torch.as_tensor(weights).to(dev, torch.float32)
@@ -34,9 +38,28 @@ def acc_lda_stats(feats: torch.Tensor, pdf_ids, weights, num_pdfs: int):
     lengths = torch.bincount(key, minlength=num_pdfs + 1)
     xw = feats * w[:, None]
     rows = torch.cat([w[:, None], xw], dim=1).double()[order]  # [N, 1+D]
-    sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0)[:num_pdfs].float()
-    scatter = xw.T @ feats
-    return sums[:, 0], sums[:, 1:], scatter
+    sums = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0)[:num_pdfs]
+    return sums[:, 0], sums[:, 1:], xw.double().T @ feats.double()
+
+
+@ieee_fp32_entry
+def acc_lda_stats(feats, pdf_ids, weights, num_pdfs: int, mesh=None):
+    """``lda_sums`` as float32 tensors: (counts [C], mean_acc [C, D],
+    scatter [D, D]).
+
+    With ``mesh`` set (``parallel/mesh.make_mesh``), frames are sharded over
+    the data axis and the statistics summed over it
+    (``parallel/mesh.acc_lda_stats_sharded``; the reference's per-job
+    ``lda.JOBID.acc`` + est-lda file reduction, ``train_lda_mllt.cpp:305-376``,
+    as one collective); the result lies on the mesh's device."""
+    if mesh is not None:
+        from ..parallel.mesh import acc_lda_stats_sharded, pad_to_mesh
+
+        f, ids, w = pad_to_mesh(mesh, feats, pdf_ids, weights)
+        sums = acc_lda_stats_sharded(mesh, num_pdfs)(f, ids, w)
+    else:
+        sums = lda_sums(feats, pdf_ids, weights, num_pdfs)
+    return tuple(x.float() for x in sums)
 
 
 def estimate_lda(counts: np.ndarray, mean_acc: np.ndarray, scatter: np.ndarray,
@@ -81,6 +104,7 @@ def estimate_lda(counts: np.ndarray, mean_acc: np.ndarray, scatter: np.ndarray,
     return np.concatenate([a, offset[:, None]], axis=1).astype(np.float32)
 
 
+@ieee_fp32_entry
 def apply_affine_transform(feats: torch.Tensor, mat) -> torch.Tensor:
     """feats [..., D] x affine [E, D+1] (array or tensor) -> [..., E] on the
     features' device: ``x @ Aᵀ + b`` at IEEE fp32."""

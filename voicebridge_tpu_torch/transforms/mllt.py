@@ -10,11 +10,13 @@ posteriors gamma_m:
     G[d] += sum_m gamma_m * inv_var[p,m,d] * (x - mu[p,m]) (x - mu[p,m])^T
     beta += sum gamma
 
-computed chunk by chunk (chunks sized from the device's free memory) as a
-batched IEEE-fp32 product over short blocks of frames, the blocks' partial
-sums and the chunks added in float64.  Update (host numpy, a
-copy of the JAX package's): Kaldi's iterative row solve — for each row d of
-M:
+computed chunk by chunk (chunks sized from the device's free memory, whole
+blocks of ``SUB_FRAMES`` frames) as IEEE-fp32 products over the blocks, the
+blocks' partial sums and the chunks added in float64.  Each block's product
+is one batch entry of a batched product of fixed shape (``block_bmm``), so a
+block gives the same bits wherever it lies: in any chunk, or in any rank's
+share of the frames (``parallel/``, whole blocks a rank).  Update (host numpy, a copy of the JAX package's): Kaldi's iterative row
+solve — for each row d of M:
     c_d = cofactor row of M (row of det(M) * M^{-T})
     m_d = sqrt(beta / (c_d^T G_d^{-1} c_d)) * G_d^{-1} c_d
 maximizing  beta*log|det M| - 0.5 sum_d m_d^T G_d m_d.
@@ -25,23 +27,48 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import free_bytes
+from ..device import free_bytes, ieee_fp32_entry
 from ..ops.gmm_kernels import GmmParams, aligned_mixture_logliks
 
 
 # frames per partial sum of the G product: each partial sum adds SUB_FRAMES x
 # M products in the features' precision, the partial sums are added in float64
 SUB_FRAMES = 256
+# blocks per batched product (``block_bmm``)
+GROUP_BLOCKS = 16
+
+
+def block_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``[nb, m, k] x [nb, k, n] -> [nb, m, n]`` in batched products of
+    exactly ``GROUP_BLOCKS`` entries (the last group padded with zero
+    blocks): every call has the same shape, so the library picks the same
+    kernel and a block's product has the same bits whatever ``nb`` is."""
+    nb = a.shape[0]
+    out = a.new_empty((nb, a.shape[1], b.shape[2]))
+    for lo in range(0, nb, GROUP_BLOCKS):
+        n = min(GROUP_BLOCKS, nb - lo)
+        if n == GROUP_BLOCKS:
+            torch.bmm(a[lo:lo + n], b[lo:lo + n], out=out[lo:lo + n])
+            continue
+        pa = a.new_zeros((GROUP_BLOCKS,) + tuple(a.shape[1:]))
+        pb = b.new_zeros((GROUP_BLOCKS,) + tuple(b.shape[1:]))
+        pa[:n], pb[:n] = a[lo:], b[lo:]
+        out[lo:] = torch.bmm(pa, pb)[:n]
+    return out
 
 
 def _mllt_chunk(params: GmmParams, means, inv_vars, feats, pdf_ids, weights):
     """One chunk's (G [D, D, D] float64, beta float64 0-d): posteriors of
     the aligned pdf's mixtures, then ``G[d, i, j] = sum_k w[k, d] diff[k, i]
     diff[k, j]`` over the (frame, mixture) pairs k (a ``[K, D²]``
-    intermediate), as one batched product over blocks of ``SUB_FRAMES``
-    frames whose partial sums are added in float64: the rounding of a short
-    sum, whatever the chunk's size.  The frames are padded to whole blocks
-    with weight 0."""
+    intermediate), as batched products over blocks of ``SUB_FRAMES`` frames
+    (``block_bmm``) whose partial sums are added in float64: the rounding of
+    a short sum, whatever the chunk's size.  The frames are padded to whole
+    blocks with weight 0."""
+    d = feats.shape[1]
+    if feats.shape[0] == 0:  # e.g. a rank's empty share
+        return (torch.zeros((d, d, d), dtype=torch.float64, device=feats.device),
+                torch.zeros((), dtype=torch.float64, device=feats.device))
     pad = -feats.shape[0] % SUB_FRAMES
     if pad:
         feats = torch.nn.functional.pad(feats, (0, 0, 0, pad))
@@ -56,41 +83,56 @@ def _mllt_chunk(params: GmmParams, means, inv_vars, feats, pdf_ids, weights):
     w = (gamma[:, :, None] * iv).reshape(n * m, d)  # [K, D]
     y = (w[:, :, None] * diff[:, None, :]).reshape(n * m, d * d)  # [K, D*D]
     blocks = n // SUB_FRAMES
-    g = torch.bmm(y.view(blocks, -1, d * d).transpose(1, 2), diff.view(blocks, -1, d))
+    g = block_bmm(y.view(blocks, -1, d * d).transpose(1, 2), diff.view(blocks, -1, d))
     return g.sum(dim=0, dtype=torch.float64).reshape(d, d, d), gamma.sum(dtype=torch.float64)
 
 
 def mllt_chunk_frames(device: torch.device, max_mix: int, dim: int) -> int:
-    """Frames per chunk: the chunk's per-(frame, mixture) intermediates
-    (gathered means and inverse variances, the difference, its weights and
-    the ``[D, D]`` outer products) in a quarter of the memory free on
-    ``device``."""
+    """Frames per chunk, whole blocks of ``SUB_FRAMES``: the chunk's
+    per-(frame, mixture) intermediates (gathered means and inverse
+    variances, the difference, its weights and the ``[D, D]`` outer
+    products) in a quarter of the memory free on ``device``."""
     per_frame = 4 * max_mix * (dim * dim + 6 * dim)
-    return max(1 << 11, free_bytes(device) // (4 * per_frame))
+    frames = max(1 << 11, free_bytes(device) // (4 * per_frame))
+    return frames // SUB_FRAMES * SUB_FRAMES
 
 
+@ieee_fp32_entry
 def acc_mllt_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, weights,
-                   chunk: int | None = None):
+                   chunk: int | None = None, mesh=None):
     """feats [N, D]; means/inv_vars [P, M, D] -> (G [D, D, D] float32, beta).
 
     ``params`` (``ops/gmm_kernels.pack_gmm``) lies on the device the
     statistics are computed on; the other inputs (arrays or tensors) go
-    there.  ``chunk`` (frames) defaults to what the device's free memory
-    holds; the chunks are summed in float64 and G is handed back as float32,
-    as the JAX package hands it to ``est_mllt``."""
-    dev = params.gconsts.device
+    there.  ``chunk`` (frames, rounded up to whole blocks of ``SUB_FRAMES``)
+    defaults to what the device's free memory holds; the chunks are summed
+    in float64 and G is handed back as float32, as the JAX package hands it
+    to ``est_mllt``.
+
+    With ``mesh`` set, each chunk's blocks are sharded over the data axis and
+    its (G, beta) summed over it (``parallel/mesh.acc_mllt_stats_sharded``;
+    the reference's per-job ``m.JOBID.macc`` + est-mllt file reduction,
+    ``train_lda_mllt.cpp:694-``, as one collective per chunk): the same
+    blocks as without a mesh, so the same sums up to float64 rounding.  The
+    result lies on the mesh's device."""
+    dev = params.gconsts.device if mesh is None else mesh.device
     means = torch.as_tensor(means, dtype=torch.float32).to(dev)
     inv_vars = torch.as_tensor(inv_vars, dtype=torch.float32).to(dev)
     feats = torch.as_tensor(feats, dtype=torch.float32).to(dev)
     pdf_ids = torch.as_tensor(pdf_ids).to(dev, torch.int64)
     weights = torch.as_tensor(weights, dtype=torch.float32).to(dev)
     n, d = feats.shape
-    c = chunk or mllt_chunk_frames(dev, means.shape[1], d)
+    c = -(-(chunk or mllt_chunk_frames(dev, means.shape[1], d)) // SUB_FRAMES) * SUB_FRAMES
+    acc_fn = _mllt_chunk
+    if mesh is not None:
+        from ..parallel.mesh import acc_mllt_stats_sharded
+
+        acc_fn = acc_mllt_stats_sharded(mesh)
     g = torch.zeros((d, d, d), dtype=torch.float64, device=dev)
     beta = torch.zeros((), dtype=torch.float64, device=dev)
     for lo in range(0, n, c):
-        g_c, b_c = _mllt_chunk(params, means, inv_vars, feats[lo:lo + c],
-                               pdf_ids[lo:lo + c], weights[lo:lo + c])
+        g_c, b_c = acc_fn(params, means, inv_vars, feats[lo:lo + c], pdf_ids[lo:lo + c],
+                          weights[lo:lo + c])
         g += g_c
         beta += b_c
     return g.float(), float(beta)

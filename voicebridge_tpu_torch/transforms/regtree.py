@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .. import convert
-from ..device import resolve_device
+from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernel
 from ..ops.gmm_kernels import (GmmParams, acc_gmm_stats_chunked, aligned_mixture_logliks,
                                component_logliks)
@@ -159,6 +159,7 @@ def build_regression_tree(means: np.ndarray, weights: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
+@ieee_fp32_entry
 def acc_regtree_fmllr_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, weights,
                             bclass_of, num_classes: int, chunk: int | None = None, *,
                             device=None):
@@ -169,8 +170,8 @@ def acc_regtree_fmllr_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, 
     [P, M] -> (beta [C], K [C, D, D+1], G [C, D, D+1, D+1]), float32 tensors
     on ``device`` (``None``: the card).  Per class c, the posteriors of the
     Gaussians in c collapse each row to (mass, w_miv, w_iv), and K and G are
-    the block products of ``transforms/fmllr.py`` over blocks of
-    ``SUB_FRAMES`` rows, summed in float64.  Rows of weight 0 add nothing and
+    the float64 block products of ``transforms/fmllr.py`` over blocks of
+    ``SUB_FRAMES`` rows.  Rows of weight 0 add nothing and
     are left out; ``chunk`` rows (whole blocks) at a time, by default what
     the device's free memory holds."""
     dev = resolve_device(device)
@@ -206,8 +207,8 @@ def acc_regtree_fmllr_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, 
                 gq.sum(dim=1), torch.einsum("nm,nmd->nd", gq, mu_iv),
                 torch.einsum("nm,nmd->nd", gq, iv), x)
             beta[q] += b_blk.sum()
-            k[q] += k_blk.double().sum(dim=0)
-            g[q] += g_blk.double().sum(dim=0)
+            k[q] += k_blk.sum(dim=0)
+            g[q] += g_blk.sum(dim=0)
     return beta.float(), k.float(), g.view(num_classes, d, e, e).float()
 
 
@@ -284,6 +285,7 @@ def class_weights(w: torch.Tensor, cls: torch.Tensor, r: int):
     return w_r, in_r.any(dim=1)
 
 
+@ieee_fp32_entry
 def regtree_fmllr_loglikes(params: GmmParams, feats, transforms, leaf_to_class,
                            bclass_of) -> torch.Tensor:
     """Adapted per-frame per-pdf log-likelihoods
@@ -317,6 +319,7 @@ def regtree_fmllr_loglikes(params: GmmParams, feats, transforms, leaf_to_class,
     return out
 
 
+@ieee_fp32_entry
 def regtree_fmllr_loglikes_plain(params: GmmParams, feats: torch.Tensor, transforms,
                                  leaf_to_class, bclass_of) -> torch.Tensor:
     """The JAX formulation in torch, in the features' dtype: every Gaussian
@@ -345,6 +348,7 @@ def regtree_fmllr_loglikes_plain(params: GmmParams, feats: torch.Tensor, transfo
 # ---------------------------------------------------------------------------
 
 
+@ieee_fp32_entry
 def acc_regtree_mllr_stats(params: GmmParams, feats, pdf_ids, weights):
     """Per-Gaussian occupancies and first moments for MLLR
     (``RegtreeMllrDiagGmmAccs`` role): (occ [P, M], xbar [P, M, D]) numpy
