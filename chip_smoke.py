@@ -258,7 +258,9 @@ Phases, each of which must pass (any failure exits nonzero):
    survivor bytes equal the plain version's on the card, ``total_best`` =
    ``decode_batch``'s exact best-path scores within 1e-2 or relative 1e-5;
    16 lanes at beam 13 and max_active 2000 byte for byte; timed against its
-   bound, its launches counted.
+   bound at exact search and, on all lanes, at beam 13 and max_active 2000,
+   its launches counted (3 per window) and its device kernels under
+   torch.profiler (one per window and pass).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to ``chiprun_out/chip_smoke.log``.
@@ -3987,7 +3989,9 @@ def lane_fb_full_width(torch, device, width: Width, lane: dict, results: dict, l
     ``lattice_forward_backward_packed``: at exact search the kernel's packed
     survivor bytes equal the plain version's on the card, and total_best
     equals decode_batch's exact best-path scores; a second run of
-    ``LANE_BEAM_RUN`` lanes at a finite beam and max_active, byte for byte.
+    ``LANE_BEAM_RUN`` lanes at a finite beam and max_active, byte for byte;
+    times at exact search and, on all lanes, at that beam and max_active;
+    the device kernels of one call counted under torch.profiler.
     The reference's survivor test drops whole frames at large totals, so
     the full-width check is kernel against plain version, not the beam
     invariant."""
@@ -4060,6 +4064,13 @@ def lane_fb_full_width(torch, device, width: Width, lane: dict, results: dict, l
           f"plain version in {diff2} bytes")
     del kb, pbb
     ms = cuda_ms(torch, kernel, reps=2) if cuda else None
+    ms_beam = cuda_ms(torch, lambda: kernel(None, beam2, ma2), reps=2) if cuda else None
+    # one device kernel per window and pass, where the profiler sees the card
+    prof = device_profile(torch, kernel, calls=1) if cuda else {"activities_by_name": {}}
+    lane_kernels = sum(v for k, v in prof["activities_by_name"].items()
+                       if "lane_forward_kernel" in k or "lane_backward_kernel" in k)
+    check(not prof["activities_by_name"] or round(lane_kernels) == 3 * windows,
+          f"phase 20: {lane_kernels} lane-major device kernels for {windows} windows")
     # the bound (tools/lane_major_fb_bound.py's count at this run's sizes):
     # bytes of the inputs once and the outputs once; operations per (lane,
     # arc, frame) 4 forward and 6 backward, per (lane, state, frame) 4
@@ -4073,12 +4084,16 @@ def lane_fb_full_width(torch, device, width: Width, lane: dict, results: dict, l
         "max_abs_err": float((best[:lanes] - pbest).abs().max()), "ms": ms,
         "plain_ms": 1e3 * plain_s if cuda else None, "ms_at_plain_lanes": ms_cut,
         "bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-        "library_ms": None, "plain_lanes": lanes, "packed_bytes": bits.numel()}
+        "library_ms": None, "plain_lanes": lanes, "packed_bytes": bits.numel(),
+        "ms_beam_max_active": ms_beam}
     facts = {"launches": launches, "first_run_s": first_s, "plain_s": plain_s,
              "plain_lanes": lanes, "total_best_rel_err_max": worst, "survivors": survivors,
              "packed_bytes": bits.numel(), "beam_run": {"lanes": n2, "beam": beam2,
                                                        "max_active": ma2, "bytes_differ": diff2},
-             "bound_ms": results["lattice_lane"]["bound_ms"], "ms": ms}
+             "bound_ms": results["lattice_lane"]["bound_ms"], "ms": ms,
+             "ms_beam_max_active": ms_beam, "device_kernels": lane_kernels,
+             "device_activities": prof.get("activities_per_call"),
+             "device_ms": prof.get("device_ms")}
     log(f"phase 20, lane-major lattice FB on {device}: {json.dumps(facts)}")
     return facts
 

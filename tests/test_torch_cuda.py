@@ -48,7 +48,10 @@ it, against float64; the PLP, fbank and spectrogram extractors and
 through K2 with 1, 2 and 8 classes and a pdf with no active Gaussian;
 ``acc_regtree_mllr_stats`` through K6 and the regression-tree fMLLR
 statistics; ``loglikes_full`` and ``acc_full_stats`` across chunk
-boundaries against float64).  They need an NVIDIA
+boundaries against float64; for the lane-major lattice FB exact search, a
+beam, ``max_active`` with ties (also across two lane groups), windows of 1
+frame and longer than T, 130 lanes, states without in- or out-arcs and a
+hub of about 5,000 arcs each way, one device kernel per window and pass).  They need an NVIDIA
 GPU and nvcc, and skip without one:
 
     python -m pytest tests/test_torch_cuda.py -m cuda
@@ -79,7 +82,8 @@ from voicebridge_tpu_torch.steps.decode import Decoder
 from voicebridge_tpu_torch.steps.make_feats import make_features
 from voicebridge_tpu_torch.testing import (assert_models_close, feature_scaled_am,
                                            load_yesno_mono, random_am, random_band_walk,
-                                           random_codes, synth_decode_graph, synth_train_graph)
+                                           random_codes, synth_decode_graph, synth_hub_graph,
+                                           synth_train_graph)
 from voicebridge_tpu_torch.transforms import cmvn as TC
 from voicebridge_tpu_torch.transforms import lda as TL
 from voicebridge_tpu_torch.transforms import mllt as TM
@@ -1698,8 +1702,9 @@ def test_tf32_high_gives_the_ieee_results(cuda):
         assert torch.equal(under, call())
 
 
-def _lane_inputs(num_states, lanes, frames, seed, ties=False):
-    g = synth_decode_graph(num_states, arcs_per_state=8, num_pdfs=20, seed=seed)
+def _lane_inputs(num_states, lanes, frames, seed, ties=False, hub=0):
+    g = (synth_hub_graph(num_states, hub, num_pdfs=20, seed=seed) if hub else
+         synth_decode_graph(num_states, arcs_per_state=8, num_pdfs=20, seed=seed))
     ll = np.random.default_rng(seed).standard_normal((lanes, frames, 20)) * 3 - 10
     if ties:  # whole-number scores: many states tie, at the k-th value too
         g = g._replace(arc_score=np.round(g.arc_score).astype(np.float32))
@@ -1707,33 +1712,74 @@ def _lane_inputs(num_states, lanes, frames, seed, ties=False):
     return g, torch.from_numpy(ll.astype(np.float32))
 
 
+def _lane_kernels_per_call(fn) -> int:
+    """The ``lattice_lane.cu`` kernels one call of ``fn`` runs on the device
+    (torch.profiler), or -1 where the profiler shows no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return -1
+    return sum("lane_forward_kernel" in n or "lane_backward_kernel" in n for n in dev)
+
+
 @pytest.mark.parametrize("case", ["exact", "beam", "max_active", "max_active_ties", "window_t",
-                                  "window_1", "big"])
+                                  "window_1", "big", "lanes_130", "no_arcs_hub",
+                                  "max_active_ties_groups"])
 def test_lattice_lane_kernel_matches_plain(cuda, case):
     """``lattice_lane.cu`` against its plain version on the card: the packed
     survivor bytes, total_best, alpha_at_end and use_final equal, at exact
     search, a finite beam, max_active (with ties at the k-th score), windows
-    of 1 frame and longer than T, lanes of no frame and of one, and 3,000
-    states (a radix select over more states than a CTA's threads)."""
-    states, lanes, frames, beam, max_active, window, ties = {
-        "exact": (300, 5, 40, 1e9, 0, 16, False), "beam": (300, 5, 40, 9.0, 0, 16, False),
-        "max_active": (300, 5, 40, 1e9, 37, 16, False),
-        "max_active_ties": (300, 5, 40, 1e9, 37, 16, True),
-        "window_t": (300, 5, 40, 12.0, 20, 64, False), "window_1": (200, 3, 12, 1e9, 0, 1, False),
-        "big": (3000, 4, 30, 14.0, 500, 8, True)}[case]
-    g, ll = _lane_inputs(states, lanes, frames, seed=len(case), ties=ties)
-    nf = np.array([frames, frames - 7, 0, 1, frames][:lanes], np.int32)
+    of 1 frame and longer than T, lanes of no frame and of one, 3,000
+    states (a radix select over more states than a block's threads), 130
+    lanes (two lane groups, not a multiple of 4: masked scalar loads), a
+    graph with states of no in-arcs and of no out-arcs and a hub of about
+    5,000 in- and 5,000 out-arcs appended out of source order, and
+    max_active with ties across the two lane groups.  Each call launches 3
+    windows' worth of ``lattice_lane`` (one launch per window and pass) and,
+    where the profiler shows device activity, one device kernel for each."""
+    states, lanes, frames, beam, max_active, window, ties, hub = {
+        "exact": (300, 5, 40, 1e9, 0, 16, False, 0),
+        "beam": (300, 5, 40, 9.0, 0, 16, False, 0),
+        "max_active": (300, 5, 40, 1e9, 37, 16, False, 0),
+        "max_active_ties": (300, 5, 40, 1e9, 37, 16, True, 0),
+        "window_t": (300, 5, 40, 12.0, 20, 64, False, 0),
+        "window_1": (200, 3, 12, 1e9, 0, 1, False, 0),
+        "big": (3000, 4, 30, 14.0, 500, 8, True, 0),
+        "lanes_130": (300, 130, 24, 1e9, 0, 16, False, 0),
+        "no_arcs_hub": (6000, 6, 20, 1e9, 0, 8, False, 5000),
+        "max_active_ties_groups": (300, 130, 24, 1e9, 37, 16, True, 0)}[case]
+    g, ll = _lane_inputs(states, lanes, frames, seed=len(case), ties=ties, hub=hub)
+    nf = np.resize(np.array([frames, frames - 7, 0, 1, frames, 5], np.int32), lanes)
+    if lanes > 128:  # lanes alike across the two groups (the ties are shared)
+        ll[128:] = ll[:lanes - 128]
+        nf[128:] = nf[:lanes - 128]
     plan = LAT.lane_plan_to_device(g, LAT.build_dst_plan(g), LAT.build_src_plan(g), cuda)
     x = ll.to(cuda)
+    windows = -(-frames // window)
+
+    def kernel():
+        return LAT.lattice_forward_backward_packed(plan, x, nf, 1 / 13, beam, 6.0, max_active,
+                                                   window)
+
     _build.launches["lattice_lane"] = 0
-    got = LAT.lattice_forward_backward_packed(plan, x, nf, 1 / 13, beam, 6.0, max_active, window)
-    assert _build.launches["lattice_lane"] == 3 * -(-frames // window)
+    got = kernel()
+    assert _build.launches["lattice_lane"] == 3 * windows
     want = LAT.lattice_forward_backward_packed(
         plan, x, nf, 1 / 13, beam, 6.0, max_active, window,
         steps=(LAT.lane_forward_plain, LAT.lane_backward_plain))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int(got[0].sum()) > 0
+    if lanes > 128:  # the second group's lanes repeat the first group's
+        assert torch.equal(got[0][:, 128:], got[0][:, :lanes - 128])
+        assert torch.equal(got[1][128:], got[1][:lanes - 128])
+    kernels = _lane_kernels_per_call(kernel)
+    assert kernels in (-1, 3 * windows)
 
 
 def test_sharded_estep_nccl_world1_matches_unsharded(cuda):

@@ -6,8 +6,13 @@ Inputs: the tiny cyclic graph of ``tests/test_lattice.py``, the random
 graphs of ``tests/test_lat_determinize.py`` and a 200-state synthetic decode
 graph with 4 lanes x 50 frames; exact search and a finite beam,
 ``max_active`` 0 and 3, windows of 4 frames and larger than T, lanes that end
-early and one with no frame, and a graph whose final states cannot be
-reached (the partial-path fallback, ``use_final`` False).
+early and one with no frame, a graph whose final states cannot be
+reached (the partial-path fallback, ``use_final`` False), and a graph with
+a hub state (40 more in- and out-arcs, out of source order) and states of
+no in-arcs and of no out-arcs.
+
+``lane_pieces``, the split of the kernels' CSR rows into pieces (hubs), is
+checked against its definition.
 
 Tolerances: the survivor masks and ``use_final`` equal; ``total_best`` and
 ``alpha_at_end`` within rtol 1e-5, atol 1e-4 (the JAX package adds the same
@@ -27,7 +32,7 @@ from voicebridge_tpu.ops import viterbi as JV
 
 from voicebridge_tpu_torch.ops import lattice as LAT
 from voicebridge_tpu_torch.ops.graph import DenseGraph
-from voicebridge_tpu_torch.testing import synth_decode_graph
+from voicebridge_tpu_torch.testing import synth_decode_graph, synth_hub_graph
 
 from test_lat_determinize import random_graph
 from test_lattice import enumerate_paths, tiny_graph
@@ -125,6 +130,20 @@ def test_unreachable_finals_use_the_partial_path():
     assert got[0].any()
 
 
+@pytest.mark.parametrize("beam,max_active", [(1e9, 0), (13.0, 9)])
+def test_hub_and_no_arc_graph_matches_jax(beam, max_active):
+    """``synth_hub_graph(120, 40)``: a hub of 40 extra in- and out-arcs
+    appended out of source order, states with no in-arcs and with no
+    out-arcs; 3 lanes of 20, 13 and 20 frames, window 8."""
+    g = synth_hub_graph(120, 40)
+    jg = JV.DenseGraph(**g._asdict())
+    ll = (np.random.default_rng(5).standard_normal((3, 20, 20)) * 3 - 10).astype(np.float32)
+    got, want = _run_both(jg, ll, np.asarray([20, 13, 20], np.int32), 1.0 / 13.0, beam, 6.0,
+                          max_active, 8)
+    _assert_same(got, want)
+    assert got[0].any()
+
+
 @pytest.mark.parametrize("a", [1, 8, 13, 64])
 def test_packbits_plain_matches_numpy(a):
     keep = np.random.default_rng(a).random((3, 2, a)) < 0.4
@@ -142,3 +161,27 @@ def test_csr_plans_group_arcs_in_order():
         for s in range(g.num_states):
             arcs = plan.arc[plan.start[s]:plan.start[s + 1]]
             np.testing.assert_array_equal(arcs, np.flatnonzero(key == s))
+
+
+def test_lane_pieces_cover_each_row():
+    """``lane_pieces``: every state's CSR row is covered, in order, by pieces
+    of at most ``size`` entries (an empty piece for a state of no arcs), and
+    exactly the states of more than ``size`` entries are hubs, each with its
+    slot on all of its pieces."""
+    g = synth_hub_graph(120, 40)
+    size = 16
+    for plan in (LAT.build_dst_plan(g), LAT.build_src_plan(g)):
+        piece, hubs = LAT.lane_pieces(plan.start, size)
+        assert piece.dtype == np.int32 and piece.shape[1] == 4
+        deg = np.diff(plan.start)
+        np.testing.assert_array_equal(hubs, np.flatnonzero(deg > size))
+        for s in range(g.num_states):
+            rows = piece[piece[:, 0] == s]
+            assert len(rows) == max(1, -(-deg[s] // size))
+            np.testing.assert_array_equal(rows[:, 1], plan.start[s] + size * np.arange(len(rows)))
+            np.testing.assert_array_equal(rows[:, 2], np.minimum(rows[:, 1] + size,
+                                                                 plan.start[s + 1]))
+            slot = np.flatnonzero(hubs == s)
+            assert (rows[:, 3] == (slot[0] if len(slot) else -1)).all()
+        assert (np.diff(piece[:, 0]) >= 0).all()
+

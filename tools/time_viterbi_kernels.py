@@ -31,7 +31,8 @@ one walk alone, in L2 and flushed (``backtrace_nbest*``, ms per call), and
 activities under torch.profiler; with the decoder's plan where the
 checkout's wrapper takes one).  Each ``--variant`` names a directory
 holding other versions of ``viterbi_step.cu``, ``lattice_fb.cu``,
-``viterbi_nbest.cu`` and/or ``backtrace.cu`` (same C interface, or the
+``viterbi_nbest.cu``, ``backtrace.cu`` and/or ``lattice_lane.cu`` (same C
+interface; ``tools/smoke_phase20.py --lane-only`` times the last), or the
 thread-per-walk N-best walk's ``vbt_backtrace_nbest_thread`` of
 ``tools/kernel_variants/backtrace_nbest_thread``); every version is built
 with the package's nvcc flags into its own library under
@@ -76,7 +77,8 @@ def load(tree: Path) -> None:
 
 
 OUT = ROOT / "_archive" / "kernel_variants"
-KERNEL_SOURCES = ("viterbi_step.cu", "lattice_fb.cu", "viterbi_nbest.cu", "backtrace.cu")
+KERNEL_SOURCES = ("viterbi_step.cu", "lattice_fb.cu", "viterbi_nbest.cu", "backtrace.cu",
+                  "lattice_lane.cu")
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # bp_arc, bp_slot, stride t, b, s, k, arc_src, num_frames, state, slot, b,
 # c, t, arcs, state_out, ok, stream
@@ -107,7 +109,7 @@ def build(name: str, src_dir: Path | None) -> tuple[ctypes.CDLL, str]:
     subprocess.run([nvcc, "-shared", "-o", str(lib_path), *map(str, objs)], check=True)
     lib = ctypes.CDLL(str(lib_path))
     for fn in ("vbt_viterbi_step", "vbt_lattice_fb", "vbt_viterbi_nbest", "vbt_backtrace_best",
-               "vbt_backtrace_nbest"):
+               "vbt_backtrace_nbest", "vbt_lattice_lane_forward", "vbt_lattice_lane_backward"):
         if hasattr(lib, fn):
             getattr(lib, fn).argtypes = _build._SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int

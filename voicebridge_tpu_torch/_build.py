@@ -13,8 +13,8 @@ adds one only after its kernel launched (``launch`` below).  K3 counts its
 launches over the lattice's backward plan apart, as
 ``viterbi_step_backward``, and K1 its launches in ``mel_power`` mode, as
 ``mfcc_mel_power``.  The lane-major lattice forward-backward counts one
-launch per window and pass (``lattice_lane``), each running two kernels a
-frame.
+launch per window and pass (``lattice_lane``), each one cooperative kernel
+over the window's frames.
 """
 
 from __future__ import annotations
@@ -95,15 +95,15 @@ _SIGNATURES = {
     # stream
     "vbt_backtrace_nbest": (_P, _P, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                             _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # seq, at_end, relax, ll, t, p, in_start, in_src, in_score, in_pdf,
-    # num_frames, t0, w, acwt, beam, max_active, b, s, stream
-    "vbt_lattice_lane_forward": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I,
-                                 _I, _I, _P),
-    # seq, beta, beta_tmp, ll, t, p, final_eff, thresh, arc_src, arc_dst,
-    # arc_pdf, arc_score, out_start, out_dst, out_score, out_pdf, num_frames,
-    # t0, w, acwt, b, s, a, bits, stream
-    "vbt_lattice_lane_backward": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _I, _F, _I, _I, _I, _P, _P),
+    # seq, cut, at_end, scratch, ll, t, p, piece, pieces, hub, hubs, in_src,
+    # in_score, in_pdf, num_frames, t0, w, acwt, beam, max_active, b, s, stream
+    "vbt_lattice_lane_forward": (_P, _P, _P, _P, _P, _I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I,
+                                 _I, _F, _F, _I, _I, _I, _P),
+    # seq, cut, beta, beta_tmp, scratch, ll, t, p, final_eff, thresh, piece,
+    # pieces, hub, hubs, out_dst, out_score, out_pdf, out_arc, num_frames, t0,
+    # w, acwt, b, s, a, bits, row, stream
+    "vbt_lattice_lane_backward": (_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P,
+                                  _P, _P, _P, _I, _I, _F, _I, _I, _I, _P, _I64, _P),
 }
 
 _lib = None

@@ -30,10 +30,10 @@ The forward is exact: no beam or max-active pruning.
 
 The lane-major FB of the JAX package's first round
 (``lattice_forward_backward``, at the end of this module; hand kernels in
-``csrc/lattice_lane.cu``) keeps scores lane-major ``[B, S]``, relaxes arcs
-through CSRs by destination and by source, prunes the forward with the
-decoder's beam and ``max_active``, and writes survivors packed
-``[T, B, ceil(A/8)]`` on the device.
+``csrc/lattice_lane.cu``, one cooperative launch per window and pass) keeps
+scores lanes minor ``[S, B]``, relaxes arcs through CSRs by destination and
+by source, prunes the forward with the decoder's beam and ``max_active``, and
+writes survivors packed ``[T, B, ceil(A/8)]`` on the device.
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ __all__ = ["Survivors", "build_lattice_plans", "bwd_window", "bwd_window_plain",
            "lattice_forward_backward_rows", "lattice_window", "survivor_lattices",
            "LaneCsr", "LanePlanDev", "build_dst_plan", "build_src_plan", "lane_plan_to_device",
            "lane_forward", "lane_forward_plain", "lane_backward", "lane_backward_plain",
-           "packbits_plain", "lattice_forward_backward_packed", "lattice_forward_backward"]
+           "apply_cut", "lane_bits", "lane_pieces", "packbits_plain",
+           "lattice_forward_backward_packed", "lattice_forward_backward"]
 
 WORD_SLOTS = 8  # row slots one survivor byte holds
 
@@ -357,12 +358,13 @@ def survivor_lattices(graph: DenseGraph, surv: Survivors, num_frames, use_final,
 # Lane-major windowed forward-backward (``lattice_lane.cu``)
 # ---------------------------------------------------------------------------
 # The JAX package's first lattice FB (``lattice_forward_backward`` with
-# ``_window_fb``): scores lane-major [B, S], arc-parallel max-plus over the
-# arcs of a shared graph, with the decoder's beam and max-active prune in the
-# forward pass.  It is on no decode path of either package; it is the
-# reference its tests hold lattices to.  The JAX package reduces arcs through
-# reduction trees (``levels``, ``rev_levels``); here the arcs are grouped
-# into CSRs by destination and by source, built once per graph.
+# ``_window_fb``): arc-parallel max-plus over the arcs of a shared graph, with
+# the decoder's beam and max-active prune in the forward pass.  It is on no
+# decode path of either package; it is the reference its tests hold lattices
+# to.  The JAX package keeps scores [B, S] and reduces arcs through reduction
+# trees (``levels``, ``rev_levels``); here scores are lanes minor, [S, B],
+# log-likelihoods [T, P, B], and the arcs are grouped into CSRs by
+# destination and by source, built once per graph.
 
 
 class LaneCsr(NamedTuple):
@@ -391,21 +393,34 @@ def build_src_plan(graph: DenseGraph) -> LaneCsr:
     return _lane_csr(graph.arc_src, graph.num_states)
 
 
+PIECE_ARCS = 64  # a state of more arcs than this is a hub, walked in pieces
+
+
 class LanePlanDev(NamedTuple):
-    """A graph and its two CSRs on a device, int32 and f32."""
+    """A graph and its two CSRs on a device, int32 and f32.  Within a state's
+    row of the CSR by destination the arcs are ordered by pdf (then arc id),
+    so that the forward gathers a log-likelihood row once per run of equal
+    pdfs (a max does not depend on the order); the CSR by source keeps arc
+    order, so that the backward sets a survivor byte's bits together.  Each
+    CSR is walked in pieces (state, lo, hi, hub slot): a state's whole row,
+    or for a hub (more than ``PIECE_ARCS`` arcs) runs of ``PIECE_ARCS``, with
+    the hub's slot in ``in_hub`` / ``out_hub``."""
 
     arc_src: torch.Tensor  # [A], arc order
     arc_dst: torch.Tensor
     arc_pdf: torch.Tensor
     arc_score: torch.Tensor
-    in_start: torch.Tensor  # [S+1], CSR by destination
+    in_piece: torch.Tensor  # [pieces, 4] over the CSR by destination
+    in_hub: torch.Tensor  # [hubs] the hubs' states
     in_src: torch.Tensor  # [A]
     in_score: torch.Tensor
     in_pdf: torch.Tensor
-    out_start: torch.Tensor  # [S+1], CSR by source
+    out_piece: torch.Tensor  # [pieces, 4] over the CSR by source
+    out_hub: torch.Tensor
     out_dst: torch.Tensor  # [A]
     out_score: torch.Tensor
     out_pdf: torch.Tensor
+    out_arc: torch.Tensor  # [A] each entry's arc id (its survivor bit)
     alpha0: torch.Tensor  # [S]
     final: torch.Tensor  # [S]
     num_pdfs_used: int  # 1 + the largest pdf of an arc (0 without arcs)
@@ -419,19 +434,46 @@ class LanePlanDev(NamedTuple):
         return self.arc_src.shape[0]
 
 
+def _by_pdf(plan: LaneCsr, key: np.ndarray, pdf: np.ndarray) -> np.ndarray:
+    """``plan.arc`` with each state's arcs ordered by pdf, then arc id."""
+    arc = plan.arc.astype(np.int64)
+    return arc[np.lexsort((arc, pdf[arc], key[arc]))].astype(np.int32)
+
+
+def lane_pieces(start: np.ndarray, size: int = PIECE_ARCS):
+    """The pieces of a CSR with row starts ``start`` [S+1]: ``[pieces, 4]``
+    int32 rows (state, lo, hi, hub slot or -1), a state's pieces in order,
+    every state at least one (a state of no arcs: an empty one), and the
+    hubs' states ``[hubs]`` int32 (the states of more than ``size`` arcs)."""
+    start = np.asarray(start, np.int64)
+    n = np.maximum(1, -(-np.diff(start) // size))
+    state = np.repeat(np.arange(len(n)), n)
+    lo = start[state] + size * (np.arange(len(state)) - np.repeat(np.cumsum(n) - n, n))
+    hubs = np.flatnonzero(n > 1)
+    slot = np.full(len(n), -1, np.int64)
+    slot[hubs] = np.arange(len(hubs))
+    piece = np.stack([state, lo, np.minimum(lo + size, start[state + 1]), slot[state]], axis=1)
+    return piece.astype(np.int32), hubs.astype(np.int32)
+
+
 def lane_plan_to_device(graph: DenseGraph, dst_plan: LaneCsr, src_plan: LaneCsr,
                         device) -> LanePlanDev:
     def dev(x, dtype):
         return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
 
-    i, o = dst_plan.arc, src_plan.arc
+    i = _by_pdf(dst_plan, graph.arc_dst, graph.arc_pdf)
+    o = src_plan.arc
+    in_piece, in_hub = lane_pieces(dst_plan.start)
+    out_piece, out_hub = lane_pieces(src_plan.start)
     return LanePlanDev(
         arc_src=dev(graph.arc_src, np.int32), arc_dst=dev(graph.arc_dst, np.int32),
         arc_pdf=dev(graph.arc_pdf, np.int32), arc_score=dev(graph.arc_score, np.float32),
-        in_start=dev(dst_plan.start, np.int32), in_src=dev(graph.arc_src[i], np.int32),
-        in_score=dev(graph.arc_score[i], np.float32), in_pdf=dev(graph.arc_pdf[i], np.int32),
-        out_start=dev(src_plan.start, np.int32), out_dst=dev(graph.arc_dst[o], np.int32),
-        out_score=dev(graph.arc_score[o], np.float32), out_pdf=dev(graph.arc_pdf[o], np.int32),
+        in_piece=dev(in_piece, np.int32), in_hub=dev(in_hub, np.int32),
+        in_src=dev(graph.arc_src[i], np.int32), in_score=dev(graph.arc_score[i], np.float32),
+        in_pdf=dev(graph.arc_pdf[i], np.int32),
+        out_piece=dev(out_piece, np.int32), out_hub=dev(out_hub, np.int32),
+        out_dst=dev(graph.arc_dst[o], np.int32), out_score=dev(graph.arc_score[o], np.float32),
+        out_pdf=dev(graph.arc_pdf[o], np.int32), out_arc=dev(o, np.int32),
         alpha0=dev(graph.alpha0, np.float32), final=dev(graph.final_score, np.float32),
         num_pdfs_used=int(graph.arc_pdf.max()) + 1 if graph.num_arcs else 0)
 
@@ -449,46 +491,56 @@ def packbits_plain(keep: torch.Tensor) -> torch.Tensor:
     return (groups * weights).sum(dim=-1).to(torch.uint8)
 
 
-def lane_forward_plain(plan: LanePlanDev, seq: torch.Tensor, at_end: torch.Tensor,
-                       ll: torch.Tensor, num_frames: torch.Tensor, t0: int, w: int,
-                       acwt: float, beam: float, max_active: int, relax=None) -> None:
-    """Plain version of ``lane_forward`` (``relax``, the kernel's scratch,
-    is not used): per frame a gather of the arcs' scores, a scatter-max by
-    destination, ``decode_core.prune``."""
-    b, s = at_end.shape
-    src, dst = plan.arc_src.long(), plan.arc_dst.long().expand(b, -1)
-    pdf = plan.arc_pdf.long()
+def apply_cut(seq: torch.Tensor, cut: torch.Tensor) -> torch.Tensor:
+    """Alpha from a stored frame: ``seq`` [S, B] where it reaches the lane's
+    ``cut`` [B], else NEG_INF (the forward's prune, applied on read)."""
+    return torch.where(seq >= cut[None, :], seq, NEG_INF)
+
+
+def lane_forward_plain(plan: LanePlanDev, seq: torch.Tensor, cut: torch.Tensor,
+                       at_end: Optional[torch.Tensor], ll: torch.Tensor,
+                       num_frames: torch.Tensor, t0: int, w: int, acwt: float, beam: float,
+                       max_active: int) -> None:
+    """Plain version of ``lane_forward``: per frame a gather of the arcs'
+    scores, a scatter-max by destination, ``decode_core.prune``.  It stores
+    the pruned alphas, so every cut is -inf."""
+    s, b = seq.shape[1:]
+    src, pdf = plan.arc_src.long(), plan.arc_pdf.long()
+    dst = plan.arc_dst.long()[:, None].expand(-1, b)
+    alpha = seq[0]
     for i in range(w):
         t = t0 + i
-        alpha = seq[i]
-        am = ll[:, t].index_select(1, pdf) * acwt
-        score = (alpha.index_select(1, src) + plan.arc_score) + am
-        na = torch.full_like(alpha, NEG_INF).scatter_reduce_(1, dst, score, reduce="amax",
+        am = ll[t].index_select(0, pdf) * acwt
+        score = (alpha.index_select(0, src) + plan.arc_score[:, None]) + am
+        na = torch.full_like(alpha, NEG_INF).scatter_reduce_(0, dst, score, reduce="amax",
                                                              include_self=True)
-        na = decode_core.prune(na, beam, max_active)
-        seq[i + 1] = torch.where((t < num_frames)[:, None], na, alpha)
-        at_end.copy_(torch.where((t + 1 == num_frames)[:, None], seq[i + 1], at_end))
+        na = decode_core.prune(na, beam, max_active, dim=0)
+        alpha = torch.where((t < num_frames)[None, :], na, alpha)
+        seq[i + 1] = alpha
+        if at_end is not None:
+            at_end.copy_(torch.where((t + 1 == num_frames)[None, :], alpha, at_end))
+    cut[: w + 1] = -math.inf
 
 
-def lane_backward_plain(plan: LanePlanDev, seq: torch.Tensor, beta: torch.Tensor,
-                        ll: torch.Tensor, num_frames: torch.Tensor, t0: int, w: int,
-                        final_eff: torch.Tensor, thresh: torch.Tensor, acwt: float,
-                        bits: torch.Tensor, beta_tmp=None) -> None:
+def lane_backward_plain(plan: LanePlanDev, seq: torch.Tensor, cut: torch.Tensor,
+                        beta: torch.Tensor, ll: torch.Tensor, num_frames: torch.Tensor,
+                        t0: int, w: int, final_eff: torch.Tensor, thresh: torch.Tensor,
+                        acwt: float, bits: torch.Tensor, beta_tmp=None) -> None:
     """Plain version of ``lane_backward`` (``beta_tmp``, the kernel's
     scratch, is not used): per frame, last first, the arcs' tails and
     survivor test, ``packbits_plain``, a scatter-max by source."""
-    b, s = beta.shape
+    s, b = beta.shape
     src, dst = plan.arc_src.long(), plan.arc_dst.long()
     pdf = plan.arc_pdf.long()
     for i in range(w - 1, -1, -1):
         t = t0 + i
-        active = (t < num_frames)[:, None]
-        beta_eff = torch.where((t + 1 == num_frames)[:, None], final_eff, beta)
-        am = ll[:, t].index_select(1, pdf) * acwt
-        tail = (am + plan.arc_score) + beta_eff.index_select(1, dst)
-        gamma = seq[i].index_select(1, src) + tail
-        bits[i] = packbits_plain((gamma >= thresh[:, None]) & active)
-        bt = torch.full_like(beta, NEG_INF).scatter_reduce_(1, src.expand(b, -1), tail,
+        active = (t < num_frames)[None, :]
+        beta_eff = torch.where((t + 1 == num_frames)[None, :], final_eff, beta)
+        am = ll[t].index_select(0, pdf) * acwt
+        tail = (am + plan.arc_score[:, None]) + beta_eff.index_select(0, dst)  # [A, B]
+        gamma = apply_cut(seq[i], cut[i]).index_select(0, src) + tail
+        bits[i] = packbits_plain(((gamma >= thresh[None, :]) & active).t())
+        bt = torch.full_like(beta, NEG_INF).scatter_reduce_(0, src[:, None].expand(-1, b), tail,
                                                             reduce="amax", include_self=True)
         beta.copy_(torch.where(active, bt, beta))
 
@@ -498,78 +550,106 @@ def _lane_check(plan: LanePlanDev, ll: torch.Tensor, num_frames: torch.Tensor, *
     f32, i32 = torch.float32, torch.int32
     require(dev, ("ll", ll, f32), ("num_frames", num_frames, i32),
             *((name, getattr(plan, name), f32 if "score" in name else i32)
-              for name in ("arc_src", "arc_dst", "arc_pdf", "arc_score", "in_start", "in_src",
-                           "in_score", "in_pdf", "out_start", "out_dst", "out_score",
-                           "out_pdf")), *tensors)
-    if plan.num_pdfs_used > ll.shape[2]:
+              for name in ("in_piece", "in_hub", "in_src", "in_score", "in_pdf", "out_piece",
+                           "out_hub", "out_dst", "out_score", "out_pdf", "out_arc")), *tensors)
+    if plan.num_pdfs_used > ll.shape[1]:
         raise ValueError(f"the graph uses pdfs up to {plan.num_pdfs_used - 1}, "
-                         f"loglikes have only {ll.shape[2]}")
+                         f"loglikes have only {ll.shape[1]}")
 
 
-def lane_forward(plan: LanePlanDev, seq: torch.Tensor, at_end: torch.Tensor,
-                 ll: torch.Tensor, num_frames: torch.Tensor, t0: int, w: int, acwt: float,
-                 beam: float, max_active: int, relax: Optional[torch.Tensor] = None) -> None:
-    """Frames t0 .. t0+w-1 of the forward pass: ``seq`` [w+1, B, S] holds
-    alpha before frame t0 in ``seq[0]`` and receives alpha before each later
-    frame (``seq[w]``: after the window); ``at_end`` [B, S] is updated in
-    place; ``ll`` [B, T, P], num_frames [B] int32.  On CUDA one launch of
-    ``lattice_lane_forward`` (two kernels a frame; ``relax`` [B, S] is its
-    scratch); a CPU tensor goes to ``lane_forward_plain``."""
+def lane_forward(plan: LanePlanDev, seq: torch.Tensor, cut: torch.Tensor,
+                 at_end: Optional[torch.Tensor], ll: torch.Tensor, num_frames: torch.Tensor,
+                 t0: int, w: int, acwt: float, beam: float, max_active: int) -> None:
+    """Frames t0 .. t0+w-1 of the forward pass.  ``seq`` [w+1, S, B] holds
+    alpha before frame t0 in ``seq[0]`` (pruned) and receives the frames
+    after it; the alpha before frame t0 + i is ``apply_cut(seq[i],
+    cut[i])``, ``cut`` [w+1, B] (``seq[w]`` is stored pruned, cut -inf).
+    ``at_end`` [S, B] (or None) receives alpha after frame nf - 1 of the
+    lanes that end in the window.  ``ll`` [T, P, B], num_frames [B] int32.
+    On CUDA one cooperative launch of ``lattice_lane_forward``; a CPU tensor
+    goes to ``lane_forward_plain``."""
     if ll.device.type == "cpu":
-        return lane_forward_plain(plan, seq, at_end, ll, num_frames, t0, w, acwt, beam,
+        return lane_forward_plain(plan, seq, cut, at_end, ll, num_frames, t0, w, acwt, beam,
                                   max_active)
     if ll.device.type != "cuda":
         raise ValueError(f"unsupported device {ll.device}")
-    b, t_total, p = ll.shape
+    t_total, p, b = ll.shape
     s = plan.num_states
-    relax = torch.empty((b, s), device=ll.device) if relax is None else relax
     f32 = torch.float32
-    _lane_check(plan, ll, num_frames, ("seq", seq, f32), ("at_end", at_end, f32),
-                ("relax", relax, f32))
-    if seq.shape[0] < w + 1 or seq.shape[1:] != (b, s) or at_end.shape != (b, s) \
-            or relax.shape != (b, s) or not 0 <= t0 <= t0 + w <= t_total:
+    ends = () if at_end is None else (("at_end", at_end, f32),)
+    _lane_check(plan, ll, num_frames, ("seq", seq, f32), ("cut", cut, f32), *ends)
+    if seq.shape[0] < w + 1 or seq.shape[1:] != (s, b) or cut.shape[0] < w + 1 \
+            or cut.shape[1:] != (b,) or (at_end is not None and at_end.shape != (s, b)) \
+            or num_frames.shape != (b,) or not 0 <= t0 <= t0 + w <= t_total:
         raise ValueError("lane_forward: inconsistent shapes")
-    _build.launch("lattice_lane_forward", seq.data_ptr(), at_end.data_ptr(), relax.data_ptr(),
-                  ll.data_ptr(), t_total, p, plan.in_start.data_ptr(), plan.in_src.data_ptr(),
-                  plan.in_score.data_ptr(), plan.in_pdf.data_ptr(), num_frames.data_ptr(), t0,
-                  w, float(np.float32(acwt)), float(np.float32(beam)), int(max_active), b, s,
+    hubs = plan.in_hub.shape[0]
+    scratch = torch.empty(b * (2 * w + 260 + hubs), dtype=torch.int32, device=ll.device)
+    _build.launch("lattice_lane_forward", seq.data_ptr(), cut.data_ptr(),
+                  0 if at_end is None else at_end.data_ptr(), scratch.data_ptr(),
+                  ll.data_ptr(), t_total, p, plan.in_piece.data_ptr(), plan.in_piece.shape[0],
+                  plan.in_hub.data_ptr(), hubs, plan.in_src.data_ptr(), plan.in_score.data_ptr(),
+                  plan.in_pdf.data_ptr(), num_frames.data_ptr(), t0, w,
+                  float(np.float32(acwt)), float(np.float32(beam)), int(max_active), b, s,
                   stream_handle(ll.device), count="lattice_lane")
 
 
-def lane_backward(plan: LanePlanDev, seq: torch.Tensor, beta: torch.Tensor, ll: torch.Tensor,
-                  num_frames: torch.Tensor, t0: int, w: int, final_eff: torch.Tensor,
-                  thresh: torch.Tensor, acwt: float, bits: torch.Tensor,
-                  beta_tmp: Optional[torch.Tensor] = None) -> None:
-    """Frames t0+w-1 .. t0 of the backward pass: ``seq[i]`` is alpha before
-    frame t0 + i; ``beta`` [B, S] holds beta above the window and receives
-    beta at t0; ``final_eff`` [B, S]; ``thresh`` [B] = total_best -
-    lattice_beam; ``bits`` [w, B, ceil(A/8)] uint8 receives the window's
-    packed survivors.  On CUDA one launch of ``lattice_lane_backward`` (two
-    kernels a frame; ``beta_tmp`` [B, S] is its scratch); a CPU tensor goes
-    to ``lane_backward_plain``."""
+def lane_backward(plan: LanePlanDev, seq: torch.Tensor, cut: torch.Tensor, beta: torch.Tensor,
+                  ll: torch.Tensor, num_frames: torch.Tensor, t0: int, w: int,
+                  final_eff: torch.Tensor, thresh: torch.Tensor, acwt: float,
+                  bits: torch.Tensor, beta_tmp: Optional[torch.Tensor] = None) -> None:
+    """Frames t0+w-1 .. t0 of the backward pass: alpha before frame t0 + i is
+    ``apply_cut(seq[i], cut[i])``; ``beta`` [S, B] holds beta above the
+    window and receives beta at t0; ``final_eff`` [S, B]; ``thresh`` [B] =
+    total_best - lattice_beam; ``bits`` [w, B, ceil(A/8)] uint8 receives the
+    window's packed survivors.  On CUDA one cooperative launch of
+    ``lattice_lane_backward`` (``beta_tmp`` [S, B] is its scratch); its rows
+    of ``bits`` must lie a multiple of 4 bytes apart, the frames one row
+    count apart (``lane_bits`` allocates them so), since the kernel zeroes
+    whole rows and sets bits by 32-bit atomics.  A CPU tensor goes to
+    ``lane_backward_plain``."""
     if ll.device.type == "cpu":
-        return lane_backward_plain(plan, seq, beta, ll, num_frames, t0, w, final_eff, thresh,
-                                   acwt, bits)
+        return lane_backward_plain(plan, seq, cut, beta, ll, num_frames, t0, w, final_eff,
+                                   thresh, acwt, bits)
     if ll.device.type != "cuda":
         raise ValueError(f"unsupported device {ll.device}")
-    b, t_total, p = ll.shape
+    t_total, p, b = ll.shape
     s, a = plan.num_states, plan.num_arcs
     beta_tmp = torch.empty_like(beta) if beta_tmp is None else beta_tmp
     f32 = torch.float32
-    _lane_check(plan, ll, num_frames, ("seq", seq, f32), ("beta", beta, f32),
+    _lane_check(plan, ll, num_frames, ("seq", seq, f32), ("cut", cut, f32), ("beta", beta, f32),
                 ("beta_tmp", beta_tmp, f32), ("final_eff", final_eff, f32),
-                ("thresh", thresh, f32), ("bits", bits, torch.uint8))
-    if seq.shape[0] < w or seq.shape[1:] != (b, s) or beta.shape != (b, s) \
-            or beta_tmp.shape != (b, s) or final_eff.shape != (b, s) or thresh.shape != (b,) \
+                ("thresh", thresh, f32))
+    if bits.dtype != torch.uint8 or bits.device != ll.device:
+        raise ValueError("lane_backward: bits must be uint8 on the loglikes' device")
+    row = bits.stride(1)
+    if seq.shape[0] < w or seq.shape[1:] != (s, b) or cut.shape[0] < w or cut.shape[1:] != (b,) \
+            or beta.shape != (s, b) or beta_tmp.shape != (s, b) or final_eff.shape != (s, b) \
+            or thresh.shape != (b,) or num_frames.shape != (b,) \
             or bits.shape != (w, b, (a + 7) // 8) or not 0 <= t0 <= t0 + w <= t_total:
         raise ValueError("lane_backward: inconsistent shapes")
-    _build.launch("lattice_lane_backward", seq.data_ptr(), beta.data_ptr(), beta_tmp.data_ptr(),
-                  ll.data_ptr(), t_total, p, final_eff.data_ptr(), thresh.data_ptr(),
-                  plan.arc_src.data_ptr(), plan.arc_dst.data_ptr(), plan.arc_pdf.data_ptr(),
-                  plan.arc_score.data_ptr(), plan.out_start.data_ptr(), plan.out_dst.data_ptr(),
-                  plan.out_score.data_ptr(), plan.out_pdf.data_ptr(), num_frames.data_ptr(), t0,
-                  w, float(np.float32(acwt)), b, s, a, bits.data_ptr(),
+    if bits.stride(2) != 1 or row % 4 or row < (a + 7) // 8 or bits.stride(0) != b * row \
+            or bits.data_ptr() % 4:
+        raise ValueError("lane_backward: bits rows must be whole 32-bit words apart "
+                         "(allocate them with lane_bits)")
+    hubs = plan.out_hub.shape[0]
+    scratch = torch.empty(b * hubs, dtype=torch.int32, device=ll.device)
+    _build.launch("lattice_lane_backward", seq.data_ptr(), cut.data_ptr(), beta.data_ptr(),
+                  beta_tmp.data_ptr(), scratch.data_ptr(), ll.data_ptr(), t_total, p,
+                  final_eff.data_ptr(), thresh.data_ptr(), plan.out_piece.data_ptr(),
+                  plan.out_piece.shape[0], plan.out_hub.data_ptr(), hubs,
+                  plan.out_dst.data_ptr(), plan.out_score.data_ptr(), plan.out_pdf.data_ptr(),
+                  plan.out_arc.data_ptr(), num_frames.data_ptr(), t0, w,
+                  float(np.float32(acwt)), b, s, a, bits.data_ptr(), row,
                   stream_handle(ll.device), count="lattice_lane")
+
+
+def lane_bits(frames: int, lanes: int, arcs: int, device) -> torch.Tensor:
+    """An uninitialized packed survivor mask ``[frames, lanes, ceil(arcs/8)]``
+    uint8 whose rows start on 32-bit words (a view into rows padded to a
+    multiple of 4 bytes)."""
+    nbytes = (arcs + 7) // 8
+    row = -(-nbytes // 4) * 4
+    return torch.empty((frames, lanes, row), dtype=torch.uint8, device=device)[..., :nbytes]
 
 
 def lattice_forward_backward_packed(plan: LanePlanDev, loglikes: torch.Tensor, num_frames,
@@ -577,17 +657,18 @@ def lattice_forward_backward_packed(plan: LanePlanDev, loglikes: torch.Tensor, n
                                     max_active: int = 0, window: int = 64, steps=None):
     """The lane-major windowed FB on the device of ``loglikes`` [B, T, P].
 
-    Phase 1 runs the forward window by window (``lane_forward``), keeping
-    one alpha snapshot per window and ``alpha_at_end``; the best complete
-    score prefers final states (``use_final``), else the best partial path
-    with every state final at cost 0.  Phase 2 walks the windows from last
-    to first, recomputing the window's alphas from its snapshot and running
-    the backward pass (``lane_backward``).  Returns (packed survivors
-    [T, B, ceil(A/8)] uint8, total_best [B], alpha_at_end [B, S], use_final
-    [B]), tensors on the device.  ``steps`` replaces the (forward, backward)
-    pair ``(lane_forward, lane_backward)``: ``(lane_forward_plain,
-    lane_backward_plain)`` runs the plain versions on any device, which is
-    how the card's kernels are held to them."""
+    The log-likelihoods are laid out once as [T, P, B].  Phase 1 runs the
+    forward window by window (``lane_forward``), keeping one alpha snapshot
+    per window and ``alpha_at_end``; the best complete score prefers final
+    states (``use_final``), else the best partial path with every state
+    final at cost 0.  Phase 2 walks the windows from last to first,
+    recomputing the window's alphas from its snapshot and running the
+    backward pass (``lane_backward``).  Returns (packed survivors [T, B,
+    ceil(A/8)] uint8, rows 32-bit aligned, total_best [B], alpha_at_end
+    [B, S], use_final [B]), tensors on the device.  ``steps`` replaces the
+    (forward, backward) pair ``(lane_forward, lane_backward)``:
+    ``(lane_forward_plain, lane_backward_plain)`` runs the plain versions on
+    any device, which is how the card's kernels are held to them."""
     fwd_step, bwd_step = steps or (lane_forward, lane_backward)
     device = loglikes.device
     b, t_total, _p = loglikes.shape
@@ -601,34 +682,33 @@ def lattice_forward_backward_packed(plan: LanePlanDev, loglikes: torch.Tensor, n
     ll = loglikes.to(torch.float32)
     if t_pad != t_total:
         ll = torch.nn.functional.pad(ll, (0, 0, 0, t_pad - t_total))
-    ll = ll.contiguous()
-    seq = torch.empty((window + 1, b, s), device=device)
-    relax = torch.empty((b, s), device=device)
-    seq[0] = plan.alpha0[None, :]
-    at_end = torch.where((nf == 0)[:, None], seq[0], torch.full((b, s), NEG_INF, device=device))
+    ll = ll.permute(1, 2, 0).contiguous()  # [T, P, B]
+    seq = torch.empty((window + 1, s, b), device=device)
+    cut = torch.empty((window + 1, b), device=device)
+    seq[0] = plan.alpha0[:, None]
+    at_end = torch.where((nf == 0)[None, :], seq[0], torch.full((s, b), NEG_INF, device=device))
     snaps = []
     for w in range(nw):  # phase 1
         snaps.append(seq[0].clone())
-        fwd_step(plan, seq, at_end, ll, nf, w * window, window, acwt, beam, max_active, relax)
+        fwd_step(plan, seq, cut, at_end, ll, nf, w * window, window, acwt, beam, max_active)
         seq[0] = seq[window]
-    with_final = (at_end + plan.final[None, :]).amax(dim=1)
+    with_final = (at_end + plan.final[:, None]).amax(dim=0)
     use_final = with_final > NEG_INF / 2
-    total_best = torch.where(use_final, with_final, at_end.amax(dim=1))
-    final_eff = torch.where(use_final[:, None], plan.final[None, :],
-                            torch.zeros((b, s), device=device)).contiguous()
+    total_best = torch.where(use_final, with_final, at_end.amax(dim=0))
+    final_eff = torch.where(use_final[None, :], plan.final[:, None],
+                            torch.zeros((s, b), device=device)).contiguous()
     thresh = (total_best - float(np.float32(lattice_beam))).contiguous()
-    bits = torch.empty((t_pad, b, (a + 7) // 8), dtype=torch.uint8, device=device)
-    beta = torch.full((b, s), NEG_INF, device=device)
+    bits = lane_bits(t_pad, b, a, device)
+    beta = torch.full((s, b), NEG_INF, device=device)
     beta_tmp = torch.empty_like(beta)
     for w in range(nw - 1, -1, -1):  # phase 2
         lo = w * window
         seq[0] = snaps[w]
         snaps[w] = None
-        fwd_step(plan, seq, torch.empty_like(at_end), ll, nf, lo, window, acwt, beam,
-                 max_active, relax)
-        bwd_step(plan, seq, beta, ll, nf, lo, window, final_eff, thresh, acwt,
+        fwd_step(plan, seq, cut, None, ll, nf, lo, window, acwt, beam, max_active)
+        bwd_step(plan, seq, cut, beta, ll, nf, lo, window, final_eff, thresh, acwt,
                  bits[lo:lo + window], beta_tmp)
-    return bits[:t_total], total_best, at_end, use_final
+    return bits[:t_total], total_best, at_end.t().contiguous(), use_final
 
 
 def lattice_forward_backward(graph: DenseGraph, dst_plan: LaneCsr, src_plan: LaneCsr,

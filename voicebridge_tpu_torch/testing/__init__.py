@@ -18,7 +18,9 @@
   (``bench.py``): an HCLG-shaped 60k-state / 480k-arc graph and a
   2000-pdf x 5-Gaussian x 39-dim diagonal GMM, from numpy seeds.
   ``feature_scaled_am`` draws a GMM of the same size on the scale of given
-  features.
+  features.  ``synth_hub_graph`` is a smaller decode graph with a hub
+  state (thousands of in- and out-arcs, appended out of source order) and
+  states of no in-arcs and of no out-arcs.
 * ``synth_train_graph``: the repo's full-width training-alignment graph
   (``bench.py``): a left-to-right chain of HMM states with self-loops and
   optional skips, banded and dst-pure like a compiled training graph.
@@ -61,7 +63,8 @@ SAT_DIR = Path(__file__).parent.parent / "assets" / "synth_sat"
 __all__ = ["ASSET_DIR", "LEXICON", "SAT_DIR", "Speaker", "TRI2B_DIR", "YesNoModel",
            "assert_models_close", "compute_wer_set", "feature_scaled_am", "fmllr_stats_float64",
            "load_synth_sat", "load_synth_tri2b", "load_yesno_mono", "make_corpus", "random_am",
-           "sample_sentence", "synth_decode_graph", "synth_train_graph", "synth_utterance"]
+           "sample_sentence", "synth_decode_graph", "synth_hub_graph", "synth_train_graph",
+           "synth_utterance"]
 
 
 @dataclass
@@ -142,6 +145,33 @@ def synth_decode_graph(num_states: int = 60_000, arcs_per_state: int = 8,
         alpha0=alpha0, start_oseq=np.zeros(num_states, np.int32),
         final_score=np.zeros(num_states, np.float32),
         final_oseq=np.zeros(num_states, np.int32), oseqs=[()])
+
+
+def synth_hub_graph(num_states: int, hub_arcs: int, num_pdfs: int = 20,
+                    seed: int = 0) -> DenseGraph:
+    """``synth_decode_graph`` with the arcs into every state d with d % 7 == 3
+    and out of every state s with s % 11 == 5 removed, and one hub state
+    (``num_states // 2``, moved off those classes) given ``hub_arcs`` more
+    in-arcs and as many out-arcs, appended after the others, so that the
+    arcs are no longer in source order.  The hub's in-arcs carry random
+    pdfs."""
+    g = synth_decode_graph(num_states, arcs_per_state=8, num_pdfs=num_pdfs, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    keep = (g.arc_dst % 7 != 3) & (g.arc_src % 11 != 5)
+    hub = num_states // 2
+    while hub % 7 == 3 or hub % 11 == 5:
+        hub += 1
+    live_src = np.flatnonzero(np.arange(num_states) % 11 != 5)
+    live_dst = np.flatnonzero(np.arange(num_states) % 7 != 3)
+    src = np.concatenate([g.arc_src[keep], rng.choice(live_src, hub_arcs),
+                          np.full(hub_arcs, hub)]).astype(np.int32)
+    dst = np.concatenate([g.arc_dst[keep], np.full(hub_arcs, hub),
+                          rng.choice(live_dst, hub_arcs)]).astype(np.int32)
+    pdf = np.concatenate([g.arc_pdf[keep], rng.integers(0, num_pdfs, 2 * hub_arcs)])
+    score = np.concatenate([g.arc_score[keep], -rng.exponential(1.0, 2 * hub_arcs)])
+    return g._replace(arc_src=src, arc_dst=dst, arc_tid=pdf.astype(np.int32),
+                      arc_pdf=pdf.astype(np.int32), arc_score=score.astype(np.float32),
+                      arc_oseq=np.zeros_like(src))
 
 
 def random_codes(rng, plan, w: int, b: int) -> np.ndarray:
