@@ -1,0 +1,10 @@
+"""K2's least time for the training set (``counts.gmm``: 2 (2D + 1)
+products a frame and Gaussian at the published count, at the TF32 peak,
+against its features in and log-likelihoods out) over the device time of
+the kernels mapped to acoustic scoring, in percent."""
+
+from vbbench import readers
+
+
+def read(run):
+    return readers.roofline(run, "acoustic_scoring")
