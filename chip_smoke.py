@@ -3051,8 +3051,6 @@ def project_librispeech(torch, device, work: Path, log) -> dict:
             reset_launches()
             with super().stage(name, audio_s):
                 yield
-                if device.type == "cuda":
-                    torch.cuda.synchronize()
             total = launches.setdefault(name, {})
             for k, n in launch_counts().items():
                 if n:

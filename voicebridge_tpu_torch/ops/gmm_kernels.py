@@ -26,6 +26,7 @@ import torch
 from ..models.gmm import AmDiagGmm
 
 from ..device import free_bytes, ieee_fp32_entry
+from ..utils import profiling
 
 
 class GmmParams(NamedTuple):
@@ -192,8 +193,10 @@ def acc_gmm_stats_twofeats_chunked(params: GmmParams, x_post, x_acc, pdf_ids,
     mean_acc, var_acc) and a float ll."""
     occ, macc, vacc, ll = acc_gmm_stats_sums(params, x_post, x_acc, pdf_ids, num_pdfs,
                                              frame_weights, chunk)
-    return (occ.float().cpu().numpy(), macc.float().cpu().numpy(),
-            vacc.float().cpu().numpy(), float(ll))
+    return (profiling.to_host(occ.float(), "stats_occ").numpy(),
+            profiling.to_host(macc.float(), "stats_mean").numpy(),
+            profiling.to_host(vacc.float(), "stats_var").numpy(),
+            float(profiling.to_host(ll, "stats_ll")))
 
 
 def acc_gmm_stats_chunked(params: GmmParams, x, pdf_ids, num_pdfs: int,

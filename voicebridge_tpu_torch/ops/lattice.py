@@ -47,6 +47,7 @@ import torch
 from .. import _build
 from ..device import free_bytes, resolve_device, stream_handle
 from ..lat.lattice import Lattice
+from ..utils import profiling
 from . import decode_core
 from .decode_core import (EmitPlan, EmitPlanDev, build_emit_plan, launch_k3, plan_to_device,
                           reduce_rows, require, viterbi_scan, viterbi_step_plain)
@@ -235,13 +236,15 @@ def _window_survivors(words: torch.Tensor, lo: int, row_arc: torch.Tensor):
     sort by lane then gives the lattices' (t, position) order per lane
     without transposing the bytes."""
     d = row_arc.shape[1]
-    tl, row, lane = torch.nonzero(words).unbind(1)
-    shift = torch.arange(d, device=words.device, dtype=torch.int32)
-    bits = (words[tl, row, lane].to(torch.int32)[:, None] >> shift) & 1  # [K, D]
-    arc = row_arc[row]  # [K, D]
-    keep = (bits != 0) & (arc >= 0)
-    return (lane[:, None].expand(-1, d)[keep], (tl + lo)[:, None].expand(-1, d)[keep],
-            arc[keep].long())
+    # torch.nonzero and the three masked selects each read a count back
+    with profiling.host_wait("compaction", 4 * 8):
+        tl, row, lane = torch.nonzero(words).unbind(1)
+        shift = torch.arange(d, device=words.device, dtype=torch.int32)
+        bits = (words[tl, row, lane].to(torch.int32)[:, None] >> shift) & 1  # [K, D]
+        arc = row_arc[row]  # [K, D]
+        keep = (bits != 0) & (arc >= 0)
+        return (lane[:, None].expand(-1, d)[keep], (tl + lo)[:, None].expand(-1, d)[keep],
+                arc[keep].long())
 
 
 def lattice_window(t: int, s1: int, rows: int, b: int) -> tuple[int, int]:
@@ -266,70 +269,78 @@ def lattice_forward_backward_rows(graph: DenseGraph, fwd_plan: EmitPlan, fwd_dev
 
     Returns (Survivors, total_best [B], alpha_at_end [S+1, B] forward-plan
     space, use_final [B]), all on the device but the survivor counts."""
-    device = loglikes.device
-    b, t_total, p = loglikes.shape
-    if fwd_plan.num_rows and int(fwd_plan.row_pdf.max()) >= p:
-        raise ValueError(f"the graph uses pdf {int(fwd_plan.row_pdf.max())}, "
-                         f"loglikes have only {p}")
-    nf_np = np.asarray(num_frames).astype(np.int32)
-    # frames at or past every utterance's end change nothing: not run
-    t_run = int(nf_np.max()) if b else 0
-    if t_run > t_total:
-        raise ValueError(f"num_frames up to {t_run}, loglikes have {t_total} frames")
-    nf = torch.from_numpy(nf_np).to(device)
-    acwt = float(np.float32(acoustic_scale))
-    s1 = fwd_plan.num_states + 1
-    r, d = fwd_plan.row_w.shape
-    if window is None:
-        window, need = lattice_window(t_run, s1, r, b)
-        if need > free_bytes(device) // 2:
-            raise ValueError(f"the lattice FB needs {need} bytes for B = {b}, T = {t_run}: "
-                             "decode fewer utterances at once")
-    ll = loglikes.permute(1, 2, 0)[:t_run].contiguous()  # [T, P, B]
+    with profiling.span("lattice.forward"):
+        device = loglikes.device
+        b, t_total, p = loglikes.shape
+        if fwd_plan.num_rows and int(fwd_plan.row_pdf.max()) >= p:
+            raise ValueError(f"the graph uses pdf {int(fwd_plan.row_pdf.max())}, "
+                             f"loglikes have only {p}")
+        nf_np = np.asarray(num_frames).astype(np.int32)
+        # frames at or past every utterance's end change nothing: not run
+        t_run = int(nf_np.max()) if b else 0
+        if t_run > t_total:
+            raise ValueError(f"num_frames up to {t_run}, loglikes have {t_total} frames")
+        profiling.count("lattice.frames", int(nf_np.sum()))
+        nf = torch.from_numpy(nf_np).to(device)
+        acwt = float(np.float32(acoustic_scale))
+        s1 = fwd_plan.num_states + 1
+        r, d = fwd_plan.row_w.shape
+        if window is None:
+            window, need = lattice_window(t_run, s1, r, b)
+            if need > free_bytes(device) // 2:
+                raise ValueError(f"the lattice FB needs {need} bytes for B = {b}, T = {t_run}: "
+                                 "decode fewer utterances at once")
+        ll = loglikes.permute(1, 2, 0)[:t_run].contiguous()  # [T, P, B]
 
-    def column(v, plan):
-        return torch.from_numpy(np.concatenate([v[plan.sperm[:-1]], [NEG_INF]])
-                                .astype(np.float32)).to(device)
+        def column(v, plan):
+            return torch.from_numpy(np.concatenate([v[plan.sperm[:-1]], [NEG_INF]])
+                                    .astype(np.float32)).to(device)
 
-    # phase 1: forward per window, keeping one alpha snapshot per window
-    alpha = column(graph.alpha0, fwd_plan)[:, None].expand(s1, b).contiguous()
-    at_end = torch.where((nf == 0)[None, :], alpha, torch.full_like(alpha, NEG_INF))
-    snaps = []
-    for lo in range(0, t_run, window):
-        snaps.append(alpha)
-        (alpha, at_end), _ = viterbi_scan(fwd_dev, alpha, at_end, ll[lo:lo + window], nf, lo,
-                                          acwt, fwd_plan.rspec, fwd_plan.packed, with_bp=False)
+        # phase 1: forward per window, keeping one alpha snapshot per window
+        alpha = column(graph.alpha0, fwd_plan)[:, None].expand(s1, b).contiguous()
+        at_end = torch.where((nf == 0)[None, :], alpha, torch.full_like(alpha, NEG_INF))
+        snaps = []
+        for lo in range(0, t_run, window):
+            snaps.append(alpha)
+            (alpha, at_end), _ = viterbi_scan(fwd_dev, alpha, at_end, ll[lo:lo + window], nf, lo,
+                                              acwt, fwd_plan.rspec, fwd_plan.packed, with_bp=False)
 
-    with_final = (at_end + column(graph.final_score, fwd_plan)[:, None]).amax(dim=0)
-    use_final = with_final > NEG_INF / 2
-    total_best = torch.where(use_final, with_final, at_end.amax(dim=0))
-    # partial-path fallback: when no final state is reachable, every state
-    # is final with cost 0 (Kaldi's DecodeUtteranceLatticeFaster)
-    final_eff = torch.where(use_final[None, :], column(graph.final_score, bwd_plan)[:, None],
-                            torch.zeros((s1, b), device=device))
-    thresh = (total_best - float(np.float32(lattice_beam))).contiguous()
+        with_final = (at_end + column(graph.final_score, fwd_plan)[:, None]).amax(dim=0)
+        use_final = with_final > NEG_INF / 2
+        total_best = torch.where(use_final, with_final, at_end.amax(dim=0))
+        # partial-path fallback: when no final state is reachable, every state
+        # is final with cost 0 (Kaldi's DecodeUtteranceLatticeFaster)
+        final_eff = torch.where(use_final[None, :], column(graph.final_score, bwd_plan)[:, None],
+                                torch.zeros((s1, b), device=device))
+        thresh = (total_best - float(np.float32(lattice_beam))).contiguous()
 
-    # phase 2: windows from last to first
-    plans = (fwd_plan, fwd_dev, bwd_plan, bwd_dev,
-             torch.as_tensor(row_dst, dtype=torch.int32, device=device))
-    row_arc = torch.from_numpy(fwd_plan.row_arc).to(device)
-    beta = torch.full((s1, b), NEG_INF, device=device)
-    words = torch.empty((min(window, t_run), r, b), dtype=torch.uint8, device=device)
-    parts = []
-    for w in range(len(snaps) - 1, -1, -1):
-        lo = w * window
-        hi = min(lo + window, t_run)
-        beta = fb_window(plans, snaps[w], beta, ll[lo:hi], lo, nf, final_eff, thresh, acwt,
-                         words)
-        snaps[w] = None
-        parts.append(_window_survivors(words[:hi - lo], lo, row_arc))
-    if parts:
-        lane, tt, arc = (torch.cat(x[::-1]) for x in zip(*parts))
-        order = torch.sort(lane, stable=True).indices
-        lane, tt, arc = lane[order], tt[order], arc[order]
-    else:
-        lane = tt = arc = torch.zeros(0, dtype=torch.int64, device=device)
-    counts = torch.bincount(lane, minlength=b).cpu().numpy()
+    # phase 2: windows from last to first, then the survivors in lane order
+    with profiling.span("lattice.backward"):
+        plans = (fwd_plan, fwd_dev, bwd_plan, bwd_dev,
+                 torch.as_tensor(row_dst, dtype=torch.int32, device=device))
+        row_arc = torch.from_numpy(fwd_plan.row_arc).to(device)
+        beta = torch.full((s1, b), NEG_INF, device=device)
+        words = torch.empty((min(window, t_run), r, b), dtype=torch.uint8, device=device)
+        parts = []
+        for w in range(len(snaps) - 1, -1, -1):
+            lo = w * window
+            hi = min(lo + window, t_run)
+            beta = fb_window(plans, snaps[w], beta, ll[lo:hi], lo, nf, final_eff, thresh, acwt,
+                             words)
+            snaps[w] = None
+            parts.append(_window_survivors(words[:hi - lo], lo, row_arc))
+        profiling.count("lattice.windows", len(parts))
+    with profiling.span("lattice.order"):
+        if parts:
+            lane, tt, arc = (torch.cat(x[::-1]) for x in zip(*parts))
+            order = torch.sort(lane, stable=True).indices
+            lane, tt, arc = lane[order], tt[order], arc[order]
+        else:
+            lane = tt = arc = torch.zeros(0, dtype=torch.int64, device=device)
+        # bincount on the card reads its input's largest value back first
+        with profiling.host_wait("survivor_counts", 8 * b):
+            counts = torch.bincount(lane, minlength=b).cpu().numpy()
+        profiling.count("lattice.survivor_arcs", int(counts.sum()))
     return Survivors(lane, tt, arc, counts), total_best, at_end, use_final
 
 
@@ -339,15 +350,16 @@ def survivor_lattices(graph: DenseGraph, surv: Survivors, num_frames, use_final,
     come from ONE device gather of exactly the surviving (lane, t, pdf)
     entries of loglikes [B, T, P]; without loglikes they are zeros."""
     nf_np = np.asarray(num_frames)
-    uf = np.asarray(torch.as_tensor(use_final).cpu())
+    uf = np.asarray(profiling.to_host(torch.as_tensor(use_final), "use_final"))
     if loglikes is not None and len(surv.arc):
         _b, t_total, p = loglikes.shape
         pdf = torch.from_numpy(graph.arc_pdf).to(loglikes.device)[surv.arc]
-        ac = (-loglikes.reshape(-1)[(surv.utt * t_total + surv.t) * p + pdf]).cpu().numpy()
+        ac = profiling.to_host(-loglikes.reshape(-1)[(surv.utt * t_total + surv.t) * p + pdf],
+                               "costs").numpy()
     else:
         ac = np.zeros(len(surv.arc), np.float32)
-    ts = surv.t.to(torch.int32).cpu().numpy()
-    arcs = surv.arc.to(torch.int32).cpu().numpy()
+    ts = profiling.to_host(surv.t.to(torch.int32), "frames").numpy()
+    arcs = profiling.to_host(surv.arc.to(torch.int32), "arcs").numpy()
     bounds = np.concatenate([[0], np.cumsum(surv.counts)])
     return [Lattice(graph=graph, nf=int(nf_np[i]), arc_t=ts[lo:hi], arc_id=arcs[lo:hi],
                     acoustic_cost=ac[lo:hi], use_final=bool(uf[i]))

@@ -29,6 +29,7 @@ from ..ops import align_band as AB
 from ..ops import gmm_kernel
 from ..ops import viterbi as V
 from ..ops.gmm_kernels import GmmParams, pack_gmm
+from ..utils import profiling
 
 log = get_logger()
 
@@ -40,6 +41,48 @@ _UNSET = object()
 _NO_PRUNE_BEAM = 1e8
 
 
+def _banded_search(plan: AB.BandPlanDev, loglikes: torch.Tensor, nf_np: np.ndarray,
+                   acoustic_scale: float) -> tuple:
+    """K4's forward and backtrace: (arcs [T, B], end state in band space,
+    ok, score), on the device."""
+    nf = torch.from_numpy(nf_np).to(loglikes.device)
+    alpha_end, bps = AB.viterbi_forward_banded(
+        plan.W, plan.pdf, plan.alpha0, loglikes.contiguous(), nf, acoustic_scale,
+        plan.offsets, plan.pdf_range)
+    arcs, end_b, ok, score = AB.backtrace_banded(alpha_end, plan.final, bps, nf,
+                                                 plan.offsets, plan.arc_of)
+    return arcs, end_b, ok, score
+
+
+def _generic_search(plan: V.GenericPlanDev, loglikes: torch.Tensor, nf_np: np.ndarray,
+                    acoustic_scale: float, beam: float) -> tuple:
+    """The generic aligner's forward and backtrace (one launch each on
+    CUDA): (arcs [T, B], end state, ok, score), on the device."""
+    nf = torch.from_numpy(nf_np).to(loglikes.device)
+    alpha_end, bps, codes = V.generic_forward(plan, loglikes.contiguous(), nf, acoustic_scale,
+                                              beam)
+    arcs, ok, end_state, score = V.generic_backtrace(plan, alpha_end, bps, codes, nf)
+    return arcs, end_state, ok, score
+
+
+def _read_back(found: tuple) -> tuple:
+    """A search's four results on the host, as numpy: the host waits here
+    for the sub-batch's device work."""
+    return tuple(profiling.to_host(x, name).numpy()
+                 for x, name in zip(found, ("align_arcs", "align_end", "align_ok",
+                                            "align_score")))
+
+
+def _assemble(graphs: list, host: tuple, nf_np: np.ndarray,
+              n2o: np.ndarray | None = None) -> list:
+    """Per-utterance results from a search's host copies; ``n2o`` maps a
+    band plan's end states to the graphs' own."""
+    arcs, end, ok, score = host
+    if n2o is not None:
+        end = np.maximum(n2o[np.arange(len(graphs)), end], 0)
+    return V.assemble_batched_results(graphs, arcs, ok, end, score, nf_np)
+
+
 def align_banded(plan: AB.BandPlan | AB.BandPlanDev, graphs: list, loglikes: torch.Tensor,
                  num_frames, acoustic_scale: float):
     """Exact banded alignment (K4) of ``graphs`` under ``plan``, assembled
@@ -47,16 +90,8 @@ def align_banded(plan: AB.BandPlan | AB.BandPlanDev, graphs: list, loglikes: tor
     if isinstance(plan, AB.BandPlan):
         plan = AB.plan_to_device(plan, loglikes.device)
     nf_np = np.asarray(num_frames, np.int32)
-    nf = torch.from_numpy(nf_np).to(loglikes.device)
-    alpha_end, bps = AB.viterbi_forward_banded(
-        plan.W, plan.pdf, plan.alpha0, loglikes.contiguous(), nf, acoustic_scale,
-        plan.offsets, plan.pdf_range)
-    arcs, end_b, ok, score = AB.backtrace_banded(alpha_end, plan.final, bps, nf,
-                                                 plan.offsets, plan.arc_of)
-    end_b = end_b.cpu().numpy()
-    end_orig = plan.n2o[np.arange(len(graphs)), end_b]
-    return V.assemble_batched_results(graphs, arcs.cpu().numpy(), ok.cpu().numpy(),
-                                      np.maximum(end_orig, 0), score.cpu().numpy(), nf_np)
+    host = _read_back(_banded_search(plan, loglikes, nf_np, acoustic_scale))
+    return _assemble(graphs, host, nf_np, plan.n2o)
 
 
 def _align_generic(plan: V.GenericPlanDev, graphs: list, loglikes: torch.Tensor, num_frames,
@@ -65,12 +100,8 @@ def _align_generic(plan: V.GenericPlanDev, graphs: list, loglikes: torch.Tensor,
     ``graphs`` under ``plan`` (their rows of the set's plan), assembled per
     utterance.  loglikes [B, T, P] on the plan's device."""
     nf_np = np.asarray(num_frames, np.int32)
-    nf = torch.from_numpy(nf_np).to(loglikes.device)
-    alpha_end, bps, codes = V.generic_forward(plan, loglikes.contiguous(), nf, acoustic_scale,
-                                              beam)
-    arcs, ok, end_state, score = V.generic_backtrace(plan, alpha_end, bps, codes, nf)
-    return V.assemble_batched_results(graphs, arcs.cpu().numpy(), ok.cpu().numpy(),
-                                      end_state.cpu().numpy(), score.cpu().numpy(), nf_np)
+    host = _read_back(_generic_search(plan, loglikes, nf_np, acoustic_scale, beam))
+    return _assemble(graphs, host, nf_np)
 
 
 class AlignmentSet:
@@ -154,34 +185,42 @@ class AlignmentSet:
         (``ops/gmm_kernels.pack_gmm``) on the alignment device; feats
         [B, T, D] (tensor or array).  Sub-batches take the utterances in
         order of decreasing length."""
-        feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
-        num_frames = np.asarray(num_frames, np.int32)
         b_total = len(self.graphs)
         if b_total == 0:
             return []
-        w = convert.kernel_params_from_twin(params)
-        s_max = max(g.num_states for g in self.graphs)
-        band = self.band if beam >= _NO_PRUNE_BEAM else None
-        plan = self.generic_dev if band is None else None  # on the device before sizing
-        b_chunk = self._batch_chunk(int(num_frames.max()), params.num_pdfs,
-                                    feats.shape[2], s_max + 1)
-        order = np.argsort(-num_frames, kind="stable")
-        results: list = [None] * b_total
+        with profiling.span("align.prepare"):
+            feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
+            num_frames = np.asarray(num_frames, np.int32)
+            w = convert.kernel_params_from_twin(params)
+            s_max = max(g.num_states for g in self.graphs)
+            band = self.band if beam >= _NO_PRUNE_BEAM else None
+            plan = self.generic_dev if band is None else None  # on the device before sizing
+            b_chunk = self._batch_chunk(int(num_frames.max()), params.num_pdfs,
+                                        feats.shape[2], s_max + 1)
+            order = np.argsort(-num_frames, kind="stable")
+            results: list = [None] * b_total
         for lo in range(0, b_total, b_chunk):
             idx = order[lo: lo + b_chunk]
             nf_c = num_frames[idx]
-            t_c = max(1, int(nf_c.max()))
-            ll = gmm_kernel.loglikes_batch(
-                feats[torch.from_numpy(idx).to(self.device), :t_c].contiguous(), w)
-            graphs_c = [self.graphs[i] for i in idx]
-            if band is not None:
-                chunk_res = align_banded(self.band_dev.take(idx), graphs_c, ll, nf_c,
-                                         acoustic_scale)
-            else:
-                chunk_res = _align_generic(plan.take(idx), graphs_c, ll, nf_c, acoustic_scale,
-                                           beam)
-            for j, i in enumerate(idx):
-                results[int(i)] = chunk_res[j]
+            profiling.count("align.sub_batches")
+            profiling.count("align.utterances", len(idx))
+            with profiling.span("align.loglikes"):
+                t_c = max(1, int(nf_c.max()))
+                ll = gmm_kernel.loglikes_batch(
+                    feats[torch.from_numpy(idx).to(self.device), :t_c].contiguous(), w)
+            with profiling.span("align.search"):
+                if band is not None:
+                    sub = self.band_dev.take(idx)
+                    found = _banded_search(sub, ll, nf_c, acoustic_scale)
+                else:
+                    found = _generic_search(plan.take(idx), ll, nf_c, acoustic_scale, beam)
+            with profiling.span("align.to_host"):
+                host = _read_back(found)
+            with profiling.span("align.assemble"):
+                chunk_res = _assemble([self.graphs[i] for i in idx], host, nf_c,
+                                      sub.n2o if band is not None else None)
+                for j, i in enumerate(idx):
+                    results[int(i)] = chunk_res[j]
         return results
 
 
@@ -205,6 +244,7 @@ def apply_alignments(results: list, tids: np.ndarray, weights: np.ndarray,
             tracker.record(names[i] if names else f"utt[{i}]",
                            "no path through training graph")
     tracker.finish(max_fail_frac)
+    profiling.count("align.failed", tracker.num_failed)
     return tracker.num_failed
 
 

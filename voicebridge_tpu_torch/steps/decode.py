@@ -36,6 +36,7 @@ from ..ops import gmm_kernel
 from ..ops import lattice as LAT
 from ..ops import viterbi as V
 from ..ops.graph import DenseGraph, compile_dense_graph
+from ..utils import profiling
 
 
 @dataclass
@@ -126,25 +127,31 @@ class Decoder:
         the row-based forward-backward (``ops/lattice.py``); arcs whose best
         complete path is within ``lattice_beam`` of the best survive.
         Returns {utt: Lattice} with graph and acoustic costs kept apart."""
-        acwt = self.opts.acoustic_scale if acoustic_scale is None else acoustic_scale
-        feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
-        num_frames = np.asarray(torch.as_tensor(num_frames).cpu())
-        if self._lat_plans is None:
-            _plan, _fwd_dev, bwd_plan, bwd_dev, row_dst = LAT.build_lattice_plans(
-                self.graph, fwd_plan=self.plan, device=self.device)
-            self._lat_plans = (bwd_plan, bwd_dev, torch.from_numpy(row_dst).to(self.device))
-        bwd_plan, bwd_dev, row_dst = self._lat_plans
-        b_chunk = self._lattice_chunk(feats.shape[1], feats.shape[2])
-        out = {}
-        for lo in range(0, len(utts), b_chunk):
-            hi = min(len(utts), lo + b_chunk)
-            ll = self._loglikes(feats[lo:hi].contiguous())
-            surv, _best, _end, use_final = LAT.lattice_forward_backward_rows(
-                self.graph, self.plan, self.plan_dev, bwd_plan, bwd_dev, row_dst, ll,
-                num_frames[lo:hi], acoustic_scale=acwt, lattice_beam=self.opts.lattice_beam)
-            out.update(zip(utts[lo:hi], LAT.survivor_lattices(
-                self.graph, surv, num_frames[lo:hi], use_final, ll)))
-        return out
+        with profiling.span("decode_lattice"):
+            acwt = self.opts.acoustic_scale if acoustic_scale is None else acoustic_scale
+            feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
+            num_frames = np.asarray(profiling.to_host(torch.as_tensor(num_frames),
+                                                      "frame_counts"))
+            if self._lat_plans is None:
+                _plan, _fwd_dev, bwd_plan, bwd_dev, row_dst = LAT.build_lattice_plans(
+                    self.graph, fwd_plan=self.plan, device=self.device)
+                self._lat_plans = (bwd_plan, bwd_dev, torch.from_numpy(row_dst).to(self.device))
+            bwd_plan, bwd_dev, row_dst = self._lat_plans
+            b_chunk = self._lattice_chunk(feats.shape[1], feats.shape[2])
+            out = {}
+            for lo in range(0, len(utts), b_chunk):
+                hi = min(len(utts), lo + b_chunk)
+                profiling.count("lattice.sub_batches")
+                with profiling.span("lattice.loglikes"):
+                    ll = self._loglikes(feats[lo:hi].contiguous())
+                surv, _best, _end, use_final = LAT.lattice_forward_backward_rows(
+                    self.graph, self.plan, self.plan_dev, bwd_plan, bwd_dev, row_dst, ll,
+                    num_frames[lo:hi], acoustic_scale=acwt,
+                    lattice_beam=self.opts.lattice_beam)
+                with profiling.span("lattice.survivors"):
+                    out.update(zip(utts[lo:hi], LAT.survivor_lattices(
+                        self.graph, surv, num_frames[lo:hi], use_final, ll)))
+            return out
 
     def decode_sweep_lattice(self, utts: list[str], feats, num_frames, lmwts: list[int],
                              word_ins_penalties: tuple = (0.0,)) -> tuple[dict, dict]:

@@ -17,6 +17,7 @@ from ..config import DeltaOptions, MfccOptions, SpliceOptions
 from ..device import ieee_fp32_entry, resolve_device
 from ..ops.features import MfccExtractor, add_deltas_batch, splice_frames_batch
 from ..transforms.cmvn import acc_cmvn_stats_batch, apply_cmvn_batch
+from ..utils import profiling
 
 
 def _bucket(lengths: list[int], num_buckets: int = 4) -> list[int]:
@@ -63,7 +64,7 @@ def compute_mfcc(waves: dict[str, np.ndarray], opts: MfccOptions, *, device=None
             gen.manual_seed(dither_seed + pad_len)
         feats, counts = ext.batched(torch.from_numpy(batch).to(device), ns,
                                     opts.frame_opts.num_frames(pad_len), gen)
-        for i, (u, n) in enumerate(zip(us, counts.tolist())):
+        for i, (u, n) in enumerate(zip(us, profiling.to_host(counts, "frame_counts").tolist())):
             out[u] = feats[i, :n]
     return out
 
@@ -87,13 +88,28 @@ def apply_feature_chain(feats: dict[str, torch.Tensor], utt2spk: dict[str, str],
                         splice: SpliceOptions | None = None) -> dict[str, torch.Tensor]:
     """apply-cmvn [-> add-deltas | splice-feats] for every utterance, batched.
     With ``deltas=None`` and ``splice=None`` the CMVN'd base features."""
+    utts, out, nf = _cmvn_applied(feats, utt2spk, cmvn_stats)
+    return _context_added(feats, utts, out, nf, deltas, splice)
+
+
+def _cmvn_applied(feats: dict[str, torch.Tensor], utt2spk: dict[str, str],
+                  cmvn_stats: dict[str, torch.Tensor]):
+    """apply-cmvn of every utterance as one padded batch: (utts, [B, T, D],
+    [B] frame counts)."""
     utts = sorted(feats)
     batch, nf = pad_features(feats, utts)
     speakers = sorted({utt2spk[u] for u in utts})
     spk_idx = {s: i for i, s in enumerate(speakers)}
     stats = torch.stack([cmvn_stats[s] for s in speakers])
     sid = torch.tensor([spk_idx[utt2spk[u]] for u in utts], device=batch.device)
-    out = apply_cmvn_batch(batch, stats, sid)
+    return utts, apply_cmvn_batch(batch, stats, sid), nf
+
+
+def _context_added(feats: dict[str, torch.Tensor], utts: list[str], out: torch.Tensor,
+                   nf: torch.Tensor, deltas: DeltaOptions | None,
+                   splice: SpliceOptions | None) -> dict[str, torch.Tensor]:
+    """add-deltas or splice-feats of the CMVN'd batch (neither: as it is),
+    cut back to one tensor per utterance."""
     if deltas is not None:
         out = add_deltas_batch(out, nf, deltas)
     elif splice is not None:
@@ -129,8 +145,13 @@ def make_features(waves: dict[str, np.ndarray], utt2spk: dict[str, str],
     deltas or splice (neither: the CMVN'd MFCC that the LDA path takes).
     ``pitch=True`` pastes the 3-dim pitch features (MakeMfccPitch role)
     before CMVN."""
-    mfcc = compute_mfcc(waves, mfcc_opts, device=device, dither_seed=dither_seed)
-    if pitch:
-        mfcc = paste_pitch(mfcc, waves, mfcc_opts)
-    cmvn = compute_cmvn(mfcc, utt2spk)
-    return apply_feature_chain(mfcc, utt2spk, cmvn, deltas, splice)
+    with profiling.span("features"):
+        with profiling.span("features.mfcc"):
+            mfcc = compute_mfcc(waves, mfcc_opts, device=device, dither_seed=dither_seed)
+            if pitch:
+                mfcc = paste_pitch(mfcc, waves, mfcc_opts)
+        with profiling.span("features.cmvn"):
+            cmvn = compute_cmvn(mfcc, utt2spk)
+            utts, out, nf = _cmvn_applied(mfcc, utt2spk, cmvn)
+        with profiling.span("features.deltas"):
+            return _context_added(mfcc, utts, out, nf, deltas, splice)

@@ -33,6 +33,7 @@ from ..utils.logging import get_logger
 
 from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernels as K
+from ..utils import profiling
 from .align import AlignmentSet, apply_alignments
 from .train_mono import TrainedModel, _batchify, save_model
 
@@ -114,11 +115,15 @@ def realign(aset: AlignmentSet, am: AmDiagGmm, feats: torch.Tensor, num_frames,
             opts: TriTrainOptions, stage: str, names: list) -> None:
     """Viterbi realignment of every utterance (K2, then K4 or the generic
     aligner), written into ``tids`` and ``weights`` in place."""
-    align_am = (am.boost_silence(silence_pdfs, opts.boost_silence)
-                if opts.boost_silence != 1.0 else am)
-    results = aset.align_feats(K.pack_gmm(align_am, aset.device), feats, num_frames,
-                               acoustic_scale=opts.acoustic_scale)
-    apply_alignments(results, tids, weights, num_frames, stage, names=names)
+    with profiling.span("realign"):
+        with profiling.span("align.prepare"):
+            align_am = (am.boost_silence(silence_pdfs, opts.boost_silence)
+                        if opts.boost_silence != 1.0 else am)
+            params = K.pack_gmm(align_am, aset.device)
+        results = aset.align_feats(params, feats, num_frames, acoustic_scale=opts.acoustic_scale)
+        with profiling.span("align.apply"):
+            apply_alignments(results, tids, weights, num_frames, stage, names=names)
+            del results  # freeing the per-utterance lists takes host time of its own
 
 
 @ieee_fp32_entry
@@ -129,21 +134,31 @@ def e_step(am: AmDiagGmm, trans_model: TransitionModel, x: torch.Tensor,
     Returns (occ, mean_acc, var_acc, transition stats) as numpy and ll."""
     dev = x.device
     tflat, wflat = tids.reshape(-1), weights.reshape(-1)
-    occ, macc, vacc, ll = K.acc_gmm_stats_chunked(
-        K.pack_gmm(am, dev), x, trans_model.tid2pdf[tflat], trans_model.tree.num_pdfs, wflat)
-    tstats = K.acc_transition_stats(torch.from_numpy(tflat).to(dev),
-                                    trans_model.num_transition_ids,
-                                    torch.from_numpy(wflat).to(dev))
-    return occ, macc, vacc, tstats.cpu().numpy(), ll
+    with profiling.span("estep"):
+        with profiling.span("estep.gmm"):
+            occ, macc, vacc, ll = K.acc_gmm_stats_chunked(
+                K.pack_gmm(am, dev), x, trans_model.tid2pdf[tflat], trans_model.tree.num_pdfs,
+                wflat)
+        num_tids = trans_model.num_transition_ids
+        # bincount on the card reads the ids' largest value back before the copy
+        with profiling.span("estep.transitions"), \
+                profiling.host_wait("transition_stats", 4 * (num_tids + 1)):
+            tstats = K.acc_transition_stats(torch.from_numpy(tflat).to(dev), num_tids,
+                                            torch.from_numpy(wflat).to(dev)).cpu().numpy()
+    return occ, macc, vacc, tstats, ll
 
 
 def m_step(am: AmDiagGmm, trans_model: TransitionModel, stats, num_gauss: int,
            opts: TriTrainOptions, seed: int) -> None:
     """M-step and mixup (host numpy), in place."""
     occ, macc, vacc, tstats, _ll = stats
-    am.mle_update(occ, macc, vacc, opts.min_gaussian_occupancy, opts.min_variance)
-    am.split_to_target(num_gauss, occ, power=opts.power, seed=seed)
-    trans_model.mle_update(tstats)
+    with profiling.span("mstep"):
+        with profiling.span("mstep.gmm"):
+            am.mle_update(occ, macc, vacc, opts.min_gaussian_occupancy, opts.min_variance)
+        with profiling.span("mstep.mixup"):
+            am.split_to_target(num_gauss, occ, power=opts.power, seed=seed)
+        with profiling.span("mstep.transitions"):
+            trans_model.mle_update(tstats)
 
 
 @ieee_fp32_entry
