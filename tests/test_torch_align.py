@@ -29,7 +29,10 @@ from voicebridge_tpu_torch.ops import align_band as AB
 from voicebridge_tpu_torch.ops import gmm_kernels as K
 from voicebridge_tpu_torch.ops import viterbi as V
 from voicebridge_tpu_torch.steps import align as A
-from voicebridge_tpu_torch.testing import load_yesno_mono, random_band_walk, synth_train_graph
+from voicebridge_tpu_torch.testing import (load_yesno_mono, random_am, random_band_walk,
+                                           synth_train_graph)
+from voicebridge_tpu_torch.utils import health
+from voicebridge_tpu_torch.utils import profiling as P
 
 from synth import LEXICON, make_corpus
 from test_align_band import _random_banded_graph
@@ -517,6 +520,103 @@ def test_apply_alignments_zeroes_failures():
     assert A.apply_alignments(results, tids, weights, np.array([3, 2, 2]), "test") == 1
     np.testing.assert_array_equal(tids, [[3, 4, 4], [0, 0, 0], [5, 6, 0]])
     np.testing.assert_array_equal(weights, [[1, 1, 1], [0, 0, 0], [1, 1, 0]])
+
+
+def _tids_case(kind):
+    """Training graphs over several sub-batches, with arc transition ids
+    distinct across the set, one utterance that cannot align (a chain longer
+    than its frames, index 3) and one of no frames (index 5, a graph whose
+    start state is final: its path is found, and empty, which fails as
+    ``apply_alignments`` counts): ``banded`` fits the band plan; ``generic``
+    adds a graph that is not dst-pure, so ``build_band_plan`` refuses the
+    set."""
+    rng = np.random.default_rng({"banded": 41, "generic": 42}[kind])
+    graphs = [_random_banded_graph(rng, int(n)) for n in rng.integers(8, 20, 7)]
+    graphs.insert(3, _chain_graph(50))
+    graphs[5] = _random_banded_graph(rng, 1)
+    if kind == "generic":
+        graphs += _non_banded()[0][:1]
+    graphs = [g._replace(arc_tid=(1000 * i + 1 + rng.permutation(g.num_arcs)).astype(np.int32))
+              for i, g in enumerate(graphs)]
+    nf = rng.integers(25, 41, len(graphs)).astype(np.int32)
+    nf[5] = 0
+    feats = rng.standard_normal((len(graphs), int(nf.max()), 6)).astype(np.float32)
+    return graphs, feats, nf
+
+
+@pytest.mark.parametrize("kind", ["banded", "generic"])
+def test_align_feats_to_tids_equals_dicts(kind, monkeypatch):
+    """``align_feats_to_tids`` fills ``tids`` and ``weights`` bit-equal to
+    ``align_feats`` followed by ``apply_alignments`` and returns the same
+    count, over sub-batches of three; one tid block a sub-batch."""
+    graphs, feats, nf = _tids_case(kind)
+    aset = A.AlignmentSet(graphs, device="cpu")
+    assert (aset.band is None) == (kind == "generic")
+    monkeypatch.setattr(aset, "_batch_chunk", lambda *args: 3)
+    params = K.pack_gmm(random_am(11, 2, 6, seed=43), "cpu")
+    names = [f"u{i}" for i in range(len(graphs))]
+    want_t, want_w = np.full(feats.shape[:2], 9, np.int32), np.ones(feats.shape[:2], np.float32)
+    n_want = A.apply_alignments(aset.align_feats(params, feats, nf, acoustic_scale=0.3),
+                                want_t, want_w, nf, "test", names)
+    got_t, got_w = np.full_like(want_t, 7), np.full_like(want_w, 0.5)
+    with P.recording():
+        n_got = aset.align_feats_to_tids(params, feats, nf, got_t, got_w, "test", names,
+                                         acoustic_scale=0.3)
+    counters = P.session().counters
+    assert n_got == n_want == 2
+    np.testing.assert_array_equal(got_t, want_t)
+    np.testing.assert_array_equal(got_w, want_w)
+    assert (want_w.sum(axis=1) == np.where(np.isin(np.arange(len(nf)), [3, 5]), 0, nf)).all()
+    blocks = -(-len(graphs) // 3)
+    assert counters["align.tid_blocks"] == counters["align.sub_batches"] == blocks
+    assert counters["align.failed"] == 2
+
+
+def test_align_feats_to_tids_accounts_failures(monkeypatch):
+    """As ``apply_alignments``: failed rows zeroed, ``align.failed``
+    counted, each failed utterance recorded by name, and a failed share past
+    ``max_fail_frac`` aborts."""
+    graphs, feats, nf = _tids_case("banded")
+    aset = A.AlignmentSet(graphs, device="cpu")
+    params = K.pack_gmm(random_am(11, 2, 6, seed=43), "cpu")
+    names = [f"u{i}" for i in range(len(graphs))]
+    recorded, record = [], health.FailureTracker.record
+    monkeypatch.setattr(health.FailureTracker, "record",
+                        lambda self, utt, why: recorded.append(utt) or record(self, utt, why))
+    tids = np.full(feats.shape[:2], 9, np.int32)
+    weights = np.ones(feats.shape[:2], np.float32)
+    with P.recording():
+        assert aset.align_feats_to_tids(params, feats, nf, tids, weights, "test", names,
+                                        acoustic_scale=0.3) == 2
+    assert P.session().counters["align.failed"] == 2
+    assert recorded == ["u3", "u5"]
+    assert not tids[[3, 5]].any() and not weights[[3, 5]].any()
+    assert (weights.sum(axis=1) > 0).sum() == len(graphs) - 2
+    recorded.clear()
+    with pytest.raises(health.TooManyFailures, match="2/8"):
+        aset.align_feats_to_tids(params, feats, nf, tids, weights, "test", None,
+                                 acoustic_scale=0.3, max_fail_frac=0.2)
+    assert recorded == ["utt[3]", "utt[5]"]
+
+
+def test_band_plan_tid_table():
+    """``plan_to_device`` with the graphs' padded transition ids gives
+    ``tid_of``: each ``arc_of`` arc's id, -1 where none; ``take`` gathers it;
+    a negative transition id is refused."""
+    graphs, _, _ = _case("random")
+    plan = AB.build_band_plan(graphs)
+    tids = A.padded_tids(graphs)
+    np.testing.assert_array_equal(tids, V.pad_graphs(graphs)["arc_tid"])
+    dev = AB.plan_to_device(plan, "cpu", arc_tid=tids)
+    got = np.take_along_axis(tids, np.maximum(plan.arc_of, 0).reshape(len(graphs), -1), axis=1)
+    want = np.where(plan.arc_of >= 0, got.reshape(plan.arc_of.shape), -1)
+    assert dev.tid_of.dtype == torch.int32
+    np.testing.assert_array_equal(dev.tid_of.numpy(), want)
+    np.testing.assert_array_equal(dev.take(np.array([2, 0])).tid_of.numpy(), want[[2, 0]])
+    assert AB.plan_to_device(plan, "cpu").tid_of is None
+    tids[1, 0] = -2
+    with pytest.raises(ValueError, match="negative transition id"):
+        AB.plan_to_device(plan, "cpu", arc_tid=tids)
 
 
 def test_wrappers_reject_other_devices():

@@ -78,6 +78,7 @@ from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel,
 from voicebridge_tpu_torch.ops import lattice as LAT
 from voicebridge_tpu_torch.ops import viterbi as V
 from voicebridge_tpu_torch.ops.graph import DenseGraph
+from voicebridge_tpu_torch.steps.align import AlignmentSet, apply_alignments
 from voicebridge_tpu_torch.steps.decode import Decoder
 from voicebridge_tpu_torch.steps.make_feats import make_features
 from voicebridge_tpu_torch.testing import (assert_models_close, feature_scaled_am,
@@ -87,6 +88,7 @@ from voicebridge_tpu_torch.testing import (assert_models_close, feature_scaled_a
 from voicebridge_tpu_torch.transforms import cmvn as TC
 from voicebridge_tpu_torch.transforms import lda as TL
 from voicebridge_tpu_torch.transforms import mllt as TM
+from voicebridge_tpu_torch.utils import profiling as P
 
 from synth import make_corpus
 
@@ -500,6 +502,57 @@ def test_align_band_matches_plain(cuda, case):
         assert torch.equal(x, y.to(x.dtype))
     if case == "failed":
         assert not bool(bt[2][-1]) and bool(bt[2][:-1].all())
+
+
+@pytest.mark.parametrize("kind", ["banded", "generic"])
+def test_align_feats_to_tids_matches_dicts(cuda, kind, monkeypatch):
+    """``align_feats_to_tids`` on the card (banded: K4's backtrace over the
+    band plan's ``tid_of``; generic: its arcs gathered to transition ids)
+    fills ``tids`` and ``weights`` bit-equal to ``align_feats`` +
+    ``apply_alignments`` on the card and to itself on the CPU, over
+    sub-batches of four with an utterance too long for its frames and one of
+    no frames; two reads a sub-batch."""
+    rng = np.random.default_rng(23)
+    back = 0 if kind == "banded" else 10  # more than 48 band offsets in all
+    graphs = [synth_train_graph(int(n), 30, rng, back_arcs=back)
+              for n in rng.integers(160, 200, 9)]
+    graphs.insert(2, synth_train_graph(600, 30, rng))  # 450 frames at the least
+    graphs = [g._replace(arc_tid=(1000 * i + 1 + rng.permutation(g.num_arcs)).astype(np.int32))
+              for i, g in enumerate(graphs)]
+    nf = rng.integers(300, 360, len(graphs)).astype(np.int32)
+    graphs[6] = synth_train_graph(1, 30, rng)._replace(arc_tid=np.array([6001, 6002], np.int32))
+    nf[6] = 0  # start state final: an empty path, a failure as apply_alignments counts it
+    feats = rng.standard_normal((len(graphs), int(nf.max()), 13)).astype(np.float32)
+    am = random_am(30, 4, 13, seed=24)
+    names = [f"u{i}" for i in range(len(graphs))]
+    out = {}
+    for where in ("cuda", "cpu"):
+        device = cuda if where == "cuda" else torch.device("cpu")
+        aset = AlignmentSet(graphs, device=device)
+        assert (aset.band is None) == (kind == "generic")
+        monkeypatch.setattr(aset, "_batch_chunk", lambda *args: 4)
+        params = gmm_kernels.pack_gmm(am, device)
+        x = torch.from_numpy(feats).to(device)
+        tids = np.full(feats.shape[:2], 9, np.int32)
+        weights = np.ones(feats.shape[:2], np.float32)
+        with P.recording():
+            fails = aset.align_feats_to_tids(params, x, nf, tids, weights, "test", names,
+                                             acoustic_scale=0.1)
+        counters = P.session().counters
+        out[where] = (fails, tids, weights)
+        if where == "cuda":
+            assert counters["align.tid_blocks"] == 3 and counters["host_sync"] == 6
+            if kind == "banded":
+                assert aset.band_dev.tid_of is not None
+            want_t, want_w = np.zeros_like(tids), np.zeros_like(weights)
+            want = apply_alignments(aset.align_feats(params, x, nf, acoustic_scale=0.1),
+                                    want_t, want_w, nf, "test", names)
+            assert fails == want == 2
+            np.testing.assert_array_equal(tids, want_t)
+            np.testing.assert_array_equal(weights, want_w)
+    assert out["cuda"][0] == out["cpu"][0]
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_array_equal(out["cuda"][2], out["cpu"][2])
 
 
 @pytest.mark.parametrize("case", ["skew", "zero_weights", "twofeats", "d40_uneven"])

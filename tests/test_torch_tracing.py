@@ -168,7 +168,9 @@ def test_realign_spans_cover_the_call():
     assert sess.counters["align.sub_batches"] == 3
     assert sess.counters["align.utterances"] == 12
     assert sess.counters["align.failed"] == int((weights.sum(axis=1) == 0).sum())
-    assert len(names["sync.align_arcs"]) == 3 and sess.counters["host_sync"] == 12
+    assert len(names["sync.align_tids"]) == len(names["sync.align_ok"]) == 3
+    assert sess.counters["host_sync"] == 6
+    assert sess.counters["align.tid_blocks"] == sess.counters["align.sub_batches"] == 3
 
 
 def test_the_chrome_trace_puts_spans_on_the_profilers_clock(tmp_path):

@@ -20,7 +20,8 @@ a CPU tensor to it and a CUDA tensor to K4:
   (``BandPlanDev.pdf_range``), so the wrapper does not synchronise;
 * ``backtrace_banded``: one launch, one CTA per utterance walking its
   backpointer rows staged in shared memory, with an exact replay from the
-  first empty band slot on the path.
+  first empty band slot on the path; it writes the arc ids ``arc_of`` names,
+  or the transition ids ``BandPlanDev.tid_of`` names.
 
 Rounding follows the JAX package: the candidate is ``(shift + W)``, then the
 max, then ``+ fl(ll[pdf] * acwt)``; ties go to the first maximal slot in
@@ -160,7 +161,10 @@ def build_band_plan(graphs: list[DenseGraph], pad_states: int | None = None,
 
 class BandPlanDev(NamedTuple):
     """A ``BandPlan`` on a device (``n2o`` and ``pdf_range`` stay on the
-    host)."""
+    host).  ``tid_of`` is ``arc_of`` with each arc's transition id in its
+    place (-1 where no arc), when the plan was moved with its graphs' ids:
+    given to ``backtrace_banded`` for ``arc_of``, it writes the frames'
+    transition ids."""
 
     W: torch.Tensor  # [B, S, K] f32
     pdf: torch.Tensor  # [B, S] int32
@@ -170,6 +174,7 @@ class BandPlanDev(NamedTuple):
     final: torch.Tensor  # [B, S] f32
     n2o: np.ndarray  # [B, S] int32, host
     pdf_range: tuple  # (smallest, largest) pdf of the plan, host ints
+    tid_of: Optional[torch.Tensor] = None  # [B, S, K] int32
 
     def take(self, idx: np.ndarray) -> "BandPlanDev":
         """The plan of the utterances ``idx`` (a batch subset), gathered on
@@ -177,19 +182,37 @@ class BandPlanDev(NamedTuple):
         subset's."""
         i = torch.from_numpy(np.asarray(idx, np.int64)).to(self.W.device)
         return BandPlanDev(self.W[i], self.pdf[i], self.arc_of[i], self.offsets,
-                           self.alpha0[i], self.final[i], self.n2o[idx], self.pdf_range)
+                           self.alpha0[i], self.final[i], self.n2o[idx], self.pdf_range,
+                           None if self.tid_of is None else self.tid_of[i])
 
 
-def plan_to_device(plan: BandPlan, device) -> BandPlanDev:
+def _tid_table(arc_of: torch.Tensor, arc_tid: np.ndarray) -> torch.Tensor:
+    """[B, S, K] int32 on ``arc_of``'s device: the transition id of the arc
+    ``arc_of`` names, -1 where it names none.  ``arc_tid`` [B, A] holds each
+    graph's arc transition ids, padded (``pad_graphs``'s ``arc_tid``); a
+    negative one would read as a missing arc, and is refused."""
+    if arc_tid.size and int(arc_tid.min()) < 0:
+        raise ValueError("a graph has an arc with a negative transition id")
+    if arc_tid.shape[1] == 0:
+        return torch.full_like(arc_of, -1)
+    tid = torch.from_numpy(np.ascontiguousarray(arc_tid, np.int32)).to(arc_of.device)
+    got = torch.gather(tid, 1, arc_of.reshape(arc_of.shape[0], -1).clamp(min=0).long())
+    return torch.where(arc_of >= 0, got.view(arc_of.shape), -1)
+
+
+def plan_to_device(plan: BandPlan, device, arc_tid: np.ndarray | None = None) -> BandPlanDev:
+    """``plan`` on ``device``; with its graphs' padded transition ids
+    ``arc_tid`` [B, A], also ``tid_of`` (``_tid_table``)."""
     def dev(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
     lo, hi = (int(plan.pdf.min()), int(plan.pdf.max())) if plan.pdf.size else (0, 0)
-    return BandPlanDev(W=dev(plan.W, np.float32), pdf=dev(plan.pdf, np.int32),
-                       arc_of=dev(plan.arc_of, np.int32),
+    arc_of = dev(plan.arc_of, np.int32)
+    return BandPlanDev(W=dev(plan.W, np.float32), pdf=dev(plan.pdf, np.int32), arc_of=arc_of,
                        offsets=dev(np.asarray(plan.offsets), np.int32),
                        alpha0=dev(plan.alpha0, np.float32),
-                       final=dev(plan.final, np.float32), n2o=plan.n2o, pdf_range=(lo, hi))
+                       final=dev(plan.final, np.float32), n2o=plan.n2o, pdf_range=(lo, hi),
+                       tid_of=None if arc_tid is None else _tid_table(arc_of, arc_tid))
 
 
 def _initial_end(alpha0: torch.Tensor, num_frames: torch.Tensor) -> torch.Tensor:
@@ -301,7 +324,9 @@ def viterbi_forward_banded(W, pdf, alpha0, loglikes, num_frames,
 
 def backtrace_banded(alpha_end, final, bps, num_frames, offsets: torch.Tensor, arc_of):
     """Backtrace over band-slot winners (K4's second entry point), resolving
-    original arc ids on the device.  Returns as ``backtrace_banded_plain``."""
+    original arc ids on the device.  Returns as ``backtrace_banded_plain``.
+    Given a plan's ``tid_of`` for ``arc_of``, it writes transition ids where
+    it would write arc ids: the walk reads only the table's sign."""
     if bps.device.type == "cpu":
         return backtrace_banded_plain(alpha_end, final, bps, num_frames, offsets, arc_of)
     if bps.device.type != "cuda":

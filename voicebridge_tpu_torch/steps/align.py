@@ -12,6 +12,14 @@ one forward launch and one backtrace launch per sub-batch too.
 Sub-batches are sized from the memory free on the device; the band plan and
 the generic aligner's plan are each built and moved to the device once per
 ``AlignmentSet``, and a sub-batch takes its rows of them on the device.
+
+Two entry points share the sub-batch loop and the search, and differ in
+what reaches the host: ``align_feats`` assembles a dict per utterance
+(transition ids, words, score, arcs); ``align_feats_to_tids``, what training
+reads, has the frames' transition ids written on the device (K4 through the
+band plan's ``tid_of``, the generic aligner's arcs through a gather) and
+reads back one ``[B, T]`` block and the ok flags a sub-batch, which numpy
+scatters into the caller's ``tids`` and ``weights``.
 """
 
 from __future__ import annotations
@@ -42,15 +50,16 @@ _NO_PRUNE_BEAM = 1e8
 
 
 def _banded_search(plan: AB.BandPlanDev, loglikes: torch.Tensor, nf_np: np.ndarray,
-                   acoustic_scale: float) -> tuple:
+                   acoustic_scale: float, by_tid: bool = False) -> tuple:
     """K4's forward and backtrace: (arcs [T, B], end state in band space,
-    ok, score), on the device."""
+    ok, score), on the device; ``by_tid``: transition ids (``plan.tid_of``)
+    in place of the arcs."""
     nf = torch.from_numpy(nf_np).to(loglikes.device)
     alpha_end, bps = AB.viterbi_forward_banded(
         plan.W, plan.pdf, plan.alpha0, loglikes.contiguous(), nf, acoustic_scale,
         plan.offsets, plan.pdf_range)
-    arcs, end_b, ok, score = AB.backtrace_banded(alpha_end, plan.final, bps, nf,
-                                                 plan.offsets, plan.arc_of)
+    arcs, end_b, ok, score = AB.backtrace_banded(alpha_end, plan.final, bps, nf, plan.offsets,
+                                                 plan.tid_of if by_tid else plan.arc_of)
     return arcs, end_b, ok, score
 
 
@@ -71,6 +80,27 @@ def _read_back(found: tuple) -> tuple:
     return tuple(profiling.to_host(x, name).numpy()
                  for x, name in zip(found, ("align_arcs", "align_end", "align_ok",
                                             "align_score")))
+
+
+def _read_pinned(x: torch.Tensor, name: str) -> np.ndarray:
+    """``x`` on the host as numpy, a recorded read (``sync.<name>``); from
+    CUDA through page-locked memory, in one copy."""
+    if x.device.type != "cuda":
+        return profiling.to_host(x, name).numpy()
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    with profiling.host_wait(name, x.numel() * x.element_size()):
+        out.copy_(x)
+    return out.numpy()
+
+
+def padded_tids(graphs: list) -> np.ndarray:
+    """[B, A] int32: each graph's arc transition ids, 0 past its arcs
+    (``pad_graphs``'s ``arc_tid``)."""
+    n = np.asarray([g.num_arcs for g in graphs], np.int64)
+    out = np.zeros((len(graphs), int(n.max(initial=0))), np.int32)
+    out[np.arange(out.shape[1]) < n[:, None]] = np.concatenate(
+        [np.asarray(g.arc_tid, np.int32) for g in graphs] or [np.zeros(0, np.int32)])
+    return out
 
 
 def _assemble(graphs: list, host: tuple, nf_np: np.ndarray,
@@ -112,6 +142,7 @@ class AlignmentSet:
         self.graphs = graphs
         self.device = resolve_device(device)
         self._generic_dev = None
+        self._tid_dev = None
         self._band = _UNSET
         self._band_dev = None
         self.band_refusal: str | None = None  # why build_band_plan refused the set
@@ -139,9 +170,11 @@ class AlignmentSet:
 
     @property
     def band_dev(self) -> AB.BandPlanDev | None:
-        """The band plan on the device, moved there once."""
+        """The band plan on the device, moved there once, with its
+        transition-id table (``tid_of``)."""
         if self._band_dev is None and self.band is not None:
-            self._band_dev = AB.plan_to_device(self.band, self.device)
+            self._band_dev = AB.plan_to_device(self.band, self.device,
+                                               arc_tid=padded_tids(self.graphs))
         return self._band_dev
 
     @property
@@ -151,6 +184,15 @@ class AlignmentSet:
         if self._generic_dev is None:
             self._generic_dev = V.generic_plan_to_device(self.graphs, self.device)
         return self._generic_dev
+
+    @property
+    def tid_dev(self) -> torch.Tensor:
+        """[B, A] int32: the graphs' arc transition ids on the device
+        (``padded_tids``), moved there once; the generic aligner's arcs
+        are mapped through it."""
+        if self._tid_dev is None:
+            self._tid_dev = torch.from_numpy(padded_tids(self.graphs)).to(self.device)
+        return self._tid_dev
 
     @classmethod
     def from_fsts(cls, fsts: list[Fst], trans_model: TransitionModel, *,
@@ -178,16 +220,14 @@ class AlignmentSet:
         per_utt = t * (4 * (num_pdfs + dim) + 9 * s_pad)
         return max(1, free_bytes(self.device) // (4 * max(per_utt, 1)))
 
-    def align_feats(self, params: GmmParams, feats, num_frames,
-                    acoustic_scale: float = 1.0, beam: float = 1e9):
-        """Alignment from features: loglikes per sub-batch through K2, then
-        the banded (K4) or generic aligner.  ``params`` is a packed GMM
-        (``ops/gmm_kernels.pack_gmm``) on the alignment device; feats
-        [B, T, D] (tensor or array).  Sub-batches take the utterances in
-        order of decreasing length."""
-        b_total = len(self.graphs)
-        if b_total == 0:
-            return []
+    def _searches(self, params: GmmParams, feats, num_frames, acoustic_scale: float,
+                  beam: float, by_tid: bool):
+        """The sub-batch loop of ``align_feats`` and ``align_feats_to_tids``:
+        loglikes through K2, then the banded (K4) or generic aligner, the
+        utterances in order of decreasing length.  Yields, a sub-batch,
+        (idx, frame counts, (ids [T, B_c], end state, ok, score) on the
+        device, the band plan's ``n2o`` or None); the ids are arc ids, or
+        with ``by_tid`` transition ids (-1 where none in both)."""
         with profiling.span("align.prepare"):
             feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
             num_frames = np.asarray(num_frames, np.int32)
@@ -198,30 +238,94 @@ class AlignmentSet:
             b_chunk = self._batch_chunk(int(num_frames.max()), params.num_pdfs,
                                         feats.shape[2], s_max + 1)
             order = np.argsort(-num_frames, kind="stable")
-            results: list = [None] * b_total
-        for lo in range(0, b_total, b_chunk):
+        for lo in range(0, len(self.graphs), b_chunk):
             idx = order[lo: lo + b_chunk]
             nf_c = num_frames[idx]
             profiling.count("align.sub_batches")
             profiling.count("align.utterances", len(idx))
             with profiling.span("align.loglikes"):
                 t_c = max(1, int(nf_c.max()))
-                ll = gmm_kernel.loglikes_batch(
-                    feats[torch.from_numpy(idx).to(self.device), :t_c].contiguous(), w)
+                i_dev = torch.from_numpy(idx).to(self.device)
+                ll = gmm_kernel.loglikes_batch(feats[i_dev, :t_c].contiguous(), w)
             with profiling.span("align.search"):
                 if band is not None:
                     sub = self.band_dev.take(idx)
-                    found = _banded_search(sub, ll, nf_c, acoustic_scale)
+                    found = _banded_search(sub, ll, nf_c, acoustic_scale, by_tid)
                 else:
+                    sub = None
                     found = _generic_search(plan.take(idx), ll, nf_c, acoustic_scale, beam)
+                    if by_tid:
+                        arcs = found[0]
+                        tid = torch.gather(self.tid_dev[i_dev], 1, arcs.t().clamp(min=0).long())
+                        found = (torch.where(arcs >= 0, tid.t(), -1),) + found[1:]
+            yield idx, nf_c, found, None if sub is None else sub.n2o
+
+    def align_feats(self, params: GmmParams, feats, num_frames,
+                    acoustic_scale: float = 1.0, beam: float = 1e9):
+        """Alignment from features: loglikes per sub-batch through K2, then
+        the banded (K4) or generic aligner, assembled per utterance (as
+        ``align``).  ``params`` is a packed GMM (``ops/gmm_kernels.pack_gmm``)
+        on the alignment device; feats [B, T, D] (tensor or array).
+        Sub-batches take the utterances in order of decreasing length."""
+        results: list = [None] * len(self.graphs)
+        if not self.graphs:
+            return results
+        for idx, nf_c, found, n2o in self._searches(params, feats, num_frames, acoustic_scale,
+                                                    beam, by_tid=False):
             with profiling.span("align.to_host"):
                 host = _read_back(found)
             with profiling.span("align.assemble"):
-                chunk_res = _assemble([self.graphs[i] for i in idx], host, nf_c,
-                                      sub.n2o if band is not None else None)
+                chunk_res = _assemble([self.graphs[i] for i in idx], host, nf_c, n2o)
                 for j, i in enumerate(idx):
                     results[int(i)] = chunk_res[j]
         return results
+
+    def align_feats_to_tids(self, params: GmmParams, feats, num_frames, tids: np.ndarray,
+                            weights: np.ndarray, stage: str, names: list | None = None,
+                            acoustic_scale: float = 1.0, beam: float = 1e9,
+                            max_fail_frac: float = 0.5) -> int:
+        """``align_feats`` followed by ``apply_alignments``, with the
+        transition ids written on the device: ``tids`` and ``weights``
+        [B, T] are filled in place with the values those two give (each
+        aligned utterance's ids and weight 1 on its frames, zeros elsewhere
+        and for a failed utterance), from one ``[B_c, T_c]`` block and the
+        ok flags read back a sub-batch.  Failures are accounted as
+        ``apply_alignments`` accounts them; returns their number."""
+        failed: list = []
+        frame = np.arange(weights.shape[1])
+        searches = (self._searches(params, feats, num_frames, acoustic_scale, beam, by_tid=True)
+                    if self.graphs else ())
+        for idx, nf_c, (ids, _end, ok, _score), _n2o in searches:
+            profiling.count("align.tid_blocks")
+            with profiling.span("align.to_host"):
+                # the device turns the [T, B_c] ids into rows, zeros where no id
+                block = _read_pinned(torch.where(ok[:, None], ids.t(), 0).clamp_(min=0),
+                                     "align_tids")
+                good = _read_pinned(ok, "align_ok") & (nf_c > 0)
+            with profiling.span("align.assemble"):
+                t_c = block.shape[1]
+                tids[idx, :t_c] = block
+                tids[idx, t_c:] = 0
+                weights[idx] = (frame < nf_c[:, None]) & good[:, None]
+            failed.append(idx[~good])
+        with profiling.span("align.apply"):
+            return _account_failures(np.sort(np.concatenate(failed or [np.zeros(0, int)])),
+                                     len(self.graphs), stage, names, max_fail_frac)
+
+
+def _account_failures(failed, total: int, stage: str, names: list | None,
+                      max_fail_frac: float) -> int:
+    """Each failed utterance (indices ascending) logged by name, a systemic
+    failure (> max_fail_frac) aborted (``utils/health.py``), the counter
+    ``align.failed``; returns the number of failures."""
+    from ..utils.health import FailureTracker
+
+    tracker = FailureTracker(stage, total=total)
+    for i in failed:
+        tracker.record(names[i] if names else f"utt[{i}]", "no path through training graph")
+    tracker.finish(max_fail_frac)
+    profiling.count("align.failed", tracker.num_failed)
+    return tracker.num_failed
 
 
 def apply_alignments(results: list, tids: np.ndarray, weights: np.ndarray,
@@ -231,21 +335,16 @@ def apply_alignments(results: list, tids: np.ndarray, weights: np.ndarray,
     failed utterances; failures are logged per utterance and a systemic
     failure (> max_fail_frac) aborts (``utils/health.py``).  Returns the
     number of failures."""
-    from ..utils.health import FailureTracker
-
-    tracker = FailureTracker(stage, total=len(results))
     tids[:] = 0
     weights[:] = 0.0
+    failed = []
     for i, r in enumerate(results):
         if r["tids"]:
             tids[i, : num_frames[i]] = r["tids"]
             weights[i, : num_frames[i]] = 1.0
         else:
-            tracker.record(names[i] if names else f"utt[{i}]",
-                           "no path through training graph")
-    tracker.finish(max_fail_frac)
-    profiling.count("align.failed", tracker.num_failed)
-    return tracker.num_failed
+            failed.append(i)
+    return _account_failures(failed, len(results), stage, names, max_fail_frac)
 
 
 def equal_align(graph: V.DenseGraph, num_frames: int, seed: int = 0):

@@ -8,7 +8,7 @@ Port of ``voicebridge_tpu/steps/train_mono.py`` (the reference's
 
 Features stay on ``device`` for the whole run.  Realignment runs K2
 (emissions) and K4 (banded Viterbi and backtrace) through
-``AlignmentSet.align_feats``; the E-step runs K6 through
+``AlignmentSet.align_feats_to_tids``; the E-step runs K6 through
 ``acc_gmm_stats_chunked``.  Graph compilation, the equal alignment, the
 M-step and mixup are the JAX package's host numpy code, shared by import
 (``TrainingGraphCompiler``, ``AmDiagGmm``, ``TransitionModel``) or copied
@@ -34,7 +34,7 @@ from ..utils.logging import get_logger
 
 from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernels as K
-from .align import AlignmentSet, apply_alignments, equal_align
+from .align import AlignmentSet, equal_align
 
 log = get_logger()
 
@@ -160,10 +160,9 @@ def train_mono(feats_by_utt: dict, transcripts: dict[str, list[int]], lang: Lang
                         if opts.boost_silence != 1.0 else am)
             # exact Viterbi (no pruning): the reference's beam/retry_beam
             # only bounds token-passing cost on a CPU
-            results = aset.align_feats(K.pack_gmm(align_am, device), feats, num_frames,
-                                       acoustic_scale=opts.acoustic_scale, beam=1e9)
-            apply_alignments(results, tids, weights, num_frames, "train_mono realign",
-                             names=utts)
+            aset.align_feats_to_tids(K.pack_gmm(align_am, device), feats, num_frames, tids,
+                                     weights, "train_mono realign", utts,
+                                     acoustic_scale=opts.acoustic_scale, beam=1e9)
 
         occ, macc, vacc, tstats, ll = accumulate()
         if it <= opts.max_iter_inc:

@@ -10,7 +10,8 @@ Features stay on ``device`` for the whole run; the tree statistics take
 them to the host once, as float32 arrays.  Realignment runs K2 and K4 (or
 the generic aligner's kernels where ``build_band_plan`` refuses the
 triphone graphs; which one goes to the log) through
-``AlignmentSet.align_feats``; the E-step runs K6 through
+``AlignmentSet.align_feats_to_tids``, which writes the frames' transition
+ids on the device and scatters them into ``tids``/``weights``; the E-step runs K6 through
 ``acc_gmm_stats_chunked`` and the transition statistics on the device.  The
 tree, the M-step and mixup are host numpy, in the JAX package's order and
 with its seeds, so the same inputs give the same model.
@@ -34,7 +35,7 @@ from ..utils.logging import get_logger
 from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernels as K
 from ..utils import profiling
-from .align import AlignmentSet, apply_alignments
+from .align import AlignmentSet
 from .train_mono import TrainedModel, _batchify, save_model
 
 log = get_logger()
@@ -120,10 +121,8 @@ def realign(aset: AlignmentSet, am: AmDiagGmm, feats: torch.Tensor, num_frames,
             align_am = (am.boost_silence(silence_pdfs, opts.boost_silence)
                         if opts.boost_silence != 1.0 else am)
             params = K.pack_gmm(align_am, aset.device)
-        results = aset.align_feats(params, feats, num_frames, acoustic_scale=opts.acoustic_scale)
-        with profiling.span("align.apply"):
-            apply_alignments(results, tids, weights, num_frames, stage, names=names)
-            del results  # freeing the per-utterance lists takes host time of its own
+        aset.align_feats_to_tids(params, feats, num_frames, tids, weights, stage, names,
+                                 acoustic_scale=opts.acoustic_scale)
 
 
 @ieee_fp32_entry
