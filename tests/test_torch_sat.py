@@ -79,6 +79,35 @@ def _assert_stats_close(got, want):
         np.testing.assert_allclose(g.numpy(), wnt, rtol=1e-4, atol=1e-6 * np.abs(wnt).max())
 
 
+@pytest.mark.parametrize("dim,warp", [(13, 0.05), (40, 0.3), (40, 1.5)])
+def test_native_row_update_is_the_numpy_solve(dim, warp):
+    """``estimate_fmllr_rows`` (the sweeps in native code, A's inverse and
+    determinant carried through a sweep by Sherman-Morrison) gives
+    ``estimate_fmllr_batch``'s transforms and improvements to rounding: both
+    solve in float64 (transforms atol 1e-6, improvements rtol 1e-9), from
+    speakers near and far from the identity; a speaker below ``min_count``
+    and a batch of none keep the identity."""
+    rng = np.random.default_rng(dim)
+    s, n = 4, 3000
+    x = np.concatenate([rng.standard_normal((s, n, dim)), np.ones((s, n, 1))], axis=2)
+    scale = rng.uniform(0.5, 2.0, (s, dim, 1, 1))
+    g = np.einsum("snf,sne->sfe", x, x)[:, None] * scale
+    w0 = np.concatenate([np.eye(dim) + warp * rng.standard_normal((s, dim, dim)) / np.sqrt(dim),
+                         rng.standard_normal((s, dim, 1))], axis=2)
+    k = np.einsum("sdj,sdij->sdi", w0, g)
+    beta = np.asarray([n, n, 100.0, n])
+    got, got_imprs = F.estimate_fmllr_rows(beta, k, g)
+    want, want_imprs = F.estimate_fmllr_batch(beta, k, g)
+    assert got.dtype == np.float32 and got.shape == (s, dim, dim + 1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got_imprs, want_imprs, rtol=1e-9)
+    np.testing.assert_array_equal(got[2], np.eye(dim, dim + 1, dtype=np.float32))
+    assert got_imprs[2] == 0.0 and min(got_imprs[:2]) > 0
+    assert np.abs(got[0, :, :dim] - np.eye(dim)).max() > 0.01
+    none, none_imprs = F.estimate_fmllr_rows(beta[:0], k[:0], g[:0])
+    assert none.shape == (0, dim, dim + 1) and none_imprs == []
+
+
 @pytest.mark.parametrize("chunk", [None, 512])  # one chunk; chunks summed in float64
 def test_acc_fmllr_stats_matches_jax(chunk):
     jam, x, ids, w, spk = _fmllr_inputs()

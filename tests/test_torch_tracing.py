@@ -199,3 +199,52 @@ def test_stage_timer_stages_are_spans():
     assert (stage.name, inside.name, inside.parent) == ("mfcc", "inside", stage.id)
     report = timer.report()
     assert report["mfcc"]["calls"] == 1 and report["mfcc"]["audio_s"] == 4.0
+
+
+FMLLR_CHILDREN = {"fmllr.si_lattices", "fmllr.posteriors", "fmllr.stats", "fmllr.solve",
+                  "fmllr.apply", "fmllr.adapted_lattices", "fmllr.rescore", "fmllr.determinize",
+                  "sync.frame_counts"}
+
+
+def test_decode_fmllr_spans_and_counters(monkeypatch):
+    """``FmllrDecoder.decode`` of 2 speakers' 8 utterances: the ``fmllr.*``
+    spans are the children of one root ``decode_fmllr`` and cover it, two
+    ``fmllr.posteriors``, ``fmllr.stats``, ``fmllr.solve`` and
+    ``fmllr.apply``, the lattice passes' ``decode_lattice`` inside theirs,
+    and the counters hold the call's speakers, posterior entries,
+    determinized states and halvings (each determinization here made to
+    report two)."""
+    from test_torch_sat_reference import OPTS, one_thread, sat_inputs
+
+    from voicebridge_tpu_torch.steps import decode_fmllr as DF
+
+    real = DF.determinize_lattices
+
+    def halved_twice(*args, **kwargs):
+        return [(clat, halved + 2) for clat, halved in real(*args, **kwargs)]
+
+    monkeypatch.setattr(DF, "determinize_lattices", halved_twice)
+    c = sat_inputs(seed=5)
+    with one_thread():
+        dec = DF.FmllrDecoder(c.dense, c.tm, c.am, c.alimdl, c.lang, OPTS, device="cpu")
+        with P.recording():
+            results, trans = dec.decode(c.utts, c.feats, c.nf, c.utt2spk)
+        sess = P.session()
+    names = _by_name(sess)
+    (root,) = names["decode_fmllr"]
+    assert root.parent is None and len(results) == len(c.utts)
+    kids = _children(sess, root)
+    assert {k.name for k in kids} == FMLLR_CHILDREN
+    assert [k.name for k in kids].count("fmllr.posteriors") == 2
+    for name in ("fmllr.stats", "fmllr.solve", "fmllr.apply"):
+        assert len(names[name]) == 2 and all(s.parent == root.id for s in names[name])
+    for name in ("fmllr.si_lattices", "fmllr.adapted_lattices"):
+        (outer,) = names[name]
+        assert [k.name for k in _children(sess, outer)] == ["decode_lattice"]
+    assert all(s.root == root.id for s in sess.spans)
+    assert sum(k.end_ns - k.start_ns for k in kids) >= 0.95 * (root.end_ns - root.start_ns)
+    assert sess.counters["fmllr.speakers"] == 2
+    assert sess.counters["fmllr.det_retries"] == 2 * len(c.utts)
+    assert sess.counters["fmllr.det_states"] >= len(c.utts)
+    assert 0 < sess.counters["fmllr.post_entries"] <= 2 * DF.K_POST * c.nf.sum()
+    assert trans.shape == (2, 40, 41)

@@ -1,7 +1,10 @@
 """True pruned lattice determinization (CompactLattice construction).
 
-Copied as numpy from ``voicebridge_tpu/lat/determinize.py`` (``lattice_mbr``
-determinizes before it builds the confusion network).
+The JAX package's ``voicebridge_tpu/lat/determinize.py`` (``lattice_mbr``
+determinizes before it builds the confusion network), its subset
+construction in native code (``csrc/lat_determinize.cpp``, built with
+``g++`` at first use) that gives the same determinized lattices; the
+``CompactLattice`` walks (best path, N best) stay numpy.
 
 The role of the reference's ``DeterminizeLatticePruned``
 (``kaldi-master/src/lat/determinize-lattice-pruned.h:112-145``,
@@ -32,14 +35,15 @@ the caller can retry with a halved beam when ``max_states`` overflows
 
 from __future__ import annotations
 
+import ctypes
 import heapq
-from dataclasses import dataclass, field
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 
+from ..ops.graph import NEG_INF
 from .lattice import Lattice
-
-_QUANT = 1e-3  # residual-cost quantization for det-state merging (delta)
 
 
 class DetStateLimitError(RuntimeError):
@@ -216,99 +220,128 @@ def _backward_best(clat: CompactLattice, cost: np.ndarray, lm_scale, acwt):
 
 
 # ---------------------------------------------------------------------------
-# NFA construction from a frame-synchronous Lattice
+# Subset construction (native, ``csrc/lat_determinize.cpp``)
 # ---------------------------------------------------------------------------
 
-
-class _Nfa:
-    """Word-label NFA with (graph, acoustic, tids) weights, single final."""
-
-    __slots__ = ("narcs", "order", "num_states", "final")
-
-    def __init__(self):
-        self.narcs: list[list] = [[]]  # per state: (dst, word|-1, gc, ac, tids)
-        self.order: list[int] = [0]  # topological rank per state
-        self.final = -1
-
-    def add_state(self, rank: int) -> int:
-        self.narcs.append([])
-        self.order.append(rank)
-        return len(self.narcs) - 1
-
-    def add_arc(self, src, dst, word, gc, ac, tids=()):
-        self.narcs[src].append((dst, word, float(gc), float(ac), tuple(tids)))
-
-    def add_word_seq(self, src, dst, words, gc, ac, tids, rank):
-        """Arc with 0..k words -> chain of single-word arcs (cost/tids on the
-        first arc)."""
-        if len(words) == 0:
-            self.add_arc(src, dst, -1, gc, ac, tids)
-            return
-        cur = src
-        for i, w in enumerate(words):
-            nxt = dst if i == len(words) - 1 else self.add_state(rank)
-            if i == 0:
-                self.add_arc(cur, nxt, int(w), gc, ac, tids)
-            else:
-                self.add_arc(cur, nxt, int(w), 0.0, 0.0, ())
-            cur = nxt
+_LIB = None
 
 
-def _build_nfa(lat: Lattice) -> _Nfa:
+def native_library() -> ctypes.CDLL:
+    """The native determinization (``csrc/lat_determinize.cpp``), built at
+    first use."""
+    global _LIB
+    if _LIB is None:
+        from .._build import CSRC, build_host_library
+
+        lib = ctypes.CDLL(str(build_host_library(CSRC / "lat_determinize.cpp",
+                                                 "libvbt_latdet")))
+        i32, i64, f64 = (ctypes.POINTER(t) for t in (ctypes.c_int32, ctypes.c_int64,
+                                                      ctypes.c_double))
+        lib.vb_det_run.restype = ctypes.c_int
+        lib.vb_det_run.argtypes = [ctypes.c_int64, i32, f64, i32, ctypes.c_int32, i64, i32,
+                                   i32, f64, f64, i32, i32, i64, i32, ctypes.c_int64, i32,
+                                   f64, i32, ctypes.c_double, ctypes.c_double,
+                                   ctypes.c_double, ctypes.c_int64,
+                                   ctypes.POINTER(ctypes.c_void_p)]
+        lib.vb_det_sizes.restype = None
+        lib.vb_det_sizes.argtypes = [ctypes.c_void_p, i64]
+        lib.vb_det_fetch.restype = None
+        lib.vb_det_fetch.argtypes = [ctypes.c_void_p, i32, i32, i32, f64, f64, i64, i32, i32,
+                                     f64, f64, i64, i32]
+        lib.vb_det_free.restype = None
+        lib.vb_det_free.argtypes = [ctypes.c_void_p]
+        _LIB = lib
+    return _LIB
+
+
+def _nfa_inputs(lat: Lattice) -> list:
+    """The lattice as the native code builds its NFA from it: the start
+    entries, the arcs frame by frame, the word sequences they output (those
+    used, renumbered) and the graph states at the last frame with their
+    final costs and words (-1: none)."""
     g = lat.graph
-    nfa = _Nfa()  # state 0 = superstart, rank 0
-    state_of: dict[tuple, int] = {}
-
-    def get_state(t: int, s: int) -> int:
-        key = (t, s)
-        q = state_of.get(key)
-        if q is None:
-            q = nfa.add_state(2 + 2 * t)
-            state_of[key] = q
-        return q
-
-    for s0, c0, o0 in zip(*lat.start_entries()):
-        q = get_state(0, int(s0))
-        nfa.add_word_seq(0, q, g.oseqs[int(o0)], float(c0), 0.0, (), 1)
-    bounds = lat._frame_slices()
-    for t in range(lat.nf):
-        for m in range(bounds[t], bounds[t + 1]):
-            sa, da = int(lat.arc_src[m]), int(lat.arc_dst[m])
-            qs = get_state(t, sa)
-            qd = get_state(t + 1, da)
-            nfa.add_word_seq(qs, qd, lat.arc_words(m),
-                             float(lat.graph_cost[m]),
-                             float(lat.acoustic_cost[m]),
-                             (int(lat.arc_tid[m]),), 3 + 2 * t)
-    final = nfa.add_state(2 + 2 * lat.nf + 2)
-    nfa.final = final
-    for (t, s), q in list(state_of.items()):
-        if t != lat.nf:
-            continue
-        fc = lat.final_cost(s)
-        if not np.isfinite(fc):
-            continue
-        fw = tuple(g.oseqs[g.final_oseq[s]]) if lat.use_final else ()
-        nfa.add_word_seq(q, final, fw, fc, 0.0, (), 2 + 2 * lat.nf + 1)
-    return nfa
+    s0, c0, o0 = lat.start_entries()
+    bounds = lat._frame_slices().astype(np.int64)
+    arc_oseq = g.arc_oseq[lat.arc_id]
+    last = (s0 if lat.nf == 0
+            else np.unique(lat.arc_dst[bounds[lat.nf - 1]:bounds[lat.nf]]))
+    if lat.use_final:
+        fs = g.final_score[last]
+        fcost = np.where(fs > NEG_INF / 2, -fs.astype(np.float64), np.inf)
+        fseq = g.final_oseq[last]
+    else:
+        fcost = np.zeros(len(last))
+        fseq = np.zeros(0, np.int64)
+    used = np.unique(np.concatenate([np.asarray(o0, np.int64), arc_oseq.astype(np.int64),
+                                     np.asarray(fseq, np.int64)]))
+    seqs = [g.oseqs[int(o)] for o in used]
+    off = np.concatenate([[0], np.cumsum([len(q) for q in seqs])]).astype(np.int64)
+    words = np.asarray([w for q in seqs for w in q], np.int32)
+    fseq = (np.searchsorted(used, fseq) if lat.use_final
+            else np.full(len(last), -1))
+    return [np.ascontiguousarray(x, dt) for x, dt in (
+        (s0, np.int32), (c0, np.float64), (np.searchsorted(used, o0), np.int32),
+        (bounds, np.int64), (lat.arc_src, np.int32), (lat.arc_dst, np.int32),
+        (lat.graph_cost, np.float64), (lat.acoustic_cost, np.float64),
+        (lat.arc_tid, np.int32), (np.searchsorted(used, arc_oseq), np.int32),
+        (off, np.int64), (words, np.int32), (last, np.int32), (fcost, np.float64),
+        (fseq, np.int32))]
 
 
-def _beta(nfa: _Nfa, lm_scale: float, acwt: float) -> np.ndarray:
-    """Exact best completion cost to the final state, per NFA state."""
-    n = len(nfa.narcs)
-    beta = np.full(n, np.inf)
-    beta[nfa.final] = 0.0
-    for q in sorted(range(n), key=lambda i: -nfa.order[i]):
-        for (d, _w, gc, ac, _t) in nfa.narcs[q]:
-            c = gc * lm_scale + ac * acwt + beta[d]
-            if c < beta[q]:
-                beta[q] = c
-    return beta
+def _ptr(x: np.ndarray):
+    ctype = {np.dtype(np.int32): ctypes.c_int32, np.dtype(np.int64): ctypes.c_int64,
+             np.dtype(np.float64): ctypes.c_double}[x.dtype]
+    return x.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-# ---------------------------------------------------------------------------
-# Subset construction
-# ---------------------------------------------------------------------------
+def _run(inputs: list, nf: int, beam: float, lm_scale: float, acoustic_scale: float,
+         max_states: int) -> tuple:
+    """The native construction over a lattice's ``_nfa_inputs`` -> (its
+    return code, the result's handle).  It touches no Python object, so
+    that threads may run it side by side (ctypes releases the GIL)."""
+    (s0, c0, o0, bounds, src, dst, gc, ac, tid, oseq, off, words, last, fcost,
+     fseq) = inputs
+    handle = ctypes.c_void_p()
+    rc = native_library().vb_det_run(
+        len(s0), _ptr(s0), _ptr(c0), _ptr(o0), nf, _ptr(bounds), _ptr(src), _ptr(dst),
+        _ptr(gc), _ptr(ac), _ptr(tid), _ptr(oseq), _ptr(off), _ptr(words), len(last),
+        _ptr(last), _ptr(fcost), _ptr(fseq), float(beam), float(lm_scale),
+        float(acoustic_scale), int(max_states), ctypes.byref(handle))
+    return rc, handle
+
+
+def _collect(rc: int, handle, beam: float, max_states: int) -> CompactLattice:
+    """A construction's result as a ``CompactLattice`` (its handle freed);
+    raises :class:`DetStateLimitError` for one past ``max_states``."""
+    if rc == 1:
+        raise DetStateLimitError(f"determinization exceeded {max_states} states "
+                                 f"(beam {beam})")
+    if rc == 2:
+        return CompactLattice(1, np.zeros(0, np.int32), np.zeros(0, np.int32),
+                              np.zeros(0, np.int32), np.zeros(0, np.float32),
+                              np.zeros(0, np.float32), [], {})
+    lib = native_library()
+    try:
+        sizes = np.zeros(5, np.int64)
+        lib.vb_det_sizes(handle, _ptr(sizes))
+        n_states, n_arcs, n_tids, n_fin, n_fin_tids = (int(x) for x in sizes)
+        out = [np.zeros(n, dt) for n, dt in (
+            (n_arcs, np.int32), (n_arcs, np.int32), (n_arcs, np.int32), (n_arcs, np.float64),
+            (n_arcs, np.float64), (n_arcs + 1, np.int64), (n_tids, np.int32),
+            (n_fin, np.int32), (n_fin, np.float64), (n_fin, np.float64), (n_fin + 1, np.int64),
+            (n_fin_tids, np.int32))]
+        lib.vb_det_fetch(handle, *[_ptr(x) for x in out])
+    finally:
+        lib.vb_det_free(handle)
+    a_src, a_dst, a_word, a_gc, a_ac, t_off, tids, f_state, f_gc, f_ac, f_off, f_tids = out
+    tids, f_tids, t_off, f_off = tids.tolist(), f_tids.tolist(), t_off.tolist(), f_off.tolist()
+    return CompactLattice(
+        num_states=n_states, arc_src=a_src, arc_dst=a_dst, arc_word=a_word,
+        arc_graph_cost=a_gc.astype(np.float32), arc_acoustic_cost=a_ac.astype(np.float32),
+        arc_tids=[tuple(tids[t_off[k]:t_off[k + 1]]) for k in range(n_arcs)],
+        finals={s: (g, a, tuple(f_tids[f_off[i]:f_off[i + 1]]))
+                for i, (s, g, a) in enumerate(zip(f_state.tolist(), f_gc.tolist(),
+                                                   f_ac.tolist()))})
 
 
 def determinize_lattice_pruned(lat: Lattice, beam: float = 6.0,
@@ -316,138 +349,15 @@ def determinize_lattice_pruned(lat: Lattice, beam: float = 6.0,
                                acoustic_scale: float = 1.0,
                                max_states: int = 200_000) -> CompactLattice:
     """Determinize ``lat`` (pruned to ``beam`` around the best path at the
-    given scales).  Raises :class:`DetStateLimitError` past ``max_states``."""
-    nfa = _build_nfa(lat)
-    beta = _beta(nfa, lm_scale, acoustic_scale)
-    if not np.isfinite(beta[0]):
-        return CompactLattice(1, np.zeros(0, np.int32), np.zeros(0, np.int32),
-                              np.zeros(0, np.int32), np.zeros(0, np.float32),
-                              np.zeros(0, np.float32), [], {})
-    best_total = float(beta[0])
-    limit = best_total + beam
+    given scales).  Raises :class:`DetStateLimitError` past ``max_states``.
 
-    def total(gc, ac):
-        return gc * lm_scale + ac * acoustic_scale
-
-    def closure(elems: dict, base_fwd: float) -> dict:
-        """Epsilon-close {q: (gc, ac, tids)} keeping the min-total element
-        per state; prune elements outside the beam."""
-        heap = [(nfa.order[q], q) for q in elems]
-        heapq.heapify(heap)
-        inq = set(elems)
-        while heap:
-            _, q = heapq.heappop(heap)
-            inq.discard(q)
-            gc, ac, tids = elems[q]
-            for (d, w, agc, aac, atids) in nfa.narcs[q]:
-                if w != -1:
-                    continue
-                ngc, nac = gc + agc, ac + aac
-                if base_fwd + total(ngc, nac) + beta[d] > limit:
-                    continue
-                old = elems.get(d)
-                if old is None or total(ngc, nac) < total(old[0], old[1]) - 1e-9:
-                    elems[d] = (ngc, nac, tids + atids)
-                    if d not in inq:
-                        heapq.heappush(heap, (nfa.order[d], d))
-                        inq.add(d)
-        return {q: v for q, v in elems.items()
-                if base_fwd + total(v[0], v[1]) + beta[q] <= limit}
-
-    def normalize(elems: dict):
-        """Divide out (min-total cost pair, longest common tid prefix).
-        Returns (base_gc, base_ac, prefix, residual dict, canonical key)."""
-        qmin = min(elems, key=lambda q: (total(elems[q][0], elems[q][1]),
-                                         elems[q][2]))
-        bg, ba, _ = elems[qmin]
-        strs = [v[2] for v in elems.values()]
-        prefix = strs[0]
-        for s in strs[1:]:
-            k = 0
-            m = min(len(prefix), len(s))
-            while k < m and prefix[k] == s[k]:
-                k += 1
-            prefix = prefix[:k]
-            if not prefix:
-                break
-        p = len(prefix)
-        res = {q: (gc - bg, ac - ba, tids[p:])
-               for q, (gc, ac, tids) in elems.items()}
-        key = frozenset(
-            (q, round(total(gc, ac) / _QUANT), tids)
-            for q, (gc, ac, tids) in res.items())
-        return bg, ba, prefix, res, key
-
-    # det-state bookkeeping
-    det_key2id: dict = {}
-    det_elems: list[dict] = []
-    det_fwd: list[float] = []
-    arcs_src, arcs_dst, arcs_word = [], [], []
-    arcs_gc, arcs_ac, arcs_tids = [], [], []
-    finals: dict = {}
-
-    start_elems = closure({0: (0.0, 0.0, ())}, 0.0)
-    # start state: no incoming arc to carry the divisor, so keep it
-    # un-normalized (cost divisor 0) — matches the reference's initial subset
-    skey = frozenset((q, round(total(gc, ac) / _QUANT), tids)
-                     for q, (gc, ac, tids) in start_elems.items())
-    det_key2id[skey] = 0
-    det_elems.append(start_elems)
-    det_fwd.append(0.0)
-    queue = [0]
-    while queue:
-        sid = queue.pop()
-        elems = det_elems[sid]
-        fwd = det_fwd[sid]
-        # final?
-        if nfa.final in elems:
-            gc, ac, tids = elems[nfa.final]
-            finals[sid] = (gc, ac, tids)
-        # group word arcs
-        by_word: dict[int, dict] = {}
-        for q, (gc, ac, tids) in elems.items():
-            for (d, w, agc, aac, atids) in nfa.narcs[q]:
-                if w == -1:
-                    continue
-                ngc, nac = gc + agc, ac + aac
-                if fwd + total(ngc, nac) + beta[d] > limit:
-                    continue
-                tgt = by_word.setdefault(w, {})
-                old = tgt.get(d)
-                if old is None or total(ngc, nac) < total(old[0], old[1]) - 1e-9:
-                    tgt[d] = (ngc, nac, tids + atids)
-        for w in sorted(by_word):
-            elems2 = closure(by_word[w], fwd)
-            if not elems2:
-                continue
-            bg, ba, prefix, res, key = normalize(elems2)
-            nid = det_key2id.get(key)
-            if nid is None:
-                if len(det_elems) >= max_states:
-                    raise DetStateLimitError(
-                        f"determinization exceeded {max_states} states "
-                        f"(beam {beam})")
-                nid = len(det_elems)
-                det_key2id[key] = nid
-                det_elems.append(res)
-                det_fwd.append(fwd + total(bg, ba))
-                queue.append(nid)
-            arcs_src.append(sid)
-            arcs_dst.append(nid)
-            arcs_word.append(w)
-            arcs_gc.append(bg)
-            arcs_ac.append(ba)
-            arcs_tids.append(prefix)
-
-    return CompactLattice(
-        num_states=len(det_elems),
-        arc_src=np.asarray(arcs_src, np.int32),
-        arc_dst=np.asarray(arcs_dst, np.int32),
-        arc_word=np.asarray(arcs_word, np.int32),
-        arc_graph_cost=np.asarray(arcs_gc, np.float32),
-        arc_acoustic_cost=np.asarray(arcs_ac, np.float32),
-        arc_tids=arcs_tids,
-        finals=finals)
+    The construction of the module's docstring, in native code: the
+    lattice's NFA (a state per (frame, graph state), word arcs chained one
+    word an arc), exact best-completion costs on it, and the subsets built
+    from the start's closure, the JAX package's ``determinize_lattice_pruned``
+    step for step (``tests/test_torch_lat_determinize.py``)."""
+    rc, handle = _run(_nfa_inputs(lat), lat.nf, beam, lm_scale, acoustic_scale, max_states)
+    return _collect(rc, handle, beam, max_states)
 
 
 def determinize_lattice_pruned_safe(lat: Lattice, beam: float = 6.0,
@@ -458,14 +368,41 @@ def determinize_lattice_pruned_safe(lat: Lattice, beam: float = 6.0,
     """Retry wrapper: halve the beam on state-limit overflow, like the
     reference's ``DeterminizeLatticePhonePrunedWrapper``
     (``determinize-lattice-pruned.cc``)."""
-    b = beam
-    for _ in range(max_retries):
-        try:
-            return determinize_lattice_pruned(
-                lat, beam=b, lm_scale=lm_scale,
-                acoustic_scale=acoustic_scale, max_states=max_states)
-        except DetStateLimitError:
+    return determinize_lattices([lat], beam, lm_scale, acoustic_scale, max_states,
+                                max_retries)[0][0]
+
+
+def determinize_lattices(lats: list, beam: float = 6.0, lm_scale: float = 1.0,
+                         acoustic_scale: float = 1.0, max_states: int = 200_000,
+                         max_retries: int = 3, threads: int = 1) -> list:
+    """``determinize_lattice_pruned_safe`` of each lattice -> [(CompactLattice,
+    the number of times its beam was halved)]: the inputs and the results
+    made in this thread, the native constructions on ``threads`` threads (a
+    Python step on each would queue them for the GIL)."""
+    inputs = [_nfa_inputs(lat) for lat in lats]
+    native_library()  # built (at first use) here, not by racing threads
+    out: list = [None] * len(lats)
+    todo, b = list(range(len(lats))), beam
+    pool = ThreadPoolExecutor(threads) if threads > 1 else None
+    try:
+        for retry in range(max_retries + 1):
+            last = retry == max_retries
+            cap = max_states * 4 if last else max_states
+            runs = (pool.map if pool else map)(
+                lambda i: _run(inputs[i], lats[i].nf, b, lm_scale, acoustic_scale, cap), todo)
+            again = []
+            for i, (rc, handle) in zip(todo, list(runs)):
+                if rc == 1:
+                    again.append(i)
+                else:
+                    out[i] = (_collect(rc, handle, b, cap), retry)
+            todo = again
+            if not todo:
+                break
+            if last:  # past four times the states at the least beam
+                _collect(1, None, b, cap)
             b *= 0.5
-    return determinize_lattice_pruned(
-        lat, beam=b, lm_scale=lm_scale, acoustic_scale=acoustic_scale,
-        max_states=max_states * 4)
+    finally:
+        if pool is not None:
+            pool.shutdown()
+    return out

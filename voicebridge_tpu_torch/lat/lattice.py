@@ -444,6 +444,175 @@ def lattice_to_post(lat: Lattice, acoustic_scale: float = 1.0,
     return arc_post, per_frame
 
 
+def _pairwise_rows(a: np.ndarray) -> np.ndarray:
+    """The sum of each row of ``a [G, n]`` (float64) by numpy's pairwise
+    summation (8 accumulators up to 128 values, halves past that), every
+    row at once."""
+    n = a.shape[1]
+    if n < 8:
+        res = np.zeros(len(a))
+        for i in range(n):
+            res = res + a[:, i]
+        return res
+    if n <= 128:
+        m = n - n % 8
+        r = a[:, :8].copy()
+        for i in range(8, m, 8):
+            r = r + a[:, i:i + 8]
+        res = ((r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3])) + ((r[:, 4] + r[:, 5])
+                                                             + (r[:, 6] + r[:, 7]))
+        for i in range(m, n):
+            res = res + a[:, i]
+        return res
+    h = n // 2
+    h -= h % 8
+    return _pairwise_rows(a[:, :h]) + _pairwise_rows(a[:, h:])
+
+
+_ROW_SUMS: list = []
+
+
+def _row_sums(a: np.ndarray) -> np.ndarray:
+    """``[r.sum() for r in a]``: ``_pairwise_rows`` where it gives numpy's
+    own bits (checked once on drawn rows), else row by row."""
+    if not _ROW_SUMS:
+        probe = np.random.default_rng(0).random((4, 300)) * 1e3
+        same = all((_pairwise_rows(probe[:, :n]) == probe[:, :n].sum(axis=1)).all()
+                   and (_pairwise_rows(probe[:, :n]) == [r[:n].sum() for r in probe]).all()
+                   for n in range(1, 300))
+        _ROW_SUMS.append(_pairwise_rows if same
+                         else (lambda v: np.asarray([r.sum() for r in v], np.float64)))
+    return _ROW_SUMS[0](a)
+
+
+def _segment_sums(x: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """``x[s:s + n].sum()`` of every (start, length), to the last bit,
+    segments of one length at a time."""
+    out = np.zeros(len(starts))
+    for n in np.unique(lens):
+        rows = np.flatnonzero(lens == n)
+        if n:
+            out[rows] = _row_sums(x[starts[rows, None] + np.arange(n)[None, :]])
+    return out
+
+
+def lattice_posts_batch(lats: list, acoustic_scale: float = 1.0, lm_scale: float = 1.0,
+                        min_post: float = 1e-4) -> tuple:
+    """``lattice_to_post``'s per-frame entries of many lattices at once, to
+    the last bit: one log-semiring forward and backward over every
+    lattice's arcs, frame by frame across the batch.
+
+    A lattice's (frame boundary, graph state) pairs are the sweeps' nodes;
+    each keeps its own forward and backward score, so no ``[T, states]``
+    table is built.  Returns (lattice index, frame, tid, pdf, posterior
+    float64) of every entry above ``min_post``, normalized per frame, in
+    ``lattice_to_post``'s order: lattices in order, then frames, then arcs.
+    Lattices without arcs give no entry."""
+    live = [i for i, lat in enumerate(lats) if lat.num_arcs]
+    empty = (np.zeros(0, np.int64),) * 4 + (np.zeros(0),)
+    if not live:
+        return empty
+    inf = np.inf
+    sizes = np.asarray([lats[i].num_arcs for i in live], np.int64)
+    utt = np.repeat(np.arange(len(live), dtype=np.int64), sizes)
+    t = np.concatenate([lats[i].arc_t for i in live]).astype(np.int64)
+    src = np.concatenate([lats[i].arc_src for i in live]).astype(np.int64)
+    dst = np.concatenate([lats[i].arc_dst for i in live]).astype(np.int64)
+    cost = np.concatenate([lats[i].arc_total_cost(lm_scale, acoustic_scale)
+                           .astype(np.float64) for i in live])
+    nf = np.asarray([lats[i].nf for i in live], np.int64)
+    span = int(max(int(nf.max()) + 1, 1))
+    width = int(max(src.max(), dst.max())) + 1
+    # nodes: (lattice, frame boundary, state), numbered in that order
+    key_src = (utt * span + t) * width + src
+    key_dst = (utt * span + t + 1) * width + dst
+    keys, inv = np.unique(np.concatenate([key_src, key_dst]), return_inverse=True)
+    n_arcs = len(t)
+    src_n, dst_n = inv[:n_arcs], inv[n_arcs:]
+    node_state = keys % width
+    alpha = np.full(len(keys), inf)
+    lms = np.float64(lm_scale)
+    for j, i in enumerate(live):
+        s0, c0, _o = lats[i].start_entries()
+        at = np.searchsorted(keys, (j * span) * width + s0.astype(np.int64))
+        alpha[at] = lms * c0
+    # the arcs frame-major (lattices and arcs in order within a frame), so
+    # that a frame's arcs are one slice
+    order = np.argsort(t, kind="stable")
+    bounds = np.searchsorted(t[order], np.arange(span + 1))
+    frames = [slice(bounds[f], bounds[f + 1]) for f in range(span - 1)]
+    src_o, dst_o, cost_o, utt_o = src_n[order], dst_n[order], cost[order], utt[order]
+    dst_sets, src_sets = (_frame_sets(t[order], n, len(keys), span - 1)
+                          for n in (dst_o, src_o))
+    with np.errstate(invalid="ignore"):  # inf - inf where no path reaches an arc
+        alpha_src = np.empty(n_arcs)
+        acc = np.zeros(len(keys))
+        for a, ud in zip(frames, dst_sets):
+            if a.start == a.stop:
+                continue
+            alpha_src[a] = alpha[src_o[a]]
+            cand = alpha_src[a] + cost_o[a]
+            d = dst_o[a]
+            np.minimum.at(alpha, d, cand)
+            m = alpha[d]
+            np.add.at(acc, d, np.exp(-(cand - m)))
+            alpha[ud] = _log_normalized(alpha[ud], acc[ud])
+        # backward from each lattice's last boundary; totals per lattice
+        beta = np.full(len(keys), inf)
+        tot = np.empty(len(live))
+        for j, i in enumerate(live):
+            lat = lats[i]
+            lo, hi = np.searchsorted(keys, [(j * span + lat.nf) * width,
+                                            (j * span + lat.nf + 1) * width])
+            if lat.use_final:
+                fs = lat.graph.final_score[node_state[lo:hi]]
+                beta[lo:hi] = np.where(fs > NEG_INF / 2, -fs.astype(np.float64) * lm_scale, inf)
+            else:
+                beta[lo:hi] = 0.0
+            tot[j] = _log_add_vec(alpha[lo:hi] + beta[lo:hi])
+        post_o = np.empty(n_arcs)
+        acc = np.zeros(len(keys))
+        for a, us in zip(reversed(frames), reversed(src_sets)):
+            if a.start == a.stop:
+                continue
+            s, d, ca = src_o[a], dst_o[a], cost_o[a]
+            through = alpha_src[a] + ca + beta[d]
+            post_o[a] = np.exp(-(through - tot[utt_o[a]]))
+            cand = ca + beta[d]
+            np.minimum.at(beta, s, cand)
+            m = beta[s]
+            ok = np.isfinite(cand)
+            np.add.at(acc, s[ok], np.exp(-(cand[ok] - m[ok])))
+            beta[us] = _log_normalized(beta[us], acc[us])
+    arc_post = np.empty(n_arcs)
+    arc_post[order] = post_o
+    # entries above min_post, normalized per (lattice, frame)
+    keep = np.flatnonzero(arc_post > min_post)  # lattice, then frame, then arc order
+    post = arc_post[keep]
+    group = utt[keep] * span + t[keep]
+    cut = np.flatnonzero(np.diff(group)) + 1
+    starts = np.concatenate([[0], cut]).astype(np.int64)
+    lens = np.diff(np.concatenate([starts, [len(keep)]]))
+    post = post / np.repeat(_segment_sums(post, starts, lens), lens)
+    tid = np.concatenate([lats[i].arc_tid for i in live]).astype(np.int64)[keep]
+    pdf = np.concatenate([lats[i].arc_pdf for i in live]).astype(np.int64)[keep]
+    return np.asarray(live, np.int64)[utt[keep]], t[keep], tid, pdf, post
+
+
+def _frame_sets(t: np.ndarray, node: np.ndarray, num_nodes: int, num_frames: int) -> list:
+    """The distinct nodes (sorted) of each frame's arcs, arcs given by
+    frame ``t`` and node, found in one sort."""
+    keys = np.unique(t * num_nodes + node)
+    cuts = np.searchsorted(keys, np.arange(num_frames + 1) * num_nodes)
+    return [keys[cuts[f]:cuts[f + 1]] - f * num_nodes for f in range(num_frames)]
+
+
+def _log_normalized(best: np.ndarray, acc: np.ndarray) -> np.ndarray:
+    """-log-sum-exp of costs from their minimum ``best`` and the sum
+    ``acc`` of exp(-(cost - best)); inf stays inf."""
+    return np.where(np.isfinite(best), best - np.log(np.maximum(acc, 1e-300)), np.inf)
+
+
 def _log_add_vec(costs: np.ndarray) -> float:
     finite = costs[np.isfinite(costs)]
     if len(finite) == 0:

@@ -18,6 +18,7 @@ exact; ``decode_nbest`` prunes with ``beam`` as the JAX package's does.
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -73,6 +74,24 @@ class Decoder:
         self.gmm_w = convert.kernel_params_from_am(am, self.device)  # [P, M, 2D+1]
         self._lat_plans = None  # (bwd_plan, bwd_dev, row_dst), built at first use
         self._nbest_plan = None  # arcs grouped by destination, built at first use
+
+    def with_model(self, am: AmDiagGmm, opts: DecodeOptions) -> "Decoder":
+        """A decoder over this one's graph and plans (the lattice plans
+        built here first) with another model and options."""
+        self.lattice_plans()
+        dec = copy.copy(self)
+        dec.opts = opts
+        dec.gmm_w = convert.kernel_params_from_am(am, self.device)
+        return dec
+
+    def lattice_plans(self) -> tuple:
+        """(backward plan, its device copy, each row's destination on the
+        device) of the lattice forward-backward, built at first use."""
+        if self._lat_plans is None:
+            _plan, _fwd_dev, bwd_plan, bwd_dev, row_dst = LAT.build_lattice_plans(
+                self.graph, fwd_plan=self.plan, device=self.device)
+            self._lat_plans = (bwd_plan, bwd_dev, torch.from_numpy(row_dst).to(self.device))
+        return self._lat_plans
 
     def _loglikes(self, feats: torch.Tensor) -> torch.Tensor:
         """[B, T, D] -> [B, T, P] acoustic log-likelihoods."""
@@ -132,11 +151,7 @@ class Decoder:
             feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
             num_frames = np.asarray(profiling.to_host(torch.as_tensor(num_frames),
                                                       "frame_counts"))
-            if self._lat_plans is None:
-                _plan, _fwd_dev, bwd_plan, bwd_dev, row_dst = LAT.build_lattice_plans(
-                    self.graph, fwd_plan=self.plan, device=self.device)
-                self._lat_plans = (bwd_plan, bwd_dev, torch.from_numpy(row_dst).to(self.device))
-            bwd_plan, bwd_dev, row_dst = self._lat_plans
+            bwd_plan, bwd_dev, row_dst = self.lattice_plans()
             b_chunk = self._lattice_chunk(feats.shape[1], feats.shape[2])
             out = {}
             for lo in range(0, len(utts), b_chunk):

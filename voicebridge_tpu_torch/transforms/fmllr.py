@@ -21,10 +21,13 @@ spread over ranks (``parallel/``).
 
 Estimation (host numpy, a copy of the JAX package's): iterative row update
 of the affine transform W [D, D+1] maximizing
-beta log|det A| - 0.5 sum_d (w_d G_d w_d^T - 2 w_d K_d)  (FmllrInnerUpdate).
+beta log|det A| - 0.5 sum_d (w_d G_d w_d^T - 2 w_d K_d)  (FmllrInnerUpdate);
+``estimate_fmllr_rows`` makes the same sweeps in native code (the decoder's).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -212,6 +215,16 @@ def estimate_fmllr(beta: float, k: np.ndarray, g: np.ndarray,
     return w[0], imprs[0]
 
 
+def _row_inverses(k: np.ndarray, g: np.ndarray):
+    """(the regularized per-row G inverses ``[S, D, D+1, D+1]``, their
+    products with K ``[S, D, D+1]``) from float64 statistics."""
+    d = k.shape[1]
+    tr = np.einsum("sdii->sd", g) / (d + 1)
+    reg = 1e-5 * np.maximum(tr, 1e-10)[:, :, None, None] * np.eye(d + 1)
+    ginv = np.linalg.inv(g + reg)
+    return ginv, np.einsum("sdef,sdf->sde", ginv, k)
+
+
 def estimate_fmllr_batch(beta: np.ndarray, k: np.ndarray, g: np.ndarray,
                          min_count: float = 500.0, num_iters: int = 20):
     """All speakers at once, vectorized over the speaker axis (the
@@ -230,11 +243,7 @@ def estimate_fmllr_batch(beta: np.ndarray, k: np.ndarray, g: np.ndarray,
     if not active.any():
         return w.astype(np.float32), [0.0] * s_num
 
-    # regularized per-row G inverses: [S, D, D+1, D+1]
-    tr = np.einsum("sdii->sd", g) / (d + 1)
-    reg = 1e-5 * np.maximum(tr, 1e-10)[:, :, None, None] * np.eye(d + 1)
-    ginv = np.linalg.inv(g + reg)
-    gk = np.einsum("sdef,sdf->sde", ginv, k)  # [S, D, D+1]
+    ginv, gk = _row_inverses(k, g)
 
     def objf(ww):
         a = ww[:, :, :d]
@@ -266,6 +275,57 @@ def estimate_fmllr_batch(beta: np.ndarray, k: np.ndarray, g: np.ndarray,
             break
         prev = cur
     imprs = [float((prev[s] - start[s]) / max(beta[s], 1.0)) if active[s] else 0.0
+             for s in range(s_num)]
+    return w.astype(np.float32), imprs
+
+
+_ROWS_LIB = None
+
+
+def _rows_lib():
+    """The native row update (``csrc/fmllr_rows.cpp``), built at first use."""
+    global _ROWS_LIB
+    if _ROWS_LIB is None:
+        from .._build import CSRC, build_host_library
+
+        lib = ctypes.CDLL(str(build_host_library(CSRC / "fmllr_rows.cpp", "libvbt_fmllr")))
+        f64 = ctypes.POINTER(ctypes.c_double)
+        lib.vb_fmllr_rows.restype = ctypes.c_int
+        lib.vb_fmllr_rows.argtypes = [ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, f64,
+                                      ctypes.POINTER(ctypes.c_uint8), f64, f64, f64, f64,
+                                      f64, f64]
+        _ROWS_LIB = lib
+    return _ROWS_LIB
+
+
+def estimate_fmllr_rows(beta: np.ndarray, k: np.ndarray, g: np.ndarray,
+                        min_count: float = 500.0, num_iters: int = 20):
+    """``estimate_fmllr_batch``'s update and stopping rule, its sweeps in
+    native code (``csrc/fmllr_rows.cpp``: a row in O(D^2), A's inverse and
+    determinant carried through a sweep by Sherman-Morrison): the same
+    transforms to rounding in about a tenth of the time (8 speakers at
+    D = 40).  Returns (transforms [S, D, D+1] float32, impr list)."""
+    s_num, d = k.shape[0], k.shape[1]
+    if s_num == 0:
+        return np.zeros((0, d, d + 1), np.float32), []
+    beta = np.ascontiguousarray(beta, np.float64)
+    k = np.ascontiguousarray(k, np.float64)
+    g = np.ascontiguousarray(g, np.float64)
+    active = np.ascontiguousarray(beta >= min_count, np.uint8)
+    w = np.ascontiguousarray(np.broadcast_to(
+        np.concatenate([np.eye(d), np.zeros((d, 1))], axis=1), (s_num, d, d + 1)))
+    if not active.any():
+        return w.astype(np.float32), [0.0] * s_num
+    ginv, gk = (np.ascontiguousarray(x) for x in _row_inverses(k, g))
+    objf = np.zeros((2, s_num))
+
+    def ptr(x):
+        return x.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+    _rows_lib().vb_fmllr_rows(s_num, d, num_iters, ptr(beta),
+                              active.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                              ptr(k), ptr(g), ptr(ginv), ptr(gk), ptr(w), ptr(objf))
+    imprs = [float((objf[1, s] - objf[0, s]) / max(beta[s], 1.0)) if active[s] else 0.0
              for s in range(s_num)]
     return w.astype(np.float32), imprs
 
