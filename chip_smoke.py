@@ -619,7 +619,7 @@ def compare_kernels(torch, device, width: Width, results: dict, record, log) -> 
     ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
     ref64 = k2_plain64(x, w)
     n, p, m = x.shape[0], w.shape[0], w.shape[1]
-    kp = gmm_kernel.pack_weights(w)[0].shape[1]
+    kp = gmm_kernel.k_pad(w.shape[2])
     # 3xTF32: three products a step (hi.hi, hi.lo, lo.hi) over K padded to 8
     record("gmm_loglikes", [(ll, ref64)], lambda: gmm_kernel.loglikes(x, w),
            lambda: gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x),
@@ -2434,7 +2434,7 @@ def lda_mllt_full_width(torch, device, width: Width, record, results: dict, log)
     # timed with its TF32 bound as in phase 3
     w = dec.gmm_w
     ll = gmm_kernel.loglikes(x, w)
-    kp = gmm_kernel.pack_weights(w)[0].shape[1]
+    kp = gmm_kernel.k_pad(w.shape[2])
     d40 = record("gmm_loglikes", [(ll, k2_plain64(x, w))], lambda: gmm_kernel.loglikes(x, w),
                  lambda: gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x),
                  (nbytes(x, w, ll), 3 * 2 * nd * w.shape[0] * w.shape[1] * kp),
@@ -3402,7 +3402,7 @@ def adaptation_full_width(torch, device, width: Width, log) -> dict:
     ref = torch.cat([R.regtree_fmllr_loglikes_plain(p64, x[lo:lo + 2048].double(), trans, l2c,
                                                     tree.bclass_of)
                      for lo in range(0, n, 2048)])
-    kp = gmm_kernel.pack_weights(wk)[0].shape[1]
+    kp = gmm_kernel.k_pad(wk.shape[2])
     entry = device_function(
         torch, "regtree_fmllr_loglikes", [(got, ref, *TOL["gmm_loglikes"])],
         lambda: R.regtree_fmllr_loglikes(params, x, trans, l2c, tree.bclass_of),

@@ -4,7 +4,9 @@ not reach (for K1 every FFT size from 128 to 4096 points, power of two or
 not, with fbank rows, energy and window options, the sparse mel bit-equal
 to the dense one, and the refusal above 4096; for K2 ragged frame and pdf
 counts on every edge of its tiles, 1 to 8 components, feature dims 11 to
-80, and the features' own scale from the Yes-No corpus and model; CMVN and
+80, the features' own scale from the Yes-No corpus and model, and its
+ragged layout of live Gaussians on the benchmark's tri2b and tri5b mixtures
+and the layout's edges; CMVN and
 transition statistics bit-equal from run to run; for the Viterbi step K3 row widths 1 to 8 and 12, 1 to 130
 lanes, uint8 and int16 backpointers, dead and bucket-padding rows, windows
 of 1, 3 and T frames, a one-block grid and the lattice's backward window,
@@ -90,6 +92,7 @@ from voicebridge_tpu_torch.transforms import lda as TL
 from voicebridge_tpu_torch.transforms import mllt as TM
 from voicebridge_tpu_torch.utils import profiling as P
 
+import k2_cases
 from synth import make_corpus
 
 pytestmark = pytest.mark.cuda
@@ -249,14 +252,28 @@ GMM_CASES = [
     (64, 1, 80, 257, False), (65, 5, 39, 384, True), (200, 5, 39, 2000, False),
     (33, 8, 13, 100, True), (129, 2, 40, 3, False), (34, 9, 40, 700, True),
     (100, 11, 40, 513, True), "feature_scaled", "yesno", "yesno_train"]
+# ragged layouts (tests/k2_cases.py): (dim, frames)
+LIVE_CASES = {"tri2b_libri": (40, 2000), "tri5b_libri": (40, 300), "dead_between": (13, 257),
+              "all_dead_beside_16": (39, 129), "one_gaussian": (40, 200), "ragged_p": (40, 301),
+              "uniform": (39, 500)}
 
 
-@pytest.mark.parametrize("case", GMM_CASES, ids=str)
+@pytest.mark.parametrize("case", GMM_CASES + list(LIVE_CASES), ids=str)
 def test_gmm_kernel_matches_plain(cuda, case):
     """K2 against its plain version run in float64: on the Yes-No model's
     training features the expanded form cancels terms of up to 1e4, and the
-    fp32 plain version is itself 1.2 times the tolerance away from it on the card."""
-    if isinstance(case, str):
+    fp32 plain version is itself 1.2 times the tolerance away from it on the
+    card.  The ragged cases score only the live Gaussians (the benchmark's
+    drawn mixtures, dead slots between live ones, a pdf with none in a
+    sub-tile of 16-Gaussian pdfs, one Gaussian a pdf, 150 pdfs, a uniform
+    model)."""
+    if case in LIVE_CASES:
+        dim, n = LIVE_CASES[case]
+        w = convert.kernel_params_from_am(
+            k2_cases.am_with_live(k2_cases.live_mask(case), dim, seed=dim), cuda)
+        x = torch.from_numpy(np.random.default_rng(2).standard_normal((n, dim))
+                             .astype(np.float32)).to(cuda)
+    elif isinstance(case, str):
         x, w = _feature_scale_case(case, cuda)
     else:
         num_pdfs, max_mix, dim, n, ragged = case

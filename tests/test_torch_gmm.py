@@ -16,7 +16,9 @@ from voicebridge_tpu_torch.ops import gmm_kernel
 from voicebridge_tpu_torch.ops import gmm_kernels as TK
 from voicebridge_tpu_torch.steps.make_feats import make_features
 from voicebridge_tpu_torch.testing import load_yesno_mono
+from voicebridge_tpu_torch.utils import profiling
 
+import k2_cases
 from synth import make_corpus
 
 torch.set_num_threads(2)
@@ -103,6 +105,32 @@ def test_convert_from_pallas_w3():
     np.testing.assert_array_equal(params.gconsts.numpy(), np.asarray(jp.gconsts))
 
 
+def test_wrapper_under_inference_mode_and_after_a_change_in_place():
+    """Weights made under ``torch.inference_mode`` (no version counter) are
+    scored as outside it, and laid out anew at every call, so that a change
+    in place is seen there too; weights changed in place after their first
+    call are laid out again, from their own values, and scored as changed."""
+    am = _random_am(**CASES["ragged"])
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((50, am.dim))
+                         .astype(np.float32))
+    want = gmm_kernel.loglikes(x, convert.kernel_params_from_am(_port(am), "cpu"))
+    with torch.inference_mode():
+        w = convert.kernel_params_from_am(_port(am), "cpu")
+        torch.testing.assert_close(gmm_kernel.loglikes(x, w), want, rtol=0, atol=0)
+        w[:, :, -1] = torch.where(w[:, :, -1] > -1e29, w[:, :, -1], 0.0)
+        with profiling.recording():
+            gmm_kernel.loglikes(x, w)
+        assert profiling.session().counters["gmm.live"] == 50 * w.shape[0] * w.shape[1]
+    w = convert.kernel_params_from_am(_port(am), "cpu")
+    gmm_kernel.loglikes(x, w)
+    w[:, :, -1] = torch.where(w[:, :, -1] > -1e29, w[:, :, -1], 0.0)  # every slot live
+    with profiling.recording():
+        got = gmm_kernel.loglikes(x, w)
+    assert profiling.session().counters["gmm.live"] == 50 * w.shape[0] * w.shape[1]
+    torch.testing.assert_close(got, TK.loglikes(convert.twin_params_from_kernel(w), x),
+                               rtol=0, atol=0)
+
+
 def test_wrapper_rejects_other_devices():
     am = _random_am(num_pdfs=3, max_mix=2, dim=4)
     w = convert.kernel_params_from_am(_port(am), "cpu")
@@ -112,19 +140,77 @@ def test_wrapper_rejects_other_devices():
 
 @pytest.mark.parametrize("max_mix", [1, 2, 5, 6, 7, 8, 11, 20])
 def test_pack_weights_layout(max_mix):
-    """The K2 wrapper's packing: ``wt[c, k, p] = w[p, c, k]``; K padded to a
-    multiple of 8 and P to 64 with zeros; the components padded to equal
-    passes of at most 5 are inactive."""
-    am = _random_am(num_pdfs=37, max_mix=max_mix, dim=13, seed=max_mix)
-    w = convert.kernel_params_from_am(_port(am), "cpu")
-    wt, mc = gmm_kernel.pack_weights(w)
-    m_pad = wt.shape[0]
-    assert 1 <= mc <= gmm_kernel.MAX_CHUNK and m_pad % mc == 0 and m_pad - max_mix < m_pad // mc
-    assert wt.shape[1:] == (32, 64)
-    torch.testing.assert_close(wt[:max_mix, :27, :37], w.permute(1, 2, 0), rtol=0, atol=0)
-    assert (wt[:max_mix, 27:] == 0).all() and (wt[:max_mix, :, 37:] == 0).all()
-    assert (wt[max_mix:, 26] == gmm_kernel.NEG).all()
-    assert (wt[max_mix:, :26] == 0).all() and (wt[max_mix:, 27:] == 0).all()
+    """The K2 wrapper's packing: slab r's column j holds the weights of the
+    component ``lay.src[16 r + j]`` (``p * M + m``), K padded to a multiple
+    of 8 with zeros; each sub-tile's slabs hold its pdfs' live components in
+    order, then dead slots (zeros, gconst ``NEG``); live slots anywhere in a
+    pdf, some pdfs with none."""
+    rng = np.random.default_rng(max_mix)
+    live = rng.random((37, max_mix)) < 0.6
+    live[5] = False
+    am = k2_cases.am_with_live(live, 13, seed=max_mix)
+    w = convert.kernel_params_from_am(am, "cpu")
+    lay = gmm_kernel.layout(live)
+    wt, tiles, order = gmm_kernel.pack_weights(w, lay)
+    np.testing.assert_array_equal(tiles.view(-1, 2).numpy(), lay.tiles)
+    np.testing.assert_array_equal(order.numpy(), lay.order)
+    assert wt.shape == (lay.tiles[:, 1].sum(), 32, 16)
+    assert sorted(lay.order[lay.order >= 0]) == list(range(37))
+    for s, (first, slabs) in enumerate(lay.tiles):
+        for j, pdf in enumerate(lay.order[16 * s: 16 * s + 16]):
+            comps = np.flatnonzero(live[pdf]) if pdf >= 0 else []
+            for c in range(slabs):
+                col = wt[first + c, :, j]
+                if c < len(comps):
+                    torch.testing.assert_close(col[:27], w[pdf, comps[c]], rtol=0, atol=0)
+                    assert (col[27:] == 0).all()
+                else:
+                    assert col[26] == gmm_kernel.NEG
+                    assert (col[:26] == 0).all() and (col[27:] == 0).all()
+
+
+@pytest.mark.parametrize("case", k2_cases.CASES)
+def test_layout_round_trips_live_components(case):
+    """The layout of a model gives back each pdf's set of live components
+    and their count; a sub-tile's slabs are its largest count (no rounding
+    up), so the tile table never exceeds the dense one; the columns of each
+    64-pdf tile hold that tile's pdfs, most components first; a uniform model
+    gets one count a tile and the model order.  The benchmark's mixtures
+    leave at least 0.8 of the slots live."""
+    live = k2_cases.live_mask(case)
+    p, m = live.shape
+    lay = gmm_kernel.layout(live)
+    s = -(-p // 16)
+    count = live.sum(axis=1)
+    first, slabs = lay.tiles[:, 0], lay.tiles[:, 1]
+    assert lay.tiles.shape == (s, 2) and lay.order.shape == (16 * s,)
+    np.testing.assert_array_equal(first, np.cumsum(slabs) - slabs)
+    assert lay.src.size == 16 * slabs.sum() == lay.slots <= 16 * s * m
+    assert (slabs <= m).all() and lay.live == live.sum()
+    got = {}
+    src = lay.src.reshape(-1, 16)
+    for t in range(s):
+        pdfs = lay.order[16 * t: 16 * t + 16]
+        assert slabs[t] == max([count[q] for q in pdfs if q >= 0], default=0)
+        assert ((pdfs < 0) | (pdfs // 64 == t // 4)).all()
+        for j, pdf in enumerate(pdfs):
+            held = src[first[t]: first[t] + slabs[t], j]
+            if pdf < 0:
+                assert (held == p * m).all()
+                continue
+            real = held[held < p * m]
+            assert (real // m == pdf).all() and (held[len(real):] == p * m).all()
+            got[int(pdf)] = list(real % m)
+    assert got == {q: list(np.flatnonzero(live[q])) for q in range(p)}
+    for t0 in range(0, 16 * s, 64):
+        cols = lay.order[t0: t0 + 64]
+        c = count[cols[cols >= 0]]
+        assert (np.diff(c) <= 0).all()
+    if (count == count[0]).all():
+        assert (slabs == count[0]).all()
+        np.testing.assert_array_equal(lay.order[:p], np.arange(p))
+    if case.endswith("libri"):
+        assert lay.live >= 0.8 * lay.slots
 
 
 def _tf32_split(a):
@@ -145,7 +231,9 @@ def test_tf32x3_halves_of_packed_weights():
     kernel's tolerance of float64, closer than fp32 does (the expanded form
     cancels terms of up to 1e4 there)."""
     m = load_yesno_mono()
-    wt = gmm_kernel.pack_weights(convert.kernel_params_from_am(m.am, "cpu"))[0].numpy()
+    w = convert.kernel_params_from_am(m.am, "cpu")
+    lay = gmm_kernel.layout(TK.live_of(w))
+    wt = gmm_kernel.pack_weights(w, lay)[0].numpy()
     hi, lo = _tf32_split(wt)
     assert (hi.view(np.uint32) & 0x1FFF == 0).all() and (lo.view(np.uint32) & 0x1FFF == 0).all()
     np.testing.assert_array_less(np.abs(hi.astype(np.float64) + lo - wt), 2.0 ** -22 * np.abs(wt) + 1e-45)
@@ -156,14 +244,15 @@ def test_tf32x3_halves_of_packed_weights():
     x = torch.cat([feats[u] for u in sorted(feats)]).numpy()
     xx = np.concatenate([x, x * x, np.ones((len(x), 1), np.float32)], 1)
     p, mix, k = m.am.num_pdfs, m.am.max_mix, xx.shape[1]
-    w = wt[:mix, :k, :p].transpose(1, 0, 2).reshape(k, mix * p)  # [K, M*P]
-    active = (w[-1] > -1e29).reshape(mix, p)
+    w = wt.transpose(1, 0, 2).reshape(wt.shape[1], -1)[:k]  # [K, slots]
+    active = w[-1] > -1e29
     xh, xl = _tf32_split(xx)
     wh, wl = _tf32_split(w)
 
     def ll(scores):
-        s = np.where(active.reshape(-1)[None], scores, -1e30).reshape(len(x), mix, p)
-        return torch.logsumexp(torch.from_numpy(s.astype(np.float64)), 1).numpy()
+        s = np.full((len(x), p * mix + 1), -1e30)
+        s[:, lay.src[active]] = scores[:, active]
+        return torch.logsumexp(torch.from_numpy(s[:, :-1].reshape(len(x), p, mix)), 2).numpy()
 
     exact = ll(xx.astype(np.float64) @ w.astype(np.float64))
     tol = GMM_TOL["atol"] + GMM_TOL["rtol"] * np.abs(exact)

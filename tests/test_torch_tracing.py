@@ -1,6 +1,6 @@
 """The port's spans and counters (``utils/profiling.py``): nesting and self
-time, when they record, the spans and counters of ``Decoder.decode_lattice``
-and ``train_tri.realign`` at tiny sizes on the CPU, the Chrome trace on the
+time, when they record, the spans and counters of ``Decoder.decode_lattice``,
+``train_tri.realign`` and K2 at tiny sizes on the CPU, the Chrome trace on the
 profiler's clock, and ``StageTimer``."""
 
 import json
@@ -11,13 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from voicebridge_tpu_torch import convert
 from voicebridge_tpu_torch.config import DecodeOptions, TriTrainOptions
+from voicebridge_tpu_torch.ops import gmm_kernel
 from voicebridge_tpu_torch.ops import lattice as LAT
 from voicebridge_tpu_torch.steps import train_tri
 from voicebridge_tpu_torch.steps.align import AlignmentSet
 from voicebridge_tpu_torch.steps.decode import Decoder
 from voicebridge_tpu_torch.testing import random_am, synth_decode_graph, synth_train_graph
 from voicebridge_tpu_torch.utils import profiling as P
+
+import k2_cases
 
 
 def _by_name(sess) -> dict:
@@ -171,6 +175,29 @@ def test_realign_spans_cover_the_call():
     assert len(names["sync.align_tids"]) == len(names["sync.align_ok"]) == 3
     assert sess.counters["host_sync"] == 6
     assert sess.counters["align.tid_blocks"] == sess.counters["align.sub_batches"] == 3
+    order = np.argsort(-nf, kind="stable")
+    frames = sum(len(c) * int(nf[c].max()) for c in np.split(order, [5, 10]))
+    assert sess.counters["gmm.live"] == frames * am.num_gauss
+    assert sess.counters["gmm.slots"] == frames * 16 * 2 * 2  # 2 sub-tiles of 2 slabs
+
+
+def test_gmm_counters_are_the_calls_sizes():
+    """``gmm.live`` counts the frames times the live Gaussians, ``gmm.slots``
+    the frames times the layout's slots, from the host's record of the
+    model; a K2 call reads nothing back from the device."""
+    live = k2_cases.live_mask("dead_between")
+    w = convert.kernel_params_from_am(k2_cases.am_with_live(live, 13, seed=3), "cpu")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 50, 13))
+                         .astype(np.float32))
+    with P.recording():
+        gmm_kernel.loglikes_batch(x, w)
+        gmm_kernel.loglikes(x[1, :7].contiguous(), w)
+    sess = P.session()
+    lay = gmm_kernel.layout(live)
+    assert sess.counters["gmm.live"] == 107 * int(live.sum())
+    assert sess.counters["gmm.slots"] == 107 * lay.slots >= sess.counters["gmm.live"]
+    assert "host_sync" not in sess.counters
+    assert not [s for s in sess.spans if s.name.startswith("sync.")]
 
 
 def test_the_chrome_trace_puts_spans_on_the_profilers_clock(tmp_path):

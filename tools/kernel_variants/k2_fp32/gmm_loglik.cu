@@ -1,5 +1,5 @@
-// K2 variant "fp32": the same function and C interface as
-// voicebridge_tpu_torch/csrc/gmm_loglik.cu, as a register-blocked fp32
+// K2 variant "fp32": the same function and dense C interface as
+// tools/kernel_variants/k2_dense/gmm_loglik.cu, as a register-blocked fp32
 // product on the CUDA cores (IEEE fp32 FMA, the arithmetic of the earlier
 // fp32 kernel).  Timed beside the shipped source by
 // tools/time_frontend_kernels.py.

@@ -7,17 +7,25 @@ versions of them side by side.
                                           [--sizes 256,400,512,1024,2048] [--cuts]
                                           [--bits NAME]
 
-Shapes: K2 at 128,000 frames x 2000 pdfs x 5 Gaussians x 39 dims
-(``testing.random_am``, standard normal features), K1 at 128,000 frames of
-tones and noise at each padded window size of ``--sizes`` (23 mel bins, 13
-cepstra).  Each version's library is built with the package's nvcc flags
-under ``_archive/kernel_variants/`` and called directly through ctypes, its
-output held to the plain version (max abs error), then timed with CUDA
-events (mean of 5 calls after a warm-up), all versions in order and then in
-reverse.
+Shapes: K2 at 128,000 frames (standard normal features) of three models:
+``k2`` 2000 pdfs x 5 Gaussians x 39 dims (``testing.random_am``, every slot
+live), ``k2_tri2b`` 2,500 pdfs and 15,000 Gaussians in 16 slots and
+``k2_tri5b`` 5,000 and 100,000 in 64 slots, both D = 40 and allotted by
+occupancy as the benchmark's configurations ``tri2b-libri`` and
+``tri5b-libri`` (``tests/k2_cases.py``); K1 at 128,000 frames of tones and
+noise at each padded window size of ``--sizes`` (23 mel bins, 13 cepstra).
+Each version's library is built with the package's nvcc flags under
+``_archive/kernel_variants/`` and called directly through ctypes, its output
+held to the plain version (max abs error; K2's first 2,048 frames against
+float64), then timed with CUDA events (mean of 5 calls after a warm-up), all
+versions in order and then in reverse.  K2's bounds count the live
+Gaussians.
 
 * ``--variant NAME=DIR``: a directory holding ``gmm_loglik.cu`` and/or
-  ``mfcc.cu`` with the checkout's C interface.
+  ``mfcc.cu`` with the checkout's C interface, or, for K2, the dense one of
+  ``tools/kernel_variants/k2_dense`` (weights as one ``[M_pad, K_pad,
+  P_pad]`` slab: that kernel, the checkout's before it scored only live
+  Gaussians, and ``k2_fp32``), told apart by the source's signature.
 * ``--parent DIR``: the two sources of the earlier kernels, with their C
   interface (K2 weights as ``[P, M, 2D+1]``, K1 at 256 and 512 points with a
   dense mel table); ``git archive`` the commit before the redesign to get
@@ -58,6 +66,9 @@ from voicebridge_tpu_torch.config import FrameOptions, MelOptions, MfccOptions  
 from voicebridge_tpu_torch.ops import features, gmm_kernel, gmm_kernels  # noqa: E402
 from voicebridge_tpu_torch.testing import random_am  # noqa: E402
 
+sys.path.insert(0, str(ROOT / "tests"))
+import k2_cases  # noqa: E402
+
 OUT = ROOT / "_archive" / "kernel_variants"
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -71,6 +82,10 @@ PARENT_SIGNATURES = {
                         _P, _P),
     "vbt_gmm_loglikes": (_P, _I64, _I, _P, _I, _I, _P, _P),
 }
+# x, n, d, wt [M_pad, K_pad, P_pad], p, m_pad, mc, out, stream
+DENSE_K2_SIGNATURE = (_P, _I64, _I, _P, _I, _I, _I, _P, _P)
+K2_FRAMES = 128_000
+K2_REF_FRAMES = 2048
 # stage cuts of the parent's sources: (source, text, replacement)
 CUTS = {
     "parent_k2_no_logsumexp": ("gmm_loglik.cu", """        const float s = acc[i][j];
@@ -92,32 +107,32 @@ CUTS = {
 }
 # the same for the checkout's sources
 CHECKOUT_CUTS = {
-    "k2_no_logsumexp": ("gmm_loglik.cu", """          float s = sm[o] * __expf(mx[o] - nm);
+    "k2_no_logsumexp": ("gmm_loglik.cu", """      float s = sm[o] * __expf(mx[o] - nm);
 #pragma unroll
-          for (int c = 0; c < MC; ++c) {
-            const float v = acc[c][i][r];
-            s += v > 0.5f * kNeg ? __expf(v - nm) : 0.f;
-          }""", """          float s = sm[o];
+      for (int c = 0; c < MC; ++c) {
+        const float v = acc[c][i][r];
+        s += v > 0.5f * kNeg ? __expf(v - nm) : 0.f;
+      }""", """      float s = sm[o];
 #pragma unroll
-          for (int c = 0; c < MC; ++c) s += acc[c][i][r];"""),
+      for (int c = 0; c < MC; ++c) s += acc[c][i][r];"""),
     "k2_no_split": ("gmm_loglik.cu", """  hi = tf32_bits(__float_as_uint(v));
   lo = tf32_bits(__float_as_uint(v - __uint_as_float(hi)));""", """  hi = __float_as_uint(v);
   lo = hi;"""),
-    "k2_no_fadd": ("gmm_loglik.cu", """            float s[4] = {0.f, 0.f, 0.f, 0.f};
-            mma(s, al[i], bh0, bh1);
-            mma(s, ah[i], bl0, bl1);
-            mma(s, ah[i], bh0, bh1);
+    "k2_no_fadd": ("gmm_loglik.cu", """        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        mma(s, al[i], bh0, bh1);
+        mma(s, ah[i], bl0, bl1);
+        mma(s, ah[i], bh0, bh1);
 #pragma unroll
-            for (int r = 0; r < 4; ++r) acc[c][i][r] += s[r];""", """            mma(acc[c][i], al[i], bh0, bh1);
-            mma(acc[c][i], ah[i], bl0, bl1);
-            mma(acc[c][i], ah[i], bh0, bh1);"""),
-    "k2_one_mma": ("gmm_loglik.cu", """            mma(s, al[i], bh0, bh1);
-            mma(s, ah[i], bl0, bl1);
-            mma(s, ah[i], bh0, bh1);""", """            mma(s, ah[i], bh0, bh1);"""),
+        for (int r = 0; r < 4; ++r) acc[c][i][r] += s[r];""", """        mma(acc[c][i], al[i], bh0, bh1);
+        mma(acc[c][i], ah[i], bl0, bl1);
+        mma(acc[c][i], ah[i], bh0, bh1);"""),
+    "k2_one_mma": ("gmm_loglik.cu", """        mma(s, al[i], bh0, bh1);
+        mma(s, ah[i], bl0, bl1);
+        mma(s, ah[i], bh0, bh1);""", """        mma(s, ah[i], bh0, bh1);"""),
     "k2_no_staging": ("gmm_loglik.cu",
-                      "      for (int idx = tid; idx < MC * kp * (kSubP / 4); idx += kThreads) {",
-                      "      if (p0 == blockIdx.y * kTileP && c0 == 0)\n"
-                      "      for (int idx = tid; idx < MC * kp * (kSubP / 4); idx += kThreads) {"),
+                      "      for (int idx = tid; idx < mc * kp * (kSubP / 4); idx += kThreads) {",
+                      "      if (s == blockIdx.y * kSubTiles && c0 == 0)\n"
+                      "      for (int idx = tid; idx < mc * kp * (kSubP / 4); idx += kThreads) {"),
     "k1_no_mel": ("mfcc.cu", """#pragma unroll 8
     for (int i = 0; i < len; ++i) acc = fmaf(pw[lo + i], tl.mel_band[i * nb + b], acc);""",
                   """    acc = pw[lo] * len;"""),
@@ -159,8 +174,17 @@ def build_all(versions: dict) -> dict:
                 continue
             getattr(lib, fn).argtypes = sigs[fn]
             getattr(lib, fn).restype = ctypes.c_int
+        if iface != "parent" and "gmm_loglik.cu" in srcs and k2_is_dense(srcs["gmm_loglik.cu"]):
+            iface = "dense"
+            lib.vbt_gmm_loglikes.argtypes = DENSE_K2_SIGNATURE
         libs[name] = (iface, lib, reports.get(name, ""))
     return libs
+
+
+def k2_is_dense(path) -> bool:
+    """Whether a K2 source takes its weights as one dense slab (``m_pad``,
+    ``mc``) rather than the checkout's ragged slabs (``tiles``, ``order``)."""
+    return "const int* tiles" not in Path(path).read_text()
 
 
 def ms(fn, reps: int = 5) -> float:
@@ -180,19 +204,40 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
-def k2_case(dev):
-    """(inputs, plain output, work) of the full-width K2 shape."""
-    am = random_am(2000, 5, 39)
+def k2_case(dev, name: str):
+    """(inputs, float64 plain output of the first frames, work) of a K2
+    shape; the work counts the live Gaussians."""
+    if name == "k2":
+        d, am = 39, random_am(2000, 5, 39)
+    else:
+        d = 40
+        am = k2_cases.am_with_live(k2_cases.live_mask(name[3:] + "_libri"), d, seed=d)
     w = convert.kernel_params_from_am(am, dev)
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal((128_000, 39), dtype=np.float32)).to(dev)
-    wt, mc = gmm_kernel.pack_weights(w)
-    ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
-    n, p, m = x.shape[0], w.shape[0], w.shape[1]
-    work = {"bytes": 4 * (x.numel() + w.numel() + n * p),
-            "fp32_ops": 2 * n * p * m * 2 * 39,
-            "tf32x3_ops": 3 * 2 * n * p * m * wt.shape[1]}
-    return (x, w, wt, mc), ref, work
+    x = torch.from_numpy(rng.standard_normal((K2_FRAMES, d), dtype=np.float32)).to(dev)
+    ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w.double()),
+                               x[:K2_REF_FRAMES].double())
+    lay = gmm_kernel.layout(gmm_kernels.live_of(w))
+    n, p = x.shape[0], w.shape[0]
+    work = {"bytes": 4 * (x.numel() + lay.live * w.shape[2] + n * p),
+            "fp32_ops": 2 * n * lay.live * 2 * d,
+            "tf32x3_ops": 3 * 2 * n * lay.live * gmm_kernel.k_pad(w.shape[2]),
+            "live": lay.live, "slots": lay.slots, "dense_slots": -(-p // 16) * 16 * w.shape[1]}
+    return (x, w, dense_slab(w), gmm_kernel.pack_weights(w, lay)), ref, work
+
+
+def dense_slab(w):
+    """(``wt [M_pad, K_pad, P_pad]``, components a pass) for the dense
+    kernels: ``wt[c, k, p] = w[p, c, k]``, K padded with zeros to a multiple
+    of 8, P to 64, the components to equal passes of at most 5, the padded
+    ones inactive."""
+    p, m, k = w.shape
+    passes = -(-m // 5)
+    mc = -(-m // passes)
+    wt = w.new_zeros((mc * passes, gmm_kernel.k_pad(k), -(-p // 64) * 64))
+    wt[:m, :k, :p] = w.permute(1, 2, 0)
+    wt[m:, k - 1] = gmm_kernel.NEG
+    return wt, mc
 
 
 def k1_case(dev, n_fft: int, frames: int):
@@ -241,15 +286,19 @@ def call_k1(iface, lib, args, out, mode: int = 0):
 
 
 def call_k2(iface, lib, args, out):
-    x, w, wt, mc = args
+    x, w, (wt, mc), (r_wt, tiles, order) = args
     n, d = x.shape
     stream = torch.cuda.current_stream().cuda_stream
     if iface == "parent":
         check(lib.vbt_gmm_loglikes(x.data_ptr(), n, d, w.data_ptr(), w.shape[0], w.shape[1],
                                    out.data_ptr(), stream), "gmm_loglikes")
-    else:
+    elif iface == "dense":
         check(lib.vbt_gmm_loglikes(x.data_ptr(), n, d, wt.data_ptr(), w.shape[0], wt.shape[0],
                                    mc, out.data_ptr(), stream), "gmm_loglikes")
+    else:
+        check(lib.vbt_gmm_loglikes(x.data_ptr(), n, d, r_wt.data_ptr(), tiles.data_ptr(),
+                                   order.data_ptr(), w.shape[0], out.data_ptr(), stream),
+              "gmm_loglikes")
 
 
 def main() -> int:
@@ -290,7 +339,7 @@ def main() -> int:
                 versions[name] = (iface, {src: path})
     libs = build_all(versions)
     dev = torch.device("cuda", 0)
-    k2_args, k2_ref, k2_work = k2_case(dev)
+    k2 = {name: k2_case(dev, name) for name in ("k2", "k2_tri2b", "k2_tri5b")}
     sizes = [int(s) for s in args.sizes.split(",") if s]
     k1 = {n: k1_case(dev, n, args.frames) for n in sizes}
     res: dict = {"card": card, "frames": args.frames, "ms": {}, "max_abs_err": {},
@@ -299,9 +348,12 @@ def main() -> int:
     for name, (iface, lib, _rep) in libs.items():
         srcs = versions[name][1]
         if "gmm_loglik.cu" in srcs:
-            out = torch.empty_like(k2_ref)
-            todo[(name, "k2")] = (lambda i=iface, l=lib, o=out: call_k2(i, l, k2_args, o),
-                                  out, k2_ref)
+            for case, (a, ref, _w) in k2.items():
+                if iface == "parent" and case != "k2":
+                    continue
+                out = torch.empty((K2_FRAMES, ref.shape[1]), device=dev)
+                todo[(name, case)] = (lambda i=iface, l=lib, o=out, a=a: call_k2(i, l, a, o),
+                                      out, ref)
         if "mfcc.cu" in srcs:
             for n, (a, ref, _w) in k1.items():
                 if iface == "parent" and n not in (256, 512):
@@ -312,23 +364,26 @@ def main() -> int:
     for (name, case), (fn, out, ref) in todo.items():
         fn()
         torch.cuda.synchronize()
-        res["max_abs_err"].setdefault(name, {})[case] = float((out.double() - ref.double())
-                                                              .abs().max())
+        res["max_abs_err"].setdefault(name, {})[case] = float(
+            (out[: len(ref)].double() - ref.double()).abs().max())
     for order in (list(libs), list(libs)[::-1]):
         for name in order:
             for (lname, case), (fn, _o, _r) in todo.items():
                 if lname == name:
                     res["ms"].setdefault(name, {}).setdefault(case, []).append(ms(fn))
-    x, w, _wt, _mc = k2_args
+    x, w, _slab, _packed = k2["k2"][0]
     params = convert.twin_params_from_kernel(w)
     xx = torch.cat([x, x * x, torch.ones_like(x[:, :1])], dim=1)
     wm = torch.cat([params.w_matrix, params.gconsts.reshape(1, -1)], dim=0).contiguous()
     res["plain_ms"]["k2"] = ms(lambda: gmm_kernels.loglikes(params, x))
     res["matmul_yardstick_ms"] = ms(lambda: xx @ wm)
-    res["bound_ms"]["k2_fp32"] = 1e3 * max(k2_work["bytes"] / HBM_BYTES_PER_S,
-                                           k2_work["fp32_ops"] / FP32_OPS_PER_S)
-    res["bound_ms"]["k2_tf32x3"] = 1e3 * max(k2_work["bytes"] / HBM_BYTES_PER_S,
-                                             k2_work["tf32x3_ops"] / TF32_OPS_PER_S)
+    res["k2_slots"] = {}
+    for case, (_a, _ref, work) in k2.items():
+        res["bound_ms"][f"{case}_fp32"] = 1e3 * max(work["bytes"] / HBM_BYTES_PER_S,
+                                                    work["fp32_ops"] / FP32_OPS_PER_S)
+        res["bound_ms"][f"{case}_tf32x3"] = 1e3 * max(work["bytes"] / HBM_BYTES_PER_S,
+                                                      work["tf32x3_ops"] / TF32_OPS_PER_S)
+        res["k2_slots"][case] = {k: work[k] for k in ("live", "slots", "dense_slots")}
     for n, (a, _ref, work) in k1.items():
         res["plain_ms"][f"k1_{n}"] = ms(lambda a=a: features.mfcc_from_frames(a[0], a[1]))
         res["bound_ms"][f"k1_{n}"] = 1e3 * max(work["bytes"] / HBM_BYTES_PER_S,

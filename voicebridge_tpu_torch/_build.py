@@ -47,8 +47,8 @@ _SIGNATURES = {
     # raw_energy, mel_floor, mode (0 mfcc, 1 fbank, 2 mel_power), out, stream
     "vbt_mfcc_frames": (_P, _I64, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _F,
                         _I, _F, _I, _P, _P),
-    # x, n, d, wt, p, m_pad, mc, out, stream
-    "vbt_gmm_loglikes": (_P, _I64, _I, _P, _I, _I, _I, _P, _P),
+    # x, n, d, wt, tiles, order, p, out, stream
+    "vbt_gmm_loglikes": (_P, _I64, _I, _P, _P, _P, _I, _P, _P),
     # alpha, buf0, buf1, alpha_end, bp, bp_bytes, ll, row_start, row_src,
     # row_w, row_pdf, row_real, num_frames, final_eff, slab, t0, w, acwt, s1,
     # b, p, d, reverse, max_blocks, stream

@@ -43,7 +43,7 @@ from .models.transition import TransitionModel
 from .models.tree import ContextTree, MonophoneTree
 from .ops.align_band import BandPlan
 from .ops.decode_core import EmitPlan
-from .ops.gmm_kernels import GmmParams, pack_gmm
+from .ops.gmm_kernels import GmmParams, live_of, mark_live, pack_gmm
 
 
 def am_from_arrays(means_invvars: np.ndarray, inv_vars: np.ndarray,
@@ -140,10 +140,14 @@ def sat_model_from_arrays(am: tuple, alimdl: tuple, topo: dict, tree: dict, tran
 
 
 def kernel_params_from_twin(params: GmmParams) -> torch.Tensor:
-    """``GmmParams`` -> contiguous ``w [P, M, 2D+1]``."""
+    """``GmmParams`` -> contiguous ``w [P, M, 2D+1]``, marked with the
+    host's record of its live components where the gconsts carry one
+    (``ops.gmm_kernels.mark_live``)."""
     p, m, d = params.num_pdfs, params.max_mix, params.dim
     w = params.w_matrix.T.reshape(p, m, 2 * d)
-    return torch.cat([w, params.gconsts[..., None]], dim=-1).contiguous()
+    w = torch.cat([w, params.gconsts[..., None]], dim=-1).contiguous()
+    live = live_of(params.gconsts)
+    return w if live is None else mark_live(w, live)
 
 
 def twin_params_from_kernel(w: torch.Tensor) -> GmmParams:

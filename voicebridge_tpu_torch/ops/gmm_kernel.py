@@ -2,53 +2,148 @@
 
 Replaces the Pallas kernel ``voicebridge_tpu/ops/pallas_gmm.py``
 (``_gmm_kernel``).  Callers pass the weights as ``w [P, M, 2D+1]`` float32,
-rows ``[miv, -0.5*iv, gconst]`` (``convert.kernel_params_from_am``); the
-wrapper repacks them for the kernel (``pack_weights``: component-major,
-k-major, pdfs contiguous and padded) on every call, a copy of a few MB.
+rows ``[miv, -0.5*iv, gconst]`` (``convert.kernel_params_from_am``).  The
+kernel scores each pdf's live Gaussians only: ``layout`` lays the
+components out ragged from which of them are live (each pdf's live
+components first, the pdfs of each 64-pdf tile ordered by their count, each
+16-pdf sub-tile as many slabs as its largest count), and ``pack_weights``
+gathers the weights into it on the device.  Which components are live comes
+from the host's record of the model (``gmm_kernels.mark_live``, made by
+``pack_gmm`` and carried by ``convert.kernel_params_from_twin``), never from
+a device read; weights on a card without that record are laid out with
+every slot live (the dead ones are masked in the kernel).  The layout and
+the packed weights are made at a weight tensor's first call and kept on it
+while it is unchanged: once a decoder, once a realignment.
+
 A CPU tensor goes to the plain version ``ops.gmm_kernels.loglikes``; a CUDA
-tensor goes to the kernel or raises.
+tensor goes to the kernel or raises.  Either way a call counts, while
+recording (``utils/profiling.py``), ``gmm.slots``: the component slots the
+kernel computes, frames times the layout's slots a frame, and ``gmm.live``:
+frames times the live Gaussians it sums.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from .. import _build, convert
 from ..device import stream_handle
+from ..utils import profiling
 from . import gmm_kernels
 
-MAX_CHUNK = 5  # components per pass of the kernel (kMaxChunk in the source)
 NEG = -1e30
+SUB = 16  # pdfs per sub-tile (kSubP in the source)
+TILE = 64  # pdfs per block, whose columns the layout may reorder
 
 
-def chunking(m: int) -> tuple[int, int]:
-    """Components per pass and the padded component count for ``m``
-    components: as few passes of at most ``MAX_CHUNK`` as will do, equal in
-    size."""
-    passes = -(-m // MAX_CHUNK)
-    mc = -(-m // passes)
-    return mc, mc * passes
+class Layout(NamedTuple):
+    """K2's ragged layout of a model's components (``layout``)."""
+
+    tiles: np.ndarray  # int32 [S, 2]: each sub-tile's first slab and its slabs
+    order: np.ndarray  # int32 [S * 16]: the model pdf of each packed column, -1 none
+    src: np.ndarray  # int32 [R * 16]: the component p * M + m of each slab column, P * M dead
+    live: int  # live Gaussians
+
+    @property
+    def slots(self) -> int:
+        """Component slots computed a frame (dead ones included)."""
+        return self.src.size
 
 
-def pack_weights(w: torch.Tensor) -> tuple[torch.Tensor, int]:
-    """``w [P, M, K]`` -> (``wt [M_pad, K_pad, P_pad]``, components per
-    pass): ``wt[c, k, p] = w[p, c, k]``, K padded with zeros to a multiple of
-    8, P to a multiple of 64, the padded components inactive (gconst row
-    ``NEG``)."""
+def k_pad(k: int) -> int:
+    """Rows of a weight slab: ``k = 2D + 1`` padded to a multiple of 8."""
+    return -(-k // 8) * 8
+
+
+def layout(live: np.ndarray) -> Layout:
+    """The layout of a model whose live components are ``live [P, M]``
+    (bool): S = ceil(P / 16) sub-tiles; within each 64-pdf tile the pdfs in
+    order of their live count, most first (ties in model order); sub-tile s
+    owns ``tiles[s, 1]`` slabs (its largest count) from slab ``tiles[s, 0]``;
+    slab c's column j holds the c-th live component of the pdf
+    ``order[16 s + j]``, or a dead slot past that pdf's count."""
+    p, m = live.shape
+    s = -(-p // SUB)
+    count = np.zeros(-(-p // TILE) * TILE, np.int64)
+    count[:p] = live.sum(axis=1)
+    by_count = np.argsort(-count.reshape(-1, TILE), axis=1, kind="stable")
+    order = (by_count + TILE * np.arange(len(by_count))[:, None]).reshape(-1)[: s * SUB]
+    order[order >= p] = -1
+    slabs = np.where(order >= 0, count[order], 0).reshape(s, SUB).max(axis=1)
+    first = np.cumsum(slabs) - slabs
+    src = np.full((int(slabs.sum()), SUB), p * m, np.int64)
+    column = np.empty(p, np.int64)
+    column[order[order >= 0]] = np.flatnonzero(order >= 0)
+    pdf, comp = np.nonzero(live)
+    rank = (np.cumsum(live, axis=1) - 1)[pdf, comp]
+    col = column[pdf]
+    src[first[col // SUB] + rank, col % SUB] = pdf * m + comp
+    return Layout(np.stack([first, slabs], axis=1).astype(np.int32), order.astype(np.int32),
+                  src.reshape(-1).astype(np.int32), len(pdf))
+
+
+def pack_weights(w: torch.Tensor, lay: Layout) -> tuple:
+    """``w [P, M, K]`` -> (``wt [R, K_pad, 16]``, ``tiles [S, 2]``, ``order
+    [S * 16]``) on ``w``'s device: ``wt[r, k, j] = w[src // M, src % M, k]``
+    for ``src = lay.src[16 r + j]``, K padded with zeros, a dead slot zeros
+    with gconst ``NEG``; the tables one host-to-device copy."""
     p, m, k = w.shape
-    mc, m_pad = chunking(m)
-    wt = w.new_zeros((m_pad, -(-k // 8) * 8, -(-p // 64) * 64))
-    wt[:m, :k, :p] = w.permute(1, 2, 0)
-    wt[m:, k - 1] = NEG
-    return wt, mc
+    rows = w.new_zeros((p * m + 1, k_pad(k)))
+    rows[:-1, :k] = w.reshape(p * m, k)
+    rows[-1, k - 1] = NEG
+    tables = torch.from_numpy(np.concatenate([lay.tiles.reshape(-1), lay.order, lay.src]))
+    tiles, order, src = tables.to(w.device).split([lay.tiles.size, lay.order.size,
+                                                   lay.src.size])
+    wt = rows.index_select(0, src).view(-1, SUB, rows.shape[1]).transpose(1, 2).contiguous()
+    return wt, tiles, order
+
+
+def _packed(w: torch.Tensor) -> tuple:
+    """(layout, packed weights or None on the CPU) of ``w``, made at its
+    first call and kept on it while it is unchanged (not on an inference
+    tensor, whose changes are not counted)."""
+    v = gmm_kernels.version(w)
+    rec = getattr(w, "vbt_k2", None)
+    if rec is not None and rec[0] == v:
+        return rec[1]
+    live = gmm_kernels.live_of(w)
+    if live is None:  # no host record: the CPU's own values, or every slot on a card
+        live = (w[..., -1].numpy() > gmm_kernels.DEAD if w.device.type == "cpu"
+                else np.ones(w.shape[:2], bool))
+    lay = layout(live)
+    packed = (lay, None if w.device.type == "cpu" else pack_weights(w, lay))
+    if v is not None:
+        w.vbt_k2 = (v, packed)
+    return packed
 
 
 def loglikes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x [N, D]``, ``w [P, M, 2D+1]`` -> ``[N, P]`` per-pdf log-likelihoods."""
-    if x.device.type == "cpu":
-        return gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
-    if x.device.type != "cuda":
+    if x.device.type == "cuda":
+        _check(x, w)
+    elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
+    lay, packed = _packed(w)
+    profiling.count("gmm.slots", x.shape[0] * lay.slots)
+    profiling.count("gmm.live", x.shape[0] * lay.live)
+    if packed is None:
+        return gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
+    n, d = x.shape
+    p = w.shape[0]
+    out = torch.empty((n, p), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    wt, tiles, order = packed
+    _build.launch("gmm_loglikes", x.data_ptr(), n, d, wt.data_ptr(), tiles.data_ptr(),
+                  order.data_ptr(), p, out.data_ptr(), stream_handle(x.device))
+    return out
+
+
+def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Raise on what the kernel does not take."""
     if x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError(f"x and w must be float32, got {x.dtype}, {w.dtype}")
     if x.dim() != 2 or w.dim() != 3 or w.shape[2] != 2 * x.shape[1] + 1:
@@ -58,15 +153,6 @@ def loglikes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("x and w lie on different devices")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    n, d = x.shape
-    p, m, _ = w.shape
-    out = torch.empty((n, p), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    wt, mc = pack_weights(w)
-    _build.launch("gmm_loglikes", x.data_ptr(), n, d, wt.data_ptr(), p, wt.shape[0], mc,
-                  out.data_ptr(), stream_handle(x.device))
-    return out
 
 
 def loglikes_batch(feats: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

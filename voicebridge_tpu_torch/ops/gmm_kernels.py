@@ -48,13 +48,43 @@ class GmmParams(NamedTuple):
         return self.w_matrix.shape[0] // 2
 
 
+DEAD = -5e29  # a component whose gconst is at or below this is inactive (K2's test)
+
+
+def version(t: torch.Tensor) -> int | None:
+    """``t``'s count of in-place changes, or None for an inference tensor,
+    which keeps none: nothing derived from its values is kept on it."""
+    return None if t.is_inference() else t._version
+
+
+def mark_live(t: torch.Tensor, live: np.ndarray) -> torch.Tensor:
+    """Record on ``t`` (a model's gconsts ``[P, M]`` or K2's weights ``[P,
+    M, 2D+1]``) the host's copy of which components are live, ``[P, M]``
+    bool, so that K2 lays out its work without reading the device
+    (``ops/gmm_kernel.py``).  The record holds while ``t`` is not changed in
+    place (an inference tensor keeps none); returns ``t``."""
+    v = version(t)
+    if v is not None:
+        t.vbt_live = (v, live)
+    return t
+
+
+def live_of(t: torch.Tensor) -> np.ndarray | None:
+    """The host's record of ``t``'s live components (``mark_live``), or None
+    where there is none or ``t`` has changed since."""
+    rec = getattr(t, "vbt_live", None)
+    return rec[1] if rec is not None and rec[0] == version(t) else None
+
+
 def pack_gmm(am: AmDiagGmm, device) -> GmmParams:
+    """The model on ``device``, its gconsts marked with the host's record of
+    which components are live (``mark_live``)."""
     p, m, d = am.num_pdfs, am.max_mix, am.dim
     w = np.concatenate([am.means_invvars, -0.5 * am.inv_vars], axis=2)  # [P,M,2D]
     w = w.reshape(p * m, 2 * d).T.astype(np.float32)  # [2D, P*M]
     gc = np.where(np.isfinite(am.gconsts), am.gconsts, -1e30).astype(np.float32)
     return GmmParams(torch.from_numpy(np.ascontiguousarray(w)).to(device),
-                     torch.from_numpy(gc).to(device))
+                     mark_live(torch.from_numpy(gc).to(device), gc > DEAD))
 
 
 @ieee_fp32_entry
