@@ -475,23 +475,23 @@ def k2_plain64(x, w):
     Yes-No model's training features the fp32 plain version is itself 1.2
     times the tolerance away from it: the expanded form cancels terms of up
     to 1e4)."""
-    from voicebridge_tpu_torch import convert
+    import torch
+
     from voicebridge_tpu_torch.ops import gmm_kernels
 
-    return gmm_kernels.loglikes(convert.twin_params_from_kernel(w.double()), x.double())
+    return gmm_kernels.loglikes(w.to(torch.float64), x.double())
 
 
 def k2_check(torch, x, w, what: str, log) -> float:
     """K2 against its plain version in float64 on ``x``; returns the max abs
     error (the gap to the fp32 plain version goes to the log)."""
-    from voicebridge_tpu_torch import convert
     from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels
 
     rtol, atol = TOL["gmm_loglikes"]
     got = gmm_kernel.loglikes(x, w).double()
     ref = k2_plain64(x, w)
     err = float((got - ref).abs().max())
-    fp32 = gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x).double()
+    fp32 = gmm_kernels.loglikes(w, x).double()
     log(f"gmm_loglikes on {what}: max abs err {err:.3g} against the float64 plain version, "
         f"{float((got - fp32).abs().max()):.3g} against the fp32 one (which is "
         f"{float((fp32 - ref).abs().max()):.3g} from the float64 one)")
@@ -565,7 +565,7 @@ def compare_kernels(torch, device, width: Width, results: dict, record, log) -> 
     """Phase 3: every kernel against its plain version at full width."""
     import numpy as np
 
-    from voicebridge_tpu_torch import FrameOptions, MelOptions, MfccOptions, convert
+    from voicebridge_tpu_torch import FrameOptions, MelOptions, MfccOptions
     from voicebridge_tpu_torch.ops import decode_core as DC
     from voicebridge_tpu_torch.ops import features, gmm_kernel, gmm_kernels, mfcc_kernel
     from voicebridge_tpu_torch.testing import random_am, synth_decode_graph
@@ -611,31 +611,30 @@ def compare_kernels(torch, device, width: Width, results: dict, record, log) -> 
     # alone as a yardstick (the port never calls it)
     dim = 39
     am = random_am(width.num_pdfs, width.max_mix, dim)
-    w = convert.kernel_params_from_am(am, device)
+    w = gmm_kernels.pack_gmm(am, device)
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((width.batch * width.frames, dim),
                                              dtype=np.float32)).to(device)
     ll = gmm_kernel.loglikes(x, w)
-    ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
+    ref = gmm_kernels.loglikes(w, x)
     ref64 = k2_plain64(x, w)
-    n, p, m = x.shape[0], w.shape[0], w.shape[1]
-    kp = gmm_kernel.k_pad(w.shape[2])
+    n, p, m = x.shape[0], w.num_pdfs, w.max_mix
+    kp = gmm_kernel.k_pad(w.w.shape[2])
     # 3xTF32: three products a step (hi.hi, hi.lo, lo.hi) over K padded to 8
     record("gmm_loglikes", [(ll, ref64)], lambda: gmm_kernel.loglikes(x, w),
-           lambda: gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x),
-           (nbytes(x, w, ll), 3 * 2 * n * p * m * kp), ops_per_s=TF32_OPS_PER_S)
+           lambda: gmm_kernels.loglikes(w, x),
+           (nbytes(x, w.w, ll), 3 * 2 * n * p * m * kp), ops_per_s=TF32_OPS_PER_S)
     results["gmm_loglikes"]["max_abs_err_vs_fp32_plain"] = float((ll.double() - ref.double())
                                                                  .abs().max())
     del ref, ref64
-    params = convert.twin_params_from_kernel(w)
     xx = torch.cat([x, x * x, torch.ones_like(x[:, :1])], dim=1)
-    wm = torch.cat([params.w_matrix, params.gconsts.reshape(1, -1)]).contiguous()
+    wm = w.w.reshape(p * m, -1).T.contiguous()  # [2D+1, P*M]
     # one multiply-add per (frame, Gaussian, row of [x, x^2])
     fp32_ms = 1e3 * 2 * n * p * m * 2 * dim / FP32_OPS_PER_S
     results["gmm_loglikes"].update(
         fp32_bound_ms=fp32_ms, route_detail="3xTF32, mma.sync m16n8k8",
         matmul_yardstick_ms=cuda_ms(torch, lambda: xx @ wm) if timed else None)
-    del xx, wm, params
+    del xx, wm
     log(f"gmm_loglikes: fp32 bound {fp32_ms:.4g} ms, torch.matmul of the product alone "
         f"{results['gmm_loglikes']['matmul_yardstick_ms']} ms")
 
@@ -1078,7 +1077,6 @@ def compare_training_kernels(torch, device, width: Width, w, record, log) -> Non
     """Phase 3, training half: K4 (forward, backtrace) and K6 against their
     plain versions at the full-width training shape; K6's work list against
     its plain version and two runs of K6 against each other."""
-    from voicebridge_tpu_torch import convert
     from voicebridge_tpu_torch.ops import align_band as AB
     from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel
 
@@ -1160,16 +1158,15 @@ def compare_training_kernels(torch, device, width: Width, w, record, log) -> Non
     del ll, bps_k, bt
     x = feats.reshape(-1, feats.shape[2])
     args = k6_inputs(torch, device, graphs, arcs, x, x)
-    twin = convert.twin_params_from_kernel(w)
     got = gmm_stats_kernel.acc_stats(w, *args, width.num_pdfs)
-    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3], width.num_pdfs, args[3])
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(w, *args[:3], width.num_pdfs, args[3])
     # per (frame, Gaussian of its pdf): a multiply-add per row of [x, x^2]
     # for the posterior and one per dimension for each of the two sums
     entry = record("gmm_stats", list(zip(got, ref)),
                    lambda: gmm_stats_kernel.acc_stats(w, *args, width.num_pdfs),
-                   lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3],
+                   lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(w, *args[:3],
                                                                       width.num_pdfs, args[3]),
-                   (nbytes(w, *args, *got), 8 * x.shape[0] * w.shape[1] * x.shape[1]))
+                   (nbytes(w.w, *args, *got), 8 * x.shape[0] * w.max_mix * x.shape[1]))
     entry.update(check_k6_list_and_runs(torch, w, args, width.num_pdfs, log))
 
 
@@ -1262,7 +1259,7 @@ def decode_yesno(torch, device, log) -> float:
     """Phase 4: the JAX-trained Yes-No model decoded on the device.  Returns
     K2's max abs error against its plain version on the model's features."""
     from synth import make_corpus
-    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions, convert
+    from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MfccOptions
     from voicebridge_tpu_torch.steps.decode import Decoder
     from voicebridge_tpu_torch.steps.make_feats import make_features, pad_features
     from voicebridge_tpu_torch.testing import compute_wer_set, load_yesno_mono
@@ -1271,13 +1268,12 @@ def decode_yesno(torch, device, log) -> float:
     train, test = make_corpus(**m.corpus)
     opts = MfccOptions(frame_opts=FrameOptions(samp_freq=m.samp_freq, dither=0.0))
     dec = Decoder(m.hclg, m.trans_model, m.am, DecodeOptions(beam=1e9), device=device)
-    gmm_w = convert.kernel_params_from_am(m.am, device)
     k2_err = 0.0
     for name, corpus, bound in (("test", test, 5.0), ("train", train, 2.0)):
         feats = make_features({u: w for u, (w, _) in corpus.items()},
                               {u: u for u in corpus}, opts, device=device)
         utts = sorted(feats)
-        k2_err = max(k2_err, k2_check(torch, torch.cat([feats[u] for u in utts]), gmm_w,
+        k2_err = max(k2_err, k2_check(torch, torch.cat([feats[u] for u in utts]), dec.gmm,
                                       f"the yes-no {name} features", log))
         batch, nf = pad_features(feats, utts)
         hyps = {r.utt: [m.words.sym(w) for w in r.words]
@@ -1503,7 +1499,7 @@ def train_full_width(torch, device, width: Width, log) -> dict:
 
     import numpy as np
 
-    from voicebridge_tpu_torch import _build, convert
+    from voicebridge_tpu_torch import _build
     from voicebridge_tpu_torch.ops import gmm_kernels as K
     from voicebridge_tpu_torch.ops import gmm_stats_kernel
     from voicebridge_tpu_torch.testing import random_am
@@ -1550,7 +1546,7 @@ def train_full_width(torch, device, width: Width, log) -> dict:
     if device.type == "cuda":
         facts["profile"] = profile_run(torch, em_iter, log, "full-width EM")
         # K6 on the iteration's own statistics: its device activities a call
-        wk = convert.kernel_params_from_twin(K.pack_gmm(am0, device))
+        wk = K.pack_gmm(am0, device)
         args = (x, x, torch.from_numpy(last_pdf[0]).to(device),
                 torch.ones(b * t, dtype=torch.float32, device=device))
         k6 = device_profile(torch, lambda: gmm_stats_kernel.acc_stats(wk, *args,
@@ -1593,7 +1589,7 @@ def lattice_full_width(torch, device, width: Width, log) -> dict:
                                    am, dopts, device=device, row_width=8)
     # K2 on these real MFCC + CMVN + delta features at full width (phase 3
     # holds it on random ones)
-    k2_err = k2_check(torch, x.float().contiguous(), dec.gmm_w, "the lattice phase's features",
+    k2_err = k2_check(torch, x.float().contiguous(), dec.gmm, "the lattice phase's features",
                       log)
     del x
     setup_s = time.perf_counter() - t0
@@ -1876,7 +1872,7 @@ def generic_full_width(torch, device, width: Width, log) -> dict:
     """Phase 12: generic alignment at full width.  Returns timing facts."""
     import numpy as np
 
-    from voicebridge_tpu_torch import _build, convert
+    from voicebridge_tpu_torch import _build
     from voicebridge_tpu_torch.ops import align_band as AB
     from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels as K
     from voicebridge_tpu_torch.steps import align as A
@@ -1917,7 +1913,7 @@ def generic_full_width(torch, device, width: Width, log) -> dict:
     # a banded set through both aligners
     b_graphs, b_aset, b_feats, b_nf = train_shape(width, device)
     want = b_aset.align_feats(params, b_feats, b_nf, acoustic_scale=0.1)
-    ll = gmm_kernel.loglikes_batch(b_feats, convert.kernel_params_from_twin(params))
+    ll = gmm_kernel.loglikes_batch(b_feats, params)
     got = A._align_generic(b_aset.generic_dev, b_graphs, ll, b_nf, 0.1, 1e9)
     differ = [i for i, (g, w_) in enumerate(zip(got, want)) if g["score"] != w_["score"]]
     check(not differ, f"banded and generic aligner score utterances {differ[:8]} differently")
@@ -2249,7 +2245,7 @@ def lda_mllt_full_width(torch, device, width: Width, record, results: dict, log)
     import numpy as np
 
     from voicebridge_tpu_torch import DecodeOptions, FrameOptions, MelOptions, MfccOptions
-    from voicebridge_tpu_torch import _build, convert
+    from voicebridge_tpu_torch import _build
     from voicebridge_tpu_torch.config import TriTrainOptions
     from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel
     from voicebridge_tpu_torch.ops.features import add_deltas_batch, splice_frames_batch
@@ -2323,7 +2319,7 @@ def lda_mllt_full_width(torch, device, width: Width, record, results: dict, log)
     params = gmm_kernels.pack_gmm(am, device)
     mllt_args = (am.means(), am.inv_vars, feats.reshape(n, e), pdf, weights.reshape(-1))
     g, beta = M.acc_mllt_stats(params, *mllt_args)
-    params64 = gmm_kernels.GmmParams(params.w_matrix.double(), params.gconsts.double())
+    params64 = params.to(torch.float64)
     g64, b64 = M._mllt_chunk(params64, *(torch.as_tensor(a).to(device, torch.float64)
                                          for a in mllt_args[:3]), ids,
                              torch.as_tensor(mllt_args[4]).to(device, torch.float64))
@@ -2371,24 +2367,23 @@ def lda_mllt_full_width(torch, device, width: Width, record, results: dict, log)
     log(f"full-width tri2b EM: Gaussians per pdf after the M-step {int(mix.min())}-"
         f"{int(mix.max())}")
     # K6 at D = 40 on the trained model's uneven mixture counts
-    w_k = convert.kernel_params_from_am(trained, device)
-    twin = convert.twin_params_from_kernel(w_k)
+    w_k = gmm_kernels.pack_gmm(trained, device)
     args = (x, x, ids.to(torch.int32), torch.ones(n, dtype=torch.float32, device=device))
     got = gmm_stats_kernel.acc_stats(w_k, *args, width.num_pdfs)
-    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3], width.num_pdfs, args[3])
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(w_k, *args[:3], width.num_pdfs, args[3])
     d40 = record("gmm_stats", list(zip(got, ref)),
                  lambda: gmm_stats_kernel.acc_stats(w_k, *args, width.num_pdfs),
-                 lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3],
+                 lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(w_k, *args[:3],
                                                                     width.num_pdfs, args[3]),
-                 (nbytes(w_k, *args, *got), 8 * n * w_k.shape[1] * e),
+                 (nbytes(w_k.w, *args, *got), 8 * n * w_k.max_mix * e),
                  what=" at D = 40, uneven mixtures")
     if device.type == "cuda":
         d40.update(device_profile(torch, lambda: gmm_stats_kernel.acc_stats(w_k, *args,
                                                                            width.num_pdfs)))
-    results["gmm_stats"]["lda_features"] = {**d40, "max_mix": int(w_k.shape[1])}
+    results["gmm_stats"]["lda_features"] = {**d40, "max_mix": w_k.max_mix}
     results["gmm_loglikes"]["max_abs_err_lda_uneven"] = k2_check(
         torch, x.contiguous(), w_k, "the tri2b training features (uneven mixtures)", log)
-    del got, ref, w_k, twin
+    del got, ref, w_k
     audio_s = n * 0.01
     train = {"audio_s": audio_s, "runs_s": walls,
              "median_audio_s_per_s": audio_s / float(np.median(walls)),
@@ -2432,12 +2427,12 @@ def lda_mllt_full_width(torch, device, width: Width, record, results: dict, log)
     setup_s = time.perf_counter() - t0
     # K2 at D = 40 on these features against its float64 plain version,
     # timed with its TF32 bound as in phase 3
-    w = dec.gmm_w
+    w = dec.gmm
     ll = gmm_kernel.loglikes(x, w)
-    kp = gmm_kernel.k_pad(w.shape[2])
+    kp = gmm_kernel.k_pad(w.w.shape[2])
     d40 = record("gmm_loglikes", [(ll, k2_plain64(x, w))], lambda: gmm_kernel.loglikes(x, w),
-                 lambda: gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x),
-                 (nbytes(x, w, ll), 3 * 2 * nd * w.shape[0] * w.shape[1] * kp),
+                 lambda: gmm_kernels.loglikes(w, x),
+                 (nbytes(x, w.w, ll), 3 * 2 * nd * w.num_pdfs * w.max_mix * kp),
                  ops_per_s=TF32_OPS_PER_S, what=" on the LDA features (D = 40)")
     results["gmm_loglikes"]["max_abs_err_lda_features"] = d40["max_abs_err"]
     results["gmm_loglikes"]["lda_features"] = {**d40, "k_pad": kp}
@@ -2580,7 +2575,7 @@ def sat_full_width(torch, device, width: Width, record, results: dict, final_mat
     import numpy as np
 
     from voicebridge_tpu_torch import FrameOptions, MelOptions, MfccOptions
-    from voicebridge_tpu_torch import _build, convert
+    from voicebridge_tpu_torch import _build
     from voicebridge_tpu_torch.config import DecodeOptions, FmllrDecodeOptions, TriTrainOptions
     from voicebridge_tpu_torch.ops import gmm_kernels, gmm_stats_kernel
     from voicebridge_tpu_torch.steps import decode_fmllr as DF
@@ -2678,23 +2673,22 @@ def sat_full_width(torch, device, width: Width, record, results: dict, final_mat
     alimdl_s = time.perf_counter() - t0
     alimdl_launches = dict(_build.launches)
     check(np.isfinite(alimdl.means_invvars).all(), "full-width alimdl is not finite")
-    w_k = convert.kernel_params_from_am(trained, device)
-    twin = convert.twin_params_from_kernel(w_k)
+    w_k = gmm_kernels.pack_gmm(trained, device)
     args = (x_adapted, base_flat, torch.from_numpy(tids_1.reshape(-1)).to(device, torch.int32),
             torch.from_numpy(w_1.reshape(-1)).to(device))
     got = gmm_stats_kernel.acc_stats(w_k, *args, width.num_pdfs)
-    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3], width.num_pdfs, args[3])
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(w_k, *args[:3], width.num_pdfs, args[3])
     entry = record("gmm_stats", list(zip(got, ref)),
                    lambda: gmm_stats_kernel.acc_stats(w_k, *args, width.num_pdfs),
-                   lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(twin, *args[:3],
+                   lambda: gmm_kernels.acc_gmm_stats_aligned_twofeats(w_k, *args[:3],
                                                                       width.num_pdfs, args[3]),
-                   (nbytes(w_k, *args, *got), 8 * n * w_k.shape[1] * d),
+                   (nbytes(w_k.w, *args, *got), 8 * n * w_k.max_mix * d),
                    what=" two features (x_post != x_acc) at D = 40")
     if device.type == "cuda":
         entry.update(device_profile(torch, lambda: gmm_stats_kernel.acc_stats(w_k, *args,
                                                                              width.num_pdfs)))
-    results["gmm_stats"]["twofeats"] = {**entry, "max_mix": int(w_k.shape[1])}
-    del got, ref, w_k, twin, args
+    results["gmm_stats"]["twofeats"] = {**entry, "max_mix": w_k.max_mix}
+    del got, ref, w_k, args
     audio_s = n * 0.01
     train = {"audio_s": audio_s, "runs_s": walls,
              "median_audio_s_per_s": audio_s / float(np.median(walls)),
@@ -2793,7 +2787,7 @@ def sat_full_width(torch, device, width: Width, record, results: dict, final_mat
     (dec, x2, utts, lats, out), = kept["rescore"]
     j, tt, pp = DF.survivor_index([lats[u] for u in utts], dec.graph.arc_pdf)
     got = torch.from_numpy(np.concatenate([out[u].acoustic_cost for u in utts])).to(device)
-    ref, tol = arc_costs_float64(torch, dec.gmm_w, x2, j, tt, pp)
+    ref, tol = arc_costs_float64(torch, dec.gmm.w, x2, j, tt, pp)
     ll = dec._loglikes(x2.contiguous())
     idx = [torch.from_numpy(a).to(device) for a in (j, tt, pp)]
     fns["survivor_gather"] = device_function(
@@ -2982,7 +2976,6 @@ def generic_parity(torch, device, proj, model, n_utts: int, log) -> dict:
     versions) from the same loglikes: alignments and scores bit-equal."""
     import numpy as np
 
-    from voicebridge_tpu_torch import convert
     from voicebridge_tpu_torch.config import TriTrainOptions
     from voicebridge_tpu_torch.ops import gmm_kernel
     from voicebridge_tpu_torch.ops.gmm_kernels import pack_gmm
@@ -2998,8 +2991,7 @@ def generic_parity(torch, device, proj, model, n_utts: int, log) -> dict:
     pick = sorted(np.argsort([-g.num_states for g in aset.graphs], kind="stable")[:n_utts])
     graphs = [aset.graphs[i] for i in pick]
     feats, nf = pad_features(feats_by_utt, [utts[i] for i in pick])
-    ll = gmm_kernel.loglikes_batch(feats.to(device).contiguous(), convert.kernel_params_from_twin(
-        pack_gmm(model.am, device)))
+    ll = gmm_kernel.loglikes_batch(feats.to(device).contiguous(), pack_gmm(model.am, device))
     got = {}
     for dev in (device, torch.device("cpu")):
         sub = A.AlignmentSet(graphs, device=dev)
@@ -3287,7 +3279,6 @@ def adaptation_full_width(torch, device, width: Width, log) -> dict:
     statistics; both full-covariance functions."""
     import numpy as np
 
-    from voicebridge_tpu_torch import convert
     from voicebridge_tpu_torch.models.full_gmm import (FullGmm, acc_full_stats, loglikes_full,
                                                        pack_full_gmm)
     from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels
@@ -3383,12 +3374,12 @@ def adaptation_full_width(torch, device, width: Width, log) -> dict:
          c * (2 * n0 * d * e * e + 2 * n0 * d * e + 4 * n0 * m * d) + 10 * n0 * m * d), log)
     del got, ref
     trans, l2c, _ = per_spk[0]
-    wk = convert.kernel_params_from_am(am, device)
-    cls = torch.from_numpy(R.class_of_gaussians(tree.bclass_of, l2c)).to(device)
+    cls = R.class_of_gaussians(tree.bclass_of, l2c)
     tr = torch.from_numpy(trans).to(device)
     k2_err = 0.0
     for q in range(len(trans)):  # each class's K2 launch against K2 in float64
-        w_q, active = R.class_weights(wk, cls, q)
+        w_q, active = R.class_weights(params, cls, q)
+        active = torch.from_numpy(active).to(device)
         x_q = torch.addmm(tr[q, :, -1], x, tr[q, :, :-1].T).contiguous()
         got_q, ref_q = gmm_kernel.loglikes(x_q, w_q)[:, active], k2_plain64(x_q, w_q)[:, active]
         k2_err = max(k2_err, float((got_q.double() - ref_q).abs().max()))
@@ -3398,21 +3389,21 @@ def adaptation_full_width(torch, device, width: Width, log) -> dict:
               f"version ({k2_err})")
         del w_q, x_q, got_q, ref_q
     got = R.regtree_fmllr_loglikes(params, x, trans, l2c, tree.bclass_of)
-    p64 = gmm_kernels.GmmParams(params.w_matrix.double(), params.gconsts.double())
+    p64 = params.to(torch.float64)
     ref = torch.cat([R.regtree_fmllr_loglikes_plain(p64, x[lo:lo + 2048].double(), trans, l2c,
                                                     tree.bclass_of)
                      for lo in range(0, n, 2048)])
-    kp = gmm_kernel.k_pad(wk.shape[2])
+    kp = gmm_kernel.k_pad(params.w.shape[2])
     entry = device_function(
         torch, "regtree_fmllr_loglikes", [(got, ref, *TOL["gmm_loglikes"])],
         lambda: R.regtree_fmllr_loglikes(params, x, trans, l2c, tree.bclass_of),
         # per class K2's bytes and 3xTF32 products (the transforms' own
         # products, 2 n D E a class in float32, are a thousandth of these)
-        (len(trans) * (nbytes(x, wk) + 8 * n * p), len(trans) * 3 * 2 * n * p * m * kp), log,
+        (len(trans) * (nbytes(x, params.w) + 8 * n * p), len(trans) * 3 * 2 * n * p * m * kp), log,
         ops_per_s=TF32_OPS_PER_S)
     entry.update(classes=len(trans), k2_per_class_max_abs_err=k2_err)
     fns["regtree_fmllr_loglikes"] = entry
-    del got, ref, wk
+    del got, ref
     pdf_t = torch.from_numpy(pdf).to(device)
     ref = gmm_kernels.acc_gmm_stats_aligned(p64, x.double(), pdf_t, p,
                                             torch.ones(n, dtype=torch.float64, device=device))
@@ -3540,8 +3531,7 @@ def tf32_guard(torch, device, lane: dict, final_mat, acc: dict, log) -> dict:
     nf = torch.from_numpy(lane["nf"])
     by_utt = {f"u{i:04d}": base[i, : int(n)] for i, n in enumerate(lane["nf"])}
     g = acc["gmm40"]
-    params = GmmParams(torch.from_numpy(g["w_matrix"]).to(device),
-                       torch.from_numpy(g["gconsts"]).to(device))
+    params = GmmParams(torch.from_numpy(g["w"]).to(device), g["live"])
     calls = {
         "add_deltas_batch": lambda: add_deltas_batch(base, nf),
         "lda_decode_feats": lambda: torch.cat(list(lda_decode_feats(by_utt, final_mat,
@@ -3600,8 +3590,8 @@ def phase20_arrays(torch, device, width: Width) -> dict:
     w_lda[::7] = 0.25
     out = dict(
         feats=feats.cpu().numpy(), nf=nf, tids=pdf, pdf_ids=pdf,
-        weights=np.ones((b, t), np.float32), gmm=dict(w_matrix=params.w_matrix.cpu().numpy(),
-                                                      gconsts=params.gconsts.cpu().numpy()),
+        weights=np.ones((b, t), np.float32), gmm=dict(w=params.w.cpu().numpy(),
+                                                      live=params.live),
         band_W=band.W, band_pdf=band.pdf, band_alpha0=band.alpha0,
         band_offsets=np.asarray(band.offsets, np.int32),
         gen={k: padded[k] for k in ("arc_src", "arc_dst", "arc_pdf", "arc_score", "alpha0")},
@@ -3612,7 +3602,7 @@ def phase20_arrays(torch, device, width: Width) -> dict:
         pdf40=rng.integers(0, width.num_pdfs, n).astype(np.int32),
         w40=np.ones(n, np.float32),
         spk40=np.repeat(np.arange(b, dtype=np.int32) % SAT_SPEAKERS, t),
-        gmm40=dict(w_matrix=p40.w_matrix.numpy(), gconsts=p40.gconsts.numpy(),
+        gmm40=dict(w=p40.w.numpy(), live=p40.live,
                    means=am40.means().astype(np.float32),
                    inv_vars=am40.inv_vars.astype(np.float32)))
     return out
@@ -3627,11 +3617,9 @@ def sharded_programs(torch, mesh, a: dict, width: Width, timed: bool) -> dict:
     from voicebridge_tpu_torch.transforms.fmllr import acc_fmllr_stats
 
     dev = mesh.device
-    params = GmmParams(torch.from_numpy(a["gmm"]["w_matrix"]).to(dev),
-                       torch.from_numpy(a["gmm"]["gconsts"]).to(dev))
+    params = GmmParams(torch.from_numpy(a["gmm"]["w"]).to(dev), a["gmm"]["live"])
     g40 = a["gmm40"]
-    p40 = GmmParams(torch.from_numpy(g40["w_matrix"]).to(dev),
-                    torch.from_numpy(g40["gconsts"]).to(dev))
+    p40 = GmmParams(torch.from_numpy(g40["w"]).to(dev), g40["live"])
     feats = torch.from_numpy(a["feats"]).to(dev)
     data = (feats, a["nf"], a["tids"], a["pdf_ids"], a["weights"])
     b, t, d = a["feats"].shape
@@ -3787,7 +3775,6 @@ def parallel_full_width(torch, device, width: Width, a: dict, lane: dict, log) -
     import numpy as np
     import torch.distributed as dist
 
-    from voicebridge_tpu_torch import convert
     from voicebridge_tpu_torch.ops import align_band as AB
     from voicebridge_tpu_torch.ops import decode_core as DC
     from voicebridge_tpu_torch.ops import gmm_kernel
@@ -3813,8 +3800,7 @@ def parallel_full_width(torch, device, width: Width, a: dict, lane: dict, log) -
             launches = dict(_build.launches)
             # the generic E-step over phase 12's graphs, and the decode forward
             gen = a["gen"]
-            params = GmmParams(torch.from_numpy(a["gmm"]["w_matrix"]).to(device),
-                               torch.from_numpy(a["gmm"]["gconsts"]).to(device))
+            params = GmmParams(torch.from_numpy(a["gmm"]["w"]).to(device), a["gmm"]["live"])
             feats = torch.from_numpy(a["feats"]).to(device)
             data = (feats, a["nf"], a["tids"], a["pdf_ids"], a["weights"])
             t0 = time.perf_counter()
@@ -3870,8 +3856,7 @@ def parallel_full_width(torch, device, width: Width, a: dict, lane: dict, log) -
     # ---- held to the port's unsharded functions ----
     b, t, d = a["feats"].shape
     n = b * t
-    w_k = convert.kernel_params_from_twin(params)
-    ll = gmm_kernel.loglikes_batch(feats, w_k)
+    ll = gmm_kernel.loglikes_batch(feats, params)
     nf_t = torch.from_numpy(a["nf"]).to(device)
     ae, bps = AB.viterbi_forward_banded(
         torch.from_numpy(a["band_W"]).to(device), torch.from_numpy(a["band_pdf"]).to(device),
@@ -3902,8 +3887,7 @@ def parallel_full_width(torch, device, width: Width, a: dict, lane: dict, log) -
                                    for g, r in zip(res_g[2:], res[2:]))
     del ll, bps, bps_g
     g40 = a["gmm40"]
-    p40 = GmmParams(torch.from_numpy(g40["w_matrix"]).to(device),
-                    torch.from_numpy(g40["gconsts"]).to(device))
+    p40 = GmmParams(torch.from_numpy(g40["w"]).to(device), g40["live"])
     lda = lda_sums(torch.from_numpy(a["lda_x"]).to(device), a["lda_pdf"], a["lda_w"],
                    width.num_pdfs)
     errs["acc_lda_stats_sharded"] = max(

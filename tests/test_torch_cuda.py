@@ -70,7 +70,7 @@ import numpy as np
 import pytest
 import torch
 
-from voicebridge_tpu_torch import _build, convert
+from voicebridge_tpu_torch import _build
 from voicebridge_tpu_torch.config import DecodeOptions, FrameOptions, MelOptions, MfccOptions
 from voicebridge_tpu_torch.models.gmm import AmDiagGmm
 from voicebridge_tpu_torch.ops import align_band as AB
@@ -240,7 +240,7 @@ def _feature_scale_case(which, device):
     else:
         xd = x.double().cpu().numpy()
         am = feature_scaled_am(xd.mean(0), xd.var(0) / 30.0, 200, 5)
-    return x, convert.kernel_params_from_am(am, device)
+    return x, gmm_kernels.pack_gmm(am, device)
 
 
 # (pdfs, components, dim, frames, ragged mixtures): ragged frames and pdfs
@@ -269,7 +269,7 @@ def test_gmm_kernel_matches_plain(cuda, case):
     model)."""
     if case in LIVE_CASES:
         dim, n = LIVE_CASES[case]
-        w = convert.kernel_params_from_am(
+        w = gmm_kernels.pack_gmm(
             k2_cases.am_with_live(k2_cases.live_mask(case), dim, seed=dim), cuda)
         x = torch.from_numpy(np.random.default_rng(2).standard_normal((n, dim))
                              .astype(np.float32)).to(cuda)
@@ -278,12 +278,12 @@ def test_gmm_kernel_matches_plain(cuda, case):
     else:
         num_pdfs, max_mix, dim, n, ragged = case
         am = _am(num_pdfs, max_mix, dim, seed=dim + max_mix, ragged=ragged)
-        w = convert.kernel_params_from_am(am, cuda)
+        w = gmm_kernels.pack_gmm(am, cuda)
         x = torch.from_numpy(np.random.default_rng(1).standard_normal((n, dim))
                              .astype(np.float32)).to(cuda)
     before = _build.launches["gmm_loglikes"]
     got = gmm_kernel.loglikes(x, w)
-    ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w.double()), x.double())
+    ref = gmm_kernels.loglikes(w.to(torch.float64), x.double())
     torch.cuda.synchronize()
     assert _build.launches["gmm_loglikes"] == before + 1
     torch.testing.assert_close(got.double(), ref, rtol=2e-5, atol=2e-4)
@@ -582,7 +582,7 @@ def test_gmm_stats_matches_plain(cuda, case):
     ragged = case in ("twofeats", "d40_uneven")
     d = 40 if case == "d40_uneven" else 13
     am = _am(40, 9 if case == "d40_uneven" else 4, d, seed=3, ragged=ragged)
-    w = convert.kernel_params_from_am(am, cuda)
+    w = gmm_kernels.pack_gmm(am, cuda)
     n = 5000
     x_post = rng.standard_normal((n, d)).astype(np.float32)
     x_acc = rng.standard_normal((n, d)).astype(np.float32) if case == "twofeats" else x_post
@@ -596,8 +596,7 @@ def test_gmm_stats_matches_plain(cuda, case):
         weights[rng.random(n) < 0.4] = 0.0
     args = [torch.from_numpy(a).to(cuda) for a in (x_post, x_acc, pdf, weights)]
     got = gmm_stats_kernel.acc_stats(w, *args, 40)
-    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(convert.twin_params_from_kernel(w),
-                                                     *args[:3], 40, args[3])
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(w, *args[:3], 40, args[3])
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         r = r.double()
@@ -714,7 +713,7 @@ def test_gmm_stats_edges(cuda, case):
     rng = np.random.default_rng(23)
     n, p, num_pdfs = STATS_EDGES[case]
     d = 13
-    w = convert.kernel_params_from_am(_am(p, 3, d, seed=5, ragged=False), cuda)
+    w = gmm_kernels.pack_gmm(_am(p, 3, d, seed=5, ragged=False), cuda)
     x = rng.standard_normal((n, d)).astype(np.float32)
     pdf = rng.integers(0, num_pdfs, n).astype(np.int32)
     if case == "one_pdf":
@@ -737,8 +736,7 @@ def test_gmm_stats_edges(cuda, case):
         for name, g, r in zip(ref_list._fields, got_list, ref_list):
             assert torch.equal(g, r), name
     got = gmm_stats_kernel.acc_stats(w, *args, num_pdfs)
-    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(convert.twin_params_from_kernel(w),
-                                                     *args[:3], num_pdfs, args[3])
+    ref = gmm_kernels.acc_gmm_stats_aligned_twofeats(w, *args[:3], num_pdfs, args[3])
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         r = r.double()
@@ -1335,9 +1333,8 @@ def _hold_card_e_steps(kept) -> None:
     magnitude)."""
     assert kept
     for am, tid2pdf, num_pdfs, x, tids, weights, (occ, macc, vacc, _t, _ll) in kept:
-        p = gmm_kernels.pack_gmm(am, "cpu")
         ref = gmm_kernels.acc_gmm_stats_aligned(
-            gmm_kernels.GmmParams(p.w_matrix.double(), p.gconsts.double()), x.double(),
+            gmm_kernels.pack_gmm(am, "cpu").to(torch.float64), x.double(),
             torch.from_numpy(tid2pdf[tids.reshape(-1)]), num_pdfs,
             torch.from_numpy(weights.reshape(-1)).double())
         for got, want in zip((occ, macc, vacc), ref[:3]):
@@ -1642,9 +1639,10 @@ def test_frontend_extractors_cuda_match_cpu(cuda):
 @pytest.mark.parametrize("num_classes", [1, 2, 8])
 def test_regtree_fmllr_loglikes_k2_per_class(cuda, num_classes):
     """``regtree_fmllr_loglikes`` on the card: one K2 launch per regression
-    class holding Gaussians, against the JAX formulation
-    (``regtree_fmllr_loglikes_plain``) in float64 with the GMM tolerance;
-    a pdf with no active Gaussian comes out -inf, not about -1e30."""
+    class holding Gaussians, laid out from the live Gaussians of that class
+    alone, against the JAX formulation (``regtree_fmllr_loglikes_plain``) in
+    float64 with the GMM tolerance; a pdf with no active Gaussian comes out
+    -inf, not about -1e30."""
     from voicebridge_tpu_torch.transforms import regtree as TR
 
     rng = np.random.default_rng(num_classes)
@@ -1660,9 +1658,11 @@ def test_regtree_fmllr_loglikes_k2_per_class(cuda, num_classes):
                           + rng.standard_normal((700, 13))).astype(np.float32))
     params = gmm_kernels.pack_gmm(am, cuda)
     before = _build.launches["gmm_loglikes"]
-    got = TR.regtree_fmllr_loglikes(params, x.to(cuda), trans, l2c, bclass)
+    with P.recording():
+        got = TR.regtree_fmllr_loglikes(params, x.to(cuda), trans, l2c, bclass)
     torch.cuda.synchronize()
     assert _build.launches["gmm_loglikes"] == before + num_classes
+    assert P.session().counters["gmm.live"] == 700 * int((bclass >= 0).sum())
     ref = TR.regtree_fmllr_loglikes_plain(params, x.to(cuda).double(), trans, l2c, bclass)
     assert torch.isneginf(got[:, 5]).all() and torch.isneginf(ref[:, 5]).all()
     keep = torch.arange(40, device=cuda) != 5
@@ -1687,7 +1687,7 @@ def test_acc_regtree_stats_cuda_match_float64(cuda):
     before = _build.launches["gmm_stats"]
     occ, xbar = TR.acc_regtree_mllr_stats(params, x, pdf, w)
     assert _build.launches["gmm_stats"] == before + 1
-    p64 = gmm_kernels.GmmParams(params.w_matrix.double(), params.gconsts.double())
+    p64 = params.to(torch.float64)
     ref = gmm_kernels.acc_gmm_stats_aligned(p64, torch.from_numpy(x).to(cuda).double(),
                                             torch.from_numpy(pdf).to(cuda), 30,
                                             torch.from_numpy(w).to(cuda).double())
@@ -1866,8 +1866,7 @@ def test_sharded_estep_nccl_world1_matches_unsharded(cuda):
     p = s["padded"]
     params = gmm_kernels.pack_gmm(s["am"], cuda)
     data = (s["feats"], s["nf"], s["tids"], s["pdf_ids"], s["weights"])
-    ll = gmm_kernel.loglikes_batch(torch.from_numpy(s["feats"]).to(cuda),
-                                   convert.kernel_params_from_twin(params))
+    ll = gmm_kernel.loglikes_batch(torch.from_numpy(s["feats"]).to(cuda), params)
     x = torch.from_numpy(s["feats"].reshape(-1, W.DIM)).to(cuda)
     w = torch.ones(x.shape[0], device=cuda)
     sums = gmm_kernels.acc_gmm_stats_sums(params, x, x, s["pdf_ids"].reshape(-1),

@@ -55,8 +55,7 @@ def test_loglikes_match_jax_and_pallas(case):
     ref_pallas = np.asarray(loglikes_pallas(pack_gmm_pallas(am), jnp.asarray(x),
                                             am.num_pdfs, interpret=True))
     twin = TK.loglikes(TK.pack_gmm(_port(am), "cpu"), torch.from_numpy(x)).numpy()
-    wrapped = gmm_kernel.loglikes(torch.from_numpy(x),
-                                  convert.kernel_params_from_am(_port(am), "cpu")).numpy()
+    wrapped = gmm_kernel.loglikes(torch.from_numpy(x), TK.pack_gmm(_port(am), "cpu")).numpy()
     assert twin.shape == ref.shape == (300, am.num_pdfs)
     np.testing.assert_allclose(twin, ref, **GMM_TOL)
     np.testing.assert_allclose(twin, ref_pallas, **GMM_TOL)
@@ -69,7 +68,7 @@ def test_inactive_pdf_gives_neg_sentinel():
     am.compute_gconsts()
     x = np.random.default_rng(2).standard_normal((10, 5)).astype(np.float32)
     ref = np.asarray(K.loglikes(K.pack_gmm(am), jnp.asarray(x)))
-    got = gmm_kernel.loglikes(torch.from_numpy(x), convert.kernel_params_from_am(_port(am), "cpu"))
+    got = gmm_kernel.loglikes(torch.from_numpy(x), TK.pack_gmm(_port(am), "cpu"))
     np.testing.assert_array_equal(got.numpy()[:, 2], np.full(10, -1e30, np.float32))
     np.testing.assert_allclose(got.numpy(), ref, **GMM_TOL)
 
@@ -77,65 +76,78 @@ def test_inactive_pdf_gives_neg_sentinel():
 def test_loglikes_batch_shape():
     am = _random_am(num_pdfs=9, max_mix=2, dim=4, seed=4)
     feats = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 7, 4)).astype(np.float32))
-    w = convert.kernel_params_from_am(_port(am), "cpu")
-    got = gmm_kernel.loglikes_batch(feats, w)
+    gmm = TK.pack_gmm(_port(am), "cpu")
+    got = gmm_kernel.loglikes_batch(feats, gmm)
     assert got.shape == (2, 7, 9)
     np.testing.assert_allclose(got.reshape(14, 9).numpy(),
-                               gmm_kernel.loglikes(feats.reshape(14, 4), w).numpy())
+                               gmm_kernel.loglikes(feats.reshape(14, 4), gmm).numpy())
+
+
+def _same_model(got, want, jax_params):
+    """``got`` and ``want`` hold the same weights and live components, and
+    the plain versions' view of the weights is the JAX package's matrix."""
+    np.testing.assert_array_equal(got.w.numpy(), want.w.numpy())
+    np.testing.assert_array_equal(got.live, want.live)
+    p, m = got.num_pdfs, got.max_mix
+    np.testing.assert_array_equal(got.w[..., :-1].reshape(p * m, -1).T.numpy(),
+                                  np.asarray(jax_params.w_matrix))
+    np.testing.assert_array_equal(got.gconsts.numpy(), np.asarray(jax_params.gconsts))
 
 
 def test_convert_from_jax_gmm_params():
     am = _random_am(**CASES["ragged"])
     jp = K.pack_gmm(am)
-    params, w = convert.gmm_from_jax(np.asarray(jp.w_matrix), np.asarray(jp.gconsts), "cpu")
-    np.testing.assert_array_equal(w.numpy(), convert.kernel_params_from_am(_port(am), "cpu").numpy())
-    back = convert.twin_params_from_kernel(w)
-    np.testing.assert_array_equal(back.w_matrix.numpy(), np.asarray(jp.w_matrix))
-    np.testing.assert_array_equal(back.gconsts.numpy(), np.asarray(jp.gconsts))
-    assert (params.num_pdfs, params.max_mix, params.dim) == (21, 7, 11)
+    got = convert.gmm_from_jax(np.asarray(jp.w_matrix), np.asarray(jp.gconsts), "cpu")
+    _same_model(got, TK.pack_gmm(_port(am), "cpu"), jp)
+    assert (got.num_pdfs, got.max_mix, got.dim) == (21, 7, 11)
+    assert got.live.sum() == am.num_gauss < got.live.size
 
 
 def test_convert_from_pallas_w3():
     am = _random_am(**CASES["wide"])
-    params, w = convert.gmm_from_pallas(np.asarray(pack_gmm_pallas(am).w3),
-                                        am.num_pdfs, am.dim, "cpu")
-    np.testing.assert_array_equal(w.numpy(), convert.kernel_params_from_am(_port(am), "cpu").numpy())
-    jp = K.pack_gmm(am)
-    np.testing.assert_array_equal(params.w_matrix.numpy(), np.asarray(jp.w_matrix))
-    np.testing.assert_array_equal(params.gconsts.numpy(), np.asarray(jp.gconsts))
+    got = convert.gmm_from_pallas(np.asarray(pack_gmm_pallas(am).w3), am.num_pdfs, am.dim,
+                                  "cpu")
+    _same_model(got, TK.pack_gmm(_port(am), "cpu"), K.pack_gmm(am))
+    assert got.live.all()
 
 
-def test_wrapper_under_inference_mode_and_after_a_change_in_place():
-    """Weights made under ``torch.inference_mode`` (no version counter) are
-    scored as outside it, and laid out anew at every call, so that a change
-    in place is seen there too; weights changed in place after their first
-    call are laid out again, from their own values, and scored as changed."""
-    am = _random_am(**CASES["ragged"])
-    x = torch.from_numpy(np.random.default_rng(1).standard_normal((50, am.dim))
-                         .astype(np.float32))
-    want = gmm_kernel.loglikes(x, convert.kernel_params_from_am(_port(am), "cpu"))
-    with torch.inference_mode():
-        w = convert.kernel_params_from_am(_port(am), "cpu")
-        torch.testing.assert_close(gmm_kernel.loglikes(x, w), want, rtol=0, atol=0)
-        w[:, :, -1] = torch.where(w[:, :, -1] > -1e29, w[:, :, -1], 0.0)
-        with profiling.recording():
-            gmm_kernel.loglikes(x, w)
-        assert profiling.session().counters["gmm.live"] == 50 * w.shape[0] * w.shape[1]
-    w = convert.kernel_params_from_am(_port(am), "cpu")
-    gmm_kernel.loglikes(x, w)
-    w[:, :, -1] = torch.where(w[:, :, -1] > -1e29, w[:, :, -1], 0.0)  # every slot live
+def test_k2_lays_a_model_out_once_and_a_model_packed_after_an_update_anew(monkeypatch):
+    """K2 lays a model out at its first call and keeps the layout on it (two
+    calls, one layout); a model packed after ``mle_update`` and
+    ``split_to_target`` is laid out from its own live components and scores
+    the updated model (against the host's float64 ``AmDiagGmm.loglike``)."""
+    made = []
+    layout = gmm_kernel.layout
+    monkeypatch.setattr(gmm_kernel, "layout", lambda live: made.append(live) or layout(live))
+    am = _port(_random_am(**CASES["ragged"]))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((200, am.dim)).astype(np.float32))
+    gmm = TK.pack_gmm(am, "cpu")
+    first = gmm_kernel.loglikes(x, gmm)
+    torch.testing.assert_close(gmm_kernel.loglikes(x, gmm), first, rtol=0, atol=0)
+    assert len(made) == 1
+    pdf = torch.from_numpy(rng.integers(0, am.num_pdfs, 200))
+    occ, macc, vacc, _ll = (t.numpy() for t in TK.acc_gmm_stats_aligned(
+        gmm, x, pdf, am.num_pdfs, torch.ones(200)))
+    am.mle_update(occ, macc, vacc, min_gaussian_occupancy=1.0)
+    am.split_to_target(am.num_gauss + 20, occ, min_count=1.0, seed=1)
+    new = TK.pack_gmm(am, "cpu")
+    np.testing.assert_array_equal(new.live, am.weights > 0)
     with profiling.recording():
-        got = gmm_kernel.loglikes(x, w)
-    assert profiling.session().counters["gmm.live"] == 50 * w.shape[0] * w.shape[1]
-    torch.testing.assert_close(got, TK.loglikes(convert.twin_params_from_kernel(w), x),
-                               rtol=0, atol=0)
+        got = gmm_kernel.loglikes(x, new).numpy()
+    assert len(made) == 2
+    np.testing.assert_array_equal(made[1], new.live)
+    assert profiling.session().counters["gmm.live"] == 200 * am.num_gauss
+    x64 = x.numpy().astype(np.float64)
+    want = np.array([[am.loglike(p, f) for p in range(am.num_pdfs)] for f in x64])
+    np.testing.assert_allclose(got, want, **GMM_TOL)
+    assert np.abs(got - first.numpy()).max() > 1.0
 
 
 def test_wrapper_rejects_other_devices():
     am = _random_am(num_pdfs=3, max_mix=2, dim=4)
-    w = convert.kernel_params_from_am(_port(am), "cpu")
     with pytest.raises(ValueError, match="unsupported device"):
-        gmm_kernel.loglikes(torch.empty((5, 4), device="meta"), w)
+        gmm_kernel.loglikes(torch.empty((5, 4), device="meta"), TK.pack_gmm(_port(am), "cpu"))
 
 
 @pytest.mark.parametrize("max_mix", [1, 2, 5, 6, 7, 8, 11, 20])
@@ -149,7 +161,7 @@ def test_pack_weights_layout(max_mix):
     live = rng.random((37, max_mix)) < 0.6
     live[5] = False
     am = k2_cases.am_with_live(live, 13, seed=max_mix)
-    w = convert.kernel_params_from_am(am, "cpu")
+    w = TK.pack_gmm(am, "cpu").w
     lay = gmm_kernel.layout(live)
     wt, tiles, order = gmm_kernel.pack_weights(w, lay)
     np.testing.assert_array_equal(tiles.view(-1, 2).numpy(), lay.tiles)
@@ -231,9 +243,9 @@ def test_tf32x3_halves_of_packed_weights():
     kernel's tolerance of float64, closer than fp32 does (the expanded form
     cancels terms of up to 1e4 there)."""
     m = load_yesno_mono()
-    w = convert.kernel_params_from_am(m.am, "cpu")
-    lay = gmm_kernel.layout(TK.live_of(w))
-    wt = gmm_kernel.pack_weights(w, lay)[0].numpy()
+    gmm = TK.pack_gmm(m.am, "cpu")
+    lay = gmm_kernel.layout(gmm.live)
+    wt = gmm_kernel.pack_weights(gmm.w, lay)[0].numpy()
     hi, lo = _tf32_split(wt)
     assert (hi.view(np.uint32) & 0x1FFF == 0).all() and (lo.view(np.uint32) & 0x1FFF == 0).all()
     np.testing.assert_array_less(np.abs(hi.astype(np.float64) + lo - wt), 2.0 ** -22 * np.abs(wt) + 1e-45)

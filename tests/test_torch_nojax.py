@@ -1,6 +1,7 @@
 """The port, its chip smoke script and its examples import with jax and the
 JAX package unavailable, and the device checks refuse what they must."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -78,3 +79,31 @@ def test_every_cuda_source_is_built():
     assert "lattice_lane.cu" in cu
     assert sorted(_build.SOURCES) == cu
     assert set(_build._SIGNATURES) >= {"vbt_lattice_lane_forward", "vbt_lattice_lane_backward"}
+
+
+def _imports_convert(path: Path) -> bool:
+    """Whether the module at ``path`` imports the port's ``convert``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            if module.split(".")[-1] == "convert" or (
+                    module in ("", "voicebridge_tpu_torch")
+                    and any(a.name == "convert" for a in node.names)):
+                return True
+        elif isinstance(node, ast.Import):
+            if any(a.name == "voicebridge_tpu_torch.convert" for a in node.names):
+                return True
+    return False
+
+
+def test_no_layer_of_the_port_imports_convert():
+    """``convert.py`` brings the JAX package's arrays to the tests and
+    ``testing/``; the layers of the program, from the models up to the
+    steps, do not import it (``testing/`` does, which shows the check
+    sees such an import)."""
+    pkg = ROOT / "voicebridge_tpu_torch"
+    paths = [p for d in ("ops", "steps", "transforms", "parallel", "lat", "models")
+             for p in sorted((pkg / d).rglob("*.py"))]
+    assert len(paths) > 40
+    assert [str(p.relative_to(pkg)) for p in paths if _imports_convert(p)] == []
+    assert _imports_convert(pkg / "testing" / "__init__.py")

@@ -59,7 +59,7 @@ def test_aligned_twofeats_matches_jax(skew):
     args = (torch.from_numpy(x_post), torch.from_numpy(x_acc), torch.from_numpy(pdfs), p,
             torch.from_numpy(w))
     got = K.acc_gmm_stats_aligned_twofeats(K.pack_gmm(_port(am), "cpu"), *args)
-    wrapped = K6.acc_stats(convert.kernel_params_from_am(_port(am), "cpu"), *args[:3],
+    wrapped = K6.acc_stats(K.pack_gmm(_port(am), "cpu"), *args[:3],
                            torch.from_numpy(w), p)
     for name, g, gw, ref in zip(("occ", "mean_acc", "var_acc", "ll"), got, wrapped, want):
         assert g.dtype == torch.float32 and gw.dtype == torch.float64

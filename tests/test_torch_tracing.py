@@ -1,7 +1,8 @@
 """The port's spans and counters (``utils/profiling.py``): nesting and self
 time, when they record, the spans and counters of ``Decoder.decode_lattice``,
-``train_tri.realign`` and K2 at tiny sizes on the CPU, the Chrome trace on the
-profiler's clock, and ``StageTimer``."""
+``train_tri.realign`` and K2 at tiny sizes on the CPU (K2's on every path
+that calls it), the Chrome trace on the profiler's clock, and
+``StageTimer``."""
 
 import json
 import math
@@ -11,14 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from voicebridge_tpu_torch import convert
 from voicebridge_tpu_torch.config import DecodeOptions, TriTrainOptions
+from voicebridge_tpu_torch.ops import align_band as AB
 from voicebridge_tpu_torch.ops import gmm_kernel
+from voicebridge_tpu_torch.ops import gmm_kernels as K
 from voicebridge_tpu_torch.ops import lattice as LAT
+from voicebridge_tpu_torch.parallel import mesh as M
 from voicebridge_tpu_torch.steps import train_tri
 from voicebridge_tpu_torch.steps.align import AlignmentSet
 from voicebridge_tpu_torch.steps.decode import Decoder
 from voicebridge_tpu_torch.testing import random_am, synth_decode_graph, synth_train_graph
+from voicebridge_tpu_torch.transforms import regtree as R
 from voicebridge_tpu_torch.utils import profiling as P
 
 import k2_cases
@@ -186,18 +190,96 @@ def test_gmm_counters_are_the_calls_sizes():
     the frames times the layout's slots, from the host's record of the
     model; a K2 call reads nothing back from the device."""
     live = k2_cases.live_mask("dead_between")
-    w = convert.kernel_params_from_am(k2_cases.am_with_live(live, 13, seed=3), "cpu")
+    gmm = K.pack_gmm(k2_cases.am_with_live(live, 13, seed=3), "cpu")
     x = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 50, 13))
                          .astype(np.float32))
     with P.recording():
-        gmm_kernel.loglikes_batch(x, w)
-        gmm_kernel.loglikes(x[1, :7].contiguous(), w)
+        gmm_kernel.loglikes_batch(x, gmm)
+        gmm_kernel.loglikes(x[1, :7].contiguous(), gmm)
     sess = P.session()
     lay = gmm_kernel.layout(live)
     assert sess.counters["gmm.live"] == 107 * int(live.sum())
     assert sess.counters["gmm.slots"] == 107 * lay.slots >= sess.counters["gmm.live"]
     assert "host_sync" not in sess.counters
     assert not [s for s in sess.spans if s.name.startswith("sync.")]
+
+
+def _decode(am, with_model: bool, feats, nf) -> None:
+    graph = synth_decode_graph(100, 4, num_pdfs=am.num_pdfs, seed=1)
+    dec = Decoder.from_dense_graph(graph, random_am(am.num_pdfs, 2, am.dim, seed=2)
+                                   if with_model else am, device="cpu")
+    if with_model:
+        dec = dec.with_model(am, DecodeOptions())
+    dec._batch_chunk = lambda t, d: len(nf)
+    with P.recording():
+        dec.decode_batch([f"u{i}" for i in range(len(nf))], feats, nf)
+
+
+def _realign(am, feats, nf) -> None:
+    rng = np.random.default_rng(6)
+    graphs = [synth_train_graph(int(n) // 2, am.num_pdfs, rng) for n in nf]
+    aset = AlignmentSet(graphs, device="cpu")
+    aset._batch_chunk = lambda t, p, d, s: len(nf)
+    tids = np.zeros(feats.shape[:2], np.int32)
+    with P.recording():
+        train_tri.realign(aset, am, feats, nf, tids, np.zeros(feats.shape[:2], np.float32), [],
+                          TriTrainOptions(), "test realign", [f"u{i}" for i in range(len(nf))])
+
+
+def _regtree(am, feats, bclass_of) -> None:
+    eye = np.concatenate([np.eye(am.dim), np.zeros((am.dim, 1))], axis=1)
+    with P.recording():
+        R.regtree_fmllr_loglikes(K.pack_gmm(am, "cpu"), feats.reshape(-1, am.dim),
+                                 np.stack([eye, 1.1 * eye]), np.array([0, 1]), bclass_of)
+
+
+def _mesh_step(am, feats, nf) -> None:
+    import torch.distributed as dist
+
+    rng = np.random.default_rng(6)
+    band = AB.build_band_plan([synth_train_graph(int(n) // 2, am.num_pdfs, rng) for n in nf])
+    b, t = feats.shape[:2]
+    pdf_ids = rng.integers(0, am.num_pdfs, (b, t)).astype(np.int32)
+    try:
+        mesh = M.make_mesh(devices="cpu")
+        step = M.em_estep_sharded_banded(mesh, am.num_pdfs, 4, band.offsets)
+        with P.recording():
+            step(K.pack_gmm(am, "cpu"), band.W, band.pdf, band.alpha0, feats, nf,
+                 np.zeros((b, t), np.int32), pdf_ids, np.ones((b, t), np.float32), 0.1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("path", ["decoder", "with_model", "realign", "regtree", "mesh"])
+def test_the_hosts_live_mask_reaches_k2_on_every_path(path):
+    """Every caller hands K2 the host's record of a ragged model's live
+    Gaussians: ``gmm.live`` counts the frames times the live Gaussians and
+    ``gmm.slots`` the frames times the ragged layout's slots, below the dense
+    ``P * M`` slots; in the regression-tree scoring each class's call counts
+    only the live Gaussians of its class (a Gaussian of no class in none)."""
+    live = k2_cases.live_mask("dead_between")
+    am = k2_cases.am_with_live(live, 13, seed=3)
+    rng = np.random.default_rng(5)
+    nf = np.array([40, 31, 36], np.int32)
+    feats = torch.from_numpy(rng.standard_normal((3, 40, 13)).astype(np.float32))
+    frames = feats.shape[0] * feats.shape[1]
+    lays = [gmm_kernel.layout(live)]
+    if path in ("decoder", "with_model"):
+        _decode(am, path == "with_model", feats, nf)
+    elif path == "realign":
+        _realign(am, feats, nf)
+    elif path == "mesh":
+        _mesh_step(am, feats, nf)
+    else:
+        bclass_of = np.where(live, rng.integers(-1, 2, live.shape), -1)
+        _regtree(am, feats, bclass_of)
+        lays = [gmm_kernel.layout(live & (bclass_of == r)) for r in (0, 1)]
+    sess = P.session()
+    assert sess.counters["gmm.live"] == frames * sum(lay.live for lay in lays)
+    assert sess.counters["gmm.slots"] == frames * sum(lay.slots for lay in lays)
+    if path == "regtree":
+        assert sess.counters["gmm.live"] < frames * live.sum()
+    assert sess.counters["gmm.slots"] < frames * live.size * len(lays)
 
 
 def test_the_chrome_trace_puts_spans_on_the_profilers_clock(tmp_path):

@@ -61,7 +61,7 @@ sys.path.insert(0, str(ROOT))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from voicebridge_tpu_torch import _build, convert  # noqa: E402
+from voicebridge_tpu_torch import _build  # noqa: E402
 from voicebridge_tpu_torch.config import FrameOptions, MelOptions, MfccOptions  # noqa: E402
 from voicebridge_tpu_torch.ops import features, gmm_kernel, gmm_kernels  # noqa: E402
 from voicebridge_tpu_torch.testing import random_am  # noqa: E402
@@ -212,18 +212,18 @@ def k2_case(dev, name: str):
     else:
         d = 40
         am = k2_cases.am_with_live(k2_cases.live_mask(name[3:] + "_libri"), d, seed=d)
-    w = convert.kernel_params_from_am(am, dev)
+    gmm = gmm_kernels.pack_gmm(am, dev)
+    w = gmm.w
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal((K2_FRAMES, d), dtype=np.float32)).to(dev)
-    ref = gmm_kernels.loglikes(convert.twin_params_from_kernel(w.double()),
-                               x[:K2_REF_FRAMES].double())
-    lay = gmm_kernel.layout(gmm_kernels.live_of(w))
+    ref = gmm_kernels.loglikes(gmm.to(torch.float64), x[:K2_REF_FRAMES].double())
+    lay = gmm_kernel.layout(gmm.live)
     n, p = x.shape[0], w.shape[0]
     work = {"bytes": 4 * (x.numel() + lay.live * w.shape[2] + n * p),
             "fp32_ops": 2 * n * lay.live * 2 * d,
             "tf32x3_ops": 3 * 2 * n * lay.live * gmm_kernel.k_pad(w.shape[2]),
             "live": lay.live, "slots": lay.slots, "dense_slots": -(-p // 16) * 16 * w.shape[1]}
-    return (x, w, dense_slab(w), gmm_kernel.pack_weights(w, lay)), ref, work
+    return (x, gmm, dense_slab(w), gmm_kernel.pack_weights(w, lay)), ref, work
 
 
 def dense_slab(w):
@@ -286,7 +286,8 @@ def call_k1(iface, lib, args, out, mode: int = 0):
 
 
 def call_k2(iface, lib, args, out):
-    x, w, (wt, mc), (r_wt, tiles, order) = args
+    x, gmm, (wt, mc), (r_wt, tiles, order) = args
+    w = gmm.w
     n, d = x.shape
     stream = torch.cuda.current_stream().cuda_stream
     if iface == "parent":
@@ -371,10 +372,9 @@ def main() -> int:
             for (lname, case), (fn, _o, _r) in todo.items():
                 if lname == name:
                     res["ms"].setdefault(name, {}).setdefault(case, []).append(ms(fn))
-    x, w, _slab, _packed = k2["k2"][0]
-    params = convert.twin_params_from_kernel(w)
+    x, params, _slab, _packed = k2["k2"][0]
     xx = torch.cat([x, x * x, torch.ones_like(x[:, :1])], dim=1)
-    wm = torch.cat([params.w_matrix, params.gconsts.reshape(1, -1)], dim=0).contiguous()
+    wm = params.w.reshape(-1, params.w.shape[2]).T.contiguous()  # [2D+1, P*M]
     res["plain_ms"]["k2"] = ms(lambda: gmm_kernels.loglikes(params, x))
     res["matmul_yardstick_ms"] = ms(lambda: xx @ wm)
     res["k2_slots"] = {}

@@ -80,9 +80,9 @@ def main() -> int:
     C = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = C  # its dataclasses look their module up
     spec.loader.exec_module(C)
-    from voicebridge_tpu_torch import _build, convert
+    from voicebridge_tpu_torch import _build
     from voicebridge_tpu_torch.ops import align_band as AB
-    from voicebridge_tpu_torch.ops import gmm_kernel, gmm_stats_kernel
+    from voicebridge_tpu_torch.ops import gmm_kernel, gmm_kernels, gmm_stats_kernel
     from voicebridge_tpu_torch.ops import viterbi as V
     from voicebridge_tpu_torch.testing import random_am
 
@@ -102,7 +102,7 @@ def main() -> int:
     graphs, aset, feats, nf_np = C.train_shape(width, device)
     plan = aset.band_dev
     nf = torch.from_numpy(nf_np).to(device)
-    w39 = convert.kernel_params_from_am(random_am(width.num_pdfs, width.max_mix, 39), device)
+    w39 = gmm_kernels.pack_gmm(random_am(width.num_pdfs, width.max_mix, 39), device)
     ll = gmm_kernel.loglikes_batch(feats, w39)
     # the parent's wrapper takes no host pdf range
     extra = (plan.pdf_range,) if hasattr(plan, "pdf_range") else ()
@@ -120,7 +120,7 @@ def main() -> int:
     rng = np.random.default_rng(15)
     x40 = torch.from_numpy(rng.standard_normal((n, 40), dtype=np.float32)).to(device)
     x40b = torch.from_numpy(rng.standard_normal((n, 40), dtype=np.float32)).to(device)
-    w40 = convert.kernel_params_from_am(uneven_am(width.num_pdfs, 8, 40, seed=15), device)
+    w40 = gmm_kernels.pack_gmm(uneven_am(width.num_pdfs, 8, 40, seed=15), device)
     x39 = feats.reshape(n, feats.shape[2])
     for name, w, x_post, x_acc in (("gmm_stats_phase3", w39, x39, x39),
                                    ("gmm_stats_d40_uneven", w40, x40, x40),

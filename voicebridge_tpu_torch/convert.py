@@ -6,8 +6,8 @@ both packages write, so both packages can compute from identical numbers and
 this module imports nothing of the JAX package:
 
 * GMM arrays ``means_invvars, inv_vars, weights`` -> the port's ``AmDiagGmm``
-  (``am_from_arrays``), and from there the plain version's ``GmmParams`` and
-  the GMM kernel's packed ``w [P, M, 2D+1]`` (rows ``[miv, -0.5*iv, gconst]``);
+  (``am_from_arrays``), and from there its device form ``GmmParams``
+  (``ops.gmm_kernels.pack_gmm``);
 * flat arc arrays -> the port's ``Fst`` (``fst_from_arrays``);
 * the json objects of a topology, a tree and a transition model -> the
   port's ``HmmTopology``, tree and ``TransitionModel`` (``*_from_json``);
@@ -18,7 +18,7 @@ this module imports nothing of the JAX package:
   (``sat_model_from_arrays``), the transforms as one ``[S, D, D+1]`` array
   in sorted speaker order (``transforms_from_dict``);
 * the JAX ``GmmParams`` (``w_matrix [2D, P*M]``, ``gconsts [P, M]``) and the
-  Pallas ``w3 [128, M, P_pad]`` -> the same two;
+  Pallas ``w3 [128, M, P_pad]`` -> the port's ``GmmParams``;
 * a JAX ``EmitPlan`` -> the port's ``EmitPlan`` (then
   ``ops.decode_core.plan_to_device``);
 * a JAX ``BandPlan`` -> the port's ``BandPlan`` (then
@@ -37,13 +37,18 @@ import numpy as np
 import torch
 
 from .fst.core import Fst
+from .models.full_gmm import FullGmm
 from .models.gmm import AmDiagGmm
 from .models.topology import HmmTopology, TopologyState
 from .models.transition import TransitionModel
 from .models.tree import ContextTree, MonophoneTree
 from .ops.align_band import BandPlan
 from .ops.decode_core import EmitPlan
-from .ops.gmm_kernels import GmmParams, live_of, mark_live, pack_gmm
+from .ops.gmm_kernels import DEAD, GmmParams
+from .steps.train_mono import TrainedModel
+from .steps.train_sat import SatModel
+from .transforms.basis_fmllr import FmllrBasis
+from .transforms.regtree import RegressionTree
 
 
 def am_from_arrays(means_invvars: np.ndarray, inv_vars: np.ndarray,
@@ -130,55 +135,31 @@ def sat_model_from_arrays(am: tuple, alimdl: tuple, topo: dict, tree: dict, tran
     arrays each, the json objects of its topology, tree and transition
     model, the ``Lang``, and ``{speaker: [D, D+1]}``) -> the port's
     ``steps/train_sat.SatModel``."""
-    from .steps.train_mono import TrainedModel  # imported here: the steps import this module
-    from .steps.train_sat import SatModel
-
     tm = transition_model_from_json(topo, tree, trans)
     speakers, mats = transforms_from_dict(transforms)
     return SatModel(model=TrainedModel(am_from_arrays(*am), tm, tm.tree, lang, aligner=""),
                     alimdl=am_from_arrays(*alimdl), transforms=dict(zip(speakers, mats)))
 
 
-def kernel_params_from_twin(params: GmmParams) -> torch.Tensor:
-    """``GmmParams`` -> contiguous ``w [P, M, 2D+1]``, marked with the
-    host's record of its live components where the gconsts carry one
-    (``ops.gmm_kernels.mark_live``)."""
-    p, m, d = params.num_pdfs, params.max_mix, params.dim
-    w = params.w_matrix.T.reshape(p, m, 2 * d)
-    w = torch.cat([w, params.gconsts[..., None]], dim=-1).contiguous()
-    live = live_of(params.gconsts)
-    return w if live is None else mark_live(w, live)
+def _gmm(w: np.ndarray, device) -> GmmParams:
+    """``w [P, M, 2D+1]`` (rows ``[miv, -0.5*iv, gconst]``) -> ``GmmParams``
+    on ``device``, its live components those of the host's gconsts."""
+    w = np.ascontiguousarray(w, np.float32)
+    return GmmParams(torch.tensor(w, device=device), w[..., -1] > DEAD)
 
 
-def twin_params_from_kernel(w: torch.Tensor) -> GmmParams:
-    """``w [P, M, 2D+1]`` -> ``GmmParams`` (views into ``w``, no copy)."""
-    p, m, k = w.shape
-    d = (k - 1) // 2
-    return GmmParams(w[..., : 2 * d].reshape(p * m, 2 * d).T, w[..., 2 * d])
+def gmm_from_jax(w_matrix: np.ndarray, gconsts: np.ndarray, device) -> GmmParams:
+    """JAX ``GmmParams`` arrays -> the port's ``GmmParams``."""
+    gconsts = np.asarray(gconsts, np.float32)
+    w = np.asarray(w_matrix, np.float32).T.reshape(*gconsts.shape, -1)
+    return _gmm(np.concatenate([w, gconsts[..., None]], axis=2), device)
 
 
-def kernel_params_from_am(am: AmDiagGmm, device) -> torch.Tensor:
-    return kernel_params_from_twin(pack_gmm(am, device))
-
-
-def gmm_from_jax(w_matrix: np.ndarray, gconsts: np.ndarray,
-                 device) -> tuple[GmmParams, torch.Tensor]:
-    """JAX ``GmmParams`` arrays -> (``GmmParams``, kernel ``w``)."""
-    params = GmmParams(torch.tensor(np.asarray(w_matrix, np.float32), device=device),
-                       torch.tensor(np.asarray(gconsts, np.float32), device=device))
-    return params, kernel_params_from_twin(params)
-
-
-def gmm_from_pallas(w3: np.ndarray, num_pdfs: int, dim: int,
-                    device) -> tuple[GmmParams, torch.Tensor]:
+def gmm_from_pallas(w3: np.ndarray, num_pdfs: int, dim: int, device) -> GmmParams:
     """Pallas ``w3 [K, M, P_pad]`` (rows ``[miv, -0.5*iv, gconst, 0...]``)
-    -> (``GmmParams``, kernel ``w``)."""
-    w = np.transpose(np.asarray(w3, np.float32)[: 2 * dim + 1, :, :num_pdfs], (2, 1, 0))
-    w = torch.tensor(w, device=device)
-    p, m, _ = w.shape
-    params = GmmParams(w[..., : 2 * dim].reshape(p * m, 2 * dim).T.contiguous(),
-                       w[..., 2 * dim].contiguous())
-    return params, w
+    -> the port's ``GmmParams``."""
+    return _gmm(np.transpose(np.asarray(w3, np.float32)[: 2 * dim + 1, :, :num_pdfs],
+                             (2, 1, 0)), device)
 
 
 def emit_plan_from_jax(plan) -> EmitPlan:
@@ -194,8 +175,6 @@ def band_plan_from_jax(plan) -> BandPlan:
 def full_gmm_from_arrays(weights, means, inv_covars):
     """A full-covariance GMM's arrays (``[P, M]``, ``[P, M, D]``, ``[P, M, D,
     D]``; what its npz holds) -> the port's ``FullGmm``."""
-    from .models.full_gmm import FullGmm
-
     return FullGmm(np.array(weights, np.float64), np.array(means, np.float64),
                    np.array(inv_covars, np.float64))
 
@@ -203,8 +182,6 @@ def full_gmm_from_arrays(weights, means, inv_covars):
 def regression_tree_from_arrays(bclass_of, parent, num_leaves: int):
     """A regression tree's arrays (``bclass_of [P, M]``, ``parent [nodes]``)
     and leaf count -> the port's ``RegressionTree``."""
-    from .transforms.regtree import RegressionTree
-
     return RegressionTree(np.array(bclass_of, np.int32), np.array(parent, np.int32),
                           int(num_leaves))
 
@@ -212,6 +189,4 @@ def regression_tree_from_arrays(bclass_of, parent, num_leaves: int):
 def fmllr_basis_from_arrays(bases, precond):
     """An fMLLR basis' arrays (``bases [N, D, D+1]``, ``precond [D, D+1,
     D+1]``; what its npz holds) -> the port's ``FmllrBasis``."""
-    from .transforms.basis_fmllr import FmllrBasis
-
     return FmllrBasis(bases=np.array(bases, np.float64), precond=np.array(precond, np.float64))

@@ -1,19 +1,16 @@
 """K2 wrapper: fused diagonal-GMM log-likelihoods (``csrc/gmm_loglik.cu``).
 
 Replaces the Pallas kernel ``voicebridge_tpu/ops/pallas_gmm.py``
-(``_gmm_kernel``).  Callers pass the weights as ``w [P, M, 2D+1]`` float32,
-rows ``[miv, -0.5*iv, gconst]`` (``convert.kernel_params_from_am``).  The
-kernel scores each pdf's live Gaussians only: ``layout`` lays the
-components out ragged from which of them are live (each pdf's live
-components first, the pdfs of each 64-pdf tile ordered by their count, each
-16-pdf sub-tile as many slabs as its largest count), and ``pack_weights``
-gathers the weights into it on the device.  Which components are live comes
-from the host's record of the model (``gmm_kernels.mark_live``, made by
-``pack_gmm`` and carried by ``convert.kernel_params_from_twin``), never from
-a device read; weights on a card without that record are laid out with
-every slot live (the dead ones are masked in the kernel).  The layout and
-the packed weights are made at a weight tensor's first call and kept on it
-while it is unchanged: once a decoder, once a realignment.
+(``_gmm_kernel``).  Callers pass the model as ``ops/gmm_kernels.GmmParams``
+(``pack_gmm``): weights ``w [P, M, 2D+1]`` float32, rows ``[miv, -0.5*iv,
+gconst]``, and the host's record ``live [P, M]`` of which components are
+live.  The kernel scores each pdf's live Gaussians only: ``layout`` lays the
+components out ragged from ``live`` (each pdf's live components first, the
+pdfs of each 64-pdf tile ordered by their count, each 16-pdf sub-tile as
+many slabs as its largest count), never from a device read, and
+``pack_weights`` gathers the weights into it on the device.  The layout and
+the packed weights are made at the model's first call and kept on it: once
+a decoder, once a realignment.
 
 A CPU tensor goes to the plain version ``ops.gmm_kernels.loglikes``; a CUDA
 tensor goes to the kernel or raises.  Either way a call counts, while
@@ -29,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import _build, convert
+from .. import _build
 from ..device import stream_handle
 from ..utils import profiling
 from . import gmm_kernels
@@ -101,38 +98,28 @@ def pack_weights(w: torch.Tensor, lay: Layout) -> tuple:
     return wt, tiles, order
 
 
-def _packed(w: torch.Tensor) -> tuple:
-    """(layout, packed weights or None on the CPU) of ``w``, made at its
-    first call and kept on it while it is unchanged (not on an inference
-    tensor, whose changes are not counted)."""
-    v = gmm_kernels.version(w)
-    rec = getattr(w, "vbt_k2", None)
-    if rec is not None and rec[0] == v:
-        return rec[1]
-    live = gmm_kernels.live_of(w)
-    if live is None:  # no host record: the CPU's own values, or every slot on a card
-        live = (w[..., -1].numpy() > gmm_kernels.DEAD if w.device.type == "cpu"
-                else np.ones(w.shape[:2], bool))
-    lay = layout(live)
-    packed = (lay, None if w.device.type == "cpu" else pack_weights(w, lay))
-    if v is not None:
-        w.vbt_k2 = (v, packed)
-    return packed
+def _packed(gmm: gmm_kernels.GmmParams) -> tuple:
+    """(layout, packed weights or None on the CPU) of ``gmm``, made from
+    ``gmm.live`` at its first call and kept on it."""
+    if gmm.k2 is None:
+        lay = layout(gmm.live)
+        gmm.k2 = (lay, None if gmm.w.device.type == "cpu" else pack_weights(gmm.w, lay))
+    return gmm.k2
 
 
-def loglikes(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x [N, D]``, ``w [P, M, 2D+1]`` -> ``[N, P]`` per-pdf log-likelihoods."""
+def loglikes(x: torch.Tensor, gmm: gmm_kernels.GmmParams) -> torch.Tensor:
+    """``x [N, D]`` and a model -> ``[N, P]`` per-pdf log-likelihoods."""
     if x.device.type == "cuda":
-        _check(x, w)
+        _check(x, gmm.w)
     elif x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
-    lay, packed = _packed(w)
+    lay, packed = _packed(gmm)
     profiling.count("gmm.slots", x.shape[0] * lay.slots)
     profiling.count("gmm.live", x.shape[0] * lay.live)
     if packed is None:
-        return gmm_kernels.loglikes(convert.twin_params_from_kernel(w), x)
+        return gmm_kernels.loglikes(gmm, x)
     n, d = x.shape
-    p = w.shape[0]
+    p = gmm.num_pdfs
     out = torch.empty((n, p), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -155,7 +142,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("x must be contiguous")
 
 
-def loglikes_batch(feats: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def loglikes_batch(feats: torch.Tensor, gmm: gmm_kernels.GmmParams) -> torch.Tensor:
     """``[B, T, D] -> [B, T, P]`` (the decoder's acoustic input)."""
     b, t, d = feats.shape
-    return loglikes(feats.reshape(b * t, d), w).view(b, t, w.shape[0])
+    return loglikes(feats.reshape(b * t, d), gmm).view(b, t, gmm.num_pdfs)

@@ -18,8 +18,6 @@ aligned pdf ids (``index_add_``), the content of the reference's
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 
@@ -29,69 +27,59 @@ from ..device import free_bytes, ieee_fp32_entry
 from ..utils import profiling
 
 
-class GmmParams(NamedTuple):
-    """GMM parameters on one device; sizes come from the array shapes."""
+class GmmParams:
+    """A diagonal GMM on one device, the one form every scorer reads:
+    ``w [P, M, 2D+1]`` float32, rows ``[miv, -0.5*iv, gconst]`` (gconst
+    -1e30 for an inactive component), and ``live [P, M]``, the host's numpy
+    record of which components are active, from which K2 lays out its work
+    without reading the device (``ops/gmm_kernel.py``).  Made by
+    ``pack_gmm``; ``w`` is not changed in place, since K2 keeps its layout
+    and packed weights on the object (``k2``) from its first call."""
 
-    w_matrix: torch.Tensor  # [2D, P*M]  = [miv; -0.5*iv] transposed
-    gconsts: torch.Tensor  # [P, M], -1e30 for inactive components
+    def __init__(self, w: torch.Tensor, live: np.ndarray):
+        self.w, self.live = w, live
+        self.k2 = None
+
+    @property
+    def gconsts(self) -> torch.Tensor:
+        return self.w[..., -1]
 
     @property
     def num_pdfs(self) -> int:
-        return self.gconsts.shape[0]
+        return self.w.shape[0]
 
     @property
     def max_mix(self) -> int:
-        return self.gconsts.shape[1]
+        return self.w.shape[1]
 
     @property
     def dim(self) -> int:
-        return self.w_matrix.shape[0] // 2
+        return self.w.shape[2] // 2
+
+    def to(self, *args, **kwargs) -> "GmmParams":
+        """The model on another device or in another dtype (``Tensor.to``'s
+        arguments), its ``live`` kept; itself where ``w`` does not move."""
+        w = self.w.to(*args, **kwargs)
+        return self if w is self.w else GmmParams(w, self.live)
 
 
 DEAD = -5e29  # a component whose gconst is at or below this is inactive (K2's test)
 
 
-def version(t: torch.Tensor) -> int | None:
-    """``t``'s count of in-place changes, or None for an inference tensor,
-    which keeps none: nothing derived from its values is kept on it."""
-    return None if t.is_inference() else t._version
-
-
-def mark_live(t: torch.Tensor, live: np.ndarray) -> torch.Tensor:
-    """Record on ``t`` (a model's gconsts ``[P, M]`` or K2's weights ``[P,
-    M, 2D+1]``) the host's copy of which components are live, ``[P, M]``
-    bool, so that K2 lays out its work without reading the device
-    (``ops/gmm_kernel.py``).  The record holds while ``t`` is not changed in
-    place (an inference tensor keeps none); returns ``t``."""
-    v = version(t)
-    if v is not None:
-        t.vbt_live = (v, live)
-    return t
-
-
-def live_of(t: torch.Tensor) -> np.ndarray | None:
-    """The host's record of ``t``'s live components (``mark_live``), or None
-    where there is none or ``t`` has changed since."""
-    rec = getattr(t, "vbt_live", None)
-    return rec[1] if rec is not None and rec[0] == version(t) else None
-
-
 def pack_gmm(am: AmDiagGmm, device) -> GmmParams:
-    """The model on ``device``, its gconsts marked with the host's record of
-    which components are live (``mark_live``)."""
-    p, m, d = am.num_pdfs, am.max_mix, am.dim
-    w = np.concatenate([am.means_invvars, -0.5 * am.inv_vars], axis=2)  # [P,M,2D]
-    w = w.reshape(p * m, 2 * d).T.astype(np.float32)  # [2D, P*M]
+    """The model on ``device``, with the host's record of its live
+    components."""
     gc = np.where(np.isfinite(am.gconsts), am.gconsts, -1e30).astype(np.float32)
-    return GmmParams(torch.from_numpy(np.ascontiguousarray(w)).to(device),
-                     mark_live(torch.from_numpy(gc).to(device), gc > DEAD))
+    w = np.concatenate([am.means_invvars, -0.5 * am.inv_vars, gc[..., None]], axis=2)
+    return GmmParams(torch.from_numpy(w.astype(np.float32)).to(device), gc > DEAD)
 
 
 @ieee_fp32_entry
 def component_logliks(params: GmmParams, x: torch.Tensor) -> torch.Tensor:
     """``[N, D] -> [N, P, M]`` per-component log-likelihoods."""
-    scores = torch.cat([x, x * x], dim=-1) @ params.w_matrix  # [N, P*M]
-    return scores.view(x.shape[0], params.num_pdfs, params.max_mix) + params.gconsts[None]
+    p, m = params.num_pdfs, params.max_mix
+    scores = torch.cat([x, x * x], dim=-1) @ params.w[..., :-1].reshape(p * m, -1).T  # [N, P*M]
+    return scores.view(x.shape[0], p, m) + params.gconsts[None]
 
 
 @ieee_fp32_entry
@@ -143,9 +131,12 @@ def aligned_mixture_logliks(params: GmmParams, x: torch.Tensor,
     """Component log-likelihoods of each frame's ALIGNED pdf only:
     ``[N, D], [N] -> [N, M]`` (gathers ``[N, M, 2D]`` parameters instead of
     scoring all pdfs)."""
-    p, m, d = params.num_pdfs, params.max_mix, params.dim
     pdf = pdf_ids.long()
-    wsel = params.w_matrix.T.reshape(p, m, 2 * d)[pdf]  # [N, M, 2D]
+    # [N, M, 2D] with the mixture axis innermost: on the card, cuBLAS then
+    # scores a shard's rows with the bits it gives the whole batch (the
+    # sharded fMLLR and MLLT statistics), which it does not for the
+    # row-major gather from 76,800 rows up
+    wsel = params.w[pdf, :, :-1].transpose(1, 2).contiguous().transpose(1, 2)
     return (torch.einsum("nmd,nd->nm", wsel, torch.cat([x, x * x], dim=-1))
             + params.gconsts[pdf])
 
@@ -189,27 +180,25 @@ def acc_gmm_stats_sums(params: GmmParams, x_post, x_acc, pdf_ids, num_pdfs: int,
     returned as it is).  Inputs may be arrays or tensors; they go to the
     device of ``params``.  ``chunk`` (frames) defaults to what the device's
     free memory holds."""
-    from .. import convert  # imported here: both modules import this one
-    from .gmm_stats_kernel import acc_stats
+    from .gmm_stats_kernel import acc_stats  # imported here: that module imports this one
 
-    device = params.gconsts.device
+    device = params.w.device
     x_post = torch.as_tensor(x_post, dtype=torch.float32).to(device)
     x_acc = torch.as_tensor(x_acc, dtype=torch.float32).to(device)
     pdf_ids = torch.as_tensor(pdf_ids).to(device=device, dtype=torch.int32)
     n = x_post.shape[0]
     w = (torch.ones(n, dtype=torch.float32, device=device) if frame_weights is None
          else torch.as_tensor(frame_weights, dtype=torch.float32).to(device))
-    wk = convert.kernel_params_from_twin(params)
     c = chunk or _stats_chunk(device, params.max_mix, params.dim)
     m, d = params.max_mix, params.dim
     if n <= c:  # one chunk holds every frame: no chunk sums
-        sums = acc_stats(wk, x_post.contiguous(), x_acc.contiguous(), pdf_ids.contiguous(),
+        sums = acc_stats(params, x_post.contiguous(), x_acc.contiguous(), pdf_ids.contiguous(),
                          w.contiguous(), num_pdfs)
     else:
         sums = [torch.zeros(shape, dtype=torch.float64, device=device)
                 for shape in ((num_pdfs, m), (num_pdfs, m, d), (num_pdfs, m, d), ())]
         for lo in range(0, n, c):
-            part = acc_stats(wk, x_post[lo:lo + c].contiguous(), x_acc[lo:lo + c].contiguous(),
+            part = acc_stats(params, x_post[lo:lo + c].contiguous(), x_acc[lo:lo + c].contiguous(),
                              pdf_ids[lo:lo + c].contiguous(), w[lo:lo + c].contiguous(),
                              num_pdfs)
             sums = [a + b for a, b in zip(sums, part)]

@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build, convert
+from .. import _build
 from ..device import stream_handle
 from . import gmm_kernels
 
@@ -145,18 +145,19 @@ def work_list(pdf_ids: torch.Tensor, weights: torch.Tensor, num_pdfs: int) -> Wo
     return WorkList(*scratch.split(sizes)[:6])
 
 
-def acc_stats(w: torch.Tensor, x_post: torch.Tensor, x_acc: torch.Tensor,
+def acc_stats(gmm: gmm_kernels.GmmParams, x_post: torch.Tensor, x_acc: torch.Tensor,
               pdf_ids: torch.Tensor, weights: torch.Tensor, num_pdfs: int):
-    """``w [P, M, 2D+1]`` (K2 layout), ``x_post, x_acc [N, D]`` f32,
+    """A model (``ops/gmm_kernels.GmmParams``), ``x_post, x_acc [N, D]`` f32,
     ``pdf_ids [N]`` int32, ``weights [N]`` f32 -> float64 (occ [num_pdfs, M],
     mean_acc [num_pdfs, M, D], var_acc [num_pdfs, M, D], ll 0-d)."""
     if x_post.device.type == "cpu":
-        out = gmm_kernels.acc_gmm_stats_aligned_twofeats(
-            convert.twin_params_from_kernel(w), x_post, x_acc, pdf_ids, num_pdfs, weights)
+        out = gmm_kernels.acc_gmm_stats_aligned_twofeats(gmm, x_post, x_acc, pdf_ids,
+                                                         num_pdfs, weights)
         return tuple(t.double() for t in out)
     if x_post.device.type != "cuda":
         raise ValueError(f"unsupported device {x_post.device}")
     n, d = x_post.shape
+    w = gmm.w
     p, m, kdim = w.shape
     dev = x_post.device
     _check((("w", w, torch.float32), ("x_post", x_post, torch.float32),

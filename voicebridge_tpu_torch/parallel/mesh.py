@@ -39,7 +39,6 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
 
-from .. import convert
 from ..device import ieee_fp32_entry, resolve_device
 from ..ops import align_band as AB
 from ..ops import decode_core as DC
@@ -102,8 +101,8 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def _tensor(x, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(x).to(device)
+def _tensor(x, device: torch.device):
+    return x.to(device) if isinstance(x, GmmParams) else torch.as_tensor(x).to(device)
 
 
 def _block(mesh: Mesh, x, axis: int = 0) -> torch.Tensor:
@@ -124,7 +123,8 @@ def shard_batch(mesh: Mesh, tree):
 
 
 def replicate(mesh: Mesh, tree):
-    """Every array or tensor in ``tree``, whole, on the mesh's device."""
+    """Every array, tensor or ``GmmParams`` in ``tree``, whole, on the mesh's
+    device."""
     return _map(lambda x: _tensor(x, mesh.device), tree)
 
 
@@ -220,7 +220,7 @@ def em_estep_sharded(mesh: Mesh, num_states: int, num_pdfs: int, num_tids: int):
         arcs = shard_batch(mesh, (arc_src, arc_dst, arc_pdf, arc_score, alpha0))
         x, nf, tid, pdf, w = shard_batch(mesh, (feats, num_frames, tids, pdf_ids, weights))
         x = x.to(torch.float32)
-        ll = gmm_kernel.loglikes_batch(x, convert.kernel_params_from_twin(p))
+        ll = gmm_kernel.loglikes_batch(x, p)
         alpha_end, bps = V.viterbi_forward_batched(*arcs, ll, nf, float(acwt), 1e9, num_states)
         stats = _estep_stats(p, x, tid, pdf, w, num_pdfs, num_tids)
         return (alpha_end, bps, *all_reduce_stats(mesh, stats))
@@ -245,7 +245,7 @@ def em_estep_sharded_banded(mesh: Mesh, num_pdfs: int, num_tids: int, offsets):
         wb, pb, a0 = shard_batch(mesh, (w_band, pdf_band, alpha0))
         x, nf, tid, pdf, w = shard_batch(mesh, (feats, num_frames, tids, pdf_ids, weights))
         x = x.to(torch.float32)
-        ll = gmm_kernel.loglikes_batch(x, convert.kernel_params_from_twin(p))
+        ll = gmm_kernel.loglikes_batch(x, p)
         alpha_end, bps = AB.viterbi_forward_banded(
             wb.to(torch.float32), pb.to(torch.int32), a0.to(torch.float32), ll,
             nf.to(torch.int32), float(acwt),

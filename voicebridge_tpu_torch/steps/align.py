@@ -31,7 +31,6 @@ from ..fst.core import Fst
 from ..models.transition import TransitionModel
 from ..utils.logging import get_logger
 
-from .. import convert
 from ..device import free_bytes, ieee_fp32_entry, resolve_device
 from ..ops import align_band as AB
 from ..ops import gmm_kernel
@@ -231,7 +230,6 @@ class AlignmentSet:
         with profiling.span("align.prepare"):
             feats = torch.as_tensor(feats, dtype=torch.float32).to(self.device)
             num_frames = np.asarray(num_frames, np.int32)
-            w = convert.kernel_params_from_twin(params)
             s_max = max(g.num_states for g in self.graphs)
             band = self.band if beam >= _NO_PRUNE_BEAM else None
             plan = self.generic_dev if band is None else None  # on the device before sizing
@@ -246,7 +244,7 @@ class AlignmentSet:
             with profiling.span("align.loglikes"):
                 t_c = max(1, int(nf_c.max()))
                 i_dev = torch.from_numpy(idx).to(self.device)
-                ll = gmm_kernel.loglikes_batch(feats[i_dev, :t_c].contiguous(), w)
+                ll = gmm_kernel.loglikes_batch(feats[i_dev, :t_c].contiguous(), params)
             with profiling.span("align.search"):
                 if band is not None:
                     sub = self.band_dev.take(idx)

@@ -29,13 +29,13 @@ from ..fst.core import Fst
 from ..models.gmm import AmDiagGmm
 from ..models.transition import TransitionModel
 
-from .. import convert
 from ..device import free_bytes, resolve_device
 from ..lat import lattice_best_path, lattice_best_path_grid, lattice_mbr
 from ..ops import decode_core as DC
 from ..ops import gmm_kernel
 from ..ops import lattice as LAT
 from ..ops import viterbi as V
+from ..ops.gmm_kernels import pack_gmm
 from ..ops.graph import DenseGraph, compile_dense_graph
 from ..utils import profiling
 
@@ -71,7 +71,7 @@ class Decoder:
         self.plan = plan
         self.plan_dev = DC.plan_to_device(plan, self.device)
         self.opts = opts
-        self.gmm_w = convert.kernel_params_from_am(am, self.device)  # [P, M, 2D+1]
+        self.gmm = pack_gmm(am, self.device)
         self._lat_plans = None  # (bwd_plan, bwd_dev, row_dst), built at first use
         self._nbest_plan = None  # arcs grouped by destination, built at first use
 
@@ -81,7 +81,7 @@ class Decoder:
         self.lattice_plans()
         dec = copy.copy(self)
         dec.opts = opts
-        dec.gmm_w = convert.kernel_params_from_am(am, self.device)
+        dec.gmm = pack_gmm(am, self.device)
         return dec
 
     def lattice_plans(self) -> tuple:
@@ -95,13 +95,13 @@ class Decoder:
 
     def _loglikes(self, feats: torch.Tensor) -> torch.Tensor:
         """[B, T, D] -> [B, T, P] acoustic log-likelihoods."""
-        return gmm_kernel.loglikes_batch(feats, self.gmm_w)
+        return gmm_kernel.loglikes_batch(feats, self.gmm)
 
     def _batch_chunk(self, t: int, d: int) -> int:
         """Utterances per sub-batch so its features and the two [B, T, P]
         loglik layouts take at most a quarter of the free device memory (the
         backpointer table has its own budget in ``decode_best_path``)."""
-        per_utt = 4 * t * (2 * self.gmm_w.shape[0] + d)
+        per_utt = 4 * t * (2 * self.gmm.num_pdfs + d)
         return max(1, free_bytes(self.device) // (4 * max(per_utt, 1)))
 
     def decode_batch(self, utts: list[str], feats, num_frames,
@@ -137,7 +137,7 @@ class Decoder:
         loglik layouts and the FB's window residency take at most a quarter
         of the free device memory; the survivors take from the rest."""
         _w, fb_bytes = LAT.lattice_window(t, self.plan.num_states + 1, self.plan.num_rows, 1)
-        per_utt = 4 * t * (2 * self.gmm_w.shape[0] + d) + fb_bytes
+        per_utt = 4 * t * (2 * self.gmm.num_pdfs + d) + fb_bytes
         return max(1, free_bytes(self.device) // (4 * per_utt))
 
     def decode_lattice(self, utts: list[str], feats, num_frames,
@@ -194,7 +194,7 @@ class Decoder:
         copy gathered for the host), take at most half of the free device
         memory."""
         s = self.graph.num_states
-        per_utt = (4 * t * (2 * self.gmm_w.shape[0] + d) + 5 * t * s * nbest + 16 * s * nbest
+        per_utt = (4 * t * (2 * self.gmm.num_pdfs + d) + 5 * t * s * nbest + 16 * s * nbest
                    + 32 * t * nbest)
         return max(1, free_bytes(self.device) // (2 * per_utt))
 

@@ -51,7 +51,6 @@ from ..utils.logging import get_logger
 from ..device import ieee_fp32_entry, resolve_device
 from ..lat.determinize import determinize_lattices
 from ..lat.lattice import lattice_posts_batch
-from ..ops import gmm_kernels as K
 from ..ops.graph import DenseGraph, compile_dense_graph
 from ..transforms.fmllr import acc_fmllr_stats, apply_fmllr_batch, estimate_fmllr_rows
 from ..utils import profiling
@@ -157,7 +156,6 @@ class FmllrDecoder:
         self.si = Decoder.from_dense_graph(self.graph, alimdl, _decode_opts(opts, first=True),
                                            device=self.device)
         self.adapted = self.si.with_model(am, _decode_opts(opts, first=False))
-        self.params = K.pack_gmm(am, self.device)
         means, inv_vars = am.means(), am.inv_vars
         if mesh is None:  # on the card once, not per estimate
             means = torch.from_numpy(np.ascontiguousarray(means)).to(self.device)
@@ -239,7 +237,7 @@ class FmllrDecoder:
             spk_rep = torch.from_numpy(spk_of_utt).to(self.device).repeat_interleave(
                 t_max * K_POST)
             base_rep = feats.reshape(b * t_max, dim).repeat_interleave(K_POST, dim=0)
-            stats = acc_fmllr_stats(self.params, self.means, self.inv_vars, base_rep, pdf, w,
+            stats = acc_fmllr_stats(self.adapted.gmm, self.means, self.inv_vars, base_rep, pdf, w,
                                     spk_rep, num_speakers, mesh=self.mesh, device=self.device)
             beta, k, g = (profiling.to_host(x, "fmllr_stats").numpy() for x in stats)
         with profiling.span("fmllr.solve"):

@@ -101,7 +101,7 @@ def fmllr_sums(params: GmmParams, means, inv_vars, feats, pdf_ids, weights, spk_
     """The float64 sums of ``acc_fmllr_stats`` on the device of ``params``,
     where the other inputs (arrays or tensors) go: (beta [S], K [S, D, D+1],
     G [S, D, D+1, D+1])."""
-    dev = params.gconsts.device
+    dev = params.w.device
     means = torch.as_tensor(means, dtype=torch.float32).to(dev)
     inv_vars = torch.as_tensor(inv_vars, dtype=torch.float32).to(dev)
     feats = torch.as_tensor(feats, dtype=torch.float32).to(dev)
@@ -156,7 +156,7 @@ def acc_fmllr_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, weights,
                                      spk_ids, num_speakers, mesh)
     else:
         dev = resolve_device(device)
-        params = GmmParams(params.w_matrix.to(dev), params.gconsts.to(dev))
+        params = params.to(dev)
         sums = fmllr_sums(params, means, inv_vars, feats, pdf_ids, weights, spk_ids,
                           num_speakers, chunk)
     return tuple(x.float() for x in sums)

@@ -115,7 +115,7 @@ def acc_mllt_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, weights,
     ``train_lda_mllt.cpp:694-``, as one collective per chunk): the same
     blocks as without a mesh, so the same sums up to float64 rounding.  The
     result lies on the mesh's device."""
-    dev = params.gconsts.device if mesh is None else mesh.device
+    dev = params.w.device if mesh is None else mesh.device
     means = torch.as_tensor(means, dtype=torch.float32).to(dev)
     inv_vars = torch.as_tensor(inv_vars, dtype=torch.float32).to(dev)
     feats = torch.as_tensor(feats, dtype=torch.float32).to(dev)

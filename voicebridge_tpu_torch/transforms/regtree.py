@@ -30,7 +30,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import convert
 from ..device import ieee_fp32_entry, resolve_device
 from ..ops import gmm_kernel
 from ..ops.gmm_kernels import (GmmParams, acc_gmm_stats_chunked, aligned_mixture_logliks,
@@ -175,7 +174,7 @@ def acc_regtree_fmllr_stats(params: GmmParams, means, inv_vars, feats, pdf_ids, 
     are left out; ``chunk`` rows (whole blocks) at a time, by default what
     the device's free memory holds."""
     dev = resolve_device(device)
-    params = GmmParams(params.w_matrix.to(dev), params.gconsts.to(dev))
+    params = params.to(dev)
     means = torch.as_tensor(means, dtype=torch.float32).to(dev)
     inv_vars = torch.as_tensor(inv_vars, dtype=torch.float32).to(dev)
     feats = torch.as_tensor(feats, dtype=torch.float32).to(dev)
@@ -275,14 +274,14 @@ def class_of_gaussians(bclass_of, leaf_to_class) -> np.ndarray:
     return np.where(bc >= 0, np.asarray(leaf_to_class)[np.maximum(bc, 0)], -1)
 
 
-def class_weights(w: torch.Tensor, cls: torch.Tensor, r: int):
-    """K2's weights ``w [P, M, 2D+1]`` with every Gaussian outside class
-    ``r`` (``cls [P, M]``) inactive (gconst ``NEG``), and ``[P]`` whether a
-    pdf keeps any Gaussian."""
+def class_weights(params: GmmParams, cls: np.ndarray, r: int):
+    """The model with every Gaussian outside class ``r`` (``cls [P, M]``, the
+    host's class map) inactive (gconst ``NEG``, not live), and ``[P]`` (host)
+    whether a pdf keeps any Gaussian."""
     in_r = cls == r
-    w_r = w.clone()
-    w_r[..., -1] = torch.where(in_r, w[..., -1], NEG)
-    return w_r, in_r.any(dim=1)
+    w_r = params.w.clone()
+    w_r[..., -1] = torch.where(torch.from_numpy(in_r).to(w_r.device), w_r[..., -1], NEG)
+    return GmmParams(w_r, params.live & in_r), in_r.any(axis=1)
 
 
 @ieee_fp32_entry
@@ -299,23 +298,22 @@ def regtree_fmllr_loglikes(params: GmmParams, feats, transforms, leaf_to_class,
     equals the single logsumexp over Gaussians up to rounding.  A pdf with
     no Gaussian in r takes no part in r's term, so a pdf with no active
     Gaussian at all comes out ``-inf``."""
-    dev = params.gconsts.device
-    w = convert.kernel_params_from_twin(params)  # [P, M, 2D+1]
+    dev = params.w.device
     feats = torch.as_tensor(feats, dtype=torch.float32).to(dev)
     trans = torch.as_tensor(np.asarray(transforms), dtype=torch.float32).to(dev)
     logdets = torch.linalg.slogdet(trans[:, :, :-1].double())[1].float()
-    cls = torch.from_numpy(class_of_gaussians(bclass_of, leaf_to_class)).to(dev)
+    cls = class_of_gaussians(bclass_of, leaf_to_class)
     out = None
     for r in range(trans.shape[0]):
-        w_r, active = class_weights(w, cls, r)
-        if not bool(active.any()):
+        gmm_r, active = class_weights(params, cls, r)
+        if not active.any():
             continue
         x_r = torch.addmm(trans[r, :, -1], feats, trans[r, :, :-1].T)
-        ll = gmm_kernel.loglikes(x_r.contiguous(), w_r) + logdets[r]
-        ll = torch.where(active[None, :], ll, -torch.inf)
+        ll = gmm_kernel.loglikes(x_r.contiguous(), gmm_r) + logdets[r]
+        ll = torch.where(torch.from_numpy(active).to(dev)[None, :], ll, -torch.inf)
         out = ll if out is None else torch.logaddexp(out, ll)
     if out is None:
-        out = feats.new_full((feats.shape[0], w.shape[0]), -torch.inf)
+        out = feats.new_full((feats.shape[0], params.num_pdfs), -torch.inf)
     return out
 
 
@@ -327,7 +325,7 @@ def regtree_fmllr_loglikes_plain(params: GmmParams, feats: torch.Tensor, transfo
     score taken, plus that class's log|det A|, inactive Gaussians ``-inf``,
     one logsumexp over the pdf's Gaussians."""
     dt, dev = feats.dtype, feats.device
-    params = GmmParams(params.w_matrix.to(dev, dt), params.gconsts.to(dev, dt))
+    params = params.to(dev, dt)
     w = torch.as_tensor(np.asarray(transforms)).to(dev, dt)
     a, b = w[:, :, :-1], w[:, :, -1]
     xr = torch.einsum("rde,ne->nrd", a, feats) + b[None]  # [N, R, D]
